@@ -28,6 +28,23 @@ Phases, each of which exits non-zero on failure:
    for rows whose first divergence is a near-tie (prefix scores within
    1e-4).  Then a breakdown of one batch: encoders and decode on the host
    clock, and the decode's device busy share from torch.profiler.
+6. train: the cached-feature caption trainer, attention_scn at the
+   flagship widths, V=6,763, T=51, B=32, decoder float32, encoders
+   bfloat16.  Kernels 8 and 9 (the teacher-forcing scan, forward and
+   backward) against their plain versions on the same inputs, float32 and
+   bfloat16, SCN and LSTM cells: the error of every output and stream
+   against TRAIN_TOL (forward) and TRAIN_BWD_TOL (backward), and the
+   median time of each over 20 runs.
+   Then one caption_loss gradient through the kernels ("fused") and
+   through the eager autograd scan ("xla") on the cached features of one
+   batch, dropout off: every parameter within 5e-3 of its largest value,
+   the loss within 1e-4.  Then the main path: 5 make_caption_train_step
+   steps on those features, the counters zeroed just before and read just
+   after (each step launches the forward and the backward chain once),
+   with a finite and falling loss; a breakdown of one step (host clock,
+   device busy share and device time by kernel group, torch.profiler); and
+   one step with the chunked head, whose loss must equal the dense head's
+   within 1e-5.
 
 The line before the last lists each kernel as JSON; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -55,6 +72,25 @@ TOL = {  # largest absolute error allowed against the plain version
     "bfloat16": {"attend": 3e-2, "step_vals": 1e-1, "step_state": 5e-2},
 }
 NEAR_TIE = 1e-4
+# Kernel 8 (forward): largest error against the plain version, relative to
+# each output's largest magnitude.  float32: summation order, grown over
+# 51 recurrent steps.  bfloat16: the kernel and the plain version round at
+# the same points, but a float32 sum that lands on the other side of a
+# bfloat16 rounding boundary moves a value by one ulp (2^-8), and the
+# recurrence carries it on.
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# Kernel 9 (backward): the error's norm relative to the output's norm.  The
+# relu mask rt(ea + dec) > 0 flips wherever ea + dec lies within an ulp of
+# 0, because the kernel's dec sums in another order than cuBLAS's; each
+# flip moves one ddec element by a whole pixel's term (measured at float32,
+# B=32: 1.8e-5 against a largest ddec of 4.4e-4) and dh carries it to the
+# earlier steps.  Rare flips leave the norm within these.
+TRAIN_BWD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+GRAD_TOL, LOSS_TOL, HEAD_TOL = 5e-3, 1e-4, 1e-5
+TRAIN_STEPS = 5
+# The card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}
 
 
 class SmokeFailure(Exception):
@@ -131,9 +167,11 @@ def kernel_phase(dev, dtype, cfg, B):
     plain_ms, ms = median_ms([
         lambda: attention_cuda.attend_plain(enc, ea, dec, wf),
         lambda: attention_cuda.attend_fused(enc, ea, dec, wf)])
+    bound_ms, bound_by = bound(*attend_work(cfg, B, dtype.itemsize), name)
     print(f"kernel attend_fused {name}: max_abs_err {err:.3g} (awe "
           f"{max_err(awe, p_awe):.3g}, alpha {max_err(alpha, p_alpha):.3g}; "
-          f"tol {tol['attend']}) ms {ms:.4f} plain_ms {plain_ms:.4f}")
+          f"tol {tol['attend']}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"bound_ms {bound_ms:.4f} ({bound_by})")
     res["attend"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
     # kernel 2
@@ -213,10 +251,11 @@ def step_case(dev, dtype, cfg, params, enc, gen):
                   f"row {r} rank {q}: ids {a} vs {b_}, logit gap {gap}")
         ties = f", topi equal but {len({r for r, _ in diff})} near-tie rows"
     plain_ms, ms = median_ms([plain, kernel])
+    bound_ms, bound_by = bound(*step_work(cfg, nb, dtype.itemsize), name)
     print(f"kernel fused_decode_step[{cfg.model_type}] {name}: max_abs_err "
           f"topv/lse {e_vals:.3g} (tol {tol['step_vals']}), h/c "
           f"{e_state:.3g} (tol {tol['step_state']}){ties}; ms {ms:.4f} "
-          f"plain_ms {plain_ms:.4f}")
+          f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
     return dict(max_abs_err=max(e_vals, e_state), ms=ms, plain_ms=plain_ms)
 
 
@@ -446,6 +485,371 @@ def breakdown(engine, cfg, x, enc, tags, kw):
           f"{t_prof * 1e3:.1f} ms under the profiler); top: {top}")
 
 
+def bound(nbytes, flops, dtype="float32"):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rate for the type."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = flops / PEAK_OPS_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def attend_work(cfg, B, isz=4):
+    """Bytes and operations of kernel 1 at B images x K lanes: enc, ea,
+    dec and wf read once; awe and alpha written once."""
+    P, E, A = cfg.num_pixels, cfg.encoder_dim, cfg.attention_dim
+    nbytes = isz * (B * P * (E + A) + B * K * (A + E + P)) + 4 * A
+    return nbytes, B * K * P * (3 * A + 2 * E)
+
+
+def step_work(cfg, B, isz=4):
+    """Bytes and operations of kernel 2 at R = B*K rows for cfg's family:
+    attention (none for pure_scn), the cell's products and the head."""
+    R, P = B * K, cfg.num_pixels
+    E, A, D, V = cfg.encoder_dim, cfg.attention_dim, cfg.decoder_dim, \
+        cfg.vocab_size
+    Emb, F4 = cfg.embed_dim, 4 * cfg.factored_dim
+    if cfg.model_type == "pure_attention":
+        weights = D * A + D * E + (Emb + E) * 4 * D + D * 4 * D + D * V
+    else:
+        weights = Emb * F4 + D * F4 + 2 * F4 * D + D * V
+        if cfg.uses_attention:
+            weights += D * A + D * E + E * F4
+    rows = R * (Emb + 4 * D + (2 * F4 if cfg.uses_tags else 0))
+    enc = B * P * (E + A) if cfg.uses_attention else 0
+    att = B * K * P * (3 * A + 2 * E) if cfg.uses_attention else 0
+    nbytes = isz * (weights + enc + rows) + 4 * R * (2 * K + 1)
+    return nbytes, 2 * R * weights + att
+
+
+def train_work(cfg, B, T, isz=4):
+    """Bytes and operations of kernels 8 and 9 at B images x T steps: each
+    input read once and each output written once; the products' and the
+    attention's operations.  Returns ((fwd bytes, ops), (bwd bytes,
+    ops))."""
+    P, E, A, D = cfg.num_pixels, cfg.encoder_dim, cfg.attention_dim, \
+        cfg.decoder_dim
+    scn = cfg.model_type == "attention_scn"
+    F4 = 4 * cfg.factored_dim if scn else 4 * D
+    H = D
+    weights = D * (A + E) + E * F4 + D * F4 + (2 * F4 * H if scn else 0)
+    enc = B * P * (E + A)
+    # per step: hall, xin, [hfac, gate pairs] | [h @ wh]; attention
+    mm_fwd = D * (A + E) + E * F4 + (D * F4 + 2 * F4 * H if scn else D * F4)
+    att = P * (3 * A + 2 * E)
+    fwd_ops = B * T * (2 * mm_fwd + att)
+    fwd_bytes = isz * (enc + weights + B * T * F4 + B * (2 * F4 + 2 * D)
+                       + B * T * (2 * D + E)) + 4 * B * T * P
+    # pass A (the same products at B*T rows) + per step: factor pairs,
+    # d_awe, d_alpha, the softmax / mask backward, dh
+    mm_bwd = mm_fwd + (2 * F4 * H if scn else 0) + F4 * E + (F4 + E + A) * D
+    bwd_ops = B * T * (2 * mm_bwd + P * (2 * E + 4 * A))
+    streams = (4 * H + E + A + E) + (3 * F4 if scn else 0) + F4
+    bwd_bytes = (isz * (enc + weights + B * T * (F4 + 3 * D + E) + B * T
+                        * streams) + 4 * (2 * B * T * P + B * P * A + A
+                                          + B * (2 * F4 + 2 * D)))
+    return (fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops)
+
+
+def train_inputs(dev, dtype, cfg, B, gen):
+    """Kernels 8 and 9's inputs at cfg's widths, built as
+    fused_teacher_forcing_scan builds them, on seeded random weights."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.models import (attention,
+                                                              decoders,
+                                                              scn_cell)
+    from indonesian_image_captioning_tpu_torch.ops import train_cuda
+
+    T = cfg.max_caption_len - 1
+    params = decoders.init_decoder(gen, cfg, device=dev)
+    enc = torch.relu(torch.randn((B, cfg.num_pixels, cfg.encoder_dim),
+                                 generator=gen)).to(dev)
+    ea = attention.precompute(params["attention"], enc)
+    caps = torch.randint(0, cfg.vocab_size, (B, T), generator=gen).to(dev)
+    emb = params["embedding"][caps]
+    step = params["decode_step"]
+    cell = train_cuda.cell_of(cfg)
+    semx = semh = None
+    if cell == "scn":
+        tags = torch.rand((B, cfg.semantic_dim), generator=gen).to(dev)
+        sx, sh = scn_cell.semantic_projections(step, tags)
+        semx, semh = (x.reshape(B, -1).to(dtype).contiguous()
+                      for x in (sx, sh))
+        w_x_emb = step["w_x"][:cfg.embed_dim]
+    else:
+        w_x_emb = step["w_ih"][:cfg.embed_dim]
+    h0, c0 = decoders.init_hidden_state(params, enc)
+    kw = {k: v.contiguous() for k, v in
+          train_cuda.pack_train_weights(params, cfg, dtype).items()}
+    return cell, (kw, enc.to(dtype).contiguous(), ea.to(dtype).contiguous(),
+                  (emb @ w_x_emb).to(dtype).contiguous(), semx, semh,
+                  h0.to(dtype).contiguous(), c0.to(dtype).contiguous())
+
+
+def train_kernel_case(dev, dtype, cfg, B):
+    """Kernels 8 and 9 against their plain versions for cfg's cell: every
+    output and stream within TRAIN_TOL of its scale (forward) or
+    TRAIN_BWD_TOL of its norm (backward), and both times.  The backward
+    runs on the plain forward's residuals."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import train_cuda
+
+    name = str(dtype).replace("torch.", "")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    cell, args = train_inputs(dev, dtype, cfg, B, gen)
+    label = f"{cfg.model_type} {name}"
+
+    def compare(what, got, ref, tol, by_norm):
+        """Every output within tol: of its largest magnitude (max error) or
+        of its norm (by_norm).  Returns the largest absolute error."""
+        worst = (0.0, "")
+        for key in ref:
+            a, b = got[key].float(), ref[key].float()
+            check(bool(a.isfinite().all()), f"{what} {label}: {key} not "
+                  "finite")
+            if by_norm:
+                rel = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+            else:
+                rel = max_err(a, b) / max(float(b.abs().max()), 1e-30)
+            check(rel <= tol, f"{what} {label}: {key} error {rel} of its "
+                  f"{'norm' if by_norm else 'scale'} > {tol}")
+            worst = max(worst, (rel, key))
+        print(f"kernel {what}[{label}]: worst {worst[1]} {worst[0]:.3g} of "
+              f"its {'norm' if by_norm else 'scale'} (tol {tol}); max abs "
+              "errors " + ", ".join(f"{k} {max_err(got[k], ref[k]):.2g}"
+                                    for k in sorted(ref)))
+        return max(max_err(got[k], ref[k]) for k in ref)
+
+    names = ("h_all", "c_all", "alphas", "awe_raw")
+    n0 = train_cuda.train_fwd.launches
+    out = dict(zip(names, train_cuda.train_fwd(*args, cell=cell)))
+    ref = dict(zip(names, train_cuda.train_fwd_plain(*args, cell=cell)))
+    torch.cuda.synchronize()
+    check(train_cuda.train_fwd.launches == n0 + 1,
+          f"train_fwd {label}: the kernel was not launched")
+    e_fwd = compare("train_fwd", out, ref, TRAIN_TOL[name], False)
+    gen2 = torch.Generator().manual_seed(SEED + 4)
+    res = tuple(ref[k] for k in names)
+    d_hall = (torch.randn(ref["h_all"].shape, generator=gen2) * 0.1).to(
+        dev, dtype)
+    d_alphas = (torch.randn(ref["alphas"].shape, generator=gen2)
+                * 0.01).to(dev)
+    bargs = args + res + (d_hall, d_alphas)
+    n0 = train_cuda.train_bwd.launches
+    got = train_cuda.train_bwd(*bargs, cell=cell)
+    exp = train_cuda.train_bwd_plain(*bargs, cell=cell)
+    torch.cuda.synchronize()
+    check(train_cuda.train_bwd.launches == n0 + 1,
+          f"train_bwd {label}: the kernel was not launched")
+    check(set(got) == set(exp), f"train_bwd {label}: outputs {sorted(got)}"
+          f" != {sorted(exp)}")
+    e_bwd = compare("train_bwd", got, exp, TRAIN_BWD_TOL[name], True)
+    f_plain, f_ms, b_plain, b_ms = median_ms([
+        lambda: train_cuda.train_fwd_plain(*args, cell=cell),
+        lambda: train_cuda.train_fwd(*args, cell=cell),
+        lambda: train_cuda.train_bwd_plain(*bargs, cell=cell),
+        lambda: train_cuda.train_bwd(*bargs, cell=cell)])
+    fwd_work, bwd_work = train_work(cfg, B, cfg.max_caption_len - 1,
+                                    dtype.itemsize)
+    f_bound, b_bound = bound(*fwd_work, name), bound(*bwd_work, name)
+    print(f"kernel train_fwd[{label}]: ms {f_ms:.4f} plain_ms "
+          f"{f_plain:.4f} bound_ms {f_bound[0]:.4f} ({f_bound[1]}); "
+          f"train_bwd: ms {b_ms:.4f} plain_ms {b_plain:.4f} bound_ms "
+          f"{b_bound[0]:.4f} ({b_bound[1]})")
+    return {"train_fwd": dict(max_abs_err=e_fwd, ms=f_ms, plain_ms=f_plain),
+            "train_bwd": dict(max_abs_err=e_bwd, ms=b_ms, plain_ms=b_plain)}
+
+
+def train_phase(dev, cfg, B, image_size):
+    """The trainer on the card: kernel checks, the fused-vs-eager gradient
+    check and the main path (5 train steps).  Returns (kernel results,
+    launches of the main path)."""
+    import numpy as np
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.core.config import \
+        TrainConfig
+    from indonesian_image_captioning_tpu_torch.models import decoders
+    from indonesian_image_captioning_tpu_torch.ops import losses, train_cuda
+    from indonesian_image_captioning_tpu_torch.train import steps
+
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for family in ("attention_scn", "pure_attention"):
+            fcfg = dataclasses.replace(cfg, model_type=family)
+            with torch.no_grad():
+                res[(name, family)] = train_kernel_case(dev, dtype, fcfg, B)
+
+    # ---- cached features of one batch: seeded ResNet-152s, bfloat16 ----
+    tcfg = TrainConfig(batch_size=B)
+    T = cfg.max_caption_len - 1
+    rng = np.random.default_rng(SEED + 5)
+    images = rng.integers(0, 256, size=(B, 3, image_size, image_size),
+                          dtype=np.uint8)
+    t0 = time.perf_counter()
+    state = make_state(dev, cfg, images)
+    encode = steps.make_encoders_fn(cfg, tcfg.encoder_dtype, dev)
+    enc_out, tags = encode(state, {"images": images})
+    torch.cuda.synchronize()
+    S = cfg.enc_image_size
+    check(enc_out.shape == (B, S, S, cfg.encoder_dim)
+          and bool(enc_out.isfinite().all()) and bool(tags.isfinite().all()),
+          "cached features not finite or misshapen")
+    print(f"train: encoders ({tcfg.encoder_dtype}) and calibration "
+          f"{time.perf_counter() - t0:.1f} s; features "
+          f"|enc| {float(enc_out.abs().mean()):.3g}")
+    del state
+    caplens = torch.from_numpy(rng.integers(3, cfg.max_caption_len + 1,
+                                            size=(B,))).to(dev)
+    caps = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         size=(B, T + 1))).to(dev)
+    caps = torch.where(torch.arange(T + 1, device=dev)[None]
+                       < caplens[:, None], caps, 0)
+
+    # ---- fused (kernels 8, 9) against eager autograd, dropout off ----
+    gen = torch.Generator().manual_seed(SEED + 6)
+    params = decoders.init_decoder(gen, cfg, device=dev)
+    leaves = steps.tree_leaves(params)
+    grads, lossv = {}, {}
+    for impl in ("fused", "xla"):
+        icfg = dataclasses.replace(cfg, train_scan_impl=impl, dropout=0.0)
+        for p in leaves:
+            p.requires_grad_(True)
+        n0 = (train_cuda.train_fwd.launches, train_cuda.train_bwd.launches)
+        out = decoders.teacher_forcing(params, icfg, enc_out, tags, caps,
+                                       caplens, train=True)
+        loss, _ = losses.caption_loss(out, caps, tcfg.alpha_c)
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        ran = (train_cuda.train_fwd.launches - n0[0],
+               train_cuda.train_bwd.launches - n0[1])
+        check(ran == ((1, 1) if impl == "fused" else (0, 0)),
+              f"gradient check {impl}: train kernels ran {ran}")
+        grads[impl] = [torch.zeros_like(p) if x is None else x
+                       for p, x in zip(leaves, g)]
+        lossv[impl] = loss.item()
+    worst = 0.0
+    for i, (gf, gx) in enumerate(zip(grads["fused"], grads["xla"])):
+        scale = float(gx.abs().max())
+        if scale < 1e-7:           # the full_att bias: exactly zero in math
+            continue
+        rel = float((gf - gx).abs().max()) / scale
+        check(rel < GRAD_TOL, f"gradient leaf {i} {tuple(gx.shape)}: fused "
+              f"vs eager {rel} >= {GRAD_TOL}")
+        worst = max(worst, rel)
+    lrel = abs(lossv["fused"] - lossv["xla"]) / abs(lossv["xla"])
+    check(lrel < LOSS_TOL, f"loss fused {lossv['fused']} vs eager "
+          f"{lossv['xla']}: {lrel} >= {LOSS_TOL}")
+    print(f"train: gradient check over {len(leaves)} leaves, fused vs "
+          f"eager: worst {worst:.3g} of scale (tol {GRAD_TOL}); loss "
+          f"{lossv['fused']:.6f} vs {lossv['xla']:.6f} ({lrel:.2g})")
+    del grads
+
+    # ---- the main path: 5 train steps, counters zeroed just before ----
+    opt = steps.make_optimizer(tcfg.decoder_lr, tcfg.grad_clip)
+    _, step = steps.make_caption_train_step(cfg, tcfg, opt, device=dev)
+    with torch.no_grad():
+        snapshot = [p.detach().clone() for p in leaves]
+    sub = {"params": params, "opt_state": opt.init(params)}
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    torch.cuda.synchronize()
+    train_cuda.train_fwd.launches = 0
+    train_cuda.train_bwd.launches = 0
+    times, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        _, m = step(sub, enc_out, tags, caps, caplens, dgen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {"train_fwd": train_cuda.train_fwd.launches,
+                "train_bwd": train_cuda.train_bwd.launches}
+    # ------------------------------------------------------------------
+    loss_seq = [m["loss"] for m in metrics]
+    check(all(np.isfinite(loss_seq)), f"losses {loss_seq} not finite")
+    check(loss_seq[-1] < loss_seq[0], f"loss did not fall: {loss_seq}")
+    check(launches == {"train_fwd": TRAIN_STEPS, "train_bwd": TRAIN_STEPS},
+          f"{TRAIN_STEPS} steps launched the train kernels {launches}")
+    step_s = statistics.median(times[1:])
+    print(f"train: {TRAIN_STEPS} steps, head "
+          f"{steps.resolve_head_impl(tcfg, cfg, B, dev)}, loss "
+          + " -> ".join(f"{x:.4f}" for x in loss_seq)
+          + f"; top5 {metrics[-1]['top5']:.2f}, n_tokens "
+          f"{metrics[-1]['n_tokens']:.0f}; step ms "
+          + ", ".join(f"{1e3 * x:.1f}" for x in times)
+          + f"; median of steps 2-{TRAIN_STEPS} {1e3 * step_s:.1f} ms, "
+          f"{B / step_s:.1f} imgs/s; launches {launches}")
+
+    train_breakdown(step, sub, (enc_out, tags, caps, caplens), dgen, B)
+
+    # ---- one step with the chunked head against the dense head ----
+    head_loss, head_ms = {}, {}
+    for head in ("dense", "chunked"):
+        with torch.no_grad():
+            for p, s0 in zip(leaves, snapshot):
+                p.copy_(s0)
+        hcfg = dataclasses.replace(tcfg, head_impl=head)
+        hopt = steps.make_optimizer(hcfg.decoder_lr, hcfg.grad_clip)
+        _, hstep = steps.make_caption_train_step(cfg, hcfg, hopt, device=dev)
+        hsub = {"params": params, "opt_state": hopt.init(params)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = hstep(hsub, enc_out, tags, caps, caplens,
+                     torch.Generator(device=dev).manual_seed(SEED + 8))
+        torch.cuda.synchronize()
+        head_ms[head] = 1e3 * (time.perf_counter() - t0)
+        head_loss[head] = float(m["loss"])
+    hrel = abs(head_loss["chunked"] - head_loss["dense"]) / abs(
+        head_loss["dense"])
+    check(hrel < HEAD_TOL, f"chunked head loss {head_loss['chunked']} vs "
+          f"dense {head_loss['dense']}: {hrel} >= {HEAD_TOL}")
+    print(f"train: one step from the same weights, dense head "
+          f"{head_loss['dense']:.6f} ({head_ms['dense']:.1f} ms), chunked "
+          f"{head_loss['chunked']:.6f} ({head_ms['chunked']:.1f} ms), "
+          f"{hrel:.2g} apart (tol {HEAD_TOL})")
+    return res, launches
+
+
+def train_breakdown(step, sub, batch, gen, B):
+    """Where one train step's time goes: the host clock, the device busy
+    share and the device time by kernel group from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(sub, *batch, gen)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(sub, *batch, gen)
+        torch.cuda.synchronize()
+    kernels = [(e.self_device_time_total, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(t for t, _ in kernels) / 1e3
+    groups = {"train scan (iic)": 0.0, "cuBLAS/cuBLASLt GEMM": 0.0,
+              "other PyTorch": 0.0}
+    for t, k in kernels:
+        if k.startswith(("void iic::", "iic::")):
+            groups["train scan (iic)"] += t / 1e3
+        elif "gemm" in k.lower() or "sm90_" in k or "cutlass" in k:
+            groups["cuBLAS/cuBLASLt GEMM"] += t / 1e3
+        else:
+            groups["other PyTorch"] += t / 1e3
+    top = ", ".join(f"{k.split('(')[0][:48]} {t / 1e3:.2f} ms"
+                    for t, k in sorted(kernels, reverse=True)[:4])
+    print(f"train breakdown: one step of {B} images {1e3 * t_step:.1f} ms; "
+          f"kernels {busy:.1f} ms of it ({100 * busy / (1e3 * t_step):.1f} "
+          "% busy); " + ", ".join(f"{g} {v:.2f} ms" for g, v in
+                                  groups.items()) + f"; top: {top}")
+
+
 def main() -> int:
     import torch
 
@@ -483,28 +887,50 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     cfg = ModelConfig(model_type="attention_scn", vocab_size=VOCAB)
+    t_start = time.perf_counter()
     with torch.inference_mode():
         res = {str(dt).replace("torch.", ""): kernel_phase(dev, dt, cfg, B)
                for dt in (torch.float32, torch.bfloat16)}
+    t0 = time.perf_counter()
     launches = serve_and_inference(dev, cfg, B, IMAGE_SIZE)
+    print(f"phases: kernels {t0 - t_start:.1f} s, serve and inference "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_res, train_launches = train_phase(dev, cfg, B, IMAGE_SIZE)
+    launches.update(train_launches)
+    print(f"phases: train {time.perf_counter() - t0:.1f} s")
 
+    T = cfg.max_caption_len - 1
+    fwd_work, bwd_work = train_work(cfg, B, T)
+    csrc = "indonesian_image_captioning_tpu_torch/csrc/"
+    jax_ops = "indonesian_image_captioning_tpu/ops/"
+    rows = (("attend_fused", "attend.cu", "attention_pallas.py:233",
+             res["float32"]["attend"], res["bfloat16"]["attend"],
+             attend_work(cfg, B)),
+            ("fused_decode_step", "step.cu", "step_pallas.py:379",
+             res["float32"]["step"], res["bfloat16"]["step"],
+             step_work(cfg, B)),
+            ("train_fwd", "train.cu", "train_pallas.py:768",
+             train_res[("float32", "attention_scn")]["train_fwd"],
+             train_res[("bfloat16", "attention_scn")]["train_fwd"], fwd_work),
+            ("train_bwd", "train.cu", "train_pallas.py:856",
+             train_res[("float32", "attention_scn")]["train_bwd"],
+             train_res[("bfloat16", "attention_scn")]["train_bwd"],
+             bwd_work))
     kernels = []
-    for key, name, source, replaces in (
-            ("attend", "attend_fused",
-             "indonesian_image_captioning_tpu_torch/csrc/attend.cu",
-             "indonesian_image_captioning_tpu/ops/attention_pallas.py:233"),
-            ("step", "fused_decode_step",
-             "indonesian_image_captioning_tpu_torch/csrc/step.cu",
-             "indonesian_image_captioning_tpu/ops/step_pallas.py:379")):
-        f32, bf16 = res["float32"][key], res["bfloat16"][key]
+    for name, source, replaces, f32, bf16, (nbytes, flops) in rows:
         check(launches[name] > 0, f"{name} never launched on the main path")
+        bound_ms, bound_by = bound(nbytes, flops)
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda", "source": csrc + source,
+            "replaces": jax_ops + replaces, "launches": launches[name],
             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
-            "plain_ms": f32["plain_ms"],
+            "plain_ms": f32["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
             "bf16_max_abs_err": bf16["max_abs_err"], "bf16_ms": bf16["ms"],
             "bf16_plain_ms": bf16["plain_ms"]})
+    print(f"phases: all {time.perf_counter() - t_start:.1f} s after the "
+          "build")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

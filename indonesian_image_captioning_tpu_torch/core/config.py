@@ -6,7 +6,9 @@ so a configuration written for one package runs in the other.  That file
 documents each field; the port reads the names of the decode path:
 ``decode_impl``, ``attention_impl``, ``topk_backend``, ``sparse_head``,
 ``enc_quant`` and ``fused_cell`` (``decode/api.py`` and
-``models/decoders.py`` say which values run which kernel).
+``models/decoders.py`` say which values run which kernel), and of the
+train path: ``train_scan_impl``, ``embed_grad_impl`` and
+:class:`TrainConfig` (``train/steps.py``).
 
 The port keeps its own copy so that it, and ``chip_smoke.py`` through it,
 imports nothing of the JAX package.
@@ -15,6 +17,7 @@ imports nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,3 +83,43 @@ class BeamConfig:
     max_steps: int = 51
     length_penalty: float = 0.0
 
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training recipe, field for field the JAX package's (whose comments
+    say what each field does).  The port's train step reads the decoder
+    recipe: ``decoder_lr``, ``grad_clip``, ``alpha_c``, ``encoder_dtype``,
+    ``decoder_dtype``, ``head_impl``, ``head_tile`` and the LR decay
+    fields; the rest belong to the trainer loop, the tagger and the
+    multi-device steps, which are not ported yet."""
+
+    epochs: int = 12
+    batch_size: int = 32
+    encoder_lr: float = 1e-4
+    decoder_lr: float = 4e-4
+    grad_clip: float = 5.0
+    alpha_c: float = 1.0
+    lr_decay_factor: float = 0.8
+    lr_decay_every_stale: int = 8
+    early_stop_stale: int = 20
+    print_freq: int = 100
+    fine_tune_encoder: bool = False
+    seed: int = 0
+    checkpoint_dir: str = "."
+    resume: Optional[str] = None
+    mesh_shape: Tuple[int, int] = (1, 1)
+    mesh_order: str = "rowmajor"
+    encoder_dtype: str = "bfloat16"
+    decoder_dtype: str = "float32"
+    tagger_dtype: str = "float32"
+    encoder_remat: Union[bool, str] = False
+    cache_features: bool = False
+    cache_dtype: str = "float32"
+    cache_device_budget_gb: float = 6.0
+    device_images: str = "auto"
+    device_images_budget_gb: float = 4.0
+    async_checkpoint: bool = True
+    head_impl: str = "auto"
+    head_tile: int = 2048
+    calibrate_encoder_stats: int = 0

@@ -17,15 +17,15 @@ def setup_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def get_device(name: str = "auto") -> torch.device:
+def get_device(name: str = "cuda") -> torch.device:
     """Resolve a device name and set float32 precision for it.
 
-    "auto" picks the first CUDA device when there is one, else the CPU.
-    "cuda" (or "cuda:N") raises when no CUDA device exists: a CUDA
-    request never runs on the CPU.
+    The port's entry points run on the card unless the caller asks for the
+    CPU by name: "cuda" (or "cuda:N", or "auto", its alias) raises when no
+    CUDA device exists, and never falls back to the CPU.  "cpu" is the CPU.
     """
     if name == "auto":
-        name = "cuda" if torch.cuda.is_available() else "cpu"
+        name = "cuda"
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} requested but CUDA is not "

@@ -152,13 +152,6 @@ attend_sum_kernel(const T* __restrict__ enc,
   }
 }
 
-template <typename K_>
-static int allow_smem(K_ kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <typename T>
 static int launch_attend(const void* enc, const void* ea, const void* dec,
                          const void* wf, void* scores, void* awe, void* alpha,

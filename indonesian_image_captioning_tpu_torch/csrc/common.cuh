@@ -45,4 +45,12 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Lets kernel take more than 48 KB of dynamic shared memory.
+template <typename K_>
+static int allow_smem(K_ kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 }  // namespace iic

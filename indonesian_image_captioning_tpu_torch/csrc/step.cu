@@ -32,146 +32,23 @@
 // cell GEMMs are about half the head's flops.  So the head GEMM is the
 // largest arithmetic term and the encoder read the largest byte term.
 //
-// What the design does about it, in this first version: the GEMM tiles
-// 64 x 64 outputs per block with 16-deep float32 tiles in shared memory (a
-// weight column is read once per 64-row block, not once per row); the
-// elementwise work (bias, sigmoid gate, semantic modulation) is fused into
-// the GEMM epilogues so no pre-activation makes a round trip except the
-// gate pre-activations and the logits; the head reads each logit row from
+// What the design does about it, in this first version: the GEMM
+// (gemm.cuh, shared with train.cu) tiles 64 x 64 outputs per block with
+// 16-deep float32 tiles in shared memory (a weight column is read once per
+// 64-row block, not once per row); the elementwise work (bias, sigmoid
+// gate, semantic modulation) is fused into the GEMM epilogues so no
+// pre-activation makes a round trip except the gate pre-activations and
+// the logits; the head reads each logit row from
 // L2 for its K + 2 passes.  Tensor-core (wgmma) tiles, TMA and a head that
 // never writes the logits are later work.
 #include <climits>
 
-#include "common.cuh"
+#include "gemm.cuh"
 
 namespace iic {
 
 constexpr int kMaxK = 8;
 constexpr float kNeg = -1e30f;
-
-// ---------------------------------------------------------------- GEMM ----
-
-constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
-
-enum Epilogue {
-  kEpiBias = 0,        // rt(rt(acc) + b1), as dot(...).astype(dt) + b
-  kEpiPre = 1,         // acc + b1 + b2 in float32 (gate pre-activations)
-  kEpiSigmoidMul = 2,  // rt(rt(sigmoid(rt(rt(acc) + b1))) * aux)
-  kEpiMul = 3,         // rt(rt(acc) * aux)
-};
-
-// C[z] = epilogue(A1[z] @ W1[z] + A2[z] @ W2[z]): two sources accumulate
-// into one sum (a product over a concatenated input); z offsets the
-// columns of A, C and aux, the elements of W and of the biases.
-struct GemmArgs {
-  const void* a[2];
-  const void* w[2];
-  int k[2];
-  long long lda[2];
-  long long ldw[2];
-  const void* bias1;
-  const void* bias2;
-  const void* aux;
-  long long ldaux;
-  void* c;
-  long long ldc;
-  int c_f32;
-  int M, N, epi;
-  long long za, zw, zc, zb;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs g) {
-  __shared__ float As[kBK][kBM];
-  __shared__ float Ws[kBK][kBN];
-  const int z = blockIdx.z;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // 4 output columns each
-  const int ty = tid / 16;  // 4 output rows each
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int s = 0; s < 2; ++s) {
-    if (g.a[s] == nullptr) continue;
-    const T* A = (const T*)g.a[s] + z * g.za;
-    const T* W = (const T*)g.w[s] + z * g.zw;
-    const int Kd = g.k[s];
-    const long long lda = g.lda[s];
-    const long long ldw = g.ldw[s];
-    for (int k0 = 0; k0 < Kd; k0 += kBK) {
-#pragma unroll
-      for (int i = 0; i < (kBM * kBK) / kGemmThreads; ++i) {
-        const int idx = tid + i * kGemmThreads;
-        const int r = idx / kBK, kk = idx % kBK;
-        const int gm = m0 + r, gk = k0 + kk;
-        As[kk][r] = (gm < g.M && gk < Kd) ? to_f(A[gm * lda + gk]) : 0.0f;
-        const int wr = idx / kBN, wc = idx % kBN;
-        const int wk = k0 + wr, wn = n0 + wc;
-        Ws[wr][wc] = (wk < Kd && wn < g.N) ? to_f(W[wk * ldw + wn]) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        float av[4], wv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = As[kk][ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = Ws[kk][tx * 4 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  const T* b1 = g.bias1 ? (const T*)g.bias1 + z * g.zb : nullptr;
-  const T* b2 = g.bias2 ? (const T*)g.bias2 + z * g.zb : nullptr;
-  const T* aux = g.aux ? (const T*)g.aux + z * g.zc : nullptr;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn >= g.N) continue;
-      float v = acc[i][j];
-      switch (g.epi) {
-        case kEpiBias:
-          v = rt<T>(v);
-          if (b1) v = rt<T>(v + to_f(b1[gn]));
-          break;
-        case kEpiPre:
-          if (b1) v += to_f(b1[gn]);
-          if (b2) v += to_f(b2[gn]);
-          break;
-        case kEpiSigmoidMul: {
-          float x = rt<T>(v);
-          if (b1) x = rt<T>(x + to_f(b1[gn]));
-          const float gate = rt<T>(sigmoidf_(x));
-          v = rt<T>(gate * to_f(aux[gm * g.ldaux + gn]));
-          break;
-        }
-        case kEpiMul:
-          v = rt<T>(rt<T>(v) * to_f(aux[gm * g.ldaux + gn]));
-          break;
-      }
-      const long long ci = gm * g.ldc + z * g.zc + gn;
-      if (g.c_f32)
-        ((float*)g.c)[ci] = v;
-      else
-        ((T*)g.c)[ci] = from_f<T>(v);
-    }
-  }
-}
 
 // ---------------------------------------------------------------- cell ----
 
@@ -281,13 +158,6 @@ head_topk_kernel(const float* __restrict__ logits, int V, int K,
 }
 
 template <typename T>
-static int launch_gemm(const GemmArgs& g, int nz, cudaStream_t stream) {
-  dim3 grid((g.N + kBN - 1) / kBN, (g.M + kBM - 1) / kBM, nz);
-  gemm_kernel<T><<<grid, kGemmThreads, 0, stream>>>(g);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 static int launch_cell(const void* pre, const void* c, void* h_out,
                        void* c_out, int R, int H, int lstm,
                        cudaStream_t stream) {
@@ -311,15 +181,14 @@ extern "C" int iic_gemm(int dtype, int epi, int M, int N, int nz,
                         long long ldaux, void* c, long long ldc, int c_f32,
                         long long za, long long zw, long long zc,
                         long long zb, void* stream) {
-  iic::GemmArgs g;
+  iic::GemmArgs g = {};
   g.a[0] = a1; g.w[0] = w1; g.k[0] = k1; g.lda[0] = lda1; g.ldw[0] = ldw1;
   g.a[1] = a2; g.w[1] = w2; g.k[1] = k2; g.lda[1] = lda2; g.ldw[1] = ldw2;
   g.bias1 = bias1; g.bias2 = bias2; g.aux = aux; g.ldaux = ldaux;
   g.c = c; g.ldc = ldc; g.c_f32 = c_f32;
   g.M = M; g.N = N; g.epi = epi;
   g.za = za; g.zw = zw; g.zc = zc; g.zb = zb;
-  if (M < 1 || N < 1 || nz < 1 || epi < 0 || epi > 3)
-    return (int)cudaErrorInvalidValue;
+  if (epi < 0 || epi > 3) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == iic::kF32) return iic::launch_gemm<float>(g, nz, s);
   if (dtype == iic::kBF16) return iic::launch_gemm<__nv_bfloat16>(g, nz, s);

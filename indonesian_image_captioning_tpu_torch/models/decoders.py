@@ -1,10 +1,16 @@
-"""Caption decoders for beam search: PureSCN, PureAttention, AttentionSCN.
+"""Caption decoders: PureSCN, PureAttention, AttentionSCN.
 
-Counterpart of the JAX package's ``models/decoders.py`` for the serving
-path: initialisation, the hoisted loop invariants and the two ways to
-build a beam step.  Parameters are nested dicts of tensors whose names mirror the
-JAX tree (embedding / decode_step / init_h / init_c / f_beta / fc /
-attention).
+Counterpart of the JAX package's ``models/decoders.py``: initialisation,
+the hoisted loop invariants, the teacher-forced training forward and the
+two ways to build a beam step.  Parameters are nested dicts of tensors
+whose names mirror the JAX tree (embedding / decode_step / init_h / init_c
+/ f_beta / fc / attention).
+
+* :func:`teacher_forcing` -- the training forward over a whole caption
+  batch: a fixed-shape scan over T = max_caption_len - 1 steps with a
+  validity mask, either the eager scan (plain autograd, all three
+  families) or kernels 8 and 9 (``ops/train_cuda.py``, the two
+  attention-bearing families), then the vocab head outside the scan.
 
 * :func:`make_beam_step` -- the step engine: embedding lookup, attention
   (kernel 1 or the plain :func:`models.attention.attend`), f_beta gate, the
@@ -18,14 +24,88 @@ from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
 from ..core.config import ModelConfig
 from . import attention as attn
 from . import lstm_cell, scn_cell
-from .layers import init_linear, linear, uniform
+from .layers import dropout, init_linear, linear, uniform
 
 MODEL_TYPES = ("pure_scn", "pure_attention", "attention_scn")
 SCN_BASED_MODELS = frozenset({"pure_scn", "attention_scn"})
 ATTENTION_IMPLS = ("auto", "xla", "xla_pk", "pallas", "pallas_mxu")
+TRAIN_SCAN_IMPLS = ("auto", "xla", "fused")
+EMBED_GRAD_IMPLS = ("auto", "onehot", "pallas")
+_ONEHOT_TILE = 2048
+
+
+class _EmbedLookup(torch.autograd.Function):
+    """Row gather whose backward contracts the one-hot of the ids against
+    the cotangent, dtable = one_hot(ids)^T @ g, in float32 (the JAX
+    package's custom VJP): a deterministic product instead of a scatter of
+    duplicate-heavy caption ids.  Past 2^30 one-hot elements it runs in
+    vocabulary tiles of 2048, each tile one product."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        V = ctx.table_shape[0]
+        gf = g.reshape(-1, g.shape[-1])
+        ids = ids.reshape(-1)
+        step = V if gf.shape[0] * V <= (1 << 30) else _ONEHOT_TILE
+        tiles = []
+        for v0 in range(0, V, step):
+            cols = torch.arange(v0, min(V, v0 + step), device=ids.device)
+            oh = (ids[:, None] == cols[None, :]).to(gf.dtype)
+            tiles.append(oh.to(torch.float32).T @ gf.to(torch.float32))
+        return torch.cat(tiles).to(ctx.table_dtype), None
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table[ids], with the one-hot product as its backward."""
+    return _EmbedLookup.apply(table, ids.long())
+
+
+def resolve_embed_grad_impl(cfg: ModelConfig) -> str:
+    """cfg.embed_grad_impl -> "onehot".  "auto" is "onehot", as in JAX;
+    "pallas" names the kernel ``embed_grad_scatter``, which is not ported
+    yet, and raises."""
+    impl = cfg.embed_grad_impl
+    if impl not in EMBED_GRAD_IMPLS:
+        raise ValueError(f"unknown embed_grad_impl {impl!r}")
+    if impl == "pallas":
+        raise NotImplementedError(
+            'embed_grad_impl="pallas": the kernel embed_grad_scatter is not '
+            "ported yet (ROADMAP.md, kernels still to port)")
+    return "onehot"
+
+
+def resolve_train_scan_impl(cfg: ModelConfig, device: torch.device,
+                            dtype=torch.float32,
+                            enc_grad: bool = False) -> str:
+    """cfg.train_scan_impl -> "fused" (kernels 8 and 9) or "xla" (the eager
+    scan).
+
+    "auto" is "fused" for attention_scn and pure_attention on CUDA
+    tensors, and "xla" on the CPU.  pure_scn always takes the eager scan
+    (its scan reads no encoder state, as in JAX), and so does enc_grad=True
+    (the kernels give the frozen encoder no gradient).  An explicit
+    "fused" on CPU tensors runs the kernels' plain versions."""
+    from ..ops import train_cuda
+    impl = cfg.train_scan_impl
+    if impl not in TRAIN_SCAN_IMPLS:
+        raise ValueError(f"unknown train_scan_impl {impl!r}")
+    if enc_grad or not train_cuda.feasible(cfg, dtype):
+        return "xla"
+    if impl == "auto":
+        return "fused" if device.type == "cuda" else "xla"
+    return impl
 
 
 def cell_input_dim(cfg: ModelConfig) -> int:
@@ -96,6 +176,109 @@ def _split_wx(params, cfg: ModelConfig):
 def _gate_factor(y):
     """(..., 4F) -> (..., 4, F)."""
     return y.reshape(*y.shape[:-1], 4, y.shape[-1] // 4)
+
+
+def teacher_forcing(params, cfg: ModelConfig, enc, tags, caps, caplens, *,
+                    dropout_gen: Optional[torch.Generator] = None,
+                    train: bool = False, enc_grad: bool = False,
+                    return_hidden: bool = False):
+    """Teacher-forced forward over the whole caption batch.
+
+    enc (B, H, W, E) or (B, P, E); tags (B, S) (ignored by pure_attention);
+    caps (B, L) int token ids, L = cfg.max_caption_len; caplens (B,)
+    caption lengths including <start> and <end>.  Returns a dict:
+    predictions (B, T, V) logits, T = L - 1; alphas (B, T, P) or None;
+    mask (B, T) validity (t < caplen - 1).  return_hidden=True skips the
+    vocab head and returns the post-dropout hidden states (B, T, D) as
+    "hidden" instead of predictions, the input of the chunked head.
+
+    Dropout (train=True) draws from dropout_gen, a torch.Generator; its
+    numbers differ from JAX's, so the tests compare with dropout off."""
+    cell = params["decode_step"]
+    is_scn = cfg.model_type in SCN_BASED_MODELS
+    T = cfg.max_caption_len - 1
+    enc_flat = flatten_encoding(enc, cfg.encoder_dim)
+    resolve_embed_grad_impl(cfg)
+    emb = embed_lookup(params["embedding"], caps[:, :T])      # (B, T, Emb)
+    impl = resolve_train_scan_impl(cfg, enc_flat.device, enc_flat.dtype,
+                                   enc_grad)
+    if impl == "fused":
+        from ..ops.train_cuda import fused_teacher_forcing_scan
+        h_all, alphas = fused_teacher_forcing_scan(params, cfg, enc_flat,
+                                                   tags, emb)
+        return _head_and_mask(params, cfg, h_all, alphas, caplens,
+                              dropout_gen, train, return_hidden)
+
+    h, c = init_hidden_state(params, enc_flat)
+    if is_scn:
+        sem_x, sem_h = scn_cell.semantic_projections(cell, tags)
+    if cfg.uses_attention:
+        enc_att = attn.precompute(params["attention"], enc_flat)
+        if is_scn:
+            w_x_emb, w_x_awe = _split_wx(params, cfg)
+            emb_fac = _gate_factor(emb @ w_x_emb)           # (B, T, 4, F)
+    else:
+        x_fac_all = scn_cell.input_factor(cell, emb)        # (B, T, 4, F)
+    hs, alphas = [], []
+    for t in range(T):
+        if cfg.uses_attention:
+            awe, alpha = attn.attend(params["attention"], enc_flat, enc_att,
+                                     h)
+            awe = torch.sigmoid(linear(params["f_beta"], h)) * awe
+            alphas.append(alpha)
+            if is_scn:
+                x_fac = emb_fac[:, t] + _gate_factor(awe @ w_x_awe)
+                h, c = scn_cell.scn_step(cell, x_fac, sem_x, sem_h, h, c)
+            else:
+                h, c = lstm_cell.lstm_step(
+                    cell, torch.cat([emb[:, t], awe], dim=-1), h, c)
+        else:
+            h, c = scn_cell.scn_step(cell, x_fac_all[:, t], sem_x, sem_h, h,
+                                     c)
+        hs.append(h)
+    h_all = torch.stack(hs, dim=1)                          # (B, T, D)
+    alphas = torch.stack(alphas, dim=1) if alphas else None
+    return _head_and_mask(params, cfg, h_all, alphas, caplens, dropout_gen,
+                          train, return_hidden)
+
+
+def _head_and_mask(params, cfg: ModelConfig, h_all, alphas, caplens,
+                   dropout_gen, train: bool, return_hidden: bool = False):
+    """Dropout, the validity mask and the vocab head, outside the scan (one
+    (B*T, D) x (D, V) product)."""
+    T = h_all.shape[1]
+    h_drop = dropout(dropout_gen, h_all, cfg.dropout if train else 0.0)
+    ts = torch.arange(T, device=h_all.device)
+    mask = ts[None, :] < (caplens.to(h_all.device)[:, None] - 1)
+    if return_hidden:
+        return {"hidden": h_drop, "alphas": alphas,
+                "mask": mask.to(torch.float32)}
+    predictions = linear(params["fc"], h_drop)              # (B, T, V)
+    return {"predictions": predictions, "alphas": alphas,
+            "mask": mask.to(predictions.dtype)}
+
+
+def load_pretrained_embeddings(params, embeddings):
+    """Replace the embedding table (same shape; cast to its type)."""
+    emb = torch.as_tensor(embeddings)
+    table = params["embedding"]
+    if tuple(emb.shape) != tuple(table.shape):
+        raise ValueError(f"embedding shape {tuple(emb.shape)} != "
+                         f"{tuple(table.shape)}")
+    return {**params, "embedding": emb.to(table.device, table.dtype)}
+
+
+def trainable_mask(params, fine_tune_embeddings: bool = True):
+    """A tree of booleans over params for the optimizer: the embedding
+    table is frozen unless fine_tune_embeddings."""
+    def ones(t):
+        return {k: ones(v) for k, v in t.items()} if isinstance(t, dict) \
+            else True
+
+    mask = ones(params)
+    if not fine_tune_embeddings:
+        mask["embedding"] = False
+    return mask
 
 
 def resolve_attention_impl(cfg: ModelConfig, device: torch.device) -> str:

@@ -43,6 +43,11 @@ SIGNATURES = {
         "iic_cell": [_I, _I, _P, _P, _P, _P, _I, _I, _P],
         "iic_head_topk": [_P, _I, _I, _I, _P, _P, _P, _P],
     },
+    "train": {
+        "iic_train_args_bytes": [],
+        "iic_train_fwd": [_I, _P, _P],
+        "iic_train_bwd": [_I, _P, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -108,7 +113,7 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The bound library ``name`` ("attend" or "step"), built if needed."""
+    """The bound library ``name`` (a key of SIGNATURES), built if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

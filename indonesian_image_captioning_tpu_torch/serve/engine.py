@@ -85,12 +85,13 @@ class CaptionEngine:
         and, for tag-using models, tagger / tagger_stats), trees of tensors.
     word_map: token -> id dict (WORDMAP artifact).
     device: a device name for ``core.runtime.get_device`` or a
-        ``torch.device``; "cuda" without a CUDA device raises.
+        ``torch.device``; the card by default, and "cuda" without a CUDA
+        device raises.  The CPU runs only when asked for ("cpu").
     """
 
     def __init__(self, state: Dict, cfg: ModelConfig,
                  word_map: Dict[str, int],
-                 serve_cfg: ServeConfig = ServeConfig(), device="auto"):
+                 serve_cfg: ServeConfig = ServeConfig(), device="cuda"):
         if list(serve_cfg.batch_buckets) != sorted(
                 set(serve_cfg.batch_buckets)):
             raise ValueError("batch_buckets must be ascending and unique")

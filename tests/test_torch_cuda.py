@@ -16,20 +16,35 @@ ties in the head, where the lowest vocabulary id must win.  Tolerances:
 1e-5 at float32 (summation order); at bfloat16 a few ulps of the values'
 magnitudes (the kernels round once where the plain versions round twice);
 ids exactly, except where the two logits are within 1e-5 at float32.
+
+Kernels 8 and 9 (the train scan) are held against their plain versions on
+every output and stream: the forward's largest error relative to each
+output's largest magnitude, the backward's error norm relative to each
+output's norm (the relu mask flips where ea + dec is within an ulp of 0,
+and each flip moves one element by a whole pixel's term); 1e-5 at
+float32, 3e-2 at bfloat16 (both round at the same points; a float32 sum
+on the other side of a rounding boundary moves a value by one ulp and the
+recurrence carries it); the fused gradients against the eager autograd
+scan within 5e-3 of each leaf's largest value (the JAX contract).
 """
+
+import dataclasses
 
 import pytest
 import torch
 
 from indonesian_image_captioning_tpu_torch.core.config import (BeamConfig,
-                                                               ModelConfig)
+                                                               ModelConfig,
+                                                               TrainConfig)
 from indonesian_image_captioning_tpu_torch.core.runtime import get_device
 from indonesian_image_captioning_tpu_torch.decode.api import \
     caption_beam_search
 from indonesian_image_captioning_tpu_torch.models import (attention,
                                                           decoders, scn_cell)
 from indonesian_image_captioning_tpu_torch.ops import (attention_cuda,
-                                                       step_cuda)
+                                                       losses, step_cuda,
+                                                       train_cuda)
+from indonesian_image_captioning_tpu_torch.train import steps
 
 pytestmark = pytest.mark.cuda
 
@@ -48,10 +63,11 @@ def dev():
 
 
 def small_cfg(model_type="attention_scn", **kw):
-    return ModelConfig(model_type=model_type, vocab_size=203, embed_dim=24,
-                       attention_dim=40, decoder_dim=36, factored_dim=20,
-                       semantic_dim=30, encoder_dim=72, enc_image_size=3,
-                       **kw)
+    return ModelConfig(**{**dict(model_type=model_type, vocab_size=203,
+                                 embed_dim=24, attention_dim=40,
+                                 decoder_dim=36, factored_dim=20,
+                                 semantic_dim=30, encoder_dim=72,
+                                 enc_image_size=3), **kw})
 
 
 def randn(gen, *shape, scale=1.0):
@@ -170,6 +186,14 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def _copy(tree, dev):
+    """A fresh tree of leaf tensors on dev (a train step updates its
+    parameters in place)."""
+    if isinstance(tree, dict):
+        return {k: _copy(v, dev) for k, v in tree.items()}
+    return tree.detach().clone().to(dev)
+
+
 @pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("end_bias", [0.0, 1.2])
 def test_decode_on_card_matches_cpu(dev, family, end_bias):
@@ -218,3 +242,158 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         attention_cuda.attend_fused(enc.half(), ea.half(),
                                     randn(gen, 2, 3, 8).to(dev).half(), wf)
     assert attention_cuda.attend_fused.launches == n0
+
+
+TRAIN_TOL = {F32: 1e-5, BF16: 3e-2}
+ATT_FAMILIES = ("attention_scn", "pure_attention")
+
+
+def rel(a, b):
+    return err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
+def rel_norm(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def _train_args(dev, dtype, cfg, B, T, gen):
+    params = decoders.init_decoder(gen, cfg, device=dev)
+    enc = torch.relu(randn(gen, B, cfg.num_pixels, cfg.encoder_dim)).to(dev)
+    ea = attention.precompute(params["attention"], enc)
+    emb = randn(gen, B, T, cfg.embed_dim, scale=0.5).to(dev)
+    step = params["decode_step"]
+    cell = train_cuda.cell_of(cfg)
+    semx = semh = None
+    if cell == "scn":
+        tags = torch.rand((B, cfg.semantic_dim), generator=gen).to(dev)
+        sx, sh = scn_cell.semantic_projections(step, tags)
+        semx, semh = (x.reshape(B, -1).to(dtype).contiguous()
+                      for x in (sx, sh))
+        w_x_emb = step["w_x"][:cfg.embed_dim]
+    else:
+        w_x_emb = step["w_ih"][:cfg.embed_dim]
+    h0, c0 = decoders.init_hidden_state(params, enc)
+    kw = {k: v.contiguous() for k, v in
+          train_cuda.pack_train_weights(params, cfg, dtype).items()}
+    return cell, (kw, enc.to(dtype), ea.to(dtype).contiguous(),
+                  (emb @ w_x_emb).to(dtype).contiguous(), semx, semh,
+                  h0.to(dtype).contiguous(), c0.to(dtype).contiguous())
+
+
+@pytest.mark.parametrize("family", ATT_FAMILIES)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B, T, S, E", [(3, 4, 3, 72), (17, 9, 7, 600)])
+def test_train_kernels_match_plain(dev, family, dtype, B, T, S, E):
+    """Kernel 8 (forward) and kernel 9 (backward, on the plain forward's
+    residuals) against their plain versions: every output and stream."""
+    cfg = small_cfg(family, enc_image_size=S, encoder_dim=E)
+    gen = torch.Generator().manual_seed(B * 100 + T)
+    with torch.no_grad():
+        cell, args = _train_args(dev, dtype, cfg, B, T, gen)
+        n0 = (train_cuda.train_fwd.launches, train_cuda.train_bwd.launches)
+        out = train_cuda.train_fwd(*args, cell=cell)
+        ref = train_cuda.train_fwd_plain(*args, cell=cell)
+        assert out[2].dtype == F32 and out[0].dtype == dtype
+        for a, b in zip(out, ref):
+            assert a.shape == b.shape
+            assert rel(a, b) <= TRAIN_TOL[dtype]
+        d_hall = randn(gen, *ref[0].shape).to(dev, dtype)
+        d_alphas = randn(gen, *ref[2].shape, scale=0.1).to(dev)
+        bargs = args + tuple(ref) + (d_hall, d_alphas)
+        got = train_cuda.train_bwd(*bargs, cell=cell)
+        exp = train_cuda.train_bwd_plain(*bargs, cell=cell)
+        torch.cuda.synchronize()
+    assert (train_cuda.train_fwd.launches, train_cuda.train_bwd.launches) \
+        == (n0[0] + 1, n0[1] + 1)
+    assert set(got) == set(exp)
+    for k in exp:
+        assert got[k].shape == exp[k].shape and got[k].dtype == exp[k].dtype
+        assert rel_norm(got[k], exp[k]) <= TRAIN_TOL[dtype], k
+
+
+@pytest.mark.parametrize("family", ATT_FAMILIES)
+def test_fused_gradients_match_the_eager_scan_on_card(dev, family):
+    cfg = small_cfg(family, max_caption_len=10, dropout=0.0)
+    gen = torch.Generator().manual_seed(21)
+    params = decoders.init_decoder(gen, cfg, device=dev)
+    B, T = 7, 9
+    enc = torch.relu(randn(gen, B, 3, 3, cfg.encoder_dim, scale=0.5)).to(dev)
+    tags = torch.rand((B, cfg.semantic_dim), generator=gen).to(dev)
+    caps = torch.randint(1, cfg.vocab_size, (B, T + 1), generator=gen).to(dev)
+    caplens = torch.randint(2, T + 2, (B,), generator=gen).to(dev)
+    leaves = steps.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    res = {}
+    for impl in ("fused", "xla"):
+        c = dataclasses.replace(cfg, train_scan_impl=impl)
+        n0 = train_cuda.train_bwd.launches
+        out = decoders.teacher_forcing(params, c, enc, tags, caps, caplens,
+                                       train=True)
+        loss, _ = losses.caption_loss(out, caps, alpha_c=1.0)
+        res[impl] = (loss.item(), torch.autograd.grad(loss, leaves,
+                                                      allow_unused=True))
+        assert train_cuda.train_bwd.launches == n0 + (impl == "fused")
+    assert abs(res["fused"][0] - res["xla"][0]) <= 1e-5 * abs(res["xla"][0])
+    for gf, gx in zip(res["fused"][1], res["xla"][1]):
+        scale = float(gx.abs().max())
+        if scale < 1e-7:
+            continue
+        assert float((gf - gx).abs().max()) <= 5e-3 * scale
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One make_caption_train_step on the card (kernels 8 and 9, dense and
+    chunked heads) against the same step on the CPU (the eager scan)."""
+    cfg = small_cfg(max_caption_len=10, dropout=0.0)
+    gen = torch.Generator().manual_seed(31)
+    B, T = 5, 9
+    enc = torch.relu(randn(gen, B, 3, 3, cfg.encoder_dim, scale=0.5))
+    tags = torch.rand((B, cfg.semantic_dim), generator=gen)
+    caps = torch.randint(1, cfg.vocab_size, (B, T + 1), generator=gen)
+    caplens = torch.randint(2, T + 2, (B,), generator=gen)
+    base = decoders.init_decoder(gen, cfg)
+    for head in ("dense", "chunked"):
+        tcfg = TrainConfig(head_impl=head, head_tile=64)
+        out = {}
+        for where in ("cpu", dev):
+            params = _copy(base, where)
+            opt = steps.make_optimizer(tcfg.decoder_lr, tcfg.grad_clip)
+            _, step = steps.make_caption_train_step(cfg, tcfg, opt,
+                                                    device=where)
+            sub = {"params": params, "opt_state": opt.init(params)}
+            n0 = train_cuda.train_fwd.launches
+            _, m = step(sub, enc, tags, caps, caplens)
+            ran = train_cuda.train_fwd.launches - n0
+            assert ran == (where != "cpu")
+            out[str(where)] = (m, [p.grad.cpu() for p in
+                                   steps.tree_leaves(params)])
+        (mc, gc), (md, gd) = out["cpu"], out[str(dev)]
+        assert abs(float(md["loss"]) - float(mc["loss"])) <= 1e-5 * abs(
+            float(mc["loss"]))
+        assert float(md["n_tokens"]) == float(mc["n_tokens"])
+        for a, b in zip(gd, gc):
+            scale = float(b.abs().max())
+            if scale < 1e-7:      # the full_att bias: zero in math
+                continue
+            assert float((a - b).abs().max()) <= 5e-3 * scale
+
+
+def test_train_wrappers_reject_what_the_kernels_do_not_take(dev):
+    cfg = small_cfg()
+    gen = torch.Generator().manual_seed(41)
+    cell, args = _train_args(dev, F32, cfg, 3, 4, gen)
+    n0 = train_cuda.train_fwd.launches
+    kw, enc, ea, emb_fac, semx, semh, h0, c0 = args
+    with pytest.raises(TypeError, match="mixed"):
+        train_cuda.train_fwd(kw, enc, ea.to(BF16), emb_fac, semx, semh, h0,
+                             c0, cell=cell)
+    with pytest.raises(ValueError, match="contiguous"):
+        train_cuda.train_fwd(kw, enc, ea, emb_fac.transpose(0, 1)
+                             .contiguous().transpose(0, 1), semx, semh, h0,
+                             c0, cell=cell)
+    with pytest.raises(ValueError, match="weights"):
+        train_cuda.train_fwd(kw, enc, ea, emb_fac, semx, semh, h0, c0,
+                             cell="lstm")
+    assert train_cuda.train_fwd.launches == n0

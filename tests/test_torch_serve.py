@@ -144,13 +144,20 @@ def test_cuda_request_without_a_device_raises(engine_parts):
         attend_fused(meta, torch.empty((1, 4, 8), device="meta"),
                      torch.empty((1, 2, 8), device="meta"),
                      torch.empty((8,), device="meta"))
-    assert get_device("auto").type == "cpu"
+    # the default device is the card, and "auto" never means the CPU
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_device("auto")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CaptionEngine(state, cfg, wm)
+    assert get_device("cpu").type == "cpu"
 
 
 def test_port_imports_no_jax():
-    """After the port is imported and its CPU path has run, neither jax
-    nor the JAX package is in sys.modules (a subprocess: this test process
-    has imported both)."""
+    """After the port is imported and its CPU paths have run (a caption
+    batch and one train step), neither jax nor the JAX package is in
+    sys.modules (a subprocess: this test process has imported both)."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -177,6 +184,23 @@ def test_port_imports_no_jax():
             batch_buckets=(2,), beam_size=2, max_steps=3), device="cpu")
         caps = eng.caption_batch(np.zeros((2, 3, 32, 32), np.uint8))
         assert all(isinstance(c, str) for c in caps)
+        import dataclasses
+        from indonesian_image_captioning_tpu_torch.core.config import \
+            TrainConfig
+        from indonesian_image_captioning_tpu_torch.train import steps
+        tcfg = TrainConfig(head_impl="chunked", head_tile=8)
+        opt = steps.make_optimizer(1e-3, 5.0)
+        enc_fn, step = steps.make_caption_train_step(
+            dataclasses.replace(cfg, train_scan_impl="fused"), tcfg, opt,
+            device="cpu")
+        enc, tags = enc_fn(state, {"images": np.zeros((2, 3, 32, 32),
+                                                      np.uint8)})
+        sub = {"params": state["params"],
+               "opt_state": opt.init(state["params"])}
+        caps_ids = torch.randint(1, 20, (2, cfg.max_caption_len))
+        _, m = step(sub, enc, tags, caps_ids, torch.tensor([4, 9]),
+                    torch.Generator().manual_seed(0))
+        assert bool(torch.isfinite(m["loss"]))
         pkg = "indonesian_image_captioning_tpu"
         loaded = sorted(m for m in sys.modules
                         if m in ("jax", "jaxlib", pkg)
