@@ -14,20 +14,32 @@ Phases, each of which exits non-zero on failure:
    largest error with its tolerance, and the median time of each over 20
    runs (CUDA events, in turns plain, kernel, kernel, plain).  Kernel 2 is
    checked for all three model families (SCN and LSTM cells, with and
-   without attention).
+   without attention).  Kernel 7 (the span decode) runs one S=4 call from
+   a mid-decode state (two plain steps with a head biased toward <end>,
+   then every fourth image dead), both cells; kernel 13 (the megakernel)
+   one 51-step decode; their records must equal the plain version's but
+   at near-ties (REC_TOL).  Kernel 10 (the top-k) runs on a (32, 5 x
+   6,763) float32 beam candidate table and must equal row_topk_iterative
+   bitwise; torch.topk, one PyTorch call for the same values, is timed
+   beside it as the library yardstick.
 4. serve: the main path.  A CaptionEngine on seeded random weights
    (ResNet-152 caption encoder and tagger with BatchNorm statistics
    calibrated on one seeded batch, attention_scn at V=6,763), buckets
    (1, 8, 32): warmup(256), one 32-image caption_batch, then 12 requests
    through start/submit/stop.  The launch counters are zeroed just before
-   and read just after; the decode must have gone through kernel 2 once per
-   decode step.
-5. inference: caption_beam_search with decode_impl="steps" and
-   record_alphas=True (kernel 1 in the step engine) on the same encodings:
-   alphas sum to 1, and float32 beams equal the fused-step rung's except
-   for rows whose first divergence is a near-tie (prefix scores within
-   1e-4).  Then a breakdown of one batch: encoders and decode on the host
-   clock, and the decode's device busy share from torch.profiler.
+   and read just after; the decode must have resolved to "fused_span" and
+   gone through kernel 7 once per span call (1 to ceil(51 / 4) per
+   batch), with kernel 2's counter at 0.
+5. inference: caption_beam_search on the same encodings at float32 through
+   four rungs, each with the counters zeroed just before and read just
+   after: "steps" with record_alphas=True (kernel 1; alphas sum to 1),
+   "fused_step" (kernel 2), "fused_span" (kernel 7) and "fused" (kernel
+   13); each rung's beams equal the steps rung's except for rows whose
+   first divergence is a near-tie (prefix scores within 1e-4).  Then one
+   "steps" decode with the dense head and topk_backend="pallas" (kernel 10
+   on its path), held the same way.  Then a breakdown per rung at B=32:
+   the decode on the host clock, captions/s and the device busy share
+   from torch.profiler, beside the encoders' time.
 6. train: the cached-feature caption trainer, attention_scn at the
    flagship widths, V=6,763, T=51, B=32, decoder float32, encoders
    bfloat16.  Kernels 8 and 9 (the teacher-forcing scan, forward and
@@ -72,6 +84,19 @@ TOL = {  # largest absolute error allowed against the plain version
     "bfloat16": {"attend": 3e-2, "step_vals": 1e-1, "step_state": 5e-2},
 }
 NEAR_TIE = 1e-4
+# Kernels 7 and 13 against their plain versions, image by image: the
+# records equal up to the first step whose picks differ, where the two
+# picks' values must lie within "near" (a near-tie: the image's decode
+# differs from there on, and its later records and state are not
+# compared); until then vals and the carried scores within "vals", h and
+# c within "state".  float32: summation order.  bfloat16: kernel 2's
+# one-ulp differences in the logits (about 0.03 at |x| ~ 8) reach the
+# log-probabilities and add up in the scores over the steps.
+REC_TOL = {"float32": {"vals": 1e-4, "state": 1e-4, "near": NEAR_TIE},
+           "bfloat16": {"vals": 0.25, "state": 5e-2, "near": 0.25}}
+SPAN = 4                   # ModelConfig().decode_span
+END_BIAS = 0.5             # kernel 7's call: a head biased toward <end>
+NEG = -1e30
 # Kernel 8 (forward): largest error against the plain version, relative to
 # each output's largest magnitude.  float32: summation order, grown over
 # 51 recurrent steps.  bfloat16: the kernel and the plain version round at
@@ -129,7 +154,7 @@ def max_err(a, b):
 
 
 def kernel_phase(dev, dtype, cfg, B):
-    """Kernels 1 and 2 against their plain versions at cfg's widths.
+    """Kernels 1, 2, 7 and 13 against their plain versions at cfg's widths.
     Kernel 2 runs in all three of its forms: attention + SCN (cfg's
     family, the serving path), attention + LSTM (pure_attention) and SCN
     without attention (pure_scn, fused_decode_step_noattn)."""
@@ -174,14 +199,207 @@ def kernel_phase(dev, dtype, cfg, B):
           f"bound_ms {bound_ms:.4f} ({bound_by})")
     res["attend"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
-    # kernel 2
+    # kernel 2, then kernels 7 and 13 on the same weights
     res["step"] = step_case(dev, dtype, cfg, params, enc, gen)
     for family in ("pure_attention", "pure_scn"):
         fcfg = dataclasses.replace(cfg, model_type=family)
-        res[f"step_{family}"] = step_case(
-            dev, dtype, fcfg, decoders.init_decoder(gen, fcfg, device=dev),
-            enc, gen)
+        fparams = decoders.init_decoder(gen, fcfg, device=dev)
+        res[f"step_{family}"] = step_case(dev, dtype, fcfg, fparams, enc,
+                                          gen)
+        if family == "pure_attention":
+            res["span_pure_attention"] = span_case(dev, dtype, fcfg,
+                                                   fparams, enc, gen)
+    res["span"] = span_case(dev, dtype, cfg, params, enc, gen)
+    res["mega"] = mega_case(dev, dtype, cfg, params, enc, gen)
     return res
+
+
+def match_records(out, ref, tol, label):
+    """Records (words, parents, vals (B, T, K)) of a kernel against its
+    plain version's, per image as REC_TOL says.  Returns (the images
+    whose decode diverged at a near-tie, the largest vals error before,
+    a summary of the divergences)."""
+    words, parents, vals = out
+    same = ((words == ref[0]).all(2) & (parents == ref[1]).all(2)).cpu()
+    gap = (vals - ref[2]).abs().amax(2).cpu()
+    diverged, worst, gaps, steps = [], 0.0, [], []
+    for b in range(words.shape[0]):
+        bad = (~same[b]).nonzero()
+        upto = int(bad[0]) if len(bad) else words.shape[1]
+        if upto < words.shape[1]:
+            g = float(gap[b, upto])
+            check(g <= tol["near"], f"{label}: image {b} step {upto}: picks "
+                  f"differ with values {g} apart (near-tie limit "
+                  f"{tol['near']})")
+            diverged.append(b)
+            gaps.append(g)
+            steps.append(upto)
+        if upto:
+            worst = max(worst, float(gap[b, :upto].max()))
+    check(worst <= tol["vals"], f"{label}: vals error {worst} > "
+          f"{tol['vals']}")
+    summary = (f"{len(diverged)} images diverged at near-ties" + (
+        f" (from step {min(steps)}, median {sorted(steps)[len(steps) // 2]};"
+        f" gaps up to {max(gaps):.3g})" if diverged else ""))
+    return diverged, worst, summary
+
+
+def span_case(dev, dtype, cfg, params, enc, gen):
+    """Kernel 7 for cfg's family: one S=4 call from a mid-decode state
+    against its plain version -- records, then h, c, sc, pw and alive of
+    the images whose decode did not diverge -- and both times."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.models import decoders
+    from indonesian_image_captioning_tpu_torch.ops import span_cuda
+
+    name = str(dtype).replace("torch.", "")
+    tol = REC_TOL[name]
+    label = f"fused_decode_span[{cfg.model_type}] {name}"
+    nb, V = enc.shape[0], cfg.vocab_size
+    cell = "scn" if cfg.uses_tags else "lstm"
+    p = decoders.cast_params(params, dtype)
+    tags = torch.rand((nb, cfg.semantic_dim), generator=gen).to(dev, dtype)
+    ins = span_cuda.decode_inputs(p, cfg, enc, tags, K)
+    w = (ins["weights"], ins["emb_tab"], ins["enc"], ins["ea"], ins["semx"],
+         ins["semh"])
+    sc, pw, alive = span_cuda.initial_carry(nb, K, V - 2, dev)
+    # the mid-decode state: two plain steps from <start>; then in every
+    # fourth image the rank-0 lane retired (as on emitting <end>) and
+    # every fourth image dead
+    _, _, _, h, c, sc, pw, alive = span_cuda.fused_decode_span_plain(
+        *w, ins["h"], ins["c"], sc, pw, alive, span=2, end_id=V - 1,
+        cell=cell)
+    img = torch.arange(nb, device=dev)
+    dead = img % 4 == 3
+    retired = (img % 4 == 1).repeat_interleave(K) & (
+        torch.arange(nb * K, device=dev) % K == 0)
+    alive = torch.where(dead[:, None], torch.zeros_like(alive),
+                        alive - (img % 4 == 1).to(alive.dtype)[:, None])
+    sc = torch.where((dead.repeat_interleave(K) | retired)[:, None],
+                     torch.full_like(sc, NEG), sc)
+    n_live = int((sc > NEG).sum())
+    # the call's head leans toward <end>, so lanes retire within it
+    w[0]["fcb"] = w[0]["fcb"].clone()
+    w[0]["fcb"][V - 1] += END_BIAS
+    args = w + (h, c, sc, pw, alive)
+
+    def kernel():
+        return span_cuda.fused_decode_span(*args, span=SPAN, end_id=V - 1,
+                                           cell=cell)
+
+    def plain():
+        return span_cuda.fused_decode_span_plain(*args, span=SPAN,
+                                                 end_id=V - 1, cell=cell)
+
+    n0 = span_cuda.fused_decode_span.launches
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    check(span_cuda.fused_decode_span.launches == n0 + 1,
+          f"{label}: the kernel was not launched")
+    diverged, e_vals, summary = match_records(out[:3], ref[:3], tol, label)
+    keep = [b for b in range(nb) if b not in diverged]
+    rows = torch.tensor([b * K + k for b in keep for k in range(K)],
+                        device=dev)
+    e_state = max(max_err(out[i][rows], ref[i][rows]) for i in (3, 4))
+    e_sc = max_err(out[5][rows], ref[5][rows])
+    check(e_state <= tol["state"], f"{label}: h/c error {e_state}")
+    check(e_sc <= tol["vals"], f"{label}: score error {e_sc}")
+    check(torch.equal(out[6][rows], ref[6][rows])
+          and torch.equal(out[7][keep], ref[7][keep]),
+          f"{label}: previous words or alive counts differ")
+    plain_ms, ms = median_ms([plain, kernel])
+    bound_ms, bound_by = bound(*record_work(cfg, nb, SPAN, dtype.itemsize),
+                               name)
+    print(f"kernel {label}: state {n_live} live lanes of {nb * K}, "
+          f"{int(dead.sum())} dead images, {int(ref[7].sum())} live lanes "
+          f"after; max_abs_err vals {max(e_vals, e_sc):.3g} (tol "
+          f"{tol['vals']}), h/c {e_state:.3g} (tol {tol['state']}); "
+          f"{summary}; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bound_ms:.4f} ({bound_by})")
+    return dict(max_abs_err=max(e_vals, e_sc, e_state), ms=ms,
+                plain_ms=plain_ms)
+
+
+def mega_case(dev, dtype, cfg, params, enc, gen):
+    """Kernel 13: one 51-step decode from <start> against its plain
+    version's records, and both times (10 runs each)."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.models import decoders
+    from indonesian_image_captioning_tpu_torch.ops import decode_cuda
+
+    name = str(dtype).replace("torch.", "")
+    label = f"beam_decode_records {name}"
+    nb, V = enc.shape[0], cfg.vocab_size
+    T = cfg.max_caption_len - 1
+    p = decoders.cast_params(params, dtype)
+    tags = torch.rand((nb, cfg.semantic_dim), generator=gen).to(dev, dtype)
+    kw = dict(beam_size=K, start_id=V - 2, end_id=V - 1, max_steps=T)
+    keys = ("words", "parents", "vals")
+
+    def kernel():
+        return decode_cuda.beam_decode_records(p, cfg, enc, tags, **kw)
+
+    def plain():
+        return decode_cuda.beam_decode_records_plain(p, cfg, enc, tags, **kw)
+
+    n0 = decode_cuda.beam_decode_records.launches
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    check(decode_cuda.beam_decode_records.launches == n0 + 1,
+          f"{label}: the kernel was not launched")
+    _, err, summary = match_records([out[k] for k in keys],
+                                    [ref[k] for k in keys], REC_TOL[name],
+                                    label)
+    ran = int((ref["vals"] > NEG).any(2).any(0).sum())   # steps that ran
+    plain_ms, ms = median_ms([plain, kernel], runs=10)
+    bound_ms, bound_by = bound(*record_work(cfg, nb, ran, dtype.itemsize),
+                               name)
+    print(f"kernel {label}: {ran} steps ran; max_abs_err vals {err:.3g} "
+          f"(tol {REC_TOL[name]['vals']}); {summary}; ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, steps=ran)
+
+
+def topk_case(dev, nb):
+    """Kernel 10 on the dense head's (B, K*V) float32 candidate table
+    (every other row one live lane, as at the first step): bitwise
+    row_topk_iterative; torch.topk's values equal.  Times of the kernel,
+    the plain version and torch.topk."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import topk
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    logp = torch.log_softmax(torch.randn((nb, K, VOCAB), generator=gen) * 2,
+                             dim=-1)
+    scores = -torch.rand((nb, K, 1), generator=gen) * 10
+    scores[::2, 1:] = NEG
+    cand = torch.clamp_min(scores + logp, NEG)
+    cand = torch.where(scores <= NEG, torch.full_like(cand, NEG), cand)
+    x = cand.reshape(nb, K * VOCAB).to(dev).contiguous()
+    n0 = topk.row_topk_pallas.launches
+    vals, idx = topk.row_topk_pallas(x, K)
+    ref_v, ref_i = topk.row_topk_iterative(x, K)
+    lib_v, _ = torch.topk(x, K, dim=1)
+    torch.cuda.synchronize()
+    check(topk.row_topk_pallas.launches == n0 + 1,
+          "row_topk_pallas: the kernel was not launched")
+    check(torch.equal(idx.long(), ref_i) and torch.equal(vals, ref_v),
+          "row_topk_pallas differs from row_topk_iterative")
+    check(torch.equal(lib_v, ref_v), "torch.topk's values differ")
+    plain_ms, ms, lib_ms = median_ms([
+        lambda: topk.row_topk_iterative(x, K),
+        lambda: topk.row_topk_pallas(x, K),
+        lambda: torch.topk(x, K, dim=1)])
+    work = topk_work(nb, K * VOCAB, K)
+    bound_ms, bound_by = bound(*work)
+    print(f"kernel row_topk_pallas float32 ({nb}, {K * VOCAB}) k={K}: equal "
+          f"to row_topk_iterative bitwise; ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} library_ms (torch.topk) {lib_ms:.4f} bound_ms "
+          f"{bound_ms:.4f} ({bound_by})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
 
 
 def step_case(dev, dtype, cfg, params, enc, gen):
@@ -303,15 +521,43 @@ def prefix_scores(params, cfg, enc1, tags1, seqs, upto):
     return total
 
 
+RUNGS = {  # decode rung -> the kernel whose counter it moves
+    "steps": "attend_fused", "fused_step": "fused_decode_step",
+    "fused_span": "fused_decode_span", "fused": "beam_decode_records"}
+
+
+def counters():
+    """The launch counter of each decode kernel's wrapper, by name."""
+    from indonesian_image_captioning_tpu_torch.ops import (attention_cuda,
+                                                           decode_cuda,
+                                                           span_cuda,
+                                                           step_cuda, topk)
+
+    return {"attend_fused": attention_cuda.attend_fused,
+            "fused_decode_step": step_cuda.fused_decode_step,
+            "fused_decode_span": span_cuda.fused_decode_span,
+            "beam_decode_records": decode_cuda.beam_decode_records,
+            "row_topk_pallas": topk.row_topk_pallas}
+
+
+def zero_counters():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
 def serve_and_inference(dev, cfg, B, image_size):
+    """The serving main path, then the inference rungs on its encodings.
+    Returns each decode kernel's launches on the path that runs it."""
     import numpy as np
     import torch
 
     from indonesian_image_captioning_tpu_torch.decode.api import \
         caption_beam_search
     from indonesian_image_captioning_tpu_torch.models import encoders
-    from indonesian_image_captioning_tpu_torch.ops import (attention_cuda,
-                                                           step_cuda)
     from indonesian_image_captioning_tpu_torch.serve import (CaptionEngine,
                                                              ServeConfig)
 
@@ -336,8 +582,7 @@ def serve_and_inference(dev, cfg, B, image_size):
           f"{time.perf_counter() - t0:.1f} s")
 
     # ---- the main path: counters zeroed just before, read just after ----
-    attention_cuda.attend_fused.launches = 0
-    step_cuda.fused_decode_step.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     caps = engine.caption_batch(images)
     t_batch = time.perf_counter() - t0
@@ -350,32 +595,34 @@ def serve_and_inference(dev, cfg, B, image_size):
         t_async = time.perf_counter() - t0
     finally:
         engine.stop()
-    launches = {"attend_fused": attention_cuda.attend_fused.launches,
-                "fused_decode_step": step_cuda.fused_decode_step.launches}
+    launches = read_counters()
     # ---------------------------------------------------------------------
-    steps = sum(engine.stats.decode_steps)
+    calls = engine.stats.decode_calls
+    n_span = -(-engine.beam_cfg.max_steps // cfg.decode_span)
     check(len(caps) == B and all(isinstance(s, str) for s in caps),
           f"caption_batch did not return {B} strings")
     check(len(got) == n_async and all(isinstance(s, str) for s in got),
           "a future gave no string")
-    check(set(engine.stats.decode_impls) == {"fused_step"},
+    check(set(engine.stats.decode_impls) == {"fused_span"},
           f"decode resolved to {engine.stats.decode_impls}")
-    check(launches["fused_decode_step"] == steps > 0,
-          f"kernel 2 ran {launches['fused_decode_step']} times over "
-          f"{steps} decode steps")
-    check(launches["attend_fused"] == steps,
-          f"kernel 1 ran {launches['attend_fused']} times in {steps} steps")
+    check(launches["fused_decode_span"] == sum(calls) > 0
+          and all(1 <= n <= n_span for n in calls),
+          f"kernel 7 ran {launches['fused_decode_span']} times over decode "
+          f"calls {calls} (1 to {n_span} per batch)")
+    check(launches["fused_decode_step"] == 0 and launches["attend_fused"]
+          == 0, f"the span rung launched other decode kernels: {launches}")
     # rows may round differently at another batch size (cuDNN and cuBLAS
     # pick kernels by shape), so equal captions are counted, not required
     n_same = sum(a == b for a, b in zip(got, caps))
     print(f"serve: caption_batch({B}) {t_batch:.3f} s; {n_async} async "
           f"requests in batches {engine.stats.batches[1:]} {t_async:.3f} s, "
           f"{n_same} captions equal to the batch's; "
-          f"decode {engine.stats.decode_impls[0]}, {steps} steps, kernel "
-          f"launches {launches}")
+          f"decode {engine.stats.decode_impls[0]}, kernel 7 calls per "
+          f"batch {calls}; kernel launches {launches}")
     print(f"serve: caption[0] = {caps[0][:80]!r}")
+    found = {"fused_decode_span": launches["fused_decode_span"]}
 
-    # ---- inference phase: the step engine with alphas (kernel 1) ----
+    # ---- inference: each rung on the same encodings, float32 ----
     with torch.inference_mode():
         x = encoders.prep_images(torch.from_numpy(images).to(dev))
         tags = encoders.apply_encoder_tagger(
@@ -391,48 +638,75 @@ def serve_and_inference(dev, cfg, B, image_size):
         check(bool(((tags >= 0) & (tags <= 1)).all()), "tags outside [0, 1]")
         kw = dict(start_id=wm["<start>"], end_id=wm["<end>"])
         params = engine.state["params"]
-        k1 = attention_cuda.attend_fused.launches
-        steps_out = caption_beam_search(
-            params, dataclasses.replace(cfg, decode_impl="steps"), enc, tags,
-            record_alphas=True, **kw)
-        k1 = attention_cuda.attend_fused.launches - k1
-        check(steps_out["decode_impl"] == "steps" and k1 ==
-              steps_out["steps"] > 0, f"step engine: kernel 1 ran {k1} "
-              f"times in {steps_out['steps']} steps")
+        outs = {}
+        for impl, kernel in RUNGS.items():
+            zero_counters()
+            out = caption_beam_search(
+                params, dataclasses.replace(cfg, decode_impl=impl), enc,
+                tags, record_alphas=impl == "steps", **kw)
+            ran = read_counters()
+            want = out["decode_calls"]
+            check(out["decode_impl"] == impl and ran[kernel] == want > 0,
+                  f"rung {impl}: {kernel} ran {ran[kernel]} times in "
+                  f"{want} calls")
+            found.setdefault(kernel, ran[kernel])
+            outs[impl] = out
+        steps_out = outs["steps"]
         lens = steps_out["lengths"]
         pos = torch.arange(steps_out["alpha"].shape[1], device=dev)
         valid = (pos[None, :] >= 1) & (pos[None, :] < lens[:, None])
         sums = steps_out["alpha"].sum(-1)
         a_err = float((sums - 1).abs()[valid].max())
         check(a_err < 1e-3, f"alphas sum to 1 within {a_err}")
-        fused_out = caption_beam_search(
-            params, dataclasses.replace(cfg, decode_impl="fused_step"), enc,
-            tags, **kw)
-        same = ((fused_out["sequences"] == steps_out["sequences"]).all(1)
-                & (fused_out["lengths"] == lens))
-        near_ties = 0
-        for r in (~same).nonzero().flatten().tolist():
-            s, f = steps_out["sequences"][r], fused_out["sequences"][r]
-            t = int((s != f).nonzero()[0]) if bool((s != f).any()) else \
-                int(min(lens[r], fused_out["lengths"][r]))
-            sc = prefix_scores(params, cfg, enc[r:r + 1], tags[r:r + 1],
-                               torch.stack([s, f]), t)
-            gap = abs(float(sc[0] - sc[1]))
-            check(gap <= NEAR_TIE, f"row {r}: beams diverge at step {t} "
-                  f"with prefix scores {sc.tolist()} (gap {gap})")
-            near_ties += 1
+        zero_counters()
+        outs["steps+pallas top-k"] = caption_beam_search(
+            params, dataclasses.replace(cfg, decode_impl="steps",
+                                        sparse_head=False,
+                                        topk_backend="pallas"),
+            enc, tags, **kw)
+        ran = read_counters()["row_topk_pallas"]
+        check(ran == outs["steps+pallas top-k"]["steps"] > 0,
+              f"the dense head ran kernel 10 {ran} times")
+        found["row_topk_pallas"] = ran
+        for impl, out in outs.items():
+            if impl != "steps":
+                equal, ties = same_beams(params, cfg, enc, tags, steps_out,
+                                         out, impl)
+                print(f"inference: {impl} vs steps at float32: {equal}/{B} "
+                      f"rows equal, {ties} near-tie rows; "
+                      f"{out['decode_calls']} kernel calls")
     print(f"inference: steps engine with alphas, {steps_out['steps']} steps, "
-          f"kernel 1 launches {k1}, alpha sums within {a_err:.2g} of 1; "
-          f"fused_step vs steps at float32: {int(same.sum())}/{B} rows "
-          f"equal, {near_ties} near-tie rows")
+          f"alpha sums within {a_err:.2g} of 1; launches per rung {found}")
     breakdown(engine, cfg, x, enc, tags, kw)
-    return launches
+    return found
+
+
+def same_beams(params, cfg, enc, tags, ref, out, label):
+    """Rows whose beams equal ref's, and rows whose first divergence is a
+    near-tie (prefix scores within NEAR_TIE); any other row fails."""
+    import torch
+
+    same = ((out["sequences"] == ref["sequences"]).all(1)
+            & (out["lengths"] == ref["lengths"]))
+    near_ties = 0
+    for r in (~same).nonzero().flatten().tolist():
+        s, f = ref["sequences"][r], out["sequences"][r]
+        t = int((s != f).nonzero()[0]) if bool((s != f).any()) else \
+            int(min(ref["lengths"][r], out["lengths"][r]))
+        sc = prefix_scores(params, cfg, enc[r:r + 1], tags[r:r + 1],
+                           torch.stack([s, f]), t)
+        gap = abs(float(sc[0] - sc[1]))
+        check(gap <= NEAR_TIE, f"{label} row {r}: beams diverge at step {t} "
+              f"with prefix scores {sc.tolist()} (gap {gap})")
+        near_ties += 1
+    return int(same.sum()), near_ties
 
 
 def breakdown(engine, cfg, x, enc, tags, kw):
-    """Where one batch's time goes: encoders and decode on the host clock
-    (median of 3, each ending in a synchronise), and the decode's device
-    busy share and top kernels from torch.profiler."""
+    """Where one batch's time goes: the encoders, and the decode through
+    each rung on the host clock (median of 3, each ending in a
+    synchronise) with captions/s, and the decode's device busy share and
+    top kernels from torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -450,9 +724,6 @@ def breakdown(engine, cfg, x, enc, tags, kw):
             st["encoder"], st["encoder_stats"], x,
             enc_image_size=cfg.enc_image_size, arch=cfg.encoder_arch)
 
-    def run_decode():
-        return caption_beam_search(st["params"], cfg, enc, tags, **kw)
-
     def host_s(fn):
         times = []
         for _ in range(3):
@@ -463,26 +734,38 @@ def breakdown(engine, cfg, x, enc, tags, kw):
             times.append(time.perf_counter() - t0)
         return statistics.median(times)
 
+    nb = x.shape[0]
     with torch.inference_mode():
-        t_enc, t_dec = host_s(run_encoders), host_s(run_decode)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_decode()
-            torch.cuda.synchronize()
-            t_prof = time.perf_counter() - t0
-    kernels = sorted(((e.self_device_time_total, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA), reverse=True)
-    busy = sum(t for t, _ in kernels) / 1e6
-    top = ", ".join(f"{k.split('(')[0][:40]} {t / 1e3:.1f} ms"
-                    for t, k in kernels[:3])
-    # the profiler stretches the host side, not the kernels: the busy
-    # share is taken against the unprofiled decode time
-    print(f"breakdown: batch of {x.shape[0]}, {cfg.dtype}: encoders "
-          f"{t_enc * 1e3:.1f} ms, decode {t_dec * 1e3:.1f} ms; kernels "
-          f"{busy * 1e3:.1f} ms of it ({100 * busy / t_dec:.1f} % busy; "
-          f"{t_prof * 1e3:.1f} ms under the profiler); top: {top}")
+        t_enc = host_s(run_encoders)
+        print(f"breakdown: batch of {nb}, {cfg.dtype}: encoders "
+              f"{t_enc * 1e3:.1f} ms")
+        for impl in RUNGS:
+            rcfg = dataclasses.replace(cfg, decode_impl=impl)
+
+            def run_decode():
+                return caption_beam_search(st["params"], rcfg, enc, tags,
+                                           **kw)
+
+            t_dec = host_s(run_decode)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run_decode()
+                torch.cuda.synchronize()
+                t_prof = time.perf_counter() - t0
+            kernels = sorted(((e.self_device_time_total, e.key)
+                              for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA),
+                             reverse=True)
+            busy = sum(t for t, _ in kernels) / 1e6
+            top = ", ".join(f"{k.split('(')[0][:40]} {t / 1e3:.1f} ms"
+                            for t, k in kernels[:3])
+            # the profiler stretches the host side, not the kernels: the
+            # busy share is taken against the unprofiled decode time
+            print(f"breakdown[{impl}]: decode {t_dec * 1e3:.1f} ms, "
+                  f"{nb / t_dec:.1f} captions/s; kernels {busy * 1e3:.1f} "
+                  f"ms of it ({100 * busy / t_dec:.1f} % busy; "
+                  f"{t_prof * 1e3:.1f} ms under the profiler); top: {top}")
 
 
 def bound(nbytes, flops, dtype="float32"):
@@ -520,6 +803,26 @@ def step_work(cfg, B, isz=4):
     att = B * K * P * (3 * A + 2 * E) if cfg.uses_attention else 0
     nbytes = isz * (weights + enc + rows) + 4 * R * (2 * K + 1)
     return nbytes, 2 * R * weights + att
+
+
+def record_work(cfg, B, steps, isz=4):
+    """Bytes and operations of kernels 7 and 13 over `steps` steps of B
+    images: kernel 2's bytes once (a call that kept them could read the
+    weights, the encoder state and the carried rows once), the embedding
+    rows of every step and the records; kernel 2's operations every
+    step."""
+    nbytes, flops = step_work(cfg, B, isz)
+    R = B * K
+    nbytes += (isz * steps * R * cfg.embed_dim + 12 * B * steps * K
+               + 16 * R + 8 * B)
+    return nbytes, steps * flops
+
+
+def topk_work(R, V, k):
+    """Bytes and operations of kernel 10: the (R, V) float32 table read
+    once, the (R, k) values and indices written once; one comparison per
+    value."""
+    return 4 * R * V + 8 * R * k, R * V
 
 
 def train_work(cfg, B, T, isz=4):
@@ -891,6 +1194,7 @@ def main() -> int:
     with torch.inference_mode():
         res = {str(dt).replace("torch.", ""): kernel_phase(dev, dt, cfg, B)
                for dt in (torch.float32, torch.bfloat16)}
+        topk_res = topk_case(dev, B)
     t0 = time.perf_counter()
     launches = serve_and_inference(dev, cfg, B, IMAGE_SIZE)
     print(f"phases: kernels {t0 - t_start:.1f} s, serve and inference "
@@ -904,12 +1208,18 @@ def main() -> int:
     fwd_work, bwd_work = train_work(cfg, B, T)
     csrc = "indonesian_image_captioning_tpu_torch/csrc/"
     jax_ops = "indonesian_image_captioning_tpu/ops/"
+    f32, bf16 = res["float32"], res["bfloat16"]
     rows = (("attend_fused", "attend.cu", "attention_pallas.py:233",
-             res["float32"]["attend"], res["bfloat16"]["attend"],
-             attend_work(cfg, B)),
+             f32["attend"], bf16["attend"], attend_work(cfg, B)),
             ("fused_decode_step", "step.cu", "step_pallas.py:379",
-             res["float32"]["step"], res["bfloat16"]["step"],
-             step_work(cfg, B)),
+             f32["step"], bf16["step"], step_work(cfg, B)),
+            ("fused_decode_span", "span.cu", "span_pallas.py:521",
+             f32["span"], bf16["span"], record_work(cfg, B, SPAN)),
+            ("beam_decode_records", "span.cu", "decode_pallas.py:305",
+             f32["mega"], bf16["mega"],
+             record_work(cfg, B, f32["mega"]["steps"])),
+            ("row_topk_pallas", "topk.cu", "topk_pallas.py:85", topk_res,
+             None, topk_work(B, K * VOCAB, K)),
             ("train_fwd", "train.cu", "train_pallas.py:768",
              train_res[("float32", "attention_scn")]["train_fwd"],
              train_res[("bfloat16", "attention_scn")]["train_fwd"], fwd_work),
@@ -918,17 +1228,19 @@ def main() -> int:
              train_res[("bfloat16", "attention_scn")]["train_bwd"],
              bwd_work))
     kernels = []
-    for name, source, replaces, f32, bf16, (nbytes, flops) in rows:
-        check(launches[name] > 0, f"{name} never launched on the main path")
+    for name, source, replaces, r32, r16, (nbytes, flops) in rows:
+        check(launches.get(name, 0) > 0,
+              f"{name} never launched on its path")
         bound_ms, bound_by = bound(nbytes, flops)
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + source,
             "replaces": jax_ops + replaces, "launches": launches[name],
-            "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
-            "plain_ms": f32["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "bf16_max_abs_err": bf16["max_abs_err"], "bf16_ms": bf16["ms"],
-            "bf16_plain_ms": bf16["plain_ms"]})
+            "max_abs_err": r32["max_abs_err"], "ms": r32["ms"],
+            "plain_ms": r32["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": r32.get("library_ms"),
+            "bf16_max_abs_err": r16 and r16["max_abs_err"],
+            "bf16_ms": r16 and r16["ms"],
+            "bf16_plain_ms": r16 and r16["plain_ms"]})
     print(f"phases: all {time.perf_counter() - t_start:.1f} s after the "
           "build")
     print(json.dumps({"kernels": kernels}))

@@ -13,6 +13,16 @@ namespace iic {
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
+constexpr int kMaxK = 8;          // beam widths and top-k sizes 1..8
+constexpr float kNeg = -1e30f;    // the beam's dead-lane sentinel (NEG)
+
+// The decode megakernel's early exit (span.cu iic_decode_records): a chain
+// kernel given a `live` word returns at once when it reads 0.  Null for
+// every other caller.
+__device__ __forceinline__ bool skip(const int* live) {
+  return live != nullptr && *live == 0;
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);

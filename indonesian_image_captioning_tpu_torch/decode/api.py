@@ -1,10 +1,28 @@
 """High-level decode entry points tying the decoders to the beam engine
 (counterpart of the JAX package's ``decode/api.py``).
 
-The decode ladder of the port: "fused_step" (kernel 2, one whole beam step
-per call) where it applies, else "steps" (the step engine, whose attention
-is kernel 1 on CUDA).  Names whose kernel is not ported yet raise
-``NotImplementedError`` rather than fall down the ladder.
+The decode ladder of the port, best first, as the JAX ladder
+(``decode/api.py:19-160`` there) without its TPU tile and VMEM tests:
+
+* "fused_span" -- kernel 7 (``ops/span_cuda.py``): S = cfg.decode_span
+  beam steps per call, the selection on the card, records replayed by
+  ``decode/replay.py``; attention_scn and pure_attention without alphas;
+* "fused_step" -- kernel 2, one whole beam step per call; no alphas;
+* "steps" -- the step engine, whose attention is kernel 1 on CUDA; the
+  only rung that records alphas.
+
+"auto" walks it on CUDA and is "steps" on the CPU.  An explicit rung that
+does not apply falls down the ladder.  "fused" names kernel 13
+(``ops/decode_cuda.py``, the whole decode in one call) for attention_scn
+without alphas, else the step engine, as in JAX.  On CPU tensors the
+fused rungs run their kernels' plain versions.  One difference from JAX,
+by design: JAX takes "fused_span" only where a TPU image tile with
+G*K % 8 == 0 divides the batch (so bucket 1 falls to "fused_step"); the
+port has no such tile and takes it at every batch size.
+
+``enc_quant="int8"`` and ``fused_cell=True`` name kernels that are not
+ported yet and raise ``NotImplementedError`` rather than fall down the
+ladder.
 """
 
 from __future__ import annotations
@@ -19,17 +37,12 @@ from .beam import beam_search
 
 DECODE_IMPLS = ("auto", "steps", "fused_step", "fused_span", "fused")
 _NOT_PORTED = "not ported yet (ROADMAP.md, kernels still to port)"
+SPAN_MODELS = ("attention_scn", "pure_attention")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config that names an unported
     kernel."""
-    if cfg.decode_impl in ("fused_span", "fused"):
-        kernel = {"fused_span": "fused_decode_span",
-                  "fused": "beam_decode_records"}[cfg.decode_impl]
-        raise NotImplementedError(
-            f'decode_impl="{cfg.decode_impl}": the kernel {kernel} is '
-            + _NOT_PORTED)
     if cfg.enc_quant == "int8":
         raise NotImplementedError(
             'enc_quant="int8": the kernels attend_fused_q and '
@@ -37,29 +50,28 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.fused_cell:
         raise NotImplementedError(
             "fused_cell=True: the kernel scn_step_fused is " + _NOT_PORTED)
-    if cfg.topk_backend == "pallas":
-        raise NotImplementedError(
-            'topk_backend="pallas": the kernel row_topk_pallas is '
-            + _NOT_PORTED)
 
 
 def resolve_decode_impl(cfg: ModelConfig, *, record_alphas: bool,
                         device: torch.device) -> str:
-    """cfg.decode_impl -> "fused_step" or "steps".
-
-    "auto" is "fused_step" on CUDA when alphas are not recorded, else
-    "steps" (always "steps" on the CPU, as in the JAX package).  An
-    explicit "fused_step" runs kernel 2 (its plain version on CPU tensors)
-    unless alphas are recorded, which only the step engine emits."""
+    """cfg.decode_impl -> the rung that runs: "fused_span", "fused_step",
+    "fused" or "steps" (the module docstring gives the ladder)."""
     if cfg.decode_impl not in DECODE_IMPLS:
         raise ValueError(f"unknown decode_impl {cfg.decode_impl!r}")
     check_ported(cfg)
     if cfg.model_type not in decoders.MODEL_TYPES:
         raise ValueError(f"unknown model_type {cfg.model_type!r}")
+    on_card = device.type == "cuda"
+    span_ok = cfg.model_type in SPAN_MODELS and not record_alphas
     impl = cfg.decode_impl
     if impl == "auto":
-        impl = "fused_step" if device.type == "cuda" else "steps"
-    if record_alphas:
+        impl = "fused_span" if on_card else "steps"
+    if impl == "fused_span" and not span_ok:
+        impl = "fused_step" if on_card else "steps"
+    if impl == "fused" and (cfg.model_type != "attention_scn"
+                            or record_alphas):
+        impl = "steps"
+    if impl == "fused_step" and record_alphas:
         impl = "steps"
     return impl
 
@@ -74,9 +86,11 @@ def caption_beam_search(params, cfg: ModelConfig, enc, tags, *,
     enc:  (B, H, W, E) or (B, P, E) encoder output
     tags: (B, S) tag probabilities (ignored by pure_attention; pass zeros)
     Returns a dict with sequences (B, L), lengths (B,), scores (B,), the
-    completion pools, ``decode_impl`` (the rung that ran), ``steps`` and,
-    with record_alphas, the per-step attention ``alpha`` (B, L, P).
-    Parameters are cast to the encoding's type when they differ.
+    completion pools, ``decode_impl`` (the rung that ran), ``steps``,
+    ``decode_calls`` (calls of the rung's kernel, or of the step engine's
+    step) and, with record_alphas, the per-step attention ``alpha``
+    (B, L, P).  Parameters are cast to the encoding's type when they
+    differ.
     """
     enc_flat = decoders.flatten_encoding(enc, cfg.encoder_dim)
     impl = resolve_decode_impl(cfg, record_alphas=record_alphas,
@@ -84,6 +98,25 @@ def caption_beam_search(params, cfg: ModelConfig, enc, tags, *,
     if params["embedding"].dtype != enc_flat.dtype:
         params = decoders.cast_params(params, enc_flat.dtype)
     tags = tags.to(enc_flat.dtype)
+    K, T = beam_cfg.beam_size, beam_cfg.max_steps
+    if impl in ("fused_span", "fused"):
+        from .replay import replay_beam_records
+        kw = dict(beam_size=K, start_id=start_id, end_id=end_id,
+                  max_steps=T)
+        if impl == "fused_span":
+            from ..ops.span_cuda import beam_decode_span_records
+            records = beam_decode_span_records(params, cfg, enc_flat, tags,
+                                               span=cfg.decode_span, **kw)
+            calls = records["calls"]
+        else:
+            from ..ops.decode_cuda import beam_decode_records
+            records = beam_decode_records(params, cfg, enc_flat, tags, **kw)
+            calls = 1
+        out = replay_beam_records(records, start_id=start_id, end_id=end_id,
+                                  seq_len=T + 1,
+                                  length_penalty=beam_cfg.length_penalty)
+        out.update(decode_impl=impl, decode_calls=calls)
+        return out
     init_state_fn, step_fn = decoders.make_beam_step(
         params, cfg, enc_flat, tags, fused_step=impl == "fused_step")
     emit_specs = {}
@@ -91,20 +124,20 @@ def caption_beam_search(params, cfg: ModelConfig, enc, tags, *,
         emit_specs["alpha"] = (enc_flat.shape[1],)
     out = beam_search(
         step_fn,
-        init_state_fn(beam_cfg.beam_size),
+        init_state_fn(K),
         batch_size=enc_flat.shape[0],
-        beam_size=beam_cfg.beam_size,
+        beam_size=K,
         vocab_size=cfg.vocab_size,
         start_id=start_id,
         end_id=end_id,
-        max_steps=beam_cfg.max_steps,
-        seq_len=beam_cfg.max_steps + 1,
+        max_steps=T,
+        seq_len=T + 1,
         emit_specs=emit_specs,
         length_penalty=beam_cfg.length_penalty,
         topk_backend=cfg.topk_backend,
         device=enc_flat.device,
     )
-    out["decode_impl"] = impl
+    out.update(decode_impl=impl, decode_calls=out["steps"])
     return out
 
 

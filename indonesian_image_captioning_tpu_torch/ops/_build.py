@@ -48,6 +48,14 @@ SIGNATURES = {
         "iic_train_fwd": [_I, _P, _P],
         "iic_train_bwd": [_I, _P, _P],
     },
+    "span": {
+        "iic_span_args_bytes": [],
+        "iic_span": [_I, _P, _P],
+        "iic_decode_records": [_I, _P, _P],
+    },
+    "topk": {
+        "iic_row_topk": [_I, _P, _I, _I, _I, _P, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -74,11 +74,11 @@ def pack_step_weights(params, cfg, dt) -> Dict[str, torch.Tensor]:
     return w
 
 
-def fused_decode_step_plain(weights, enc, ea, emb_rows, h, c, semx, semh, *,
-                            cell: str, topk: int):
-    """The step's math in plain PyTorch: the step engine's attention, gate
-    and cell, then log-softmax's max shift, the float32 log-sum and
-    iterative top-K.  enc/ea are None for pure_scn."""
+def step_logits_plain(weights, enc, ea, emb_rows, h, c, semx, semh, *,
+                      cell: str):
+    """The step up to its head in plain PyTorch: the step engine's
+    attention, gate and cell, then the vocab product.  Returns (logits
+    (R, V) float32, h', c').  enc/ea are None for pure_scn."""
     dt, f32 = h.dtype, torch.float32
     R, D = h.shape
     if enc is not None:
@@ -117,6 +117,15 @@ def fused_decode_step_plain(weights, enc, ea, emb_rows, h, c, semx, semh, *,
     c_new = f_g * c + i_g * c_t
     h_new = o_g * torch.tanh(c_new.to(f32)).to(dt)
     lg = ((h_new @ weights["fcw"]) + weights["fcb"]).to(f32)
+    return lg, h_new, c_new
+
+
+def fused_decode_step_plain(weights, enc, ea, emb_rows, h, c, semx, semh, *,
+                            cell: str, topk: int):
+    """The step's math in plain PyTorch: :func:`step_logits_plain`, then
+    log-softmax's max shift, the float32 log-sum and iterative top-K."""
+    lg, h_new, c_new = step_logits_plain(weights, enc, ea, emb_rows, h, c,
+                                         semx, semh, cell=cell)
     shifted = lg - lg.max(dim=1, keepdim=True).values
     lse = torch.log(torch.exp(shifted).sum(dim=1, keepdim=True))
     topv, topi = row_topk_iterative(shifted, topk)

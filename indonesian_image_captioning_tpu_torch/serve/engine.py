@@ -12,10 +12,11 @@ Counterpart of the JAX package's ``serve/engine.py``:
   oldest queued one; a batch that fails fails only its own requests.
 
 In the JAX package ``max_inflight`` overlaps the host's coalescing with the
-device's work, because JAX dispatch is asynchronous.  The port's beam loop
-reads ``alive_count`` on the host every step, so a dispatched batch has
-mostly finished when its call returns; the option is kept with the same
-meaning (batches dispatched before the oldest one's results are fetched).
+device's work, because JAX dispatch is asynchronous.  The port's decode
+reads the beam's alive counts on the host (once per span on the CUDA
+rung, "fused_span"), so a dispatched batch has mostly finished when its
+call returns; the option is kept with the same meaning (batches
+dispatched before the oldest one's results are fetched).
 """
 
 from __future__ import annotations
@@ -55,11 +56,14 @@ class ServeConfig:
 
 @dataclass
 class ServeStats:
-    """Batch sizes, and the decode rung and step count of each call."""
+    """Batch sizes, and the decode rung, step count and kernel calls of
+    each call (a record rung reports T steps however early it stopped;
+    its calls say how far it ran)."""
 
     batches: List[int] = field(default_factory=list)
     decode_impls: List[str] = field(default_factory=list)
     decode_steps: List[int] = field(default_factory=list)
+    decode_calls: List[int] = field(default_factory=list)
 
     def record(self, n: int) -> None:
         self.batches.append(n)
@@ -68,6 +72,7 @@ class ServeStats:
         self.batches.clear()
         self.decode_impls.clear()
         self.decode_steps.clear()
+        self.decode_calls.clear()
 
 
 def _to_device(tree, device):
@@ -138,6 +143,7 @@ class CaptionEngine:
                 beam_cfg=self.beam_cfg)
         self.stats.decode_impls.append(out["decode_impl"])
         self.stats.decode_steps.append(out["steps"])
+        self.stats.decode_calls.append(out["decode_calls"])
         return out["sequences"], out["lengths"]
 
     # ------------------------------------------------------------------

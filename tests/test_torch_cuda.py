@@ -42,8 +42,9 @@ from indonesian_image_captioning_tpu_torch.decode.api import \
 from indonesian_image_captioning_tpu_torch.models import (attention,
                                                           decoders, scn_cell)
 from indonesian_image_captioning_tpu_torch.ops import (attention_cuda,
-                                                       losses, step_cuda,
-                                                       train_cuda)
+                                                       decode_cuda, losses,
+                                                       span_cuda, step_cuda,
+                                                       topk, train_cuda)
 from indonesian_image_captioning_tpu_torch.train import steps
 
 pytestmark = pytest.mark.cuda
@@ -197,9 +198,10 @@ def _copy(tree, dev):
 @pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("end_bias", [0.0, 1.2])
 def test_decode_on_card_matches_cpu(dev, family, end_bias):
-    """The serving rung on the card (fused_step: kernel 2) and the step
-    engine with recorded alphas (kernel 1) give the CPU's beams: all 12
-    steps without an <end> bias, early completions with one."""
+    """The serving rung on the card (fused_span: kernel 7; fused_step,
+    kernel 2, for pure_scn) and the step engine with recorded alphas
+    (kernel 1) give the CPU's beams: all 12 steps without an <end> bias,
+    early completions with one."""
     cfg = small_cfg(family)
     gen = torch.Generator().manual_seed(11)
     params = decoders.init_decoder(gen, cfg)
@@ -214,9 +216,14 @@ def test_decode_on_card_matches_cpu(dev, family, end_bias):
                                   record_alphas=record, **kw)
         out = caption_beam_search(_to(params, dev), cfg, enc.to(dev),
                                   tags.to(dev), record_alphas=record, **kw)
-        want = "steps" if record else "fused_step"
+        want = ("steps" if record else "fused_step" if family == "pure_scn"
+                else "fused_span")
         assert ref["decode_impl"] == "steps" and out["decode_impl"] == want
-        assert out["steps"] == ref["steps"]
+        if want == "fused_span":   # a record rung reports T steps
+            assert out["steps"] == 12
+            assert 1 <= out["decode_calls"] <= 3
+        else:
+            assert out["steps"] == ref["steps"]
         for k in ("sequences", "lengths", "completed_count",
                   "completed_lengths"):
             assert torch.equal(out[k].cpu(), ref[k]), k
@@ -397,3 +404,260 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(dev):
         train_cuda.train_fwd(kw, enc, ea, emb_fac, semx, semh, h0, c0,
                              cell="lstm")
     assert train_cuda.train_fwd.launches == n0
+
+
+# ---------------------------------------------- kernels 7, 13 and 10
+
+NEG = -1e30
+REC_TOL = {F32: {"vals": 1e-5, "state": 1e-5},
+           BF16: {"vals": 1e-1, "state": 5e-2}}
+# a pick may differ from the plain version's only where the two candidates'
+# values are this close (float32: summation order; bfloat16: rounding)
+REC_NEAR = {F32: 1e-5, BF16: 1e-1}
+
+
+def _span_inputs(dev, dtype, cfg, B, K, gen, alive=None, tie=False):
+    """Kernel 7's inputs on the card: packed weights, the embedding table,
+    enc/ea, the per-row semantic factors and a mid-decode state: live-lane
+    counts from 0 to K, that many live lanes at any rank, the others
+    retired (NEG), previous words anywhere in the vocabulary.  tie=True
+    makes lanes 0 and 1 of image 0 copies of each other, ahead of every
+    other lane."""
+    V = cfg.vocab_size
+    params = decoders.init_decoder(gen, cfg, device=dev)
+    params["fc"]["b"] = randn(gen, V).to(dev)
+    params["fc"]["b"][V - 1] = 2.0      # <end>: retirements within a span
+    weights = step_cuda.pack_step_weights(params, cfg, dtype)
+    enc = torch.relu(randn(gen, B, cfg.num_pixels, cfg.encoder_dim))
+    enc = enc.to(dev, dtype)
+    ea = attention.precompute(params["attention"], enc.float())
+    semx = semh = None
+    cell = "scn" if cfg.uses_tags else "lstm"
+    if cell == "scn":
+        tags = torch.rand((B, cfg.semantic_dim), generator=gen).to(dev)
+        sx, sh = scn_cell.semantic_projections(params["decode_step"], tags)
+        semx, semh = (x.reshape(B, -1).repeat_interleave(K, 0).to(dtype)
+                      .contiguous() for x in (sx, sh))
+    R, D = B * K, cfg.decoder_dim
+    h = torch.tanh(randn(gen, R, D))
+    c = randn(gen, R, D, scale=0.5)
+    if alive is None:
+        alive = torch.tensor([K, 0, (K + 1) // 2] * B)[:B]
+    sc = torch.full((B, K), NEG)
+    for b in range(B):
+        lanes = torch.randperm(K, generator=gen)[:int(alive[b])]
+        sc[b, lanes] = -(torch.rand(len(lanes), generator=gen) * 5 + 1)
+    pw = torch.randint(0, V, (R, 1), generator=gen)
+    if tie:
+        h[1], c[1], pw[1] = h[0], c[0], pw[0]
+        sc[0] = -20.0
+        sc[0, :2] = -0.5
+    state = (h.to(dev, dtype), c.to(dev, dtype), sc.reshape(R, 1).to(dev),
+             pw.to(dev, torch.int32),
+             alive.reshape(B, 1).to(dev, torch.int32))
+    return (weights, params["embedding"].to(dtype).contiguous(), enc,
+            ea.to(dtype).contiguous(), semx, semh) + state, cell
+
+
+def _match_records(out, ref, dtype):
+    """Kernel records (words, parents, vals (B, T, K)) against the plain
+    version's, image by image: equal, vals within REC_TOL, up to the first
+    step whose picks differ, where the two picks' values must lie within
+    REC_NEAR (a near-tie; the image's decode differs from there on).
+    Returns the images that diverged."""
+    words, parents, vals = out[:3]
+    diverged = set()
+    for b in range(words.shape[0]):
+        for s in range(words.shape[1]):
+            gap = err(vals[b, s], ref[2][b, s])
+            if torch.equal(words[b, s], ref[0][b, s]) and \
+                    torch.equal(parents[b, s], ref[1][b, s]):
+                assert gap <= REC_TOL[dtype]["vals"], (b, s, gap)
+                continue
+            assert gap <= REC_NEAR[dtype], (b, s, gap)
+            diverged.add(b)
+            break
+    return diverged
+
+
+@pytest.mark.parametrize("family", ATT_FAMILIES)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("K, S", [(1, 1), (5, 1), (5, 3)])
+def test_span_kernel_matches_plain(dev, family, dtype, K, S):
+    """Kernel 7 from a mid-decode state (dead images, retired lanes),
+    V=300: records equal but for near-ties, the carried state within the
+    tolerances of kernel 2; float32 has no near-tie here."""
+    cfg = small_cfg(family, vocab_size=300)
+    gen = torch.Generator().manual_seed(K * 10 + S)
+    B, V = 3, cfg.vocab_size
+    args, cell = _span_inputs(dev, dtype, cfg, B, K, gen)
+    n0 = span_cuda.fused_decode_span.launches
+    out = span_cuda.fused_decode_span(*args, span=S, end_id=V - 1, cell=cell)
+    ref = span_cuda.fused_decode_span_plain(*args, span=S, end_id=V - 1,
+                                            cell=cell)
+    torch.cuda.synchronize()
+    assert span_cuda.fused_decode_span.launches == n0 + 1
+    assert out[0].shape == out[1].shape == out[2].shape == (B, S, K)
+    assert out[0].dtype == out[1].dtype == torch.int32
+    diverged = _match_records(out, ref, dtype)
+    if dtype == F32:
+        assert not diverged
+    keep = [b for b in range(B) if b not in diverged]
+    rows = [b * K + k for b in keep for k in range(K)]
+    for i in (3, 4):                                   # h, c
+        assert err(out[i][rows], ref[i][rows]) <= REC_TOL[dtype]["state"]
+    assert err(out[5][rows], ref[5][rows]) <= REC_TOL[dtype]["vals"]
+    assert torch.equal(out[6][rows], ref[6][rows])     # pw
+    assert torch.equal(out[7][keep], ref[7][keep])     # alive
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_span_merge_ties_go_to_the_lowest_lane(dev, dtype):
+    """Two lanes of an image with the same state: their candidates tie
+    exactly, and the K*K merge takes them in flat-index order, lane 0
+    before lane 1."""
+    cfg = small_cfg(vocab_size=300)
+    gen = torch.Generator().manual_seed(3)
+    args, cell = _span_inputs(dev, dtype, cfg, 3, 5, gen, tie=True)
+    out = span_cuda.fused_decode_span(*args, span=1, end_id=299, cell=cell)
+    ref = span_cuda.fused_decode_span_plain(*args, span=1, end_id=299,
+                                            cell=cell)
+    torch.cuda.synchronize()
+    assert out[1][0, 0].tolist() == [0, 1, 0, 1, 0]
+    assert torch.equal(out[0][0, 0, 0::2][:2], out[0][0, 0, 1::2])
+    assert torch.equal(out[2][0, 0, 0::2][:2], out[2][0, 0, 1::2])
+    for i in range(2):
+        assert torch.equal(out[i][0], ref[i][0])
+    assert err(out[2][0], ref[2][0]) <= REC_TOL[dtype]["vals"]
+
+
+def test_span_with_every_image_dead(dev):
+    """No live lane anywhere: every record is a no-op (vals NEG, parents
+    0) and the alive counts stay 0, as in the plain version."""
+    cfg = small_cfg(vocab_size=300)
+    gen = torch.Generator().manual_seed(4)
+    args, cell = _span_inputs(dev, F32, cfg, 3, 5, gen,
+                              alive=torch.zeros(3, dtype=torch.long))
+    out = span_cuda.fused_decode_span(*args, span=3, end_id=299, cell=cell)
+    ref = span_cuda.fused_decode_span_plain(*args, span=3, end_id=299,
+                                            cell=cell)
+    torch.cuda.synchronize()
+    assert bool((out[2] == NEG).all()) and bool((out[1] == 0).all())
+    assert bool((out[7] == 0).all()) and bool((out[5] == NEG).all())
+    for i in (0, 1, 2, 5, 6, 7):
+        assert torch.equal(out[i], ref[i])
+    assert err(out[3], ref[3]) <= 1e-5 and err(out[4], ref[4]) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("end_bias", [0.0, 8.0])
+def test_megakernel_matches_plain(dev, dtype, K, end_bias):
+    """Kernel 13, T=7, V=300: records equal but for near-ties; with a
+    strong <end> bias every image dies early and the steps after carry
+    the inert records (words 0, parents 0, vals NEG) in both."""
+    cfg = small_cfg(vocab_size=300)
+    gen = torch.Generator().manual_seed(K + 7)
+    V, B, T = cfg.vocab_size, 3, 7
+    params = decoders.init_decoder(gen, cfg, device=dev)
+    params["fc"]["b"] = randn(gen, V).to(dev)
+    params["fc"]["b"][V - 1] = end_bias
+    params = decoders.cast_params(params, dtype)
+    enc = torch.relu(randn(gen, B, cfg.num_pixels, cfg.encoder_dim))
+    enc = enc.to(dev, dtype)
+    tags = torch.rand((B, cfg.semantic_dim), generator=gen).to(dev, dtype)
+    kw = dict(beam_size=K, start_id=V - 2, end_id=V - 1, max_steps=T)
+    n0 = decode_cuda.beam_decode_records.launches
+    out = decode_cuda.beam_decode_records(params, cfg, enc, tags, **kw)
+    ref = decode_cuda.beam_decode_records_plain(params, cfg, enc, tags, **kw)
+    torch.cuda.synchronize()
+    assert decode_cuda.beam_decode_records.launches == n0 + 1
+    recs = [out[k] for k in ("words", "parents", "vals")]
+    diverged = _match_records(recs, [ref[k] for k in ("words", "parents",
+                                                      "vals")], dtype)
+    if dtype == F32:
+        assert not diverged
+    if end_bias:
+        dead = (ref["vals"] == NEG).all(dim=2).all(dim=0)      # (T,)
+        assert bool(dead[-1])
+        assert bool((out["vals"][:, dead] == NEG).all())
+        assert bool((out["words"][:, dead] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("V", [300, 4099])
+def test_row_topk_kernel_matches_plain(dev, dtype, k, V):
+    """Kernel 10 on a ragged table with exact ties across threads and,
+    at float32, rows with NEG entries and fewer than k values above NEG:
+    bitwise the plain version (row_topk_iterative), ties to the lowest
+    index."""
+    gen = torch.Generator().manual_seed(V + k)
+    x = randn(gen, 7, V)
+    x[0, [5, 257, V - 1]] = 9.0
+    if dtype == F32:
+        x[1] = NEG
+        x[1, [4, V - 2]] = 1.0
+        x[2, ::3] = NEG
+    x = x.to(dev, dtype)
+    n0 = topk.row_topk_pallas.launches
+    vals, idx = topk.row_topk_pallas(x, k)
+    torch.cuda.synchronize()
+    assert topk.row_topk_pallas.launches == n0 + 1
+    ref_v, ref_i = topk.row_topk_iterative(x, k)
+    assert idx.dtype == torch.int32 and vals.dtype == dtype
+    assert torch.equal(idx.long(), ref_i)
+    assert torch.equal(vals, ref_v)
+    assert idx[0, :min(k, 3)].tolist() == [5, 257, V - 1][:k]
+
+
+@pytest.mark.parametrize("impl, family", [("fused_span", "attention_scn"),
+                                          ("fused_span", "pure_attention"),
+                                          ("fused", "attention_scn")])
+def test_record_rungs_on_card_match_cpu(dev, impl, family):
+    """caption_beam_search through kernel 7 or 13 on the card gives the
+    beams of the same rung's plain version on the CPU."""
+    cfg = small_cfg(family, decode_impl=impl, decode_span=3)
+    gen = torch.Generator().manual_seed(13)
+    params = decoders.init_decoder(gen, cfg)
+    V = cfg.vocab_size
+    params["fc"]["b"][V - 1] = 1.2
+    enc = torch.relu(randn(gen, 6, 3, 3, cfg.encoder_dim, scale=0.5))
+    tags = torch.rand((6, cfg.semantic_dim), generator=gen)
+    kw = dict(start_id=V - 2, end_id=V - 1,
+              beam_cfg=BeamConfig(beam_size=5, max_steps=12))
+    ref = caption_beam_search(params, cfg, enc, tags, **kw)
+    counter = (span_cuda.fused_decode_span if impl == "fused_span"
+               else decode_cuda.beam_decode_records)
+    n0 = counter.launches
+    out = caption_beam_search(_to(params, dev), cfg, enc.to(dev),
+                              tags.to(dev), **kw)
+    assert ref["decode_impl"] == out["decode_impl"] == impl
+    assert counter.launches - n0 == out["decode_calls"] >= 1
+    for k in ("sequences", "lengths", "completed_count",
+              "completed_lengths"):
+        assert torch.equal(out[k].cpu(), ref[k]), k
+    assert err(out["scores"].cpu(), ref["scores"]) <= 1e-4
+
+
+def test_pallas_topk_backend_on_card_matches_cpu(dev):
+    """The step engine with the dense head and topk_backend="pallas"
+    (kernel 10 over the (B, K*V) candidates every step) gives the CPU's
+    beams."""
+    cfg = small_cfg(sparse_head=False, topk_backend="pallas",
+                    decode_impl="steps")
+    gen = torch.Generator().manual_seed(17)
+    params = decoders.init_decoder(gen, cfg)
+    enc = torch.relu(randn(gen, 4, 3, 3, cfg.encoder_dim, scale=0.5))
+    tags = torch.rand((4, cfg.semantic_dim), generator=gen)
+    V = cfg.vocab_size
+    kw = dict(start_id=V - 2, end_id=V - 1,
+              beam_cfg=BeamConfig(beam_size=5, max_steps=8))
+    ref = caption_beam_search(params, cfg, enc, tags, **kw)
+    n0 = topk.row_topk_pallas.launches
+    out = caption_beam_search(_to(params, dev), cfg, enc.to(dev),
+                              tags.to(dev), **kw)
+    assert topk.row_topk_pallas.launches - n0 == out["steps"] > 0
+    for k in ("sequences", "lengths", "completed_count"):
+        assert torch.equal(out[k].cpu(), ref[k]), k
+    assert err(out["scores"].cpu(), ref["scores"]) <= 1e-4

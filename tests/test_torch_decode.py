@@ -205,18 +205,33 @@ def test_recorded_alphas_match_jax():
 def test_decode_ladder_and_unported_names():
     cfg = tiny_cfg()
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert resolve_decode_impl(cfg, record_alphas=False,
-                               device=cuda) == "fused_step"
-    assert resolve_decode_impl(cfg, record_alphas=True,
-                               device=cuda) == "steps"
-    assert resolve_decode_impl(cfg, record_alphas=False,
-                               device=cpu) == "steps"
-    for kw in (dict(decode_impl="fused_span"), dict(decode_impl="fused"),
-               dict(enc_quant="int8"), dict(fused_cell=True),
-               dict(topk_backend="pallas")):
+
+    def rung(device, record_alphas=False, **kw):
+        return resolve_decode_impl(dataclasses.replace(cfg, **kw),
+                                   record_alphas=record_alphas,
+                                   device=device)
+
+    assert rung(cuda) == "fused_span"
+    assert rung(cuda, model_type="pure_attention") == "fused_span"
+    assert rung(cuda, model_type="pure_scn") == "fused_step"
+    assert rung(cuda, record_alphas=True) == "steps"
+    assert rung(cpu) == "steps"
+    # explicit rungs: on CPU tensors they run the kernels' plain versions;
+    # where one does not apply it falls down the ladder
+    assert rung(cpu, decode_impl="fused_span") == "fused_span"
+    assert rung(cuda, decode_impl="fused_span",
+                model_type="pure_scn") == "fused_step"
+    assert rung(cpu, decode_impl="fused_span", model_type="pure_scn") \
+        == "steps"
+    assert rung(cuda, decode_impl="fused_span", record_alphas=True) == "steps"
+    assert rung(cpu, decode_impl="fused") == "fused"
+    assert rung(cuda, decode_impl="fused",
+                model_type="pure_attention") == "steps"
+    assert rung(cuda, decode_impl="fused_step") == "fused_step"
+    assert rung(cuda, topk_backend="pallas") == "fused_span"
+    for kw in (dict(enc_quant="int8"), dict(fused_cell=True)):
         with pytest.raises(NotImplementedError):
-            resolve_decode_impl(dataclasses.replace(cfg, **kw),
-                                record_alphas=False, device=cuda)
+            rung(cuda, **kw)
     assert decoders.resolve_attention_impl(cfg, cuda) == "kernel"
     assert decoders.resolve_attention_impl(cfg, cpu) == "plain"
     for name, want in (("pallas", "kernel"), ("pallas_mxu", "kernel"),

@@ -156,8 +156,9 @@ def test_cuda_request_without_a_device_raises(engine_parts):
 
 def test_port_imports_no_jax():
     """After the port is imported and its CPU paths have run (a caption
-    batch and one train step), neither jax nor the JAX package is in
-    sys.modules (a subprocess: this test process has imported both)."""
+    batch, the record rungs, greedy decoding and one train step), neither
+    jax nor the JAX package is in sys.modules (a subprocess: this test
+    process has imported both)."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -185,6 +186,22 @@ def test_port_imports_no_jax():
         caps = eng.caption_batch(np.zeros((2, 3, 32, 32), np.uint8))
         assert all(isinstance(c, str) for c in caps)
         import dataclasses
+        from indonesian_image_captioning_tpu_torch.core.config import \
+            BeamConfig
+        from indonesian_image_captioning_tpu_torch.decode.api import \
+            caption_beam_search
+        from indonesian_image_captioning_tpu_torch.decode.greedy import \
+            caption_greedy
+        enc1, tags1 = torch.rand((2, 1, 2048)), torch.rand((2, 6))
+        for impl in ("fused_span", "fused"):
+            out = caption_beam_search(
+                state["params"], dataclasses.replace(
+                    cfg, decode_impl=impl, topk_backend="pallas"),
+                enc1, tags1, start_id=18, end_id=19,
+                beam_cfg=BeamConfig(beam_size=2, max_steps=3))
+            assert out["decode_impl"] == impl
+        caption_greedy(state["params"], cfg, enc1, tags1, start_id=18,
+                       end_id=19, max_steps=3)
         from indonesian_image_captioning_tpu_torch.core.config import \
             TrainConfig
         from indonesian_image_captioning_tpu_torch.train import steps
