@@ -14,14 +14,19 @@ Phases, each of which exits non-zero on failure:
    largest error with its tolerance, and the median time of each over 20
    runs (CUDA events, in turns plain, kernel, kernel, plain).  Kernel 2 is
    checked for all three model families (SCN and LSTM cells, with and
-   without attention).  Kernel 7 (the span decode) runs one S=4 call from
+   without attention; pure_scn's form is kernel 6b).  Kernel 7 (the span decode) runs one S=4 call from
    a mid-decode state (two plain steps with a head biased toward <end>,
    then every fourth image dead), both cells; kernel 13 (the megakernel)
    one 51-step decode; their records must equal the plain version's but
    at near-ties (REC_TOL).  Kernel 10 (the top-k) runs on a (32, 5 x
    6,763) float32 beam candidate table and must equal row_topk_iterative
    bitwise; torch.topk, one PyTorch call for the same values, is timed
-   beside it as the library yardstick.
+   beside it as the library yardstick.  Kernel 5 (the int8 attention)
+   with and without alpha, kernel 6c (the int8 fused step) for both cells,
+   kernel 12 (the fused SCN cell) at attention_scn's input width (2,560)
+   and pure_scn's (512), in float32 and bfloat16, and kernel 11 (the vocab
+   head, float32 only) on 160 rows: the same holds for each (error against
+   its tolerance, median times, ids equal but at near-ties).
 4. serve: the main path.  A CaptionEngine on seeded random weights
    (ResNet-152 caption encoder and tagger with BatchNorm statistics
    calibrated on one seeded batch, attention_scn at V=6,763), buckets
@@ -29,7 +34,10 @@ Phases, each of which exits non-zero on failure:
    through start/submit/stop.  The launch counters are zeroed just before
    and read just after; the decode must have resolved to "fused_span" and
    gone through kernel 7 once per span call (1 to ceil(51 / 4) per
-   batch), with kernel 2's counter at 0.
+   batch), with kernel 2's counter at 0.  Then a second engine on the same
+   weights and BatchNorm statistics with enc_quant="int8": one 32-image
+   caption_batch, whose decode must resolve to "fused_step" and launch
+   kernel 6c once per decode step, kernel 2 not at all.
 5. inference: caption_beam_search on the same encodings at float32 through
    four rungs, each with the counters zeroed just before and read just
    after: "steps" with record_alphas=True (kernel 1; alphas sum to 1),
@@ -37,9 +45,21 @@ Phases, each of which exits non-zero on failure:
    13); each rung's beams equal the steps rung's except for rows whose
    first divergence is a near-tie (prefix scores within 1e-4).  Then one
    "steps" decode with the dense head and topk_backend="pallas" (kernel 10
-   on its path), held the same way.  Then a breakdown per rung at B=32:
-   the decode on the host clock, captions/s and the device busy share
-   from torch.profiler, beside the encoders' time.
+   on its path), held the same way.  The opt-in modes on the same
+   encodings, each path with the counters zeroed just before and read
+   just after: int8 "steps" with alphas (kernel 5; alphas sum to 1) and
+   int8 "fused_step" (kernel 6c; beams equal int8 "steps" but at
+   near-ties), the rows where int8 agrees with float32 counted (the mode
+   is lossy by contract); fused_cell=True on "steps" with alphas (kernel
+   12; beams equal the unfused engine's but at near-ties); a pure_scn
+   decoder on the same encodings and tags, "auto" (kernel 6b, "fused_step")
+   and fused_cell "steps" (kernel 12), both held against pure_scn's
+   "steps"; and the isolated vocab head of tools/profile_decode.py on the
+   h rows of one kernel-2 step (kernel 11), whose candidates topv - lse
+   and ids must equal the step's but at near-ties.  Then a breakdown per
+   rung at B=32 (the int8 rungs too): the decode on the host clock,
+   captions/s and the device busy share from torch.profiler, beside the
+   encoders' time.
 6. train: the cached-feature caption trainer, attention_scn at the
    flagship widths, V=6,763, T=51, B=32, decoder float32, encoders
    bfloat16.  Kernels 8 and 9 (the teacher-forcing scan, forward and
@@ -112,6 +132,9 @@ TRAIN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # earlier steps.  Rare flips leave the norm within these.
 TRAIN_BWD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 GRAD_TOL, LOSS_TOL, HEAD_TOL = 5e-3, 1e-4, 1e-5
+# Kernel 11 against its plain version: raw logits and log-sums within this
+# share of their largest magnitude (float32 summation order over D=512).
+FC_TOL = 1e-5
 TRAIN_STEPS = 5
 # The card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms.
 HBM_BYTES_S = 3.35e12
@@ -211,7 +234,151 @@ def kernel_phase(dev, dtype, cfg, B):
                                                    fparams, enc, gen)
     res["span"] = span_case(dev, dtype, cfg, params, enc, gen)
     res["mega"] = mega_case(dev, dtype, cfg, params, enc, gen)
+
+    # kernels 5 and 6c (the int8 state) and 12 (the fused SCN cell)
+    res["attend_q"] = attend_q_case(dev, dtype, cfg, params, enc, h)
+    res["step_q"] = step_case(dev, dtype, cfg, params, enc, gen, quant=True)
+    fcfg = dataclasses.replace(cfg, model_type="pure_attention")
+    res["step_q_pure_attention"] = step_case(
+        dev, dtype, fcfg, decoders.init_decoder(gen, fcfg, device=dev), enc,
+        gen, quant=True)
+    for family in ("attention_scn", "pure_scn"):
+        res[f"scn_{family}"] = scn_case(
+            dev, dtype, dataclasses.replace(cfg, model_type=family), B, gen)
     return res
+
+
+def attend_q_case(dev, dtype, cfg, params, enc, h):
+    """Kernel 5 on the int8 state of enc and its projection, with and
+    without alpha, against its plain version; both times (with alpha)."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.models import attention
+    from indonesian_image_captioning_tpu_torch.ops import attention_q_cuda
+
+    name = str(dtype).replace("torch.", "")
+    tol = TOL[name]["attend"]
+    nb, A = enc.shape[0], cfg.attention_dim
+    state = (attention_q_cuda.quantize_pixels(enc)
+             + attention_q_cuda.quantize_pixels(
+                 attention.precompute(params["attention"], enc.float())))
+    dec = ((h.float() @ params["attention"]["decoder_att"]["w"]
+            + params["attention"]["decoder_att"]["b"])
+           .to(dtype).reshape(nb, K, A).contiguous())
+    wf = params["attention"]["full_att"]["w"].reshape(-1).contiguous()
+    args = state + (dec, wf)
+    n0 = attention_q_cuda.attend_fused_q.launches
+    awe, alpha = attention_q_cuda.attend_fused_q(*args)
+    awe_n, none = attention_q_cuda.attend_fused_q(*args, with_alpha=False)
+    p_awe, p_alpha = attention_q_cuda.attend_q_plain(*args)
+    torch.cuda.synchronize()
+    check(attention_q_cuda.attend_fused_q.launches == n0 + 2,
+          "attend_fused_q: the kernel was not launched")
+    check(none is None and torch.equal(awe, awe_n),
+          f"attend_fused_q {name}: awe without alpha differs")
+    err = max(max_err(awe, p_awe), max_err(alpha, p_alpha))
+    check(err <= tol, f"attend_fused_q {name}: error {err} > {tol}")
+    plain_ms, ms = median_ms([
+        lambda: attention_q_cuda.attend_q_plain(*args),
+        lambda: attention_q_cuda.attend_fused_q(*args)])
+    bound_ms, bound_by = bound(*attend_q_work(cfg, nb, dtype.itemsize), name)
+    print(f"kernel attend_fused_q {name}: max_abs_err {err:.3g} (awe "
+          f"{max_err(awe, p_awe):.3g}, alpha {max_err(alpha, p_alpha):.3g}; "
+          f"tol {tol}); without alpha equal; ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def scn_case(dev, dtype, cfg, nb, gen):
+    """Kernel 12 on the step engine's B*K rows of cfg's family (input
+    [emb; gate*awe] for attention_scn, emb for pure_scn) against its plain
+    version; both times."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.models import (decoders,
+                                                              scn_cell)
+    from indonesian_image_captioning_tpu_torch.ops import scn_cuda
+
+    name = str(dtype).replace("torch.", "")
+    tol = TOL[name]["step_state"]
+    cell = decoders.cast_params(
+        decoders.init_decoder(gen, cfg, device=dev)["decode_step"], dtype)
+    In, D = decoders.cell_input_dim(cfg), cfg.decoder_dim
+    x = (torch.randn((nb, K, In), generator=gen) * 0.5).to(dev, dtype)
+    h = torch.tanh(torch.randn((nb, K, D), generator=gen)).to(dev, dtype)
+    c = (torch.randn((nb, K, D), generator=gen) * 0.5).to(dev, dtype)
+    tags = torch.rand((nb, cfg.semantic_dim), generator=gen).to(dev, dtype)
+    sx, sh = (s[:, None] for s in scn_cell.semantic_projections(cell, tags))
+    rows = scn_cuda.to_rows(cell, x, sx, sh, h, c)[:5]
+    n0 = scn_cuda.scn_step_fused.launches
+    out = scn_cuda.scn_step_fused(cell, x, sx, sh, h, c)
+    ref = scn_cuda.scn_step_fused_plain(cell, *rows)
+    torch.cuda.synchronize()
+    check(scn_cuda.scn_step_fused.launches == n0 + 1,
+          "scn_step_fused: the kernel was not launched")
+    err = max(max_err(a.reshape(-1, D), b) for a, b in zip(out, ref))
+    label = f"{cfg.model_type} In={In} {name}"
+    check(err <= tol, f"scn_step_fused {label}: h/c error {err} > {tol}")
+    plain_ms, ms = median_ms([
+        lambda: scn_cuda.scn_step_fused_plain(cell, *rows),
+        lambda: scn_cuda.scn_step_fused(cell, x, sx, sh, h, c)])
+    bound_ms, bound_by = bound(*scn_work(cfg, nb * K, dtype.itemsize), name)
+    print(f"kernel scn_step_fused[{label}]: {nb * K} rows; max_abs_err h/c "
+          f"{err:.3g} (tol {tol}); ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"bound_ms {bound_ms:.4f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def fc_topk_case(dev, cfg, nb):
+    """Kernel 11 (float32 only) on B*K decoder rows and the vocab head of
+    cfg's width: raw-logit values and log-sums against its plain version
+    within FC_TOL of their magnitude, ids equal but at near-ties; both
+    times.  No single PyTorch call computes it (library_ms null)."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.models import decoders
+    from indonesian_image_captioning_tpu_torch.ops import fc_topk
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    fc = decoders.init_decoder(gen, cfg, device=dev)["fc"]
+    fc["b"] = (torch.randn((cfg.vocab_size,), generator=gen) * 0.1).to(dev)
+    h = torch.tanh(torch.randn((nb * K, cfg.decoder_dim),
+                               generator=gen)).to(dev)
+    args = (h, fc["w"], fc["b"], K)
+    n0 = fc_topk.fc_topk.launches
+    tv, ti, lse = fc_topk.fc_topk(*args)
+    rv, ri, rl = fc_topk.fc_topk_plain(*args)
+    torch.cuda.synchronize()
+    check(fc_topk.fc_topk.launches == n0 + 1,
+          "fc_topk: the kernel was not launched")
+    err = max(max_err(tv, rv), max_err(lse, rl))
+    scale = max(float(rv.abs().max()), float(rl.abs().max()), 1.0)
+    check(err <= FC_TOL * scale, f"fc_topk: error {err} > {FC_TOL} x "
+          f"{scale:.3g}")
+    ties = near_tie_rows(ti, ri, h @ fc["w"] + fc["b"], "fc_topk")
+    plain_ms, ms = median_ms([lambda: fc_topk.fc_topk_plain(*args),
+                              lambda: fc_topk.fc_topk(*args)])
+    bound_ms, bound_by = bound(*fc_topk_work(nb * K, cfg.decoder_dim,
+                                             cfg.vocab_size, K))
+    print(f"kernel fc_topk float32 ({nb * K}, {cfg.decoder_dim}) x "
+          f"({cfg.decoder_dim}, {cfg.vocab_size}) k={K}: max_abs_err "
+          f"{err:.3g} "
+          f"(tol {FC_TOL} x {scale:.3g}); topi equal but {ties} near-tie "
+          f"rows; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bound_ms:.4f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def near_tie_rows(got, ref, logits, label):
+    """Ids (R, k) against the reference's: each difference must pick two
+    logits within NEAR_TIE; returns the number of rows with one."""
+    diff = (got != ref).nonzero().tolist()
+    for r, q in diff:
+        a, b = int(got[r, q]), int(ref[r, q])
+        gap = abs(float(logits[r, a] - logits[r, b]))
+        check(gap <= NEAR_TIE, f"{label}: ids differ at row {r} rank {q}: "
+              f"{a} vs {b}, logit gap {gap}")
+    return len({r for r, _ in diff})
 
 
 def match_records(out, ref, tol, label):
@@ -402,14 +569,16 @@ def topk_case(dev, nb):
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
 
 
-def step_case(dev, dtype, cfg, params, enc, gen):
-    """Kernel 2 for cfg's family against its plain version: errors, topi
-    at float32 outside near-ties, and both times."""
+def step_case(dev, dtype, cfg, params, enc, gen, quant=False):
+    """Kernel 2 for cfg's family (6b for pure_scn; 6c with quant, on the
+    int8 state) against its plain version: errors, topi at float32
+    outside near-ties, and both times."""
     import torch
 
     from indonesian_image_captioning_tpu_torch.models import (attention,
                                                               scn_cell)
-    from indonesian_image_captioning_tpu_torch.ops import step_cuda
+    from indonesian_image_captioning_tpu_torch.ops import (attention_q_cuda,
+                                                           step_cuda)
 
     name = str(dtype).replace("torch.", "")
     tol = TOL[name]
@@ -428,31 +597,47 @@ def step_case(dev, dtype, cfg, params, enc, gen):
         sx, sh = scn_cell.semantic_projections(params["decode_step"], tags)
         semx, semh = (s.reshape(nb, -1).repeat_interleave(K, 0).to(dtype)
                       .contiguous() for s in (sx, sh))
-    if cfg.uses_attention:
+    scales = None
+    if quant:
+        ea = attention.precompute(params["attention"], enc.float())
+        enc_q, enc_s = attention_q_cuda.quantize_pixels(enc)
+        ea_q, ea_s = attention_q_cuda.quantize_pixels(ea)
+        args = (weights, enc_q, ea_q, emb, h, c, semx, semh)
+        scales = (enc_s, ea_s)
+        counted = step_cuda.fused_decode_step_q
+
+        def kernel():
+            return step_cuda.fused_decode_step_q(
+                weights, enc_q, enc_s, ea_q, ea_s, emb, h, c, semx, semh,
+                cell=cell)
+    elif cfg.uses_attention:
         ea = attention.precompute(params["attention"],
                                   enc.float()).to(dtype).contiguous()
         args = (weights, enc, ea, emb, h, c, semx, semh)
+        counted = step_cuda.fused_decode_step
 
         def kernel():
             return step_cuda.fused_decode_step(*args, cell=cell)
     else:
         args = (weights, None, None, emb, h, c, semx, semh)
+        counted = step_cuda.fused_decode_step_noattn
 
         def kernel():
             return step_cuda.fused_decode_step_noattn(
                 weights, emb, h, c, semx, semh, beam_k=K)
 
     def plain():
-        return step_cuda.fused_decode_step_plain(*args, cell=cell, topk=K)
+        return step_cuda.fused_decode_step_plain(*args, cell=cell, topk=K,
+                                                 scales=scales)
 
-    n0 = step_cuda.fused_decode_step.launches
+    n0 = counted.launches
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
-    check(step_cuda.fused_decode_step.launches == n0 + 1,
+    check(counted.launches == n0 + 1,
           f"fused step {cfg.model_type}: the kernel was not launched")
     e_vals = max(max_err(out[0], ref[0]), max_err(out[2], ref[2]))
     e_state = max(max_err(out[3], ref[3]), max_err(out[4], ref[4]))
-    label = f"{cfg.model_type} {name}"
+    label = f"{cfg.model_type}{' int8' if quant else ''} {name}"
     check(e_vals <= tol["step_vals"],
           f"fused step {label}: topv/lse error {e_vals}")
     check(e_state <= tol["step_state"],
@@ -461,16 +646,12 @@ def step_case(dev, dtype, cfg, params, enc, gen):
     if dtype == torch.float32:
         # topi must equal the plain version's outside near-ties
         lg = (ref[3] @ weights["fcw"] + weights["fcb"]).float()
-        diff = (out[1] != ref[1]).nonzero().tolist()
-        for r, q in diff:
-            a, b_ = int(out[1][r, q]), int(ref[1][r, q])
-            gap = abs(float(lg[r, a] - lg[r, b_]))
-            check(gap <= NEAR_TIE, f"fused step {label}: topi differs at "
-                  f"row {r} rank {q}: ids {a} vs {b_}, logit gap {gap}")
-        ties = f", topi equal but {len({r for r, _ in diff})} near-tie rows"
+        n = near_tie_rows(out[1], ref[1], lg, f"fused step {label}")
+        ties = f", topi equal but {n} near-tie rows"
     plain_ms, ms = median_ms([plain, kernel])
-    bound_ms, bound_by = bound(*step_work(cfg, nb, dtype.itemsize), name)
-    print(f"kernel fused_decode_step[{cfg.model_type}] {name}: max_abs_err "
+    bound_ms, bound_by = bound(*step_work(cfg, nb, dtype.itemsize, quant),
+                               name)
+    print(f"kernel {counted.__name__}[{cfg.model_type}] {name}: max_abs_err "
           f"topv/lse {e_vals:.3g} (tol {tol['step_vals']}), h/c "
           f"{e_state:.3g} (tol {tol['step_state']}){ties}; ms {ms:.4f} "
           f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
@@ -529,15 +710,22 @@ RUNGS = {  # decode rung -> the kernel whose counter it moves
 def counters():
     """The launch counter of each decode kernel's wrapper, by name."""
     from indonesian_image_captioning_tpu_torch.ops import (attention_cuda,
+                                                           attention_q_cuda,
                                                            decode_cuda,
+                                                           fc_topk, scn_cuda,
                                                            span_cuda,
                                                            step_cuda, topk)
 
     return {"attend_fused": attention_cuda.attend_fused,
             "fused_decode_step": step_cuda.fused_decode_step,
+            "fused_decode_step_noattn": step_cuda.fused_decode_step_noattn,
             "fused_decode_span": span_cuda.fused_decode_span,
             "beam_decode_records": decode_cuda.beam_decode_records,
-            "row_topk_pallas": topk.row_topk_pallas}
+            "row_topk_pallas": topk.row_topk_pallas,
+            "attend_fused_q": attention_q_cuda.attend_fused_q,
+            "fused_decode_step_q": step_cuda.fused_decode_step_q,
+            "scn_step_fused": scn_cuda.scn_step_fused,
+            "fc_topk": fc_topk.fc_topk}
 
 
 def zero_counters():
@@ -622,6 +810,34 @@ def serve_and_inference(dev, cfg, B, image_size):
     print(f"serve: caption[0] = {caps[0][:80]!r}")
     found = {"fused_decode_span": launches["fused_decode_span"]}
 
+    # ---- the int8 encoder state: a second engine on the same weights and
+    # BatchNorm statistics; counters zeroed just before, read just after --
+    qcfg = dataclasses.replace(cfg, enc_quant="int8")
+    qengine = CaptionEngine(engine.state, qcfg, wm,
+                            ServeConfig(batch_buckets=(B,)), device=dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    qcaps = qengine.caption_batch(images)
+    t_qbatch = time.perf_counter() - t0
+    qlaunches = read_counters()
+    # ---------------------------------------------------------------------
+    qcalls = qengine.stats.decode_calls
+    check(len(qcaps) == B and all(isinstance(s, str) for s in qcaps),
+          f"the int8 caption_batch did not return {B} strings")
+    check(qengine.stats.decode_impls == ["fused_step"],
+          f"int8 decode resolved to {qengine.stats.decode_impls}")
+    check(qlaunches["fused_decode_step_q"] == sum(qcalls) > 0
+          and qlaunches["fused_decode_step"] == 0
+          and qlaunches["attend_fused"] == 0,
+          f"the int8 batch ran kernel 6c {qlaunches['fused_decode_step_q']} "
+          f"times in {qcalls} decode calls; launches {qlaunches}")
+    found["fused_decode_step_q"] = qlaunches["fused_decode_step_q"]
+    print(f"serve: int8 caption_batch({B}) {t_qbatch:.3f} s; decode "
+          f"{qengine.stats.decode_impls[0]}, {qcalls[0]} kernel 6c calls; "
+          f"{sum(a == b for a, b in zip(qcaps, caps))} captions equal to "
+          f"the float32 batch's; kernel launches "
+          f"{ {k: v for k, v in qlaunches.items() if v} }")
+
     # ---- inference: each rung on the same encodings, float32 ----
     with torch.inference_mode():
         x = encoders.prep_images(torch.from_numpy(images).to(dev))
@@ -675,9 +891,137 @@ def serve_and_inference(dev, cfg, B, image_size):
                 print(f"inference: {impl} vs steps at float32: {equal}/{B} "
                       f"rows equal, {ties} near-tie rows; "
                       f"{out['decode_calls']} kernel calls")
+        found.update(opt_in_modes(dev, cfg, params, enc, tags, steps_out, kw))
     print(f"inference: steps engine with alphas, {steps_out['steps']} steps, "
-          f"alpha sums within {a_err:.2g} of 1; launches per rung {found}")
+          f"alpha sums within {a_err:.2g} of 1; launches per path {found}")
     breakdown(engine, cfg, x, enc, tags, kw)
+    return found
+
+
+def decode_path(params, cfg, enc, tags, kw, kernel, record_alphas=False,
+                impl=None):
+    """One caption_beam_search with the counters zeroed just before and
+    read just after: kernel's wrapper must have launched once per decode
+    call (and impl, when given, must be the rung).  Returns (the result,
+    the launches)."""
+    from indonesian_image_captioning_tpu_torch.decode.api import \
+        caption_beam_search
+
+    zero_counters()
+    out = caption_beam_search(params, cfg, enc, tags,
+                              record_alphas=record_alphas, **kw)
+    ran = read_counters()[kernel]
+    check(ran == out["decode_calls"] > 0
+          and (impl is None or out["decode_impl"] == impl),
+          f"{kernel} ran {ran} times in {out['decode_calls']} calls of "
+          f"{out['decode_impl']}")
+    return out, ran
+
+
+def alpha_sum_err(out):
+    """The largest gap from 1 of the recorded alphas' sums over the steps
+    each beam ran."""
+    import torch
+
+    lens = out["lengths"]
+    pos = torch.arange(out["alpha"].shape[1], device=lens.device)
+    valid = (pos[None, :] >= 1) & (pos[None, :] < lens[:, None])
+    return float((out["alpha"].sum(-1) - 1).abs()[valid].max())
+
+
+def opt_in_modes(dev, cfg, params, enc, tags, steps_out, kw):
+    """The beam decoder's opt-in modes on the serve phase's encodings and
+    tags, each path with the counters zeroed just before and read just
+    after: the int8 state on "steps" with alphas (kernel 5) and on
+    "fused_step" (kernel 6c); the fused SCN cell on "steps" (kernel 12)
+    for attention_scn and pure_scn; pure_scn's "auto" rung (kernel 6b);
+    the isolated vocab head on one kernel-2 step (kernel 11).  Returns the
+    launches of each kernel on its path."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.decode.api import \
+        caption_beam_search
+    from indonesian_image_captioning_tpu_torch.models import decoders
+    from indonesian_image_captioning_tpu_torch.ops import fc_topk
+
+    nb = enc.shape[0]
+    found = {}
+    qcfg = dataclasses.replace(cfg, enc_quant="int8")
+    q_steps, found["attend_fused_q"] = decode_path(
+        params, dataclasses.replace(qcfg, decode_impl="steps"), enc, tags,
+        kw, "attend_fused_q", record_alphas=True, impl="steps")
+    a_err = alpha_sum_err(q_steps)
+    check(a_err < 1e-3, f"int8 alphas sum to 1 within {a_err}")
+    q_step, _ = decode_path(
+        params, dataclasses.replace(qcfg, decode_impl="fused_step"), enc,
+        tags, kw, "fused_decode_step_q", impl="fused_step")
+    equal, ties = same_beams(params, qcfg, enc, tags, q_steps, q_step,
+                             "int8 fused_step")
+    agree = int(((q_steps["sequences"] == steps_out["sequences"]).all(1)
+                 & (q_steps["lengths"] == steps_out["lengths"])).sum())
+    print(f"inference: int8 steps (kernel 5), alpha sums within "
+          f"{a_err:.2g} of 1; int8 fused_step (kernel 6c) vs int8 steps: "
+          f"{equal}/{nb} rows equal, {ties} near-tie rows; int8 vs float32 "
+          f"steps: {agree}/{nb} rows equal (lossy by contract, not checked)")
+
+    fcfg = dataclasses.replace(cfg, decode_impl="steps", fused_cell=True)
+    f_steps, found["scn_step_fused"] = decode_path(
+        params, fcfg, enc, tags, kw, "scn_step_fused", record_alphas=True,
+        impl="steps")
+    equal, ties = same_beams(params, cfg, enc, tags, steps_out, f_steps,
+                             "fused_cell steps")
+    print(f"inference: fused_cell steps (kernel 12) vs steps: {equal}/{nb} "
+          f"rows equal, {ties} near-tie rows; alpha sums within "
+          f"{alpha_sum_err(f_steps):.2g} of 1")
+
+    # pure_scn at the flagship widths on the same encodings and tags
+    pcfg = dataclasses.replace(cfg, model_type="pure_scn")
+    gen = torch.Generator().manual_seed(SEED + 11)
+    pparams = decoders.init_decoder(gen, pcfg, device=dev)
+    p_steps = caption_beam_search(
+        pparams, dataclasses.replace(pcfg, decode_impl="steps"), enc, tags,
+        **kw)
+    p_auto, found["fused_decode_step_noattn"] = decode_path(
+        pparams, pcfg, enc, tags, kw, "fused_decode_step_noattn",
+        impl="fused_step")
+    p_fused, _ = decode_path(
+        pparams, dataclasses.replace(pcfg, decode_impl="steps",
+                                     fused_cell=True),
+        enc, tags, kw, "scn_step_fused", impl="steps")
+    for label, out in (("auto (kernel 6b)", p_auto),
+                       ("fused_cell steps (kernel 12)", p_fused)):
+        equal, ties = same_beams(pparams, pcfg, enc, tags, p_steps, out,
+                                 f"pure_scn {label}")
+        print(f"inference: pure_scn {label} vs steps: {equal}/{nb} rows "
+              f"equal, {ties} near-tie rows; {out['decode_calls']} kernel "
+              "calls")
+
+    # the isolated vocab head (tools/profile_decode.py) on the h rows of
+    # one kernel-2 step
+    init_state, step_fn = decoders.make_beam_step(params, cfg, enc, tags,
+                                                  fused_step=True)
+    start = torch.full((nb, K), kw["start_id"], dtype=torch.long,
+                       device=dev)
+    (cand_vals, cand_ids), state, _ = step_fn(init_state(K), start)
+    h_rows = state["h"].reshape(nb * K, -1)
+    zero_counters()
+    topv, topi, lse = fc_topk.fc_topk(h_rows, params["fc"]["w"],
+                                      params["fc"]["b"], K)
+    found["fc_topk"] = read_counters()["fc_topk"]
+    check(found["fc_topk"] == 1, "the vocab head did not run kernel 11")
+    cand = (topv - lse[:, None]).reshape(nb, K, K)
+    logits = h_rows @ params["fc"]["w"] + params["fc"]["b"]
+    n_ties = near_tie_rows(topi, cand_ids.reshape(nb * K, K), logits,
+                           "fc_topk vs the fused step")
+    same = topi.reshape(nb, K, K) == cand_ids
+    e_vals = float((cand - cand_vals).abs()[same].max())
+    check(e_vals <= NEAR_TIE, f"fc_topk candidates differ from the fused "
+          f"step's by {e_vals}")
+    flat_v, _ = torch.topk(cand.reshape(nb, K * K), K, dim=1)
+    print(f"inference: fc_topk (kernel 11) on one fused step's {nb * K} h "
+          f"rows: candidates within {e_vals:.3g} of the step's, ids equal "
+          f"but {n_ties} near-tie rows; best flat candidate "
+          f"{float(flat_v[:, 0].max()):.4f}")
     return found
 
 
@@ -704,9 +1048,9 @@ def same_beams(params, cfg, enc, tags, ref, out, label):
 
 def breakdown(engine, cfg, x, enc, tags, kw):
     """Where one batch's time goes: the encoders, and the decode through
-    each rung on the host clock (median of 3, each ending in a
-    synchronise) with captions/s, and the decode's device busy share and
-    top kernels from torch.profiler."""
+    each rung (and the int8 state's two) on the host clock (median of 3,
+    each ending in a synchronise) with captions/s, and the decode's device
+    busy share and top kernels from torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -739,9 +1083,12 @@ def breakdown(engine, cfg, x, enc, tags, kw):
         t_enc = host_s(run_encoders)
         print(f"breakdown: batch of {nb}, {cfg.dtype}: encoders "
               f"{t_enc * 1e3:.1f} ms")
-        for impl in RUNGS:
-            rcfg = dataclasses.replace(cfg, decode_impl=impl)
-
+        rungs = [(impl, dataclasses.replace(cfg, decode_impl=impl))
+                 for impl in RUNGS]
+        rungs += [(f"int8 {impl}", dataclasses.replace(
+            cfg, decode_impl=impl, enc_quant="int8"))
+            for impl in ("steps", "fused_step")]
+        for impl, rcfg in rungs:
             def run_decode():
                 return caption_beam_search(st["params"], rcfg, enc, tags,
                                            **kw)
@@ -785,9 +1132,19 @@ def attend_work(cfg, B, isz=4):
     return nbytes, B * K * P * (3 * A + 2 * E)
 
 
-def step_work(cfg, B, isz=4):
+def attend_q_work(cfg, B, isz=4):
+    """Bytes and operations of kernel 5 at B images x K lanes: the int8
+    enc and ea and their float32 scales, dec and wf read once; awe and
+    alpha written once; kernel 1's operations and the dequantisation."""
+    P, E, A = cfg.num_pixels, cfg.encoder_dim, cfg.attention_dim
+    nbytes = B * P * (E + A + 8) + isz * B * K * (A + E + P) + 4 * A
+    return nbytes, B * K * P * (3 * A + 2 * E) + B * P * A
+
+
+def step_work(cfg, B, isz=4, quant=False):
     """Bytes and operations of kernel 2 at R = B*K rows for cfg's family:
-    attention (none for pure_scn), the cell's products and the head."""
+    attention (none for pure_scn), the cell's products and the head; with
+    quant, kernel 6c's (the encoder state int8 with float32 scales)."""
     R, P = B * K, cfg.num_pixels
     E, A, D, V = cfg.encoder_dim, cfg.attention_dim, cfg.decoder_dim, \
         cfg.vocab_size
@@ -801,8 +1158,33 @@ def step_work(cfg, B, isz=4):
     rows = R * (Emb + 4 * D + (2 * F4 if cfg.uses_tags else 0))
     enc = B * P * (E + A) if cfg.uses_attention else 0
     att = B * K * P * (3 * A + 2 * E) if cfg.uses_attention else 0
-    nbytes = isz * (weights + enc + rows) + 4 * R * (2 * K + 1)
+    nbytes = isz * (weights + rows) + 4 * R * (2 * K + 1)
+    if quant:
+        nbytes += enc + 8 * B * P
+        att += B * P * A
+    else:
+        nbytes += isz * enc
     return nbytes, 2 * R * weights + att
+
+
+def scn_work(cfg, R, isz=4):
+    """Bytes and operations of kernel 12 at R rows of cfg's family: the
+    weights, x, h, c and the two semantic factors read once, h' and c'
+    written once; the four products (the cell's elementwise work is
+    negligible beside them)."""
+    from indonesian_image_captioning_tpu_torch.models.decoders import \
+        cell_input_dim
+
+    In, H, F4 = cell_input_dim(cfg), cfg.decoder_dim, 4 * cfg.factored_dim
+    weights = In * F4 + H * F4 + 2 * F4 * H + 8 * H
+    nbytes = isz * (weights + R * (In + 2 * H + 2 * F4 + 2 * H))
+    return nbytes, 2 * R * (In + H) * F4 + 4 * R * F4 * H
+
+
+def fc_topk_work(R, D, V, k):
+    """Bytes and operations of kernel 11 (float32): h, w and b read once,
+    topv, topi (R, k) and lse (R,) written once; the product."""
+    return 4 * (R * D + D * V + V) + 8 * R * k + 4 * R, 2 * R * D * V
 
 
 def record_work(cfg, B, steps, isz=4):
@@ -1195,6 +1577,7 @@ def main() -> int:
         res = {str(dt).replace("torch.", ""): kernel_phase(dev, dt, cfg, B)
                for dt in (torch.float32, torch.bfloat16)}
         topk_res = topk_case(dev, B)
+        fc_res = fc_topk_case(dev, cfg, B)
     t0 = time.perf_counter()
     launches = serve_and_inference(dev, cfg, B, IMAGE_SIZE)
     print(f"phases: kernels {t0 - t_start:.1f} s, serve and inference "
@@ -1206,6 +1589,7 @@ def main() -> int:
 
     T = cfg.max_caption_len - 1
     fwd_work, bwd_work = train_work(cfg, B, T)
+    pure_scn = dataclasses.replace(cfg, model_type="pure_scn")
     csrc = "indonesian_image_captioning_tpu_torch/csrc/"
     jax_ops = "indonesian_image_captioning_tpu/ops/"
     f32, bf16 = res["float32"], res["bfloat16"]
@@ -1220,6 +1604,18 @@ def main() -> int:
              record_work(cfg, B, f32["mega"]["steps"])),
             ("row_topk_pallas", "topk.cu", "topk_pallas.py:85", topk_res,
              None, topk_work(B, K * VOCAB, K)),
+            ("fused_decode_step_noattn", "step.cu", "step_pallas.py:422",
+             f32["step_pure_scn"], bf16["step_pure_scn"],
+             step_work(pure_scn, B)),
+            ("attend_fused_q", "attend_q.cu", "attention_pallas.py:519",
+             f32["attend_q"], bf16["attend_q"], attend_q_work(cfg, B)),
+            ("fused_decode_step_q", "step.cu", "step_pallas.py:402",
+             f32["step_q"], bf16["step_q"], step_work(cfg, B, quant=True)),
+            ("scn_step_fused", "scn.cu", "scn_pallas.py:56",
+             f32["scn_attention_scn"], bf16["scn_attention_scn"],
+             scn_work(cfg, B * K)),
+            ("fc_topk", "fc_topk.cu", "fc_topk_pallas.py:119", fc_res, None,
+             fc_topk_work(B * K, cfg.decoder_dim, VOCAB, K)),
             ("train_fwd", "train.cu", "train_pallas.py:768",
              train_res[("float32", "attention_scn")]["train_fwd"],
              train_res[("bfloat16", "attention_scn")]["train_fwd"], fwd_work),

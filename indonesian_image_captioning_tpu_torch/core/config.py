@@ -6,9 +6,11 @@ so a configuration written for one package runs in the other.  That file
 documents each field; the port reads the names of the decode path:
 ``decode_impl``, ``attention_impl``, ``topk_backend``, ``sparse_head``,
 ``enc_quant`` and ``fused_cell`` (``decode/api.py`` and
-``models/decoders.py`` say which values run which kernel), and of the
-train path: ``train_scan_impl``, ``embed_grad_impl`` and
-:class:`TrainConfig` (``train/steps.py``).
+``models/decoders.py`` say which values run which kernel: on the card
+``enc_quant="int8"`` runs kernel 6c on "fused_step" and kernel 5 on
+"steps", ``fused_cell=True`` kernel 12 on "steps"), and of the train
+path: ``train_scan_impl``, ``embed_grad_impl`` and :class:`TrainConfig`
+(``train/steps.py``).
 
 The port keeps its own copy so that it, and ``chip_smoke.py`` through it,
 imports nothing of the JAX package.

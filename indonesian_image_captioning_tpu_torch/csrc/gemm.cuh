@@ -1,5 +1,6 @@
-// The tiled GEMM shared by the decode step (step.cu) and the train scan
-// (train.cu), with its fused epilogues.
+// The tiled GEMM shared by the decode step (step.cu, span.cu), the train
+// scan (train.cu), the fused SCN cell (scn.cu) and the vocab head
+// (fc_topk.cu), with its fused epilogues.
 //
 //   C[z] = epilogue(A1[z] @ W1[z] + A2[z] @ W2[z] + A3[z] @ W3[z])
 //
@@ -46,6 +47,8 @@ enum Epilogue {
   kEpiRawMul = 6,      // v = acc (float32); C2 = rt(acc * aux2[row / div])
   kEpiFacBwd = 7,      // acc_out += acc * aux2; v = rt(acc * aux)
   kEpiGateBwd = 8,     // g = aux2, C2 = rt(acc * g); v = rt(acc * aux * g (1 - g))
+  // scn.cu:
+  kEpiF32Mul = 9,      // v = acc * aux in float32, not rounded
 };
 
 struct GemmArgs {
@@ -137,6 +140,9 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, int z, int gm,
       v = d_gate * aux2v * (1.0f - aux2v);
       break;
     }
+    case kEpiF32Mul:
+      v = v * to_f(aux[gm * g.ldaux + gn]);
+      break;
   }
   const long long ci = gm * g.ldc + col;
   if (g.c_f32)
@@ -146,7 +152,7 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, int z, int gm,
   if (g.c2 != nullptr) ((T*)g.c2)[gm * g.ldc2 + col] = from_f<T>(v2);
 }
 
-template <typename T, int BM, int BN>
+template <typename T, int BM, int BN, typename TA>
 __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs g) {
   static_assert((BM / 4) * (BN / 4) == kGemmThreads, "4 x 4 per thread");
   if (skip(g.live)) return;
@@ -178,21 +184,23 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs g) {
     const int k_hi = min(hi - off, g.k[s]);
     off += g.k[s];
     if (k_lo >= k_hi) continue;
-    const T* A = (const T*)g.a[s] + z * g.za;
+    const TA* A = (const TA*)g.a[s] + z * g.za;
     const T* W = (const T*)g.w[s] + z * g.zw;
     const int wt = g.wt[s];
     const long long lda = g.lda[s];
     const long long ldw = g.ldw[s];
     // the next tile, in the storage type until it is stored to shared
     // memory (a conversion at the load would wait for the load)
-    T ra[kLoadsA], rw[kLoadsW];
+    TA ra[kLoadsA];
+    T rw[kLoadsW];
+    const TA zero_a = from_f<TA>(0.0f);
     const T zero = from_f<T>(0.0f);
     auto load = [&](int k0) {
 #pragma unroll
       for (int i = 0; i < kLoadsA; ++i) {
         const int idx = tid + i * kGemmThreads;
         const int gm = m0 + idx / kBK, gk = k0 + idx % kBK;
-        ra[i] = (gm < g.M && gk < k_hi) ? A[gm * lda + gk] : zero;
+        ra[i] = (gm < g.M && gk < k_hi) ? A[gm * lda + gk] : zero_a;
       }
 #pragma unroll
       for (int i = 0; i < kLoadsW; ++i) {
@@ -273,7 +281,7 @@ __global__ void gemm_reduce_kernel(GemmArgs g) {
   }
 }
 
-template <typename T, int BM, int BN>
+template <typename T, int BM, int BN, typename TA>
 static int launch_tiles(GemmArgs g, int nz, cudaStream_t stream) {
   const int tiles = ((g.N + BN - 1) / BN) * ((g.M + BM - 1) / BM) * nz;
   int ktot = 0;
@@ -293,7 +301,7 @@ static int launch_tiles(GemmArgs g, int nz, cudaStream_t stream) {
   g.kchunk = (((ktot + ksplit - 1) / ksplit) + kBK - 1) / kBK * kBK;
   g.ksplit = std::max((ktot + g.kchunk - 1) / g.kchunk, 1);
   dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM, nz * g.ksplit);
-  gemm_kernel<T, BM, BN><<<grid, kGemmThreads, 0, stream>>>(g);
+  gemm_kernel<T, BM, BN, TA><<<grid, kGemmThreads, 0, stream>>>(g);
   int err = (int)cudaGetLastError();
   if (err != 0 || g.ksplit == 1) return err;
   const long long n = (long long)nz * g.M * g.N;
@@ -302,13 +310,15 @@ static int launch_tiles(GemmArgs g, int nz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// TA is the type of the A sources (T unless a caller multiplies float32
+// rows by T weights, as scn.cu does); W, biases, aux and C are T.
+template <typename T, typename TA = T>
 static int launch_gemm(const GemmArgs& g, int nz, cudaStream_t stream) {
-  if (g.M < 1 || g.N < 1 || nz < 1 || g.epi < 0 || g.epi > kEpiGateBwd ||
+  if (g.M < 1 || g.N < 1 || nz < 1 || g.epi < 0 || g.epi > kEpiF32Mul ||
       (g.aux2 != nullptr && g.aux2_div < 1))
     return (int)cudaErrorInvalidValue;
-  if (g.M <= 32) return launch_tiles<T, 32, 128>(g, nz, stream);
-  return launch_tiles<T, 64, 64>(g, nz, stream);
+  if (g.M <= 32) return launch_tiles<T, 32, 128, TA>(g, nz, stream);
+  return launch_tiles<T, 64, 64, TA>(g, nz, stream);
 }
 
 }  // namespace iic

@@ -70,6 +70,8 @@ constexpr int kHeadThreads = 256;
 //   raw = 1 (the megakernel, decode_pallas.py:223-234): the rounds run on
 //     the raw logits, lse = log(sum exp(x - max)) + max and topv = x - lse,
 //     the log-probabilities themselves.
+//   raw = 2 (the vocab head fc_topk.cu, fc_topk_pallas.py): as raw = 1,
+//     but topv holds the raw logits x.
 __global__ void __launch_bounds__(kHeadThreads)
 head_topk_kernel(const float* __restrict__ logits, int V, int K,
                  float* __restrict__ topv, int* __restrict__ topi,
@@ -132,7 +134,7 @@ head_topk_kernel(const float* __restrict__ logits, int V, int K,
       __syncthreads();
     }
     if (tid == 0) {
-      topv[(size_t)r * K + q] = raw ? red_v[0] - lrow : red_v[0];
+      topv[(size_t)r * K + q] = raw == 1 ? red_v[0] - lrow : red_v[0];
       topi[(size_t)r * K + q] = red_i[0];
       sel[q] = red_i[0];
     }

@@ -7,9 +7,11 @@ The decode ladder of the port, best first, as the JAX ladder
 * "fused_span" -- kernel 7 (``ops/span_cuda.py``): S = cfg.decode_span
   beam steps per call, the selection on the card, records replayed by
   ``decode/replay.py``; attention_scn and pure_attention without alphas;
-* "fused_step" -- kernel 2, one whole beam step per call; no alphas;
-* "steps" -- the step engine, whose attention is kernel 1 on CUDA; the
-  only rung that records alphas.
+* "fused_step" -- kernel 2, one whole beam step per call (6b for
+  pure_scn, 6c on the int8 state); no alphas;
+* "steps" -- the step engine, whose attention is kernel 1 on CUDA (kernel
+  5 on the int8 state) and whose SCN cell is kernel 12 under
+  ``fused_cell=True``; the only rung that records alphas.
 
 "auto" walks it on CUDA and is "steps" on the CPU.  An explicit rung that
 does not apply falls down the ladder.  "fused" names kernel 13
@@ -20,9 +22,12 @@ by design: JAX takes "fused_span" only where a TPU image tile with
 G*K % 8 == 0 divides the batch (so bucket 1 falls to "fused_step"); the
 port has no such tile and takes it at every batch size.
 
-``enc_quant="int8"`` and ``fused_cell=True`` name kernels that are not
-ported yet and raise ``NotImplementedError`` rather than fall down the
-ladder.
+``enc_quant="int8"`` (the int8 encoder state) makes "fused_span"
+ineligible, as in JAX, so "auto" on CUDA is "fused_step" (kernel 6c) and,
+with alphas, "steps" (kernel 5).  "fused" under int8 runs the unquantized
+megakernel, as in JAX, whose eligibility test ignores ``enc_quant``.
+``fused_cell=True`` changes only the step engine, as in JAX: the fused
+rungs ignore it.
 """
 
 from __future__ import annotations
@@ -36,20 +41,7 @@ from ..models import decoders
 from .beam import beam_search
 
 DECODE_IMPLS = ("auto", "steps", "fused_step", "fused_span", "fused")
-_NOT_PORTED = "not ported yet (ROADMAP.md, kernels still to port)"
 SPAN_MODELS = ("attention_scn", "pure_attention")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config that names an unported
-    kernel."""
-    if cfg.enc_quant == "int8":
-        raise NotImplementedError(
-            'enc_quant="int8": the kernels attend_fused_q and '
-            "fused_decode_step_q are " + _NOT_PORTED)
-    if cfg.fused_cell:
-        raise NotImplementedError(
-            "fused_cell=True: the kernel scn_step_fused is " + _NOT_PORTED)
 
 
 def resolve_decode_impl(cfg: ModelConfig, *, record_alphas: bool,
@@ -58,11 +50,13 @@ def resolve_decode_impl(cfg: ModelConfig, *, record_alphas: bool,
     "fused" or "steps" (the module docstring gives the ladder)."""
     if cfg.decode_impl not in DECODE_IMPLS:
         raise ValueError(f"unknown decode_impl {cfg.decode_impl!r}")
-    check_ported(cfg)
+    if cfg.enc_quant not in decoders.ENC_QUANTS:
+        raise ValueError(f"unknown enc_quant {cfg.enc_quant!r}")
     if cfg.model_type not in decoders.MODEL_TYPES:
         raise ValueError(f"unknown model_type {cfg.model_type!r}")
     on_card = device.type == "cuda"
-    span_ok = cfg.model_type in SPAN_MODELS and not record_alphas
+    span_ok = (cfg.model_type in SPAN_MODELS and not record_alphas
+               and cfg.enc_quant != "int8")
     impl = cfg.decode_impl
     if impl == "auto":
         impl = "fused_span" if on_card else "steps"

@@ -13,11 +13,15 @@ whose names mirror the JAX tree (embedding / decode_step / init_h / init_c
   attention-bearing families), then the vocab head outside the scan.
 
 * :func:`make_beam_step` -- the step engine: embedding lookup, attention
-  (kernel 1 or the plain :func:`models.attention.attend`), f_beta gate, the
-  SCN or LSTM cell, the vocab head and a per-lane top-K of the log-softmax
-  (the sparse head of ``decode/beam.py``).  It can record alphas.
+  (kernel 1 or the plain :func:`models.attention.attend`; kernel 5 or its
+  plain version on the int8 state of ``enc_quant="int8"``), f_beta gate,
+  the SCN or LSTM cell (kernel 12, ``ops/scn_cuda.py``, under
+  ``fused_cell=True``), the vocab head and a per-lane top-K of the
+  log-softmax (the sparse head of ``decode/beam.py``).  It can record
+  alphas.
 * :func:`_make_fused_beam_step` -- one whole step per call of kernel 2
-  (``ops/step_cuda.py``); no alphas.
+  (``ops/step_cuda.py``; 6b for pure_scn, 6c on the int8 state); no
+  alphas.  ``fused_cell`` does not reach it, as in JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from .layers import dropout, init_linear, linear, uniform
 MODEL_TYPES = ("pure_scn", "pure_attention", "attention_scn")
 SCN_BASED_MODELS = frozenset({"pure_scn", "attention_scn"})
 ATTENTION_IMPLS = ("auto", "xla", "xla_pk", "pallas", "pallas_mxu")
+ENC_QUANTS = ("none", "int8")
 TRAIN_SCAN_IMPLS = ("auto", "xla", "fused")
 EMBED_GRAD_IMPLS = ("auto", "onehot", "pallas")
 _ONEHOT_TILE = 2048
@@ -282,7 +287,8 @@ def trainable_mask(params, fine_tune_embeddings: bool = True):
 
 
 def resolve_attention_impl(cfg: ModelConfig, device: torch.device) -> str:
-    """cfg.attention_impl -> "kernel" (kernel 1) or "plain" (``attend``).
+    """cfg.attention_impl -> "kernel" (kernel 1; kernel 5 on the int8
+    state) or "plain" (``attend``; ``attend_quant_ref`` on the int8 state).
 
     "auto" is the kernel on CUDA and the plain version on the CPU.  The
     JAX package's two kernel names, "pallas" and "pallas_mxu", compute the
@@ -306,12 +312,16 @@ def make_beam_step(params, cfg: ModelConfig, enc, tags, *,
     K), or the dense log-probabilities (B, K, V) when cfg.sparse_head is
     off; emit holds the attention alphas (B, K, P) of attention models.
 
-    fused_step=True runs each step as one call of kernel 2 and emits no
-    alphas.
+    fused_step=True runs each step as one call of kernel 2 (6c on the
+    int8 state) and emits no alphas.
     """
+    if cfg.enc_quant not in ENC_QUANTS:
+        raise ValueError(f"unknown enc_quant {cfg.enc_quant!r}")
     if fused_step:
         return _make_fused_beam_step(params, cfg, enc, tags)
     from ..ops.attention_cuda import attend_fused_mxu
+    from ..ops.attention_q_cuda import attend_quant, quantize_pixels
+    from ..ops.scn_cuda import scn_step_fused
     from ..ops.topk import row_topk
 
     cell = params["decode_step"]
@@ -319,6 +329,7 @@ def make_beam_step(params, cfg: ModelConfig, enc, tags, *,
     enc_flat = flatten_encoding(enc, cfg.encoder_dim)       # (B, P, E)
     B = enc_flat.shape[0]
     attention_impl = resolve_attention_impl(cfg, enc_flat.device)
+    quant = cfg.enc_quant == "int8"
 
     inv = {}
     if is_scn:
@@ -326,8 +337,14 @@ def make_beam_step(params, cfg: ModelConfig, enc, tags, *,
         inv["sem_x"], inv["sem_h"] = sx[:, None], sh[:, None]
     if cfg.uses_attention:
         enc_att = attn.precompute(params["attention"], enc_flat)
-        inv["enc"] = enc_flat.contiguous()
-        inv["enc_att"] = enc_att.contiguous()
+        if quant:
+            # the serving mode: the loop-invariant state stored int8 with
+            # per-pixel scales, quantized once per decode
+            inv["enc_q"], inv["enc_s"] = quantize_pixels(enc_flat)
+            inv["ea_q"], inv["ea_s"] = quantize_pixels(enc_att)
+        else:
+            inv["enc"] = enc_flat.contiguous()
+            inv["enc_att"] = enc_att.contiguous()
         if is_scn:
             inv["w_x_emb"], inv["w_x_awe"] = _split_wx(params, cfg)
 
@@ -343,7 +360,12 @@ def make_beam_step(params, cfg: ModelConfig, enc, tags, *,
         emb = params["embedding"][prev_words]               # (B, K, Emb)
         emit = {}
         if cfg.uses_attention:
-            if attention_impl == "kernel":
+            if quant:
+                awe, alpha = attend_quant(
+                    params["attention"], inv["enc_q"], inv["enc_s"],
+                    inv["ea_q"], inv["ea_s"], h,
+                    kernel=attention_impl == "kernel")
+            elif attention_impl == "kernel":
                 awe, alpha = attend_fused_mxu(
                     params["attention"], inv["enc"], inv["enc_att"], h)
             else:
@@ -353,7 +375,10 @@ def make_beam_step(params, cfg: ModelConfig, enc, tags, *,
             gate = torch.sigmoid(linear(params["f_beta"], h))
             awe = gate * awe
             emit["alpha"] = alpha                           # (B, K, P)
-            if is_scn:
+            if is_scn and cfg.fused_cell:
+                h, c = scn_step_fused(cell, torch.cat([emb, awe], dim=-1),
+                                      inv["sem_x"], inv["sem_h"], h, c)
+            elif is_scn:
                 x_fac = (_gate_factor(emb @ inv["w_x_emb"])
                          + _gate_factor(awe @ inv["w_x_awe"]))
                 h, c = scn_cell.scn_step(cell, x_fac, inv["sem_x"],
@@ -361,6 +386,8 @@ def make_beam_step(params, cfg: ModelConfig, enc, tags, *,
             else:
                 x = torch.cat([emb, awe], dim=-1)
                 h, c = lstm_cell.lstm_step(cell, x, h, c)
+        elif cfg.fused_cell:
+            h, c = scn_step_fused(cell, emb, inv["sem_x"], inv["sem_h"], h, c)
         else:
             h, c = scn_cell.scn_step(cell, scn_cell.input_factor(cell, emb),
                                      inv["sem_x"], inv["sem_h"], h, c)
@@ -381,9 +408,12 @@ def make_beam_step(params, cfg: ModelConfig, enc, tags, *,
 def _make_fused_beam_step(params, cfg: ModelConfig, enc, tags):
     """(init_state, step_fn) backed by kernel 2, for all three families:
     attention_scn (attention + SCN), pure_attention (attention + torch
-    LSTM) and pure_scn (SCN only: no encoder state reaches the kernel)."""
+    LSTM) and pure_scn (kernel 6b, SCN only: no encoder state reaches the
+    kernel).  Under enc_quant="int8" the attention families run kernel
+    6c on the int8 state."""
+    from ..ops.attention_q_cuda import quantize_pixels
     from ..ops.step_cuda import (fused_decode_step, fused_decode_step_noattn,
-                                 pack_step_weights)
+                                 fused_decode_step_q, pack_step_weights)
 
     if cfg.model_type not in MODEL_TYPES:
         raise NotImplementedError(f"fused_step: unknown {cfg.model_type}")
@@ -396,9 +426,14 @@ def _make_fused_beam_step(params, cfg: ModelConfig, enc, tags):
     F4 = 4 * cfg.factored_dim
 
     enc_inputs = (None, None)
+    step_kernel = fused_decode_step
     if cfg.uses_attention:
         enc_att = attn.precompute(params["attention"], enc_flat)
-        enc_inputs = (enc_flat.contiguous(), enc_att.to(dt).contiguous())
+        if cfg.enc_quant == "int8":
+            enc_inputs = quantize_pixels(enc_flat) + quantize_pixels(enc_att)
+            step_kernel = fused_decode_step_q
+        else:
+            enc_inputs = (enc_flat.contiguous(), enc_att.to(dt).contiguous())
     weights = pack_step_weights(params, cfg, dt)
     if is_scn:
         sx, sh = scn_cell.semantic_projections(cell, tags)  # (B, 4, F)
@@ -424,7 +459,7 @@ def _make_fused_beam_step(params, cfg: ModelConfig, enc, tags):
         args = (emb_rows.to(dt).contiguous(), h.reshape(B * K, D),
                 state["c"].reshape(B * K, D), semx, semh)
         if cfg.uses_attention:
-            topv, topi, lse, h_new, c_new = fused_decode_step(
+            topv, topi, lse, h_new, c_new = step_kernel(
                 weights, *enc_inputs, *args,
                 cell="scn" if is_scn else "lstm")
         else:

@@ -34,6 +34,10 @@ SIGNATURES = {
         "iic_attend": [_I, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P],
     },
+    "attend_q": {
+        "iic_attend_q": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _P],
+    },
     "step": {
         "iic_gemm": [_I, _I, _I, _I, _I,
                      _P, _L, _P, _L, _I,
@@ -55,6 +59,12 @@ SIGNATURES = {
     },
     "topk": {
         "iic_row_topk": [_I, _P, _I, _I, _I, _P, _P, _P],
+    },
+    "scn": {
+        "iic_scn_step": [_I] + [_P] * 14 + [_I, _I, _I, _I, _P],
+    },
+    "fc_topk": {
+        "iic_fc_topk": [_P] * 7 + [_I, _I, _I, _I, _P],
     },
 }
 

@@ -1,8 +1,12 @@
-"""Kernel 2: one fused beam-decode step (``csrc/step.cu`` + kernel 1).
+"""Kernels 2, 6b and 6c: one fused beam-decode step (``csrc/step.cu`` +
+kernel 1 or kernel 5).
 
-Replaces ``ops/step_pallas.py::fused_decode_step`` and
-``fused_decode_step_noattn`` of the JAX package (the Pallas body
-``_make_kernel``, called by ``_fused_call``).  One step over R = B*K rows:
+Replace ``ops/step_pallas.py::fused_decode_step`` (kernel 2),
+``fused_decode_step_noattn`` (6b, pure_scn: no attention stage) and
+``fused_decode_step_q`` (6c, the int8 encoder state of
+``ModelConfig.enc_quant``: kernel 5 in place of kernel 1) of the JAX
+package (the Pallas body ``_make_kernel``, called by ``_fused_call``).
+Each wrapper counts its own launches.  One step over R = B*K rows:
 attention, the f_beta gate, the SCN or torch-LSTM cell, the vocab head, the
 float32 log-sum and a per-row top-K.  On the card it is a chain of launches
 of the kernels of ``csrc/step.cu`` and ``csrc/attend.cu``; the top of
@@ -26,6 +30,7 @@ import torch
 
 from . import _build
 from .attention_cuda import MAX_K, attend_plain, launch_attend
+from .attention_q_cuda import attend_q_plain, launch_attend_q
 from .topk import row_topk_iterative
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,17 +80,22 @@ def pack_step_weights(params, cfg, dt) -> Dict[str, torch.Tensor]:
 
 
 def step_logits_plain(weights, enc, ea, emb_rows, h, c, semx, semh, *,
-                      cell: str):
+                      cell: str, scales=None, p_actual=None):
     """The step up to its head in plain PyTorch: the step engine's
     attention, gate and cell, then the vocab product.  Returns (logits
-    (R, V) float32, h', c').  enc/ea are None for pure_scn."""
+    (R, V) float32, h', c').  enc/ea are None for pure_scn; with scales =
+    (enc_s, ea_s) they are the int8 state of kernel 6c."""
     dt, f32 = h.dtype, torch.float32
     R, D = h.shape
     if enc is not None:
         B = enc.shape[0]
         K = R // B
-        dec = (h @ weights["wda"]) + weights["bda"]
-        awe, _ = attend_plain(enc, ea, dec.reshape(B, K, -1), weights["wf"])
+        dec = ((h @ weights["wda"]) + weights["bda"]).reshape(B, K, -1)
+        if scales is None:
+            awe, _ = attend_plain(enc, ea, dec, weights["wf"])
+        else:
+            awe, _ = attend_q_plain(enc, scales[0], ea, scales[1], dec,
+                                    weights["wf"], p_actual=p_actual)
         gate = torch.sigmoid(((h @ weights["wfb"]) + weights["bfb"])
                              .to(f32)).to(dt)
         awe = gate * awe.reshape(R, -1)
@@ -121,11 +131,13 @@ def step_logits_plain(weights, enc, ea, emb_rows, h, c, semx, semh, *,
 
 
 def fused_decode_step_plain(weights, enc, ea, emb_rows, h, c, semx, semh, *,
-                            cell: str, topk: int):
+                            cell: str, topk: int, scales=None,
+                            p_actual=None):
     """The step's math in plain PyTorch: :func:`step_logits_plain`, then
     log-softmax's max shift, the float32 log-sum and iterative top-K."""
     lg, h_new, c_new = step_logits_plain(weights, enc, ea, emb_rows, h, c,
-                                         semx, semh, cell=cell)
+                                         semx, semh, cell=cell,
+                                         scales=scales, p_actual=p_actual)
     shifted = lg - lg.max(dim=1, keepdim=True).values
     lse = torch.log(torch.exp(shifted).sum(dim=1, keepdim=True))
     topv, topi = row_topk_iterative(shifted, topk)
@@ -157,9 +169,11 @@ def _gemm(lib, code: int, stream: int, *, epi: int, M: int, N: int, a1, w1,
 
 
 def launch_step(weights, enc, ea, emb_rows, h, c, semx, semh, *,
-                cell: str, topk: int, stream: int):
+                cell: str, topk: int, stream: int, scales=None,
+                p_actual=None):
     """The chain of launches on already-checked tensors; returns
-    (topv, topi, lse, h', c')."""
+    (topv, topi, lse, h', c').  With scales = (enc_s, ea_s), enc and ea
+    are int8 and the attention is kernel 5's."""
     lib = _build.load("step")
     dt, dev = h.dtype, h.device
     code = _DTYPES[dt]
@@ -171,14 +185,19 @@ def launch_step(weights, enc, ea, emb_rows, h, c, semx, semh, *,
 
     gawe = None
     if enc is not None:
-        B, _, E = enc.shape
+        B, P, E = enc.shape
         A, K = ea.shape[-1], R // B
         dec = empty(R, A)
         _gemm(lib, code, stream, epi=EPI_BIAS, M=R, N=A, a1=h,
               w1=weights["wda"], bias1=weights["bda"], c=dec)
         awe = empty(R, E)
-        launch_attend(enc, ea, dec.view(B, K, A), weights["wf"],
-                      awe.view(B, K, E), None, stream)
+        if scales is None:
+            launch_attend(enc, ea, dec.view(B, K, A), weights["wf"],
+                          awe.view(B, K, E), None, stream)
+        else:
+            launch_attend_q(enc, scales[0], ea, scales[1], dec.view(B, K, A),
+                            weights["wf"], awe.view(B, K, E), None,
+                            P if p_actual is None else p_actual, stream)
         gawe = empty(R, E)
         _gemm(lib, code, stream, epi=EPI_SIGMOID_MUL, M=R, N=E, a1=h,
               w1=weights["wfb"], bias1=weights["bfb"], aux=awe, c=gawe)
@@ -222,7 +241,8 @@ def launch_step(weights, enc, ea, emb_rows, h, c, semx, semh, *,
     return topv, topi, lse, h_new, c_new
 
 
-def _check(weights, enc, ea, emb_rows, h, c, semx, semh, cell, topk):
+def _check(weights, enc, ea, emb_rows, h, c, semx, semh, cell, topk,
+           scales, p_actual):
     dt = h.dtype
     if dt not in _DTYPES:
         raise TypeError(f"fused step takes float32 or bfloat16, got {dt}")
@@ -233,10 +253,27 @@ def _check(weights, enc, ea, emb_rows, h, c, semx, semh, cell, topk):
     R = h.shape[0]
     ts = [emb_rows, h, c] + ([semx, semh] if cell == "scn" else [])
     if enc is not None:
-        ts += [enc, ea]
         if R % enc.shape[0]:
             raise ValueError(f"{R} rows do not split over {enc.shape[0]} "
                              "images")
+        if scales is None:
+            ts += [enc, ea]
+        else:
+            B, P = enc.shape[:2]
+            for t in (enc, ea):
+                if t.dtype != torch.int8 or not t.is_contiguous() \
+                        or t.shape[:2] != (B, P):
+                    raise TypeError("the int8 step takes contiguous int8 "
+                                    f"(B, P, .) state, got {t.dtype} "
+                                    f"{tuple(t.shape)}")
+            for t in scales:
+                if t.dtype != torch.float32 or t.shape != (B, P, 1) \
+                        or not t.is_contiguous():
+                    raise TypeError("the int8 step takes contiguous float32 "
+                                    f"(B, P, 1) scales, got {t.dtype} "
+                                    f"{tuple(t.shape)}")
+            if not 1 <= (P if p_actual is None else p_actual) <= P:
+                raise ValueError(f"p_actual={p_actual} outside 1..{P}")
     ts += [w for k, w in weights.items() if k != "wf"]
     for t in ts:
         if t.dtype != dt:
@@ -250,17 +287,23 @@ def _check(weights, enc, ea, emb_rows, h, c, semx, semh, cell, topk):
             raise ValueError(f"row count {t.shape[0]} != {R}")
 
 
-def _fused_call(weights, enc, ea, emb_rows, h, c, semx, semh, *, cell, topk):
-    _check(weights, enc, ea, emb_rows, h, c, semx, semh, cell, topk)
+def _fused_call(counted, weights, enc, ea, emb_rows, h, c, semx, semh, *,
+                cell, topk, scales=None, p_actual=None):
+    """Check, then the plain version (CPU tensors) or the chain (CUDA
+    tensors), whose launch counts in ``counted.launches``."""
+    _check(weights, enc, ea, emb_rows, h, c, semx, semh, cell, topk, scales,
+           p_actual)
     if h.device.type == "cpu":
         return fused_decode_step_plain(weights, enc, ea, emb_rows, h, c,
-                                       semx, semh, cell=cell, topk=topk)
+                                       semx, semh, cell=cell, topk=topk,
+                                       scales=scales, p_actual=p_actual)
     if h.device.type != "cuda":
         raise RuntimeError(f"fused decode step: no kernel for {h.device}")
     out = launch_step(weights, enc, ea, emb_rows, h, c, semx, semh,
                       cell=cell, topk=topk,
-                      stream=torch.cuda.current_stream(h.device).cuda_stream)
-    fused_decode_step.launches += 1
+                      stream=torch.cuda.current_stream(h.device).cuda_stream,
+                      scales=scales, p_actual=p_actual)
+    counted.launches += 1
     return out
 
 
@@ -272,16 +315,36 @@ def fused_decode_step(weights, enc, ea, emb_rows, h, c, semx, semh, *,
     emb_rows, h, c (B*K, ·); semx, semh (B*K, 4F) for the SCN cell, else
     None.  K = B*K // B candidates per row.  Returns (topv, topi, lse, h',
     c') as the module docstring states."""
-    return _fused_call(weights, enc, ea, emb_rows, h, c, semx, semh,
-                       cell=cell, topk=h.shape[0] // enc.shape[0])
+    return _fused_call(fused_decode_step, weights, enc, ea, emb_rows, h, c,
+                       semx, semh, cell=cell, topk=h.shape[0] // enc.shape[0])
 
 
 fused_decode_step.launches = 0
 
 
+def fused_decode_step_q(weights, enc_q, enc_s, ea_q, ea_s, emb_rows, h, c,
+                        semx, semh, *, cell: str = "scn", p_actual=None):
+    """Kernel 6c: :func:`fused_decode_step` on the int8 encoder state.
+
+    enc_q, ea_q (B, P, E|A) int8 and enc_s, ea_s (B, P, 1) float32 from
+    ``attention_q_cuda.quantize_pixels``; the attention is kernel 5's (the
+    enc scale folded into alpha), the rest of the chain kernel 2's.  Only
+    the first p_actual pixels (default all) take part."""
+    return _fused_call(fused_decode_step_q, weights, enc_q, ea_q, emb_rows,
+                       h, c, semx, semh, cell=cell,
+                       topk=h.shape[0] // enc_q.shape[0],
+                       scales=(enc_s, ea_s), p_actual=p_actual)
+
+
+fused_decode_step_q.launches = 0
+
+
 def fused_decode_step_noattn(weights, emb_rows, h, c, semx, semh, *,
                              beam_k: int):
-    """pure_scn variant: no attention stage and no encoder state; each row
-    emits beam_k candidates.  Counts in ``fused_decode_step.launches``."""
-    return _fused_call(weights, None, None, emb_rows, h, c, semx, semh,
-                       cell="scn", topk=beam_k)
+    """Kernel 6b, the pure_scn variant: no attention stage and no encoder
+    state; each row emits beam_k candidates."""
+    return _fused_call(fused_decode_step_noattn, weights, None, None,
+                       emb_rows, h, c, semx, semh, cell="scn", topk=beam_k)
+
+
+fused_decode_step_noattn.launches = 0

@@ -42,7 +42,9 @@ from indonesian_image_captioning_tpu_torch.decode.api import \
 from indonesian_image_captioning_tpu_torch.models import (attention,
                                                           decoders, scn_cell)
 from indonesian_image_captioning_tpu_torch.ops import (attention_cuda,
-                                                       decode_cuda, losses,
+                                                       attention_q_cuda,
+                                                       decode_cuda, fc_topk,
+                                                       losses, scn_cuda,
                                                        span_cuda, step_cuda,
                                                        topk, train_cuda)
 from indonesian_image_captioning_tpu_torch.train import steps
@@ -141,14 +143,17 @@ def _step_case(dev, dtype, cfg, B, K, gen, params=None):
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("B, K", [(3, 1), (14, 5), (3, 8)])
 def test_fused_step_kernel_matches_plain(dev, family, dtype, B, K):
+    """Kernel 2, and 6b for pure_scn, each counted on its own wrapper."""
     cfg = small_cfg(family)
     gen = torch.Generator().manual_seed(B * 10 + K)
     n_step = step_cuda.fused_decode_step.launches
+    n_noattn = step_cuda.fused_decode_step_noattn.launches
     n_att = attention_cuda.attend_fused.launches
     out, ref, weights = _step_case(dev, dtype, cfg, B, K, gen)
-    assert step_cuda.fused_decode_step.launches == n_step + 1
-    assert attention_cuda.attend_fused.launches == \
-        n_att + int(cfg.uses_attention)
+    att = int(cfg.uses_attention)
+    assert step_cuda.fused_decode_step.launches == n_step + att
+    assert step_cuda.fused_decode_step_noattn.launches == n_noattn + 1 - att
+    assert attention_cuda.attend_fused.launches == n_att + att
     topv, topi, lse, h_new, c_new = out
     R = B * K
     assert topv.shape == topi.shape == (R, K) and lse.shape == (R, 1)
@@ -661,3 +666,210 @@ def test_pallas_topk_backend_on_card_matches_cpu(dev):
     for k in ("sequences", "lengths", "completed_count"):
         assert torch.equal(out[k].cpu(), ref[k]), k
     assert err(out["scores"].cpu(), ref["scores"]) <= 1e-4
+
+
+# ---- kernels 5 and 6c (int8 encoder state), 12 (fused SCN cell) and 11
+# (the vocab head): tolerances as kernels 1 and 2's above ----
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("K", [1, 5, 8])
+@pytest.mark.parametrize("P, pa, E", [(9, 9, 72), (37, 30, 600)])
+def test_attend_q_kernel_matches_plain(dev, dtype, K, P, pa, E):
+    """Kernel 5 on ragged shapes, with p_actual < P (the pixels past it
+    take no part and the softmax stays finite), with and without alpha."""
+    gen = torch.Generator().manual_seed(K * 100 + P)
+    B, A = 3, 40
+    enc_q, enc_s = attention_q_cuda.quantize_pixels(
+        torch.relu(randn(gen, B, P, E)).to(dev))
+    ea_q, ea_s = attention_q_cuda.quantize_pixels(
+        randn(gen, B, P, A, scale=0.5).to(dev))
+    enc_q[:, pa:] = 127             # junk past p_actual must not count
+    dec = randn(gen, B, K, A, scale=0.5).to(dev, dtype)
+    wf = randn(gen, A).to(dev)
+    args = (enc_q, enc_s, ea_q, ea_s, dec, wf)
+    n0 = attention_q_cuda.attend_fused_q.launches
+    awe, alpha = attention_q_cuda.attend_fused_q(*args, p_actual=pa)
+    awe2, none = attention_q_cuda.attend_fused_q(*args, p_actual=pa,
+                                                 with_alpha=False)
+    ref_awe, ref_alpha = attention_q_cuda.attend_q_plain(*args, p_actual=pa)
+    torch.cuda.synchronize()
+    assert attention_q_cuda.attend_fused_q.launches == n0 + 2
+    assert none is None and torch.equal(awe, awe2)
+    assert awe.dtype == alpha.dtype == dtype and alpha.shape == (B, K, pa)
+    assert bool(awe.float().isfinite().all())
+    assert err(awe, ref_awe) <= TOL[dtype]["attend"]
+    assert err(alpha, ref_alpha) <= TOL[dtype]["attend"]
+    sums = alpha.float().sum(-1)
+    assert err(sums, torch.ones_like(sums)) <= (1e-5 if dtype == F32
+                                                else 1e-2)
+
+
+@pytest.mark.parametrize("family", ["attention_scn", "pure_attention"])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B, K, cut", [(3, 1, 0), (14, 5, 2), (3, 8, 0)])
+def test_fused_step_q_kernel_matches_plain(dev, family, dtype, B, K, cut):
+    """Kernel 6c against its plain version (p_actual = P - cut); it
+    launches kernel 5 and neither kernel 1 nor kernel 2's counter moves."""
+    cfg = small_cfg(family)
+    gen = torch.Generator().manual_seed(B * 10 + K + 1)
+    params = decoders.init_decoder(gen, cfg, device=dev)
+    params["fc"]["b"] = randn(gen, cfg.vocab_size).to(dev)
+    R = B * K
+    weights = step_cuda.pack_step_weights(params, cfg, dtype)
+    emb = randn(gen, R, cfg.embed_dim, scale=0.1).to(dev, dtype)
+    h = torch.tanh(randn(gen, R, cfg.decoder_dim)).to(dev, dtype)
+    c = randn(gen, R, cfg.decoder_dim, scale=0.5).to(dev, dtype)
+    semx = semh = None
+    cell = "scn" if cfg.uses_tags else "lstm"
+    if cell == "scn":
+        tags = torch.rand((B, cfg.semantic_dim), generator=gen).to(dev)
+        sx, sh = scn_cell.semantic_projections(params["decode_step"], tags)
+        semx, semh = (s.reshape(B, -1).repeat_interleave(K, 0).to(dtype)
+                      .contiguous() for s in (sx, sh))
+    enc = torch.relu(randn(gen, B, cfg.num_pixels, cfg.encoder_dim)).to(dev)
+    ea = attention.precompute(params["attention"], enc)
+    state = (attention_q_cuda.quantize_pixels(enc)
+             + attention_q_cuda.quantize_pixels(ea))
+    pa = cfg.num_pixels - cut
+    counts = [f.launches for f in (step_cuda.fused_decode_step_q,
+                                   attention_q_cuda.attend_fused_q,
+                                   step_cuda.fused_decode_step,
+                                   attention_cuda.attend_fused)]
+    out = step_cuda.fused_decode_step_q(weights, *state, emb, h, c, semx,
+                                        semh, cell=cell, p_actual=pa)
+    ref = step_cuda.fused_decode_step_plain(
+        weights, state[0], state[2], emb, h, c, semx, semh, cell=cell,
+        topk=K, scales=(state[1], state[3]), p_actual=pa)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (step_cuda.fused_decode_step_q,
+                                 attention_q_cuda.attend_fused_q,
+                                 step_cuda.fused_decode_step,
+                                 attention_cuda.attend_fused)] == \
+        [counts[0] + 1, counts[1] + 1, counts[2], counts[3]]
+    topv, topi, lse, h_new, c_new = out
+    assert err(topv, ref[0]) <= TOL[dtype]["vals"]
+    assert err(lse, ref[2]) <= TOL[dtype]["vals"]
+    assert err(h_new, ref[3]) <= TOL[dtype]["state"]
+    assert err(c_new, ref[4]) <= TOL[dtype]["state"]
+    if dtype == F32:
+        logits = ref[3] @ weights["fcw"] + weights["fcb"]
+        for r, q in (topi != ref[1]).nonzero().tolist():
+            a, b = int(topi[r, q]), int(ref[1][r, q])
+            assert abs(float(logits[r, a] - logits[r, b])) <= NEAR_TIE
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("lead, In, H, F", [((7,), 37, 36, 20),
+                                            ((13, 5), 600, 40, 24),
+                                            ((160,), 100, 64, 33)])
+def test_scn_step_fused_kernel_matches_plain(dev, dtype, lead, In, H, F):
+    """Kernel 12 on ragged rows and widths (none a multiple of the GEMM's
+    tiles), the semantic factors broadcast over the beam axis."""
+    gen = torch.Generator().manual_seed(In + H)
+    params = scn_cell.init_scn_cell(gen, In, H, 30, F, device=dev)
+    params = decoders.cast_params(params, dtype)
+    x = randn(gen, *lead, In).to(dev, dtype)
+    h = torch.tanh(randn(gen, *lead, H)).to(dev, dtype)
+    c = randn(gen, *lead, H, scale=0.5).to(dev, dtype)
+    tags = torch.rand((lead[0], 30), generator=gen).to(dev, dtype)
+    sx, sh = scn_cell.semantic_projections(params, tags)
+    if len(lead) == 2:
+        sx, sh = sx[:, None], sh[:, None]
+    n0 = scn_cuda.scn_step_fused.launches
+    got = scn_cuda.scn_step_fused(params, x, sx, sh, h, c)
+    rows = scn_cuda.to_rows(params, x, sx, sh, h, c)[:5]
+    ref = scn_cuda.scn_step_fused_plain(params, *rows)
+    torch.cuda.synchronize()
+    assert scn_cuda.scn_step_fused.launches == n0 + 1
+    for a, b in zip(got, ref):
+        assert a.shape == (*lead, H) and a.dtype == dtype
+        assert err(a.reshape(-1, H), b) <= TOL[dtype]["state"]
+
+
+@pytest.mark.parametrize("R, D, V, k", [(7, 16, 40, 5), (65, 36, 1000, 8),
+                                        (3, 8, 513, 1), (160, 64, 6763, 5)])
+def test_fc_topk_kernel_matches_plain(dev, R, D, V, k):
+    """Kernel 11: raw-logit values and the log-sum within 1e-5, ids equal
+    but at near-ties."""
+    gen = torch.Generator().manual_seed(R + V)
+    h = randn(gen, R, D).to(dev)
+    w = randn(gen, D, V, scale=0.3).to(dev)
+    b = randn(gen, V).to(dev)
+    n0 = fc_topk.fc_topk.launches
+    tv, ti, lse = fc_topk.fc_topk(h, w, b, k)
+    rv, ri, rl = fc_topk.fc_topk_plain(h, w, b, k)
+    torch.cuda.synchronize()
+    assert fc_topk.fc_topk.launches == n0 + 1
+    assert ti.dtype == torch.int32 and lse.shape == (R,)
+    assert err(tv, rv) <= 1e-5 * max(1.0, float(rv.abs().max()))
+    assert err(lse, rl) <= 1e-5 * max(1.0, float(rl.abs().max()))
+    logits = h @ w + b
+    for r, q in (ti != ri).nonzero().tolist():
+        a, b_ = int(ti[r, q]), int(ri[r, q])
+        assert abs(float(logits[r, a] - logits[r, b_])) <= NEAR_TIE
+
+
+def test_fc_topk_ties_go_to_the_lowest_id(dev):
+    """Seven equal columns lifted above the rest: each row's top 5 are the
+    five lowest of the seven ids, in order, with equal values."""
+    gen = torch.Generator().manual_seed(3)
+    R, D, V = 9, 12, 300
+    h = randn(gen, R, D).to(dev)
+    w = randn(gen, D, V, scale=0.1).to(dev)
+    b = torch.zeros(V, device=dev)
+    tied = [3, 50, 51, 120, 121, 180, 299]
+    w[:, tied] = w[:, 7:8]
+    b[tied] = 10.0
+    tv, ti, _ = fc_topk.fc_topk(h, w, b, 5)
+    want = torch.tensor(tied[:5], dtype=torch.int32, device=dev)
+    assert bool((ti == want).all())
+    assert bool((tv == tv[:, :1]).all())
+
+
+@pytest.mark.parametrize("family, kw, record, want, counter", [
+    ("attention_scn", dict(enc_quant="int8"), False, "fused_step",
+     "fused_decode_step_q"),
+    ("pure_attention", dict(enc_quant="int8"), False, "fused_step",
+     "fused_decode_step_q"),
+    ("attention_scn", dict(enc_quant="int8"), True, "steps",
+     "attend_fused_q"),
+    ("attention_scn", dict(fused_cell=True, decode_impl="steps"), True,
+     "steps", "scn_step_fused"),
+    ("pure_scn", dict(fused_cell=True, decode_impl="steps"), False, "steps",
+     "scn_step_fused"),
+    ("pure_scn", {}, False, "fused_step", "fused_decode_step_noattn"),
+])
+def test_opt_in_modes_on_card_match_cpu(dev, family, kw, record, want,
+                                        counter):
+    """The int8 state (kernels 6c and 5), the fused SCN cell (kernel 12)
+    and pure_scn's fused step (kernel 6b) on the card give the same
+    mode's beams on the CPU, with early completions; each kernel runs
+    once per decode step."""
+    cfg = small_cfg(family, **kw)
+    gen = torch.Generator().manual_seed(19)
+    params = decoders.init_decoder(gen, cfg)
+    V = cfg.vocab_size
+    params["fc"]["b"][V - 1] = 1.2
+    enc = torch.relu(randn(gen, 6, 3, 3, cfg.encoder_dim, scale=0.5))
+    tags = torch.rand((6, cfg.semantic_dim), generator=gen)
+    kw = dict(start_id=V - 2, end_id=V - 1, record_alphas=record,
+              beam_cfg=BeamConfig(beam_size=5, max_steps=12))
+    ref = caption_beam_search(params, cfg, enc, tags, **kw)
+    fn = {"fused_decode_step_q": step_cuda.fused_decode_step_q,
+          "attend_fused_q": attention_q_cuda.attend_fused_q,
+          "scn_step_fused": scn_cuda.scn_step_fused,
+          "fused_decode_step_noattn":
+          step_cuda.fused_decode_step_noattn}[counter]
+    n0 = fn.launches
+    out = caption_beam_search(_to(params, dev), cfg, enc.to(dev),
+                              tags.to(dev), **kw)
+    assert out["decode_impl"] == want
+    assert fn.launches - n0 == out["decode_calls"] == ref["steps"] > 0
+    for k in ("sequences", "lengths", "completed_count",
+              "completed_lengths"):
+        assert torch.equal(out[k].cpu(), ref[k]), k
+    assert err(out["scores"].cpu(), ref["scores"]) <= 1e-4
+    assert int(ref["completed_count"].sum()) > 0
+    if record:
+        assert err(out["alpha"].cpu(), ref["alpha"]) <= 1e-5

@@ -229,9 +229,12 @@ def test_decode_ladder_and_unported_names():
                 model_type="pure_attention") == "steps"
     assert rung(cuda, decode_impl="fused_step") == "fused_step"
     assert rung(cuda, topk_backend="pallas") == "fused_span"
-    for kw in (dict(enc_quant="int8"), dict(fused_cell=True)):
-        with pytest.raises(NotImplementedError):
-            rung(cuda, **kw)
+    # the opt-in modes are ported: int8 state leaves the span rung
+    # (tests/test_torch_quant.py has its ladder), the fused cell changes
+    # only the step engine
+    assert rung(cuda, enc_quant="int8") == "fused_step"
+    assert rung(cuda, fused_cell=True) == "fused_span"
+    assert rung(cuda, fused_cell=True, record_alphas=True) == "steps"
     assert decoders.resolve_attention_impl(cfg, cuda) == "kernel"
     assert decoders.resolve_attention_impl(cfg, cpu) == "plain"
     for name, want in (("pallas", "kernel"), ("pallas_mxu", "kernel"),

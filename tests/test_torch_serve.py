@@ -156,7 +156,8 @@ def test_cuda_request_without_a_device_raises(engine_parts):
 
 def test_port_imports_no_jax():
     """After the port is imported and its CPU paths have run (a caption
-    batch, the record rungs, greedy decoding and one train step), neither
+    batch, the record rungs, greedy decoding, the int8 and fused-cell
+    decodes, the fused vocab head and one train step), neither
     jax nor the JAX package is in sys.modules (a subprocess: this test
     process has imported both)."""
     code = textwrap.dedent("""
@@ -202,6 +203,16 @@ def test_port_imports_no_jax():
             assert out["decode_impl"] == impl
         caption_greedy(state["params"], cfg, enc1, tags1, start_id=18,
                        end_id=19, max_steps=3)
+        for kw in (dict(enc_quant="int8", decode_impl="fused_step"),
+                   dict(enc_quant="int8", fused_cell=True)):
+            caption_beam_search(
+                state["params"], dataclasses.replace(cfg, **kw), enc1,
+                tags1, start_id=18, end_id=19,
+                beam_cfg=BeamConfig(beam_size=2, max_steps=3))
+        from indonesian_image_captioning_tpu_torch.ops.fc_topk import \
+            fc_topk
+        fc_topk(torch.rand((4, 8)), state["params"]["fc"]["w"],
+                state["params"]["fc"]["b"], 2)
         from indonesian_image_captioning_tpu_torch.core.config import \
             TrainConfig
         from indonesian_image_captioning_tpu_torch.train import steps
