@@ -26,7 +26,14 @@ Phases, each of which exits non-zero on failure:
    kernel 12 (the fused SCN cell) at attention_scn's input width (2,560)
    and pure_scn's (512), in float32 and bfloat16, and kernel 11 (the vocab
    head, float32 only) on 160 rows: the same holds for each (error against
-   its tolerance, median times, ids equal but at near-ties).
+   its tolerance, median times, ids equal but at near-ties).  Kernel 14
+   (the embedding gradient) on the ids and masked cotangent of 32 seeded
+   captions (N = 32 x 51 = 1,632 tokens, V = 6,763, E = 512) in float32
+   and bfloat16, at b1024 (N = 52,224) and on ids that are all 0 or 7:
+   every element within EMBED_TOL of its column's sum of |g| against the
+   plain version, two calls bitwise equal, and the medians of the kernel,
+   the plain version, one index_add_ call (the library yardstick) and the
+   one-hot product that embed_grad_impl="onehot" runs.
 4. serve: the main path.  A CaptionEngine on seeded random weights
    (ResNet-152 caption encoder and tagger with BatchNorm statistics
    calibrated on one seeded batch, attention_scn at V=6,763), buckets
@@ -77,8 +84,25 @@ Phases, each of which exits non-zero on failure:
    device busy share and device time by kernel group, torch.profiler); and
    one step with the chunked head, whose loss must equal the dense head's
    within 1e-5.
+7. trainer: the trainer's main path, train.caption.train (the port's
+   cli/train.py runs it from files) at the same widths with
+   embed_grad_impl="pallas", on an in-memory corpus of 96 TRAIN and 32
+   VAL seeded noise images, 5 Zipf-drawn captions each: BatchNorm
+   calibrated on one batch, the feature cache on the device, 2 epochs
+   with BLEU-4 and checkpoints, the counters zeroed just before and read
+   just after (kernel 14 once per train step, kernels 8 and 9 once per
+   train step and 8 once per validation step), every step loss finite,
+   checkpoint_* and BEST_checkpoint_* written, the saved Adam moments
+   bitwise the trainer's.  Then a resume with nothing left to run (Adam's
+   moments bitwise the saved ones), a resume for epoch 3 (it starts
+   there and runs kernel 14 once per step), one uncached epoch through
+   the device image store (each step loss within UNCACHED_TOL of the
+   cached run's), and a profile of one train step with kernel 14.  It
+   prints the epoch seconds, train imgs/s and the feature-cache build
+   time.
 
-The line before the last lists each kernel as JSON; the last line is
+The line before the last lists each kernel (thirteen) as JSON; the last
+line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -136,6 +160,15 @@ GRAD_TOL, LOSS_TOL, HEAD_TOL = 5e-3, 1e-4, 1e-5
 # share of their largest magnitude (float32 summation order over D=512).
 FC_TOL = 1e-5
 TRAIN_STEPS = 5
+# Kernel 14 against its plain version: each table element within this
+# share of its column's sum of |g| (float32 sums in another order; the
+# plain version's index_add_ adds with atomics in a varying order).
+EMBED_TOL = 1e-6
+# The trainer phase: TRAIN and VAL images, captions per image, epochs
+TRAINER_IMAGES, TRAINER_CPI, TRAINER_EPOCHS = (96, 32), 5, 2
+# one epoch through the uncached path (the device image store) against the
+# cached run's first epoch: each step's loss within this share of it
+UNCACHED_TOL = 1e-4
 # The card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms.
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}
@@ -367,6 +400,98 @@ def fc_topk_case(dev, cfg, nb):
           f"rows; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
           f"{bound_ms:.4f} ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def embed_grad_inputs(dev, dtype, B, T, V, E, gen_seed, dup=False):
+    """Kernel 14's inputs as the trainer's embedding backward gives them:
+    the ids of B seeded captions' first T tokens (padded with id 0) and a
+    (B*T, E) cotangent, zero at the positions the loss masks out (t >=
+    caplen - 1, the padding and the <end> input).  dup: every id 0 or 7."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(gen_seed)
+    caps, lens = captions(rng, B, V, T + 1)
+    ids = caps[:, :T].reshape(-1)
+    if dup:
+        ids = (np.arange(B * T) % 2 * 7).astype(np.int32)
+    live = (np.arange(T)[None] < lens[:, None] - 1).reshape(-1, 1)
+    g = rng.standard_normal((B * T, E)).astype(np.float32) * live
+    return (torch.from_numpy(ids).to(dev),
+            torch.from_numpy(g).to(dev, dtype).contiguous())
+
+
+def embed_work(N, V, E, isz=4):
+    """Bytes and operations of kernel 14: ids and g read once, the (V, E)
+    float32 table written once; one add per g element."""
+    return V * E * 4 + N * E * isz + N * 4, N * E
+
+
+def embed_grad_case(dev, dtype, B, T, V, E, dup=False, label=""):
+    """Kernel 14 against its plain version (index_add_, which adds with
+    atomics on the card, so its order varies): every element within
+    EMBED_TOL of its column's sum of |g|; two kernel calls bitwise equal;
+    median times of the kernel, the plain version, one index_add_ call
+    (the library yardstick) and the one-hot product of "onehot"."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import embed_grad_cuda
+
+    name = str(dtype).replace("torch.", "")
+    ids, g = embed_grad_inputs(dev, dtype, B, T, V, E, SEED + 10 + B, dup)
+    N = ids.shape[0]
+    n0 = embed_grad_cuda.embed_grad_scatter.launches
+    out = embed_grad_cuda.embed_grad_scatter(ids, g, V)
+    again = embed_grad_cuda.embed_grad_scatter(ids, g, V)
+    ref = embed_grad_cuda.embed_grad_plain(ids, g, V)
+    torch.cuda.synchronize()
+    check(embed_grad_cuda.embed_grad_scatter.launches == n0 + 2,
+          f"embed_grad {label}: the kernel was not launched")
+    check(torch.equal(out, again), f"embed_grad {label}: two calls differ")
+    tol = EMBED_TOL * g.float().abs().sum(0)[None]
+    diff = (out - ref).abs()
+    check(bool((diff <= tol).all()), f"embed_grad {label}: error "
+          f"{float((diff - tol).max())} past {EMBED_TOL} x sum|g| of a "
+          "column")
+    err = float(diff.max())
+    ids64, g32 = ids.long(), g.float()
+    table = torch.zeros((V, E), device=dev)
+    cols = torch.arange(V, device=dev)
+
+    def onehot():
+        oh = (ids64[:, None] == cols[None, :]).to(g.dtype)
+        return oh.to(torch.float32).T @ g32
+
+    plain_ms, ms, lib_ms, oh_ms = median_ms([
+        lambda: embed_grad_cuda.embed_grad_plain(ids, g, V),
+        lambda: embed_grad_cuda.embed_grad_scatter(ids, g, V),
+        lambda: table.zero_().index_add_(0, ids64, g32),
+        onehot])
+    bound_ms, bound_by = bound(*embed_work(N, V, E, dtype.itemsize))
+    print(f"kernel embed_grad_scatter[{label} {name}, N={N}, V={V}, E={E}]: "
+          f"max abs err {err:.3g} (tol {EMBED_TOL} x column sum|g|), two "
+          f"calls bitwise equal; ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"index_add_ {lib_ms:.4f} onehot {oh_ms:.4f} bound_ms "
+          f"{bound_ms:.4f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, onehot_ms=oh_ms, bound_ms=bound_ms)
+
+
+def embed_grad_phase(dev, cfg):
+    """Kernel 14 at the trainer's shape (B=32 captions x T=51, V=6,763,
+    E=512) in float32 and bfloat16, at b1024 (N=52,224) in float32, and on
+    duplicate-heavy ids (every id 0 or 7)."""
+    import torch
+
+    T, V, E = cfg.max_caption_len - 1, cfg.vocab_size, cfg.embed_dim
+    return {"float32": embed_grad_case(dev, torch.float32, B, T, V, E,
+                                       label="B=32"),
+            "bfloat16": embed_grad_case(dev, torch.bfloat16, B, T, V, E,
+                                        label="B=32"),
+            "b1024": embed_grad_case(dev, torch.float32, 1024, T, V, E,
+                                     label="b1024"),
+            "dup": embed_grad_case(dev, torch.float32, B, T, V, E, dup=True,
+                                   label="ids 0 or 7")}
 
 
 def near_tie_rows(got, ref, logits, label):
@@ -702,19 +827,46 @@ def prefix_scores(params, cfg, enc1, tags1, seqs, upto):
     return total
 
 
+def word_map(V):
+    """A word map of V ids in the reference's layout: <pad> 0, the words,
+    then <unk>, <start>, <end>."""
+    return {"<pad>": 0, **{f"w{i}": i for i in range(1, V - 3)},
+            "<unk>": V - 3, "<start>": V - 2, "<end>": V - 1}
+
+
+def captions(rng, n, V, L):
+    """n seeded captions of the reference's shape: (n, L) ids <start>,
+    words, <end>, then <pad>, with caption lengths (<start> and <end>
+    included) uniform in [3, L] and the words drawn Zipf-like (p ~ 1 /
+    rank over the V - 4 word ids), as a corpus's are.  Returns (caps,
+    caplens)."""
+    import numpy as np
+
+    lens = rng.integers(3, L + 1, n)
+    p = 1.0 / np.arange(1, V - 3)
+    words = rng.choice(np.arange(1, V - 3), size=(n, L), p=p / p.sum())
+    pos = np.arange(L)[None]
+    caps = np.where((pos >= 1) & (pos < lens[:, None] - 1), words, 0)
+    caps[:, 0] = V - 2
+    caps[np.arange(n), lens - 1] = V - 1
+    return caps.astype(np.int32), lens.astype(np.int32)
+
+
 RUNGS = {  # decode rung -> the kernel whose counter it moves
     "steps": "attend_fused", "fused_step": "fused_decode_step",
     "fused_span": "fused_decode_span", "fused": "beam_decode_records"}
 
 
 def counters():
-    """The launch counter of each decode kernel's wrapper, by name."""
+    """The launch counter of each kernel's wrapper, by name."""
     from indonesian_image_captioning_tpu_torch.ops import (attention_cuda,
                                                            attention_q_cuda,
                                                            decode_cuda,
+                                                           embed_grad_cuda,
                                                            fc_topk, scn_cuda,
                                                            span_cuda,
-                                                           step_cuda, topk)
+                                                           step_cuda, topk,
+                                                           train_cuda)
 
     return {"attend_fused": attention_cuda.attend_fused,
             "fused_decode_step": step_cuda.fused_decode_step,
@@ -725,7 +877,10 @@ def counters():
             "attend_fused_q": attention_q_cuda.attend_fused_q,
             "fused_decode_step_q": step_cuda.fused_decode_step_q,
             "scn_step_fused": scn_cuda.scn_step_fused,
-            "fc_topk": fc_topk.fc_topk}
+            "fc_topk": fc_topk.fc_topk,
+            "train_fwd": train_cuda.train_fwd,
+            "train_bwd": train_cuda.train_bwd,
+            "embed_grad_scatter": embed_grad_cuda.embed_grad_scatter}
 
 
 def zero_counters():
@@ -758,8 +913,7 @@ def serve_and_inference(dev, cfg, B, image_size):
     torch.cuda.synchronize()
     print(f"serve: weights and BatchNorm calibration "
           f"{time.perf_counter() - t0:.1f} s")
-    wm = {"<pad>": 0, **{f"w{i}": i for i in range(1, V - 3)},
-          "<unk>": V - 3, "<start>": V - 2, "<end>": V - 1}
+    wm = word_map(V)
     buckets = tuple(sorted({1, 8, B}))
     engine = CaptionEngine(state, cfg, wm,
                            ServeConfig(batch_buckets=buckets,
@@ -1498,6 +1652,181 @@ def train_phase(dev, cfg, B, image_size):
     return res, launches
 
 
+def trainer_phase(dev, cfg, image_size):
+    """The trainer's main path: train.caption.train at cfg's widths with
+    embed_grad_impl="pallas" on an in-memory corpus of seeded noise images
+    and Zipf-drawn captions (TRAINER_IMAGES, TRAINER_CPI per image), the
+    feature cache on the device, BatchNorm calibrated on one batch, two
+    epochs with checkpoints; then a resume that runs nothing (Adam's
+    moments bitwise the saved ones), a resume for a third epoch, one
+    uncached epoch through the device image store (the cached run's
+    losses), and a profile of one train step with kernel 14.  Returns the
+    launches of the two-epoch run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.core import checkpoint
+    from indonesian_image_captioning_tpu_torch.core.config import \
+        TrainConfig
+    from indonesian_image_captioning_tpu_torch.data.datasets import \
+        CaptionDataset
+    from indonesian_image_captioning_tpu_torch.data.loader import \
+        num_batches
+    from indonesian_image_captioning_tpu_torch.train import caption, steps
+
+    rng = np.random.default_rng(SEED + 9)
+    V, L = cfg.vocab_size, cfg.max_caption_len
+
+    def split(n, name):
+        caps, lens = captions(rng, n * TRAINER_CPI, V, L)
+        images = rng.integers(0, 256, size=(n, 3, image_size, image_size),
+                              dtype=np.uint8)
+        return CaptionDataset.from_arrays(images, caps, lens,
+                                          cpi=TRAINER_CPI, split=name)
+
+    train_ds, val_ds = (split(n, name) for n, name in
+                        zip(TRAINER_IMAGES, ("TRAIN", "VAL")))
+    wm = word_map(V)
+    kcfg = dataclasses.replace(cfg, embed_grad_impl="pallas")
+    name = "smoke_corpus"
+    n_train = num_batches(len(train_ds), B)
+    n_val = num_batches(len(val_ds), B)
+
+    def run(ckdir, logs, resume=False, **kw):
+        tcfg = TrainConfig(**{**dict(
+            epochs=TRAINER_EPOCHS, batch_size=B, print_freq=5,
+            cache_features=True, calibrate_encoder_stats=1,
+            checkpoint_dir=ckdir), **kw})
+        return caption.train("attention_scn", wm, train_ds, val_ds, tcfg,
+                             model_cfg=kcfg, data_name=name, resume=resume,
+                             log=logs.append, device=dev)
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        # ---- the main path: counters zeroed just before, read just after
+        logs = []
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        state, summary = run(ckdir, logs)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        launches = read_counters()
+        # -----------------------------------------------------------------
+        steps_run = TRAINER_EPOCHS * n_train
+        check(launches["embed_grad_scatter"] == steps_run > 0,
+              f"kernel 14 ran {launches['embed_grad_scatter']} times in "
+              f"{steps_run} train steps")
+        check(launches["train_bwd"] == steps_run and launches["train_fwd"]
+              == steps_run + TRAINER_EPOCHS * n_val,
+              f"kernels 8 and 9 ran {launches['train_fwd']} and "
+              f"{launches['train_bwd']} times in {steps_run} train and "
+              f"{TRAINER_EPOCHS * n_val} validation steps")
+        losses = summary["step_losses"]
+        check(sorted(losses) == list(range(TRAINER_EPOCHS))
+              and all(len(v) == n_train and np.isfinite(v).all()
+                      for v in losses.values()),
+              f"step losses {losses}")
+        bleu_lines = [x for x in logs if "BLEU-4 - " in x]
+        check(len(bleu_lines) == TRAINER_EPOCHS,
+              f"BLEU-4 computed {len(bleu_lines)} times")
+        base = f"checkpoint_attention_scn_{name}"
+        for f in (base, "BEST_" + base):
+            check((Path(ckdir) / f).is_file(), f"{f} missing")
+        saved = checkpoint.load_checkpoint(ckdir, "attention_scn", name)
+        check(saved["epoch"] == TRAINER_EPOCHS - 1,
+              f"the checkpoint holds epoch {saved['epoch']}")
+        moments = adam_moments(state["opt_state"])
+        check(same_moments(adam_moments(saved["state"]["opt_state"]),
+                           moments), "the saved Adam moments differ from "
+              "the trainer's")
+        del state
+        epoch_s = summary["timings"]["train_epoch"]
+        print(f"trainer: {TRAINER_EPOCHS} epochs of {n_train} steps (B={B}, "
+              f"{len(train_ds)} TRAIN / {len(val_ds)} VAL captions), "
+              f"embed_grad_impl=pallas, {t_run:.1f} s in all; feature "
+              f"cache build {summary['timings']['cache_build']:.3f} s; "
+              "train epoch s (train imgs/s) " + ", ".join(
+                  f"{epoch_s[e]:.3f} ({len(train_ds) / epoch_s[e]:.1f})"
+                  for e in sorted(epoch_s))
+              + f"; train_loss {summary['train_loss']:.4f},"
+              f" BLEU-4 {summary['best_metric']:.3g}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        print("trainer: " + bleu_lines[-1].strip())
+
+        # ---- resume: nothing left to run, then a third epoch ----
+        again, s2 = run(ckdir, [], resume=True)
+        check(s2["start_epoch"] == TRAINER_EPOCHS and not s2["step_losses"],
+              f"resume with {TRAINER_EPOCHS} epochs ran "
+              f"{sorted(s2['step_losses'])} from {s2['start_epoch']}")
+        check(same_moments(adam_moments(again["opt_state"]), moments),
+              "resumed Adam moments differ from the saved ones")
+        del again
+        logs3 = []
+        n0 = read_counters()["embed_grad_scatter"]
+        _, s3 = run(ckdir, logs3, resume=True, epochs=TRAINER_EPOCHS + 1)
+        check(s3["start_epoch"] == TRAINER_EPOCHS
+              and sorted(s3["step_losses"]) == [TRAINER_EPOCHS]
+              and f"Current epoch {TRAINER_EPOCHS + 1}\n" in logs3
+              and "Current epoch 1\n" not in logs3,
+              f"resume for epoch {TRAINER_EPOCHS + 1} ran "
+              f"{sorted(s3['step_losses'])}")
+        check(read_counters()["embed_grad_scatter"] - n0 == n_train,
+              "the resumed epoch did not run kernel 14 once per step")
+        print(f"trainer: resumed at epoch {s3['start_epoch'] + 1}, Adam "
+              f"moments ({len(moments)} tensors) bitwise the saved ones; "
+              f"epoch {TRAINER_EPOCHS + 1} loss {s3['train_loss']:.4f}")
+
+    # ---- one epoch without the cache: pixels from the device store ----
+    with tempfile.TemporaryDirectory() as ckdir:
+        logs = []
+        state, s4 = run(ckdir, logs, epochs=1, cache_features=False,
+                        device_images="on")
+        check(any("device image store [TRAIN]" in x for x in logs),
+              "the uncached run did not build the device image store")
+        a, b = np.array(s4["step_losses"][0]), np.array(losses[0])
+        rel = float(np.abs(a - b).max() / np.abs(b).max())
+        check(rel <= UNCACHED_TOL, f"uncached epoch losses {a} vs cached "
+              f"{b}: {rel} > {UNCACHED_TOL}")
+        print(f"trainer: one uncached epoch (device image store) "
+              f"{s4['timings']['train_epoch'][0]:.3f} s, its {len(a)} step "
+              f"losses within {rel:.2g} of the cached run's (tol "
+              f"{UNCACHED_TOL})")
+
+    # ---- where one train step's time goes, kernel 14 included ----
+    tcfg = TrainConfig(batch_size=B)
+    opt = steps.make_optimizer(tcfg.decoder_lr, tcfg.grad_clip)
+    encode, step = steps.make_caption_train_step(kcfg, tcfg, opt, device=dev)
+    batch = train_ds.gather(np.arange(B))
+    enc_out, tags = encode(state, {"images": train_ds.gather_images(
+        np.arange(B) // TRAINER_CPI)})
+    caps = torch.from_numpy(batch["captions"]).to(dev)
+    caplens = torch.from_numpy(batch["caplens"]).to(dev)
+    sub = {"params": state["params"], "opt_state": state["opt_state"]}
+    n0 = read_counters()["embed_grad_scatter"]
+    train_breakdown(step, sub, (enc_out, tags, caps, caplens),
+                    torch.Generator(device=dev).manual_seed(SEED + 11), B)
+    check(read_counters()["embed_grad_scatter"] - n0 == 2,
+          "the profiled steps did not run kernel 14")
+    return {"embed_grad_scatter": launches["embed_grad_scatter"]}
+
+
+def adam_moments(opt):
+    """Adam's moments and step counts, in parameter order, from a
+    torch.optim.Adam or its state_dict."""
+    sd = opt.state_dict() if hasattr(opt, "state_dict") else opt
+    return [t for _, st in sorted(sd["state"].items())
+            for t in (st["step"], st["exp_avg"], st["exp_avg_sq"])]
+
+
+def same_moments(a, b):
+    import torch
+
+    return len(a) == len(b) > 0 and all(
+        torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
 def train_breakdown(step, sub, batch, gen, B):
     """Where one train step's time goes: the host clock, the device busy
     share and the device time by kernel group from torch.profiler."""
@@ -1518,10 +1847,12 @@ def train_breakdown(step, sub, batch, gen, B):
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(t for t, _ in kernels) / 1e3
-    groups = {"train scan (iic)": 0.0, "cuBLAS/cuBLASLt GEMM": 0.0,
-              "other PyTorch": 0.0}
+    groups = {"train scan (iic)": 0.0, "embed grad (iic)": 0.0,
+              "cuBLAS/cuBLASLt GEMM": 0.0, "other PyTorch": 0.0}
     for t, k in kernels:
-        if k.startswith(("void iic::", "iic::")):
+        if "embed_grad_kernel" in k:
+            groups["embed grad (iic)"] += t / 1e3
+        elif k.startswith(("void iic::", "iic::")):
             groups["train scan (iic)"] += t / 1e3
         elif "gemm" in k.lower() or "sm90_" in k or "cutlass" in k:
             groups["cuBLAS/cuBLASLt GEMM"] += t / 1e3
@@ -1578,6 +1909,7 @@ def main() -> int:
                for dt in (torch.float32, torch.bfloat16)}
         topk_res = topk_case(dev, B)
         fc_res = fc_topk_case(dev, cfg, B)
+        embed_res = embed_grad_phase(dev, cfg)
     t0 = time.perf_counter()
     launches = serve_and_inference(dev, cfg, B, IMAGE_SIZE)
     print(f"phases: kernels {t0 - t_start:.1f} s, serve and inference "
@@ -1586,6 +1918,9 @@ def main() -> int:
     train_res, train_launches = train_phase(dev, cfg, B, IMAGE_SIZE)
     launches.update(train_launches)
     print(f"phases: train {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(trainer_phase(dev, cfg, IMAGE_SIZE))
+    print(f"phases: trainer {time.perf_counter() - t0:.1f} s")
 
     T = cfg.max_caption_len - 1
     fwd_work, bwd_work = train_work(cfg, B, T)
@@ -1622,7 +1957,11 @@ def main() -> int:
             ("train_bwd", "train.cu", "train_pallas.py:856",
              train_res[("float32", "attention_scn")]["train_bwd"],
              train_res[("bfloat16", "attention_scn")]["train_bwd"],
-             bwd_work))
+             bwd_work),
+            ("embed_grad_scatter", "embed_grad.cu",
+             "embed_grad_pallas.py:111", embed_res["float32"],
+             embed_res["bfloat16"],
+             embed_work(B * T, VOCAB, cfg.embed_dim)))
     kernels = []
     for name, source, replaces, r32, r16, (nbytes, flops) in rows:
         check(launches.get(name, 0) > 0,

@@ -9,8 +9,10 @@ documents each field; the port reads the names of the decode path:
 ``models/decoders.py`` say which values run which kernel: on the card
 ``enc_quant="int8"`` runs kernel 6c on "fused_step" and kernel 5 on
 "steps", ``fused_cell=True`` kernel 12 on "steps"), and of the train
-path: ``train_scan_impl``, ``embed_grad_impl`` and :class:`TrainConfig`
-(``train/steps.py``).
+path: ``train_scan_impl``, ``embed_grad_impl`` (``"pallas"`` runs kernel
+14 in the embedding's backward), :class:`TrainConfig` (``train/steps.py``
+and the trainer, ``train/caption.py``) and :class:`DataConfig` (the
+trainer's artifact locations).
 
 The port keeps its own copy so that it, and ``chip_smoke.py`` through it,
 imports nothing of the JAX package.
@@ -86,15 +88,27 @@ class BeamConfig:
     length_penalty: float = 0.0
 
 
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset artifact locations (reference trains/attention_scn.py:26-28)."""
+
+    data_folder: str = "./scn_data"
+    data_name: str = "flickr10k_5_cap_per_img_5_min_word_freq"
+    captions_per_image: int = 5
+    image_size: int = 256
+    tag_size: int = 1000
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training recipe, field for field the JAX package's (whose comments
-    say what each field does).  The port's train step reads the decoder
-    recipe: ``decoder_lr``, ``grad_clip``, ``alpha_c``, ``encoder_dtype``,
-    ``decoder_dtype``, ``head_impl``, ``head_tile`` and the LR decay
-    fields; the rest belong to the trainer loop, the tagger and the
-    multi-device steps, which are not ported yet."""
+    say what each field does).  The port's caption trainer
+    (``train/caption.py``) reads all of it but four fields:
+    ``fine_tune_encoder`` and ``encoder_lr`` (the fine-tune step),
+    ``tagger_dtype`` and ``encoder_remat`` (the tagger and the
+    differentiated encoder passes), which raise or go unread until those
+    are ported; ``mesh_shape`` other than (1, 1) and ``mesh_order`` belong
+    to the multi-device steps, which are not ported either."""
 
     epochs: int = 12
     batch_size: int = 32

@@ -10,7 +10,10 @@ whose names mirror the JAX tree (embedding / decode_step / init_h / init_c
   batch: a fixed-shape scan over T = max_caption_len - 1 steps with a
   validity mask, either the eager scan (plain autograd, all three
   families) or kernels 8 and 9 (``ops/train_cuda.py``, the two
-  attention-bearing families), then the vocab head outside the scan.
+  attention-bearing families), then the vocab head outside the scan.  The
+  embedding lookup's backward is the one-hot product or, under
+  ``embed_grad_impl="pallas"``, kernel 14 (``ops/embed_grad_cuda.py``),
+  for either scan.
 
 * :func:`make_beam_step` -- the step engine: embedding lookup, attention
   (kernel 1 or the plain :func:`models.attention.attend`; kernel 5 or its
@@ -77,18 +80,42 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return _EmbedLookup.apply(table, ids.long())
 
 
+class _ScatterLookup(_EmbedLookup):
+    """The same row gather, whose backward is kernel 14
+    (``ops/embed_grad_cuda.py``, the JAX package's ``_scatter_lookup``):
+    one pass over the cotangent rows into the (V, E) float32 table, no
+    (N, V) one-hot.  On CPU tensors the kernel's plain version,
+    ``index_add_``, runs instead."""
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..ops.embed_grad_cuda import embed_grad_scatter
+        (ids,) = ctx.saved_tensors
+        gf = g.reshape(-1, g.shape[-1])
+        if gf.dtype not in (torch.float32, torch.bfloat16):
+            gf = gf.to(torch.float32)
+        d = embed_grad_scatter(ids.reshape(-1).to(torch.int32).contiguous(),
+                               gf.contiguous(), ctx.table_shape[0])
+        return d.to(ctx.table_dtype), None
+
+
+def embed_lookup_kernel(table: torch.Tensor,
+                        ids: torch.Tensor) -> torch.Tensor:
+    """table[ids], with kernel 14 (``embed_grad_scatter``) as its
+    backward."""
+    return _ScatterLookup.apply(table, ids.long())
+
+
 def resolve_embed_grad_impl(cfg: ModelConfig) -> str:
-    """cfg.embed_grad_impl -> "onehot".  "auto" is "onehot", as in JAX;
-    "pallas" names the kernel ``embed_grad_scatter``, which is not ported
-    yet, and raises."""
+    """cfg.embed_grad_impl -> "onehot" or "pallas", as in JAX: "auto" is
+    "onehot" (the JAX package measured no gain from the kernel in its
+    step); "pallas" is kernel 14 in the embedding's backward.  The JAX
+    package's mesh override (a sharded table keeps "onehot") has no
+    counterpart until the multi-device steps are ported."""
     impl = cfg.embed_grad_impl
     if impl not in EMBED_GRAD_IMPLS:
         raise ValueError(f"unknown embed_grad_impl {impl!r}")
-    if impl == "pallas":
-        raise NotImplementedError(
-            'embed_grad_impl="pallas": the kernel embed_grad_scatter is not '
-            "ported yet (ROADMAP.md, kernels still to port)")
-    return "onehot"
+    return "pallas" if impl == "pallas" else "onehot"
 
 
 def resolve_train_scan_impl(cfg: ModelConfig, device: torch.device,
@@ -203,8 +230,9 @@ def teacher_forcing(params, cfg: ModelConfig, enc, tags, caps, caplens, *,
     is_scn = cfg.model_type in SCN_BASED_MODELS
     T = cfg.max_caption_len - 1
     enc_flat = flatten_encoding(enc, cfg.encoder_dim)
-    resolve_embed_grad_impl(cfg)
-    emb = embed_lookup(params["embedding"], caps[:, :T])      # (B, T, Emb)
+    lookup = (embed_lookup_kernel if resolve_embed_grad_impl(cfg) == "pallas"
+              else embed_lookup)
+    emb = lookup(params["embedding"], caps[:, :T])            # (B, T, Emb)
     impl = resolve_train_scan_impl(cfg, enc_flat.device, enc_flat.dtype,
                                    enc_grad)
     if impl == "fused":

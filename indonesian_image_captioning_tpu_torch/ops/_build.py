@@ -66,6 +66,9 @@ SIGNATURES = {
     "fc_topk": {
         "iic_fc_topk": [_P] * 7 + [_I, _I, _I, _I, _P],
     },
+    "embed_grad": {
+        "iic_embed_grad": [_I, _P, _P, _I, _I, _I, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

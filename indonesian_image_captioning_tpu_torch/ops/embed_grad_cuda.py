@@ -1,0 +1,76 @@
+"""Kernel 14: the embedding table's gradient (``csrc/embed_grad.cu``).
+
+Replaces ``ops/embed_grad_pallas.py embed_grad_scatter`` of the JAX
+package: ``d_table[ids[n]] += g[n]`` over the N = B*T caption tokens, a
+(V, E) float32 table, with g float32 or bfloat16 accumulated in float32.
+``models/decoders.py`` runs it as the backward of the embedding lookup
+when ``embed_grad_impl="pallas"``.
+
+The Pallas kernel's ``feasible`` (its VMEM budget for a table-sized
+accumulator) has no counterpart: the CUDA kernel keeps one (64, 128) tile
+of the table per block and no table-sized scratch.  What bounds it and
+what its design does about it is noted at the top of the source.
+
+:func:`embed_grad_scatter` launches the kernel for CUDA tensors and raises
+where it cannot; only tensors on the CPU take :func:`embed_grad_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def embed_grad_plain(ids: torch.Tensor, g: torch.Tensor,
+                     vocab: int) -> torch.Tensor:
+    """The same function in plain PyTorch: a (vocab, E) float32 table."""
+    out = torch.zeros((vocab, g.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    return out.index_add_(0, ids.long(), g.to(torch.float32))
+
+
+def _check(ids: torch.Tensor, g: torch.Tensor, vocab: int) -> None:
+    if ids.dim() != 1 or ids.dtype != torch.int32:
+        raise TypeError(f"ids must be (N,) int32, got {ids.dim()}-D "
+                        f"{ids.dtype}")
+    if g.dim() != 2 or g.dtype not in _DTYPES:
+        raise TypeError(f"g must be (N, E) float32 or bfloat16, got "
+                        f"{g.dim()}-D {g.dtype}")
+    if ids.shape[0] != g.shape[0]:
+        raise ValueError(f"{ids.shape[0]} ids for {g.shape[0]} rows of g")
+    if g.shape[0] >= 1 << 31:
+        raise ValueError(f"{g.shape[0]} rows: the kernel counts rows in int32")
+    if vocab < 1 or g.shape[1] < 1:
+        raise ValueError(f"vocab {vocab} and E {g.shape[1]} must be >= 1")
+    if ids.device != g.device:
+        raise ValueError(f"ids on {ids.device} beside g on {g.device}")
+    if not (ids.is_contiguous() and g.is_contiguous()):
+        raise ValueError("embed_grad_scatter takes contiguous tensors")
+
+
+def embed_grad_scatter(ids: torch.Tensor, g: torch.Tensor,
+                       vocab: int) -> torch.Tensor:
+    """Segment-sum ``d_table[ids[n]] += g[n]`` -> (vocab, E) float32.
+
+    ids (N,) int32 in [0, vocab); g (N, E) float32 or bfloat16.  Kernel 14
+    on CUDA tensors (each table element summed in token order, bitwise the
+    same from run to run); :func:`embed_grad_plain` on CPU tensors."""
+    _check(ids, g, vocab)
+    if g.device.type == "cpu":
+        return embed_grad_plain(ids, g, vocab)
+    if g.device.type != "cuda":
+        raise RuntimeError(f"embed_grad_scatter: no kernel for {g.device}")
+    N, E = g.shape
+    out = torch.empty((vocab, E), dtype=torch.float32, device=g.device)
+    rc = _build.load("embed_grad").iic_embed_grad(
+        _DTYPES[g.dtype], ids.data_ptr(), g.data_ptr(), N, vocab, E,
+        out.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(rc, "embed_grad_scatter")
+    embed_grad_scatter.launches += 1
+    return out
+
+
+embed_grad_scatter.launches = 0

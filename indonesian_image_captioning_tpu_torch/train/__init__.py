@@ -1,1 +1,2 @@
-"""The caption trainer's steps (the port's ``train/steps.py``)."""
+"""The caption trainer: its steps (``steps.py``), feature cache, epoch
+loop and ``caption.py``'s ``main`` and ``train``."""

@@ -10,7 +10,8 @@ from indonesian_image_captioning_tpu_torch.core import config
 
 
 @pytest.mark.parametrize("name", ["ModelConfig", "TaggerConfig",
-                                  "BeamConfig", "TrainConfig"])
+                                  "BeamConfig", "DataConfig",
+                                  "TrainConfig"])
 def test_fields_and_defaults_match_jax(name):
     ours, theirs = getattr(config, name), getattr(jax_config, name)
     assert ([(f.name, f.default) for f in dataclasses.fields(ours)]

@@ -30,6 +30,7 @@ scan within 5e-3 of each leaf's largest value (the JAX contract).
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -43,7 +44,8 @@ from indonesian_image_captioning_tpu_torch.models import (attention,
                                                           decoders, scn_cell)
 from indonesian_image_captioning_tpu_torch.ops import (attention_cuda,
                                                        attention_q_cuda,
-                                                       decode_cuda, fc_topk,
+                                                       decode_cuda,
+                                                       embed_grad_cuda, fc_topk,
                                                        losses, scn_cuda,
                                                        span_cuda, step_cuda,
                                                        topk, train_cuda)
@@ -873,3 +875,121 @@ def test_opt_in_modes_on_card_match_cpu(dev, family, kw, record, want,
     assert int(ref["completed_count"].sum()) > 0
     if record:
         assert err(out["alpha"].cpu(), ref["alpha"]) <= 1e-5
+
+
+# ---------------------------------------------- kernel 14 and the trainer
+
+def _col_tol(g):
+    """1e-6 of each column's sum of |g| (the plain version's index_add_
+    adds with atomics on the card, in an order that varies)."""
+    return 1e-6 * g.float().abs().sum(0) + 1e-30
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("N, V, E, pad", [
+    (0, 37, 16, 0), (1, 1, 1, 0), (257, 130, 200, 0), (3000, 6763, 130, 0),
+    (1632, 6763, 512, 700), (4099, 65, 129, 0)])
+def test_embed_grad_kernel_matches_plain(dev, dtype, N, V, E, pad):
+    """Ragged N, V and E; a padded tail (id 0, zero g) adds nothing; two
+    calls are bitwise equal; one launch per call."""
+    gen = torch.Generator().manual_seed(N + V + E)
+    ids = torch.randint(0, V, (N,), generator=gen, dtype=torch.int32)
+    g = randn(gen, N, E)
+    if pad:
+        ids[-pad:] = 0
+        g[-pad:] = 0.0
+    ids, g = ids.to(dev), g.to(dev, dtype)
+    n0 = embed_grad_cuda.embed_grad_scatter.launches
+    out = embed_grad_cuda.embed_grad_scatter(ids, g, V)
+    again = embed_grad_cuda.embed_grad_scatter(ids, g, V)
+    ref = embed_grad_cuda.embed_grad_plain(ids, g, V)
+    torch.cuda.synchronize()
+    assert embed_grad_cuda.embed_grad_scatter.launches == n0 + 2
+    assert out.dtype == torch.float32 and out.shape == (V, E)
+    assert torch.equal(out, again)
+    assert bool(((out - ref).abs() <= _col_tol(g)[None]).all())
+    if pad:
+        live = embed_grad_cuda.embed_grad_scatter(
+            ids[:-pad].contiguous(), g[:-pad].contiguous(), V)
+        assert bool(((out - live).abs() <= _col_tol(g)[None]).all())
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_embed_grad_kernel_duplicate_heavy(dev, dtype):
+    """Every token hits row 0 or row 7: one block adds all of them, in
+    token order (the float64 sum within 1e-6 of each column's |g| sum)."""
+    gen = torch.Generator().manual_seed(5)
+    N, V, E = 5000, 300, 96
+    ids = ((torch.arange(N) % 2) * 7).to(torch.int32)
+    g = randn(gen, N, E).to(dtype)
+    out = embed_grad_cuda.embed_grad_scatter(ids.to(dev), g.to(dev), V)
+    exact = torch.zeros(V, E, dtype=torch.float64).index_add_(
+        0, ids.long(), g.double())
+    assert bool(((out.cpu().double() - exact).abs()
+                 <= _col_tol(g)[None].double()).all())
+    assert not out[[1, 2, 3, 4, 5, 6, 8]].any()
+
+
+def test_embed_grad_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    ids = torch.zeros(6, dtype=torch.int32, device=dev)
+    g = torch.ones(6, 8, device=dev)
+    n0 = embed_grad_cuda.embed_grad_scatter.launches
+    with pytest.raises(TypeError):
+        embed_grad_cuda.embed_grad_scatter(ids.long(), g, 3)
+    with pytest.raises(TypeError):
+        embed_grad_cuda.embed_grad_scatter(ids, g.half(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        embed_grad_cuda.embed_grad_scatter(ids, torch.ones(8, 6,
+                                                           device=dev).T, 3)
+    with pytest.raises(ValueError):
+        embed_grad_cuda.embed_grad_scatter(ids.cpu(), g, 3)
+    assert embed_grad_cuda.embed_grad_scatter.launches == n0
+
+
+def test_trainer_one_epoch_on_card_matches_cpu(dev, tmp_path):
+    """train.caption.train for one epoch on a tiny in-memory corpus with
+    embed_grad_impl="pallas" and the device feature cache: kernel 14 runs
+    once per train step, kernels 8 and 9 run, a checkpoint lands, and the
+    epoch's loss equals the CPU run's (plain versions) within 1e-3."""
+    from indonesian_image_captioning_tpu_torch.data.datasets import \
+        CaptionDataset
+    from indonesian_image_captioning_tpu_torch.train import caption
+
+    rng = np.random.default_rng(0)
+    V, cpi, L = 40, 2, 12
+
+    def split(n, name):
+        caplens = rng.integers(3, L + 1, n * cpi)
+        caps = rng.integers(1, V - 3, (n * cpi, L))
+        caps[np.arange(L)[None] >= caplens[:, None]] = 0
+        caps[:, 0] = V - 2
+        return CaptionDataset.from_arrays(
+            rng.integers(0, 256, (n, 3, 32, 32), dtype=np.uint8), caps,
+            caplens, cpi=cpi, split=name)
+
+    train_ds, val_ds = split(10, "TRAIN"), split(4, "VAL")
+    wm = {"<pad>": 0, **{f"w{i}": i for i in range(1, V - 3)},
+          "<unk>": V - 3, "<start>": V - 2, "<end>": V - 1}
+    cfg = small_cfg(vocab_size=V, semantic_dim=1000, encoder_dim=2048,
+                    enc_image_size=2, max_caption_len=L, dropout=0.0,
+                    encoder_arch="resnet50", embed_grad_impl="pallas")
+    losses = {}
+    for where in ("cpu", "cuda"):
+        tcfg = TrainConfig(epochs=1, batch_size=4, print_freq=2,
+                           cache_features=True, encoder_dtype="float32",
+                           checkpoint_dir=str(tmp_path / where))
+        n0 = (embed_grad_cuda.embed_grad_scatter.launches,
+              train_cuda.train_fwd.launches, train_cuda.train_bwd.launches)
+        _, summary = caption.train("attention_scn", wm, train_ds, val_ds,
+                                   tcfg, model_cfg=cfg, data_name="tiny",
+                                   log=lambda s: None, device=where)
+        ran = (embed_grad_cuda.embed_grad_scatter.launches - n0[0],
+               train_cuda.train_fwd.launches - n0[1],
+               train_cuda.train_bwd.launches - n0[2])
+        n_steps = len(summary["step_losses"][0])
+        assert n_steps == 5 and np.isfinite(summary["step_losses"][0]).all()
+        assert ran == ((0, 0, 0) if where == "cpu"
+                       else (n_steps, n_steps + 2, n_steps))
+        assert (tmp_path / where / "checkpoint_attention_scn_tiny").is_file()
+        losses[where] = summary["train_loss"]
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"])

@@ -259,9 +259,8 @@ def test_resolvers():
         decoders.resolve_train_scan_impl(
             dataclasses.replace(scn, train_scan_impl="pallas"), cpu)
     assert decoders.resolve_embed_grad_impl(scn) == "onehot"
-    with pytest.raises(NotImplementedError, match="embed_grad_scatter"):
-        decoders.resolve_embed_grad_impl(
-            dataclasses.replace(scn, embed_grad_impl="pallas"))
+    assert decoders.resolve_embed_grad_impl(
+        dataclasses.replace(scn, embed_grad_impl="pallas")) == "pallas"
     assert not train_cuda.feasible(pscn, torch.float32)
     assert train_cuda.feasible(scn, torch.bfloat16)
     assert not train_cuda.feasible(scn, torch.float16)
