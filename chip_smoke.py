@@ -33,15 +33,27 @@ Phases, each of which exits non-zero on failure:
    every element within EMBED_TOL of its column's sum of |g| against the
    plain version, two calls bitwise equal, and the medians of the kernel,
    the plain version, one index_add_ call (the library yardstick) and the
-   one-hot product that embed_grad_impl="onehot" runs.
+   one-hot product that embed_grad_impl="onehot" runs.  Beams past eight:
+   kernels 1, 5 and 7 at K = 9, 32 and 64 (WIDE_K), held the same way,
+   and kernel 10 at k = 69 (three passes).  The
+   tensor-core GEMM of the decode step chain (csrc/mma.cuh; its products
+   run kernels 2, 6b, 6c, 7 and 13) at two of the chain's products at
+   R = 160 rows (In 2,560 -> 2,048 and D 512 -> V 6,763), float32
+   (3xTF32) and bfloat16: within GEMM_TOL of sum |a||w| of a float64
+   product, as gemm.cuh's FFMA GEMM is, with the medians of both and of
+   torch.matmul (the library yardstick).  The bounds of the kernels whose
+   products run on it are taken at float32 against the 3xTF32 peak
+   (495 TFLOP/s for three products), the FFMA peak's printed beside.
 4. serve: the main path.  A CaptionEngine on seeded random weights
    (ResNet-152 caption encoder and tagger with BatchNorm statistics
    calibrated on one seeded batch, attention_scn at V=6,763), buckets
-   (1, 8, 32): warmup(256), one 32-image caption_batch, then 12 requests
+   (1, 8, 32): warmup(256), the host time of packing the decode weights
+   cold and from their cache, one 32-image caption_batch, then 12 requests
    through start/submit/stop.  The launch counters are zeroed just before
    and read just after; the decode must have resolved to "fused_span" and
    gone through kernel 7 once per span call (1 to ceil(51 / 4) per
-   batch), with kernel 2's counter at 0.  Then a second engine on the same
+   batch), with kernel 2's counter at 0 and the tensor-core GEMM's above
+   0 (csrc/span.cu counts its launches).  Then a second engine on the same
    weights and BatchNorm statistics with enc_quant="int8": one 32-image
    caption_batch, whose decode must resolve to "fused_step" and launch
    kernel 6c once per decode step, kernel 2 not at all.
@@ -63,7 +75,9 @@ Phases, each of which exits non-zero on failure:
    and fused_cell "steps" (kernel 12), both held against pure_scn's
    "steps"; and the isolated vocab head of tools/profile_decode.py on the
    h rows of one kernel-2 step (kernel 11), whose candidates topv - lse
-   and ids must equal the step's but at near-ties.  Then a breakdown per
+   and ids must equal the step's but at near-ties.  Then beams of 16 and
+   40 through "auto" (kernel 7, "fused_span"), their beams equal to the
+   "steps" rung's at the same width but at near-ties.  Then a breakdown per
    rung at B=32 (the int8 rungs too): the decode on the host clock,
    captions/s and the device busy share from torch.profiler, beside the
    encoders' time.
@@ -101,8 +115,10 @@ Phases, each of which exits non-zero on failure:
    prints the epoch seconds, train imgs/s and the feature-cache build
    time.
 
-The line before the last lists each kernel (thirteen) as JSON; the last
-line is
+The line before the last lists each kernel as JSON: the thirteen that
+replace a TPU kernel, and the tensor-core GEMM of the decode chain
+("replaces": null, no TPU kernel of its own), whose launches are counted
+on the serving batch (kernel 7's chain, csrc/span.cu); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
 """
@@ -170,8 +186,15 @@ TRAINER_IMAGES, TRAINER_CPI, TRAINER_EPOCHS = (96, 32), 5, 2
 # cached run's first epoch: each step's loss within this share of it
 UNCACHED_TOL = 1e-4
 # The card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms.
+# "tf32x3": a float32 product as the tensor-core GEMM (csrc/mma.cuh)
+# computes it, three TF32 products at 495 TFLOP/s.
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
+WIDE_K = (9, 32, 64)      # beam widths past eight; every kernel takes any K
+# The tensor-core GEMM against a float64 product: each output within this
+# share of sum_k |a_mk| |w_kn| (float32 sums; 3xTF32 keeps float32's
+# precision), as gemm.cuh's FFMA GEMM is held.
+GEMM_TOL = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -205,6 +228,28 @@ def median_ms(fns, runs=20):
     return [statistics.median(t) for t in times]
 
 
+def device_ms(fn, runs=20, by_kernel=None):
+    """Milliseconds of device time per call of fn: the kernels' own time
+    from torch.profiler (CUPTI), without the host's launch gaps that the
+    CUDA events of median_ms include when the card waits on the host.
+    by_kernel, a dict, receives the milliseconds of each kernel name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    times = {e.key: e.self_device_time_total / runs / 1e3
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    if by_kernel is not None:
+        by_kernel.update(times)
+    return sum(times.values())
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -218,10 +263,7 @@ def kernel_phase(dev, dtype, cfg, B):
 
     from indonesian_image_captioning_tpu_torch.models import (attention,
                                                               decoders)
-    from indonesian_image_captioning_tpu_torch.ops import attention_cuda
 
-    name = str(dtype).replace("torch.", "")
-    tol = TOL[name]
     P, E, A, D = cfg.num_pixels, cfg.encoder_dim, cfg.attention_dim, \
         cfg.decoder_dim
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -234,26 +276,7 @@ def kernel_phase(dev, dtype, cfg, B):
     h = torch.tanh(torch.randn((B * K, D), generator=gen)).to(dev, dtype)
     res = {}
 
-    # kernel 1
-    dec = ((h.float() @ params["attention"]["decoder_att"]["w"]
-            + params["attention"]["decoder_att"]["b"])
-           .to(dtype).reshape(B, K, A).contiguous())
-    wf = params["attention"]["full_att"]["w"].reshape(-1).contiguous()
-    awe, alpha = attention_cuda.attend_fused(enc, ea, dec, wf)
-    p_awe, p_alpha = attention_cuda.attend_plain(enc, ea, dec, wf)
-    torch.cuda.synchronize()
-    err = max(max_err(awe, p_awe), max_err(alpha, p_alpha))
-    check(err <= tol["attend"], f"attend {name}: error {err} > "
-          f"{tol['attend']}")
-    plain_ms, ms = median_ms([
-        lambda: attention_cuda.attend_plain(enc, ea, dec, wf),
-        lambda: attention_cuda.attend_fused(enc, ea, dec, wf)])
-    bound_ms, bound_by = bound(*attend_work(cfg, B, dtype.itemsize), name)
-    print(f"kernel attend_fused {name}: max_abs_err {err:.3g} (awe "
-          f"{max_err(awe, p_awe):.3g}, alpha {max_err(alpha, p_alpha):.3g}; "
-          f"tol {tol['attend']}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-          f"bound_ms {bound_ms:.4f} ({bound_by})")
-    res["attend"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    res["attend"] = attend_case(dev, dtype, cfg, params, enc, ea, h, K)
 
     # kernel 2, then kernels 7 and 13 on the same weights
     res["step"] = step_case(dev, dtype, cfg, params, enc, gen)
@@ -278,12 +301,57 @@ def kernel_phase(dev, dtype, cfg, B):
     for family in ("attention_scn", "pure_scn"):
         res[f"scn_{family}"] = scn_case(
             dev, dtype, dataclasses.replace(cfg, model_type=family), B, gen)
+
+    # beams wider than eight: kernels 1 and 5 in lane groups, kernel 7's
+    # selection in rounds that look past the last winner
+    for k in WIDE_K:
+        hk = torch.tanh(torch.randn((B * k, D), generator=gen)).to(dev, dtype)
+        res[f"attend_k{k}"] = attend_case(dev, dtype, cfg, params, enc, ea,
+                                          hk, k)
+        res[f"attend_q_k{k}"] = attend_q_case(dev, dtype, cfg, params, enc,
+                                              hk, k)
+        res[f"span_k{k}"] = span_case(dev, dtype, cfg, params, enc, gen, k)
     return res
 
 
-def attend_q_case(dev, dtype, cfg, params, enc, h):
-    """Kernel 5 on the int8 state of enc and its projection, with and
-    without alpha, against its plain version; both times (with alpha)."""
+def attend_case(dev, dtype, cfg, params, enc, ea, h, k):
+    """Kernel 1 at k lanes against its plain version, and both times."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import attention_cuda
+
+    name = str(dtype).replace("torch.", "")
+    tol = TOL[name]
+    nb, A = enc.shape[0], cfg.attention_dim
+    dec = ((h.float() @ params["attention"]["decoder_att"]["w"]
+            + params["attention"]["decoder_att"]["b"])
+           .to(dtype).reshape(nb, k, A).contiguous())
+    wf = params["attention"]["full_att"]["w"].reshape(-1).contiguous()
+    n0 = attention_cuda.attend_fused.launches
+    awe, alpha = attention_cuda.attend_fused(enc, ea, dec, wf)
+    p_awe, p_alpha = attention_cuda.attend_plain(enc, ea, dec, wf)
+    torch.cuda.synchronize()
+    check(attention_cuda.attend_fused.launches == n0 + 1,
+          f"attend K={k}: the kernel was not launched")
+    err = max(max_err(awe, p_awe), max_err(alpha, p_alpha))
+    check(err <= tol["attend"], f"attend K={k} {name}: error {err} > "
+          f"{tol['attend']}")
+    plain_ms, ms = median_ms([
+        lambda: attention_cuda.attend_plain(enc, ea, dec, wf),
+        lambda: attention_cuda.attend_fused(enc, ea, dec, wf)])
+    bound_ms, bound_by = bound(*attend_work(cfg, nb, dtype.itemsize, k),
+                               name)
+    print(f"kernel attend_fused[K={k}] {name}: max_abs_err {err:.3g} (awe "
+          f"{max_err(awe, p_awe):.3g}, alpha {max_err(alpha, p_alpha):.3g}; "
+          f"tol {tol['attend']}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"bound_ms {bound_ms:.4f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def attend_q_case(dev, dtype, cfg, params, enc, h, k=K):
+    """Kernel 5 at k lanes on the int8 state of enc and its projection,
+    with and without alpha, against its plain version; both times (with
+    alpha)."""
     import torch
 
     from indonesian_image_captioning_tpu_torch.models import attention
@@ -297,7 +365,7 @@ def attend_q_case(dev, dtype, cfg, params, enc, h):
                  attention.precompute(params["attention"], enc.float())))
     dec = ((h.float() @ params["attention"]["decoder_att"]["w"]
             + params["attention"]["decoder_att"]["b"])
-           .to(dtype).reshape(nb, K, A).contiguous())
+           .to(dtype).reshape(nb, k, A).contiguous())
     wf = params["attention"]["full_att"]["w"].reshape(-1).contiguous()
     args = state + (dec, wf)
     n0 = attention_q_cuda.attend_fused_q.launches
@@ -314,8 +382,9 @@ def attend_q_case(dev, dtype, cfg, params, enc, h):
     plain_ms, ms = median_ms([
         lambda: attention_q_cuda.attend_q_plain(*args),
         lambda: attention_q_cuda.attend_fused_q(*args)])
-    bound_ms, bound_by = bound(*attend_q_work(cfg, nb, dtype.itemsize), name)
-    print(f"kernel attend_fused_q {name}: max_abs_err {err:.3g} (awe "
+    bound_ms, bound_by = bound(*attend_q_work(cfg, nb, dtype.itemsize, k),
+                               name)
+    print(f"kernel attend_fused_q[K={k}] {name}: max_abs_err {err:.3g} (awe "
           f"{max_err(awe, p_awe):.3g}, alpha {max_err(alpha, p_alpha):.3g}; "
           f"tol {tol}); without alpha equal; ms {ms:.4f} plain_ms "
           f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
@@ -402,6 +471,89 @@ def fc_topk_case(dev, cfg, nb):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+def gemm_case(dev, dtype, M, K_in, N, label):
+    """The tensor-core GEMM (csrc/mma.cuh, step_cuda.gemm) on one product
+    of the decode step chain, M rows x K_in -> N, split-K scratch as the
+    chain gives it: against gemm.cuh's FFMA GEMM and a float64 product on
+    the same inputs (each within GEMM_TOL of sum |a||w|), and the medians
+    of both and of torch.matmul (the library yardstick)."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import _build, step_cuda
+
+    name = str(dtype).replace("torch.", "")
+    gen = torch.Generator().manual_seed(SEED + M + K_in + N)
+    a = torch.randn((M, K_in), generator=gen).to(dev, dtype)
+    w = (torch.randn((K_in, N), generator=gen) * K_in ** -0.5).to(dev, dtype)
+    lib = _build.load("step")
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    part = torch.empty(step_cuda.split_k_floats(M, N), device=dev)
+    out = {e: torch.empty((M, N), device=dev)
+           for e in ("iic_gemm", "iic_gemm_ffma")}
+    # the tensor-core GEMM on the weight as the chain packs it; the FFMA
+    # GEMM on the weight (K, N)
+    hi, lo = step_cuda.pack_tc(w, dtype)
+    wkw = {"iic_gemm": dict(w1=hi, w1_lo=lo, wt=True),
+           "iic_gemm_ffma": dict(w1=w)}
+
+    def run(entry):
+        stream = torch.cuda.current_stream().cuda_stream
+        step_cuda.gemm(lib, code, stream, epi=step_cuda.EPI_PRE, M=M, N=N,
+                       a1=a, c=out[entry], part=part, entry=entry,
+                       **wkw[entry])
+
+    n0 = step_cuda.gemm.launches
+    run("iic_gemm")
+    run("iic_gemm_ffma")
+    torch.cuda.synchronize()
+    check(step_cuda.gemm.launches == n0 + 1,
+          f"gemm {label}: the kernel was not launched")
+    ref = a.double() @ w.double()
+    scale = a.double().abs() @ w.double().abs()
+    errs = {e: float(((out[e].double() - ref).abs() / scale).max())
+            for e in out}
+    for e, x in errs.items():
+        check(x <= GEMM_TOL, f"gemm {label} {name} ({e}): error {x:.3g} of "
+              f"sum|a||w| > {GEMM_TOL}")
+    err = float((out["iic_gemm"].double() - ref).abs().max())
+    ffma_ms, ms, lib_ms = median_ms([lambda: run("iic_gemm_ffma"),
+                                     lambda: run("iic_gemm"),
+                                     lambda: a @ w])
+    dev = {k: device_ms(f) for k, f in (
+        ("tc", lambda: run("iic_gemm")),
+        ("ffma", lambda: run("iic_gemm_ffma")), ("matmul", lambda: a @ w))}
+    work = (dtype.itemsize * (M * K_in + K_in * N) + 4 * M * N,
+            2 * M * N * K_in)
+    bound_ms, bound_by, ffma_bound = chain_bound(work, name)
+    print(f"kernel gemm_tc[{label} {name}, {M} x {K_in} -> {N}]: error vs "
+          f"float64 {errs['iic_gemm']:.3g} of sum|a||w| (FFMA GEMM "
+          f"{errs['iic_gemm_ffma']:.3g}; tol {GEMM_TOL}), max_abs_err "
+          f"{err:.3g}; ms {ms:.4f} FFMA GEMM (plain_ms) {ffma_ms:.4f} "
+          f"torch.matmul {lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
+          f"FFMA peak {ffma_bound:.4f}); device time (profiler) "
+          f"{dev['tc']:.4f}, FFMA GEMM {dev['ffma']:.4f}, torch.matmul "
+          f"{dev['matmul']:.4f}: {work[1] / dev['tc'] / 1e9:.1f} TFLOP/s")
+    return dict(max_abs_err=err, ms=ms, plain_ms=ffma_ms, library_ms=lib_ms,
+                work=work, device_ms=dev["tc"])
+
+
+def gemm_phase(dev, cfg):
+    """The tensor-core GEMM at two products of the chain at R = B*K = 160
+    rows: the SCN input factor ([emb | gawe], In = 2,560 -> 4F = 2,048) and
+    the head (D = 512 -> V = 6,763), in float32 and bfloat16."""
+    import torch
+
+    R, In = B * K, cfg.embed_dim + cfg.encoder_dim
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        res[name, "xfac"] = gemm_case(dev, dt, R, In, 4 * cfg.factored_dim,
+                                      "xfac")
+        res[name, "head"] = gemm_case(dev, dt, R, cfg.decoder_dim, VOCAB,
+                                      "head")
+    return res
+
+
 def embed_grad_inputs(dev, dtype, B, T, V, E, gen_seed, dup=False):
     """Kernel 14's inputs as the trainer's embedding backward gives them:
     the ids of B seeded captions' first T tokens (padded with id 0) and a
@@ -467,14 +619,22 @@ def embed_grad_case(dev, dtype, B, T, V, E, dup=False, label=""):
         lambda: embed_grad_cuda.embed_grad_scatter(ids, g, V),
         lambda: table.zero_().index_add_(0, ids64, g32),
         onehot])
+    parts = {}
+    dev_ms = device_ms(lambda: embed_grad_cuda.embed_grad_scatter(ids, g, V),
+                       by_kernel=parts)
+    dev_lib = device_ms(lambda: table.zero_().index_add_(0, ids64, g32))
     bound_ms, bound_by = bound(*embed_work(N, V, E, dtype.itemsize))
     print(f"kernel embed_grad_scatter[{label} {name}, N={N}, V={V}, E={E}]: "
           f"max abs err {err:.3g} (tol {EMBED_TOL} x column sum|g|), two "
           f"calls bitwise equal; ms {ms:.4f} plain_ms {plain_ms:.4f} "
           f"index_add_ {lib_ms:.4f} onehot {oh_ms:.4f} bound_ms "
-          f"{bound_ms:.4f} ({bound_by})")
+          f"{bound_ms:.4f} ({bound_by}); device time (profiler) kernel "
+          f"{dev_ms:.4f} (" + ", ".join(
+              f"{k.split('(')[0].replace('void ', '')} {v:.4f}"
+              for k, v in parts.items()) + f") index_add_ {dev_lib:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, onehot_ms=oh_ms, bound_ms=bound_ms)
+                library_ms=lib_ms, onehot_ms=oh_ms, bound_ms=bound_ms,
+                device_ms=dev_ms, library_device_ms=dev_lib)
 
 
 def embed_grad_phase(dev, cfg):
@@ -536,10 +696,12 @@ def match_records(out, ref, tol, label):
     return diverged, worst, summary
 
 
-def span_case(dev, dtype, cfg, params, enc, gen):
-    """Kernel 7 for cfg's family: one S=4 call from a mid-decode state
-    against its plain version -- records, then h, c, sc, pw and alive of
-    the images whose decode did not diverge -- and both times."""
+def span_case(dev, dtype, cfg, params, enc, gen, k=K):
+    """Kernel 7 for cfg's family at k lanes: one S=4 call from a
+    mid-decode state against its plain version -- records, then h, c, sc,
+    pw and alive of the images whose decode did not diverge -- and both
+    times."""
+    K = k
     import torch
 
     from indonesian_image_captioning_tpu_torch.models import decoders
@@ -547,7 +709,7 @@ def span_case(dev, dtype, cfg, params, enc, gen):
 
     name = str(dtype).replace("torch.", "")
     tol = REC_TOL[name]
-    label = f"fused_decode_span[{cfg.model_type}] {name}"
+    label = f"fused_decode_span[{cfg.model_type}, K={K}] {name}"
     nb, V = enc.shape[0], cfg.vocab_size
     cell = "scn" if cfg.uses_tags else "lstm"
     p = decoders.cast_params(params, dtype)
@@ -601,16 +763,18 @@ def span_case(dev, dtype, cfg, params, enc, gen):
           and torch.equal(out[7][keep], ref[7][keep]),
           f"{label}: previous words or alive counts differ")
     plain_ms, ms = median_ms([plain, kernel])
-    bound_ms, bound_by = bound(*record_work(cfg, nb, SPAN, dtype.itemsize),
-                               name)
+    dev_ms = device_ms(kernel, runs=5)
+    bound_ms, bound_by, ffma_ms = chain_bound(
+        record_work(cfg, nb, SPAN, dtype.itemsize, k), name)
     print(f"kernel {label}: state {n_live} live lanes of {nb * K}, "
           f"{int(dead.sum())} dead images, {int(ref[7].sum())} live lanes "
           f"after; max_abs_err vals {max(e_vals, e_sc):.3g} (tol "
           f"{tol['vals']}), h/c {e_state:.3g} (tol {tol['state']}); "
           f"{summary}; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-          f"{bound_ms:.4f} ({bound_by})")
+          f"{bound_ms:.4f} ({bound_by}; FFMA peak {ffma_ms:.4f}); device "
+          f"time (profiler) {dev_ms:.4f}")
     return dict(max_abs_err=max(e_vals, e_sc, e_state), ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, device_ms=dev_ms)
 
 
 def mega_case(dev, dtype, cfg, params, enc, gen):
@@ -646,11 +810,12 @@ def mega_case(dev, dtype, cfg, params, enc, gen):
                                     label)
     ran = int((ref["vals"] > NEG).any(2).any(0).sum())   # steps that ran
     plain_ms, ms = median_ms([plain, kernel], runs=10)
-    bound_ms, bound_by = bound(*record_work(cfg, nb, ran, dtype.itemsize),
-                               name)
+    bound_ms, bound_by, ffma_ms = chain_bound(
+        record_work(cfg, nb, ran, dtype.itemsize), name)
     print(f"kernel {label}: {ran} steps ran; max_abs_err vals {err:.3g} "
           f"(tol {REC_TOL[name]['vals']}); {summary}; ms {ms:.4f} plain_ms "
-          f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+          f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; FFMA peak "
+          f"{ffma_ms:.4f})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, steps=ran)
 
 
@@ -691,6 +856,18 @@ def topk_case(dev, nb):
           f"to row_topk_iterative bitwise; ms {ms:.4f} plain_ms "
           f"{plain_ms:.4f} library_ms (torch.topk) {lib_ms:.4f} bound_ms "
           f"{bound_ms:.4f} ({bound_by})")
+    # past 32 slots kernel 10 runs in passes of 32 over the same table
+    kw = 2 * 32 + 5
+    n0 = topk.row_topk_pallas.launches
+    vals, idx = topk.row_topk_pallas(x, kw)
+    ref_v, ref_i = topk.row_topk_iterative(x, kw)
+    torch.cuda.synchronize()
+    check(topk.row_topk_pallas.launches == n0 + 1
+          and torch.equal(idx.long(), ref_i) and torch.equal(vals, ref_v),
+          f"row_topk_pallas at k={kw} differs from row_topk_iterative")
+    wide_ms, = median_ms([lambda: topk.row_topk_pallas(x, kw)])
+    print(f"kernel row_topk_pallas float32 ({nb}, {K * VOCAB}) k={kw} (three "
+          f"passes): equal to row_topk_iterative bitwise; ms {wide_ms:.4f}")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
 
 
@@ -774,12 +951,13 @@ def step_case(dev, dtype, cfg, params, enc, gen, quant=False):
         n = near_tie_rows(out[1], ref[1], lg, f"fused step {label}")
         ties = f", topi equal but {n} near-tie rows"
     plain_ms, ms = median_ms([plain, kernel])
-    bound_ms, bound_by = bound(*step_work(cfg, nb, dtype.itemsize, quant),
-                               name)
+    bound_ms, bound_by, ffma_ms = chain_bound(
+        step_work(cfg, nb, dtype.itemsize, quant), name)
     print(f"kernel {counted.__name__}[{cfg.model_type}] {name}: max_abs_err "
           f"topv/lse {e_vals:.3g} (tol {tol['step_vals']}), h/c "
           f"{e_state:.3g} (tol {tol['step_state']}){ties}; ms {ms:.4f} "
-          f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+          f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
+          f"FFMA peak {ffma_ms:.4f})")
     return dict(max_abs_err=max(e_vals, e_state), ms=ms, plain_ms=plain_ms)
 
 
@@ -880,7 +1058,8 @@ def counters():
             "fc_topk": fc_topk.fc_topk,
             "train_fwd": train_cuda.train_fwd,
             "train_bwd": train_cuda.train_bwd,
-            "embed_grad_scatter": embed_grad_cuda.embed_grad_scatter}
+            "embed_grad_scatter": embed_grad_cuda.embed_grad_scatter,
+            "gemm_tc": step_cuda.gemm}
 
 
 def zero_counters():
@@ -922,6 +1101,7 @@ def serve_and_inference(dev, cfg, B, image_size):
     engine.warmup(image_size)
     print(f"serve: warmup of buckets {buckets} "
           f"{time.perf_counter() - t0:.1f} s")
+    pack_times(engine.state["params"], cfg)
 
     # ---- the main path: counters zeroed just before, read just after ----
     zero_counters()
@@ -953,6 +1133,7 @@ def serve_and_inference(dev, cfg, B, image_size):
           f"calls {calls} (1 to {n_span} per batch)")
     check(launches["fused_decode_step"] == 0 and launches["attend_fused"]
           == 0, f"the span rung launched other decode kernels: {launches}")
+    check(launches["gemm_tc"] > 0, "kernel 7's chain ran no tensor-core GEMM")
     # rows may round differently at another batch size (cuDNN and cuBLAS
     # pick kernels by shape), so equal captions are counted, not required
     n_same = sum(a == b for a, b in zip(got, caps))
@@ -962,7 +1143,8 @@ def serve_and_inference(dev, cfg, B, image_size):
           f"decode {engine.stats.decode_impls[0]}, kernel 7 calls per "
           f"batch {calls}; kernel launches {launches}")
     print(f"serve: caption[0] = {caps[0][:80]!r}")
-    found = {"fused_decode_span": launches["fused_decode_span"]}
+    found = {"fused_decode_span": launches["fused_decode_span"],
+             "gemm_tc": launches["gemm_tc"]}
 
     # ---- the int8 encoder state: a second engine on the same weights and
     # BatchNorm statistics; counters zeroed just before, read just after --
@@ -986,6 +1168,7 @@ def serve_and_inference(dev, cfg, B, image_size):
           f"the int8 batch ran kernel 6c {qlaunches['fused_decode_step_q']} "
           f"times in {qcalls} decode calls; launches {qlaunches}")
     found["fused_decode_step_q"] = qlaunches["fused_decode_step_q"]
+    check(qlaunches["gemm_tc"] > 0, "the int8 batch ran no tensor-core GEMM")
     print(f"serve: int8 caption_batch({B}) {t_qbatch:.3f} s; decode "
           f"{qengine.stats.decode_impls[0]}, {qcalls[0]} kernel 6c calls; "
           f"{sum(a == b for a, b in zip(qcaps, caps))} captions equal to "
@@ -1046,10 +1229,62 @@ def serve_and_inference(dev, cfg, B, image_size):
                       f"rows equal, {ties} near-tie rows; "
                       f"{out['decode_calls']} kernel calls")
         found.update(opt_in_modes(dev, cfg, params, enc, tags, steps_out, kw))
+        for k in (16, 40):
+            wide_beam(params, cfg, enc, tags, kw, k)
     print(f"inference: steps engine with alphas, {steps_out['steps']} steps, "
           f"alpha sums within {a_err:.2g} of 1; launches per path {found}")
     breakdown(engine, cfg, x, enc, tags, kw)
     return found
+
+
+def wide_beam(params, cfg, enc, tags, kw, k=16):
+    """A beam of k through "auto" on the serving encodings: kernel 7
+    (counters zeroed just before, read just after), beams equal to the
+    "steps" rung's at the same width (kernel 1 in two lane groups) but at
+    near-ties."""
+    from indonesian_image_captioning_tpu_torch.core.config import BeamConfig
+    from indonesian_image_captioning_tpu_torch.decode.api import \
+        caption_beam_search
+
+    bkw = dict(kw, beam_cfg=BeamConfig(beam_size=k))
+    t0 = time.perf_counter()
+    out, ran = decode_path(params, cfg, enc, tags, bkw, "fused_decode_span",
+                           impl="fused_span")
+    t_wide = time.perf_counter() - t0
+    ref, _ = decode_path(params, dataclasses.replace(cfg, decode_impl="steps"),
+                         enc, tags, bkw, "attend_fused", impl="steps")
+    check(out["sequences"].shape[0] == enc.shape[0]
+          and bool(out["scores"].isfinite().all()),
+          f"K={k}: sequences {tuple(out['sequences'].shape)} or scores not "
+          "finite")
+    equal, ties = same_beams(params, cfg, enc, tags, ref, out, f"K={k} auto")
+    print(f"inference: beam {k} through auto ({out['decode_impl']}, "
+          f"{ran} kernel 7 calls, {t_wide:.3f} s): {equal}/{enc.shape[0]} "
+          f"rows equal to steps at beam {k}, {ties} near-tie rows")
+
+
+def pack_times(params, cfg):
+    """Host milliseconds of packing the decode chain's weights
+    (step_cuda.pack_step_weights: transposes, TF32 splits) from cold, as
+    every decode paid it before packs were kept per parameter tree, and
+    from its cache, as a decode pays it now; float32 and bfloat16."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import step_cuda
+
+    for dt in (torch.float32, torch.bfloat16):
+        ms = []
+        for cold in (True, False):
+            if cold:
+                step_cuda._packed.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_cuda.pack_step_weights(params, cfg, dt)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"serve: pack_step_weights {str(dt).replace('torch.', '')}: "
+              f"cold {ms[0]:.3f} ms, cached {ms[1]:.4f} ms (host, with a "
+              f"synchronize)")
 
 
 def decode_path(params, cfg, enc, tags, kw, kernel, record_alphas=False,
@@ -1278,27 +1513,39 @@ def bound(nbytes, flops, dtype="float32"):
                                        else "operations")
 
 
-def attend_work(cfg, B, isz=4):
-    """Bytes and operations of kernel 1 at B images x K lanes: enc, ea,
+def chain_bound(work, name):
+    """(bound_ms, bound_by, ffma_bound_ms) of a kernel whose products run
+    on the tensor-core GEMM (kernels 2, 6b, 6c, 7, 13): at float32 against
+    the 3xTF32 peak, with the FFMA peak's bound beside it."""
+    if name == "float32":
+        ms, by = bound(*work, "tf32x3")
+        return ms, by, bound(*work, "float32")[0]
+    ms, by = bound(*work, name)
+    return ms, by, ms
+
+
+def attend_work(cfg, B, isz=4, k=K):
+    """Bytes and operations of kernel 1 at B images x k lanes: enc, ea,
     dec and wf read once; awe and alpha written once."""
     P, E, A = cfg.num_pixels, cfg.encoder_dim, cfg.attention_dim
-    nbytes = isz * (B * P * (E + A) + B * K * (A + E + P)) + 4 * A
-    return nbytes, B * K * P * (3 * A + 2 * E)
+    nbytes = isz * (B * P * (E + A) + B * k * (A + E + P)) + 4 * A
+    return nbytes, B * k * P * (3 * A + 2 * E)
 
 
-def attend_q_work(cfg, B, isz=4):
-    """Bytes and operations of kernel 5 at B images x K lanes: the int8
+def attend_q_work(cfg, B, isz=4, k=K):
+    """Bytes and operations of kernel 5 at B images x k lanes: the int8
     enc and ea and their float32 scales, dec and wf read once; awe and
     alpha written once; kernel 1's operations and the dequantisation."""
     P, E, A = cfg.num_pixels, cfg.encoder_dim, cfg.attention_dim
-    nbytes = B * P * (E + A + 8) + isz * B * K * (A + E + P) + 4 * A
-    return nbytes, B * K * P * (3 * A + 2 * E) + B * P * A
+    nbytes = B * P * (E + A + 8) + isz * B * k * (A + E + P) + 4 * A
+    return nbytes, B * k * P * (3 * A + 2 * E) + B * P * A
 
 
-def step_work(cfg, B, isz=4, quant=False):
-    """Bytes and operations of kernel 2 at R = B*K rows for cfg's family:
+def step_work(cfg, B, isz=4, quant=False, k=K):
+    """Bytes and operations of kernel 2 at R = B*k rows for cfg's family:
     attention (none for pure_scn), the cell's products and the head; with
     quant, kernel 6c's (the encoder state int8 with float32 scales)."""
+    K = k
     R, P = B * K, cfg.num_pixels
     E, A, D, V = cfg.encoder_dim, cfg.attention_dim, cfg.decoder_dim, \
         cfg.vocab_size
@@ -1341,13 +1588,14 @@ def fc_topk_work(R, D, V, k):
     return 4 * (R * D + D * V + V) + 8 * R * k + 4 * R, 2 * R * D * V
 
 
-def record_work(cfg, B, steps, isz=4):
+def record_work(cfg, B, steps, isz=4, k=K):
     """Bytes and operations of kernels 7 and 13 over `steps` steps of B
     images: kernel 2's bytes once (a call that kept them could read the
     weights, the encoder state and the carried rows once), the embedding
     rows of every step and the records; kernel 2's operations every
     step."""
-    nbytes, flops = step_work(cfg, B, isz)
+    K = k
+    nbytes, flops = step_work(cfg, B, isz, k=k)
     R = B * K
     nbytes += (isz * steps * R * cfg.embed_dim + 12 * B * steps * K
                + 16 * R + 8 * B)
@@ -1850,7 +2098,7 @@ def train_breakdown(step, sub, batch, gen, B):
     groups = {"train scan (iic)": 0.0, "embed grad (iic)": 0.0,
               "cuBLAS/cuBLASLt GEMM": 0.0, "other PyTorch": 0.0}
     for t, k in kernels:
-        if "embed_grad_kernel" in k:
+        if "iic::embed_" in k:       # kernel 14's launches
             groups["embed grad (iic)"] += t / 1e3
         elif k.startswith(("void iic::", "iic::")):
             groups["train scan (iic)"] += t / 1e3
@@ -1910,6 +2158,7 @@ def main() -> int:
         topk_res = topk_case(dev, B)
         fc_res = fc_topk_case(dev, cfg, B)
         embed_res = embed_grad_phase(dev, cfg)
+        gemm_res = gemm_phase(dev, cfg)
     t0 = time.perf_counter()
     launches = serve_and_inference(dev, cfg, B, IMAGE_SIZE)
     print(f"phases: kernels {t0 - t_start:.1f} s, serve and inference "
@@ -1928,24 +2177,29 @@ def main() -> int:
     csrc = "indonesian_image_captioning_tpu_torch/csrc/"
     jax_ops = "indonesian_image_captioning_tpu/ops/"
     f32, bf16 = res["float32"], res["bfloat16"]
+    chain = "tf32x3"           # float32 products on the tensor cores
     rows = (("attend_fused", "attend.cu", "attention_pallas.py:233",
              f32["attend"], bf16["attend"], attend_work(cfg, B)),
             ("fused_decode_step", "step.cu", "step_pallas.py:379",
-             f32["step"], bf16["step"], step_work(cfg, B)),
+             f32["step"], bf16["step"], step_work(cfg, B), chain),
             ("fused_decode_span", "span.cu", "span_pallas.py:521",
-             f32["span"], bf16["span"], record_work(cfg, B, SPAN)),
+             f32["span"], bf16["span"], record_work(cfg, B, SPAN), chain),
             ("beam_decode_records", "span.cu", "decode_pallas.py:305",
              f32["mega"], bf16["mega"],
-             record_work(cfg, B, f32["mega"]["steps"])),
+             record_work(cfg, B, f32["mega"]["steps"]), chain),
+            ("gemm_tc", "mma.cuh", None,
+             gemm_res["float32", "head"], gemm_res["bfloat16", "head"],
+             gemm_res["float32", "head"]["work"], chain),
             ("row_topk_pallas", "topk.cu", "topk_pallas.py:85", topk_res,
              None, topk_work(B, K * VOCAB, K)),
             ("fused_decode_step_noattn", "step.cu", "step_pallas.py:422",
              f32["step_pure_scn"], bf16["step_pure_scn"],
-             step_work(pure_scn, B)),
+             step_work(pure_scn, B), chain),
             ("attend_fused_q", "attend_q.cu", "attention_pallas.py:519",
              f32["attend_q"], bf16["attend_q"], attend_q_work(cfg, B)),
             ("fused_decode_step_q", "step.cu", "step_pallas.py:402",
-             f32["step_q"], bf16["step_q"], step_work(cfg, B, quant=True)),
+             f32["step_q"], bf16["step_q"], step_work(cfg, B, quant=True),
+             chain),
             ("scn_step_fused", "scn.cu", "scn_pallas.py:56",
              f32["scn_attention_scn"], bf16["scn_attention_scn"],
              scn_work(cfg, B * K)),
@@ -1963,16 +2217,18 @@ def main() -> int:
              embed_res["bfloat16"],
              embed_work(B * T, VOCAB, cfg.embed_dim)))
     kernels = []
-    for name, source, replaces, r32, r16, (nbytes, flops) in rows:
+    for name, source, replaces, r32, r16, (nbytes, flops), *peak in rows:
         check(launches.get(name, 0) > 0,
               f"{name} never launched on its path")
-        bound_ms, bound_by = bound(nbytes, flops)
+        bound_ms, bound_by = bound(nbytes, flops, *peak)
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + source,
-            "replaces": jax_ops + replaces, "launches": launches[name],
+            "replaces": replaces and jax_ops + replaces,
+            "launches": launches[name],
             "max_abs_err": r32["max_abs_err"], "ms": r32["ms"],
             "plain_ms": r32["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r32.get("library_ms"),
+            "device_ms": r32.get("device_ms"),
             "bf16_max_abs_err": r16 and r16["max_abs_err"],
             "bf16_ms": r16 and r16["ms"],
             "bf16_plain_ms": r16 and r16["plain_ms"]})

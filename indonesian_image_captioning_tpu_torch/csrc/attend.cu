@@ -11,7 +11,7 @@ extern "C" int iic_attend(int dtype, const void* enc, const void* ea,
                           const void* dec, const void* wf, void* scores,
                           void* awe, void* alpha, int B, int K, int P, int E,
                           int A, int esplit, void* stream) {
-  if (K < 1 || K > iic::kMaxK || esplit < 1) return (int)cudaErrorInvalidValue;
+  if (K < 1 || esplit < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == iic::kF32)
     return iic::launch_attend<float>(enc, ea, dec, wf, scores, awe, alpha, B,

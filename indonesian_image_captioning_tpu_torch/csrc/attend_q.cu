@@ -36,7 +36,9 @@
 // second takes one image's scores into shared memory, runs the softmax,
 // folds the enc scales into alpha there, and has one thread per enc
 // column keep K sums with eight pixel rows of loads in flight.  Both
-// grids carry enough blocks to fill the 132 SMs at B = 32.
+// grids carry enough blocks to fill the 132 SMs at B = 32.  Any K: as in
+// kernel 1, a beam wider than the eight-lane register body runs as
+// ceil(K / 8) lane groups, the grid's z dimension in both launches.
 #include <cstdint>
 
 #include "common.cuh"
@@ -45,7 +47,9 @@ namespace iic {
 
 constexpr int kAttendQThreads = 256;
 
-// Grid (B, ceil(p_actual / warps per block)); scores (B, K, p_actual).
+// Grid (B, ceil(p_actual / warps per block), lane groups); the block's
+// lanes are k0 .. k0 + kg - 1 (k0 = 8 * blockIdx.z); scores (B, K,
+// p_actual).
 template <typename T>
 __global__ void __launch_bounds__(kAttendQThreads)
 attend_q_scores_kernel(const int8_t* __restrict__ ea_q,
@@ -54,49 +58,52 @@ attend_q_scores_kernel(const int8_t* __restrict__ ea_q,
                        float* __restrict__ scores, int K, int P, int pa,
                        int A) {
   extern __shared__ float smem[];
-  float* dec_s = smem;          // K * A
-  float* wf_s = dec_s + K * A;  // A
+  const int k0 = blockIdx.z * kLaneGroup;
+  const int kg = min(kLaneGroup, K - k0);
+  float* dec_s = smem;           // kg * A
+  float* wf_s = dec_s + kg * A;  // A
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int p = blockIdx.y * (blockDim.x >> 5) + (tid >> 5);
 
-  for (int i = tid; i < K * A; i += blockDim.x)
-    dec_s[i] = to_f(dec[(size_t)b * K * A + i]);
+  for (int i = tid; i < kg * A; i += blockDim.x)
+    dec_s[i] = to_f(dec[((size_t)b * K + k0) * A + i]);
   for (int i = tid; i < A; i += blockDim.x) wf_s[i] = rt<T>(wf[i]);
   __syncthreads();
   if (p >= pa) return;
 
   const float s = rt<T>(ea_s[(size_t)b * P + p]);
-  float acc[kMaxK];
+  float acc[kLaneGroup];
 #pragma unroll
-  for (int k = 0; k < kMaxK; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < kLaneGroup; ++k) acc[k] = 0.0f;
   const int8_t* row = ea_q + ((size_t)b * P + p) * A;
 #pragma unroll 4
   for (int a = lane; a < A; a += 32) {
     const float x = rt<T>((float)row[a] * s);
     const float w = wf_s[a];
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k < K) {
+    for (int k = 0; k < kLaneGroup; ++k) {
+      if (k < kg) {
         const float e = fmaxf(rt<T>(x + dec_s[k * A + a]), 0.0f);
         acc[k] += rt<T>(e * w);
       }
     }
   }
 #pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-    if (k < K) {
+  for (int k = 0; k < kLaneGroup; ++k) {
+    if (k < kg) {
       const float v = warp_sum(acc[k]);
-      if (lane == 0) scores[((size_t)b * K + k) * pa + p] = rt<T>(v);
+      if (lane == 0) scores[((size_t)b * K + k0 + k) * pa + p] = rt<T>(v);
     }
   }
 }
 
 // Softmax over the first pa pixels, the enc scale folded into alpha, then
-// the weighted sum over this block's columns.  Grid (B, esplit); every
-// block of an image recomputes the tiny K x pa softmax, and block y == 0
-// writes alpha (B, K, pa) when asked for.
+// the weighted sum over this block's columns, for lane group blockIdx.z.
+// Grid (B, esplit, lane groups); every block of an image recomputes its
+// lanes' tiny kg x pa softmax, and block y == 0 writes their alpha (B, K,
+// pa) when asked for.
 template <typename T>
 __global__ void __launch_bounds__(kAttendQThreads)
 attend_q_sum_kernel(const int8_t* __restrict__ enc_q,
@@ -105,7 +112,9 @@ attend_q_sum_kernel(const int8_t* __restrict__ enc_q,
                     T* __restrict__ alpha, int K, int P, int pa, int E,
                     int e_chunk) {
   extern __shared__ float smem[];
-  float* att = smem;            // K * pa: scores, then rt(alpha * s_enc)
+  float* att = smem;            // kg * pa: scores, then rt(alpha * s_enc)
+  const int k0 = blockIdx.z * kLaneGroup;
+  const int kg = min(kLaneGroup, K - k0);
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -114,11 +123,11 @@ attend_q_sum_kernel(const int8_t* __restrict__ enc_q,
   const int8_t* enc_b = enc_q + (size_t)b * P * E;
   const float* s_b = enc_s + (size_t)b * P;
 
-  for (int i = tid; i < K * pa; i += blockDim.x)
-    att[i] = scores[(size_t)b * K * pa + i];
+  for (int i = tid; i < kg * pa; i += blockDim.x)
+    att[i] = scores[((size_t)b * K + k0) * pa + i];
   __syncthreads();
 
-  for (int k = warp; k < K; k += nwarps) {
+  for (int k = warp; k < kg; k += nwarps) {
     float* a_k = att + k * pa;
     float m = -INFINITY;
     for (int p = lane; p < pa; p += 32) m = fmaxf(m, a_k[p]);
@@ -129,7 +138,7 @@ attend_q_sum_kernel(const int8_t* __restrict__ enc_q,
     for (int p = lane; p < pa; p += 32) {
       const float v = expf(a_k[p] - m) / s;
       if (alpha != nullptr && blockIdx.y == 0)
-        alpha[((size_t)b * K + k) * pa + p] = from_f<T>(v);
+        alpha[((size_t)b * K + k0 + k) * pa + p] = from_f<T>(v);
       a_k[p] = rt<T>(v * s_b[p]);
     }
   }
@@ -140,9 +149,9 @@ attend_q_sum_kernel(const int8_t* __restrict__ enc_q,
   const int e0 = blockIdx.y * e_chunk;
   const int e1 = min(E, e0 + e_chunk);
   for (int e = e0 + tid; e < e1; e += blockDim.x) {
-    float acc[kMaxK];
+    float acc[kLaneGroup];
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) acc[k] = 0.0f;
+    for (int k = 0; k < kLaneGroup; ++k) acc[k] = 0.0f;
     int p = 0;
     for (; p + 8 <= pa; p += 8) {
       float x[8];
@@ -151,18 +160,18 @@ attend_q_sum_kernel(const int8_t* __restrict__ enc_q,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int k = 0; k < kMaxK; ++k)
-          if (k < K) acc[k] += att[k * pa + p + j] * x[j];
+        for (int k = 0; k < kLaneGroup; ++k)
+          if (k < kg) acc[k] += att[k * pa + p + j] * x[j];
     }
     for (; p < pa; ++p) {
       const float x = (float)enc_b[(size_t)p * E + e];
 #pragma unroll
-      for (int k = 0; k < kMaxK; ++k)
-        if (k < K) acc[k] += att[k * pa + p] * x;
+      for (int k = 0; k < kLaneGroup; ++k)
+        if (k < kg) acc[k] += att[k * pa + p] * x;
     }
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k)
-      if (k < K) awe[((size_t)b * K + k) * E + e] = from_f<T>(acc[k]);
+    for (int k = 0; k < kLaneGroup; ++k)
+      if (k < kg) awe[((size_t)b * K + k0 + k) * E + e] = from_f<T>(acc[k]);
   }
 }
 
@@ -174,19 +183,21 @@ static int launch_attend_q(const void* enc_q, const void* enc_s,
                            int pa, int E, int A, int esplit,
                            cudaStream_t stream) {
   const int warps = kAttendQThreads / 32;
-  const size_t smem1 = sizeof(float) * ((size_t)K * A + A);
-  const size_t smem2 = sizeof(float) * (size_t)K * pa;
+  const int kg = min(K, kLaneGroup);
+  const int groups = (K + kLaneGroup - 1) / kLaneGroup;
+  const size_t smem1 = sizeof(float) * ((size_t)kg * A + A);
+  const size_t smem2 = sizeof(float) * (size_t)kg * pa;
   int err = allow_smem(attend_q_scores_kernel<T>, smem1);
   if (err == 0) err = allow_smem(attend_q_sum_kernel<T>, smem2);
   if (err != 0) return err;
   attend_q_scores_kernel<T>
-      <<<dim3(B, (pa + warps - 1) / warps), kAttendQThreads, smem1,
+      <<<dim3(B, (pa + warps - 1) / warps, groups), kAttendQThreads, smem1,
          stream>>>((const int8_t*)ea_q, (const float*)ea_s, (const T*)dec,
                    (const float*)wf, (float*)scores, K, P, pa, A);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const int e_chunk = (E + esplit - 1) / esplit;
-  attend_q_sum_kernel<T><<<dim3(B, esplit), kAttendQThreads, smem2,
+  attend_q_sum_kernel<T><<<dim3(B, esplit, groups), kAttendQThreads, smem2,
                            stream>>>(
       (const int8_t*)enc_q, (const float*)enc_s, (const float*)scores,
       (T*)awe, (T*)alpha, K, P, pa, E, e_chunk);
@@ -204,7 +215,7 @@ extern "C" int iic_attend_q(int dtype, const void* enc_q, const void* enc_s,
                             const void* dec, const void* wf, void* scores,
                             void* awe, void* alpha, int B, int K, int P,
                             int pa, int E, int A, int esplit, void* stream) {
-  if (K < 1 || K > iic::kMaxK || esplit < 1 || pa < 1 || pa > P)
+  if (K < 1 || esplit < 1 || pa < 1 || pa > P)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == iic::kF32)

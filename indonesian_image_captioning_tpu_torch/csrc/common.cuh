@@ -13,7 +13,10 @@ namespace iic {
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
-constexpr int kMaxK = 8;          // beam widths and top-k sizes 1..8
+// Every kernel takes any beam width K.  The attention kernels (attend.cuh,
+// attend_q.cu) take it as lane groups of kLaneGroup, the width of their
+// register body.
+constexpr int kLaneGroup = 8;
 constexpr float kNeg = -1e30f;    // the beam's dead-lane sentinel (NEG)
 
 // The decode megakernel's early exit (span.cu iic_decode_records): a chain

@@ -35,7 +35,7 @@
 extern "C" int iic_fc_topk(const void* h, const void* w, const void* b,
                            void* logits, void* topv, void* topi, void* lse,
                            int R, int D, int V, int k, void* stream) {
-  if (R < 1 || D < 1 || k < 1 || k > iic::kMaxK || k > V)
+  if (R < 1 || D < 1 || k < 1 || k > V)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   iic::GemmArgs g = {};

@@ -1,6 +1,10 @@
-// The tiled GEMM shared by the decode step (step.cu, span.cu), the train
-// scan (train.cu), the fused SCN cell (scn.cu) and the vocab head
-// (fc_topk.cu), with its fused epilogues.
+// The float32 FFMA GEMM of the train scan (train.cu), the fused SCN cell
+// (scn.cu) and the vocab head (fc_topk.cu), with its fused epilogues.
+// The decode step chain (step.cu, span.cu) runs the same contract on the
+// tensor cores (mma.cuh, which shares GemmArgs, the epilogues and the
+// split-K reduce defined here); step.cu's iic_gemm_ffma keeps this GEMM
+// callable as the yardstick the card tests and chip_smoke.py hold that
+// one against.
 //
 //   C[z] = epilogue(A1[z] @ W1[z] + A2[z] @ W2[z] + A3[z] @ W3[z])
 //
@@ -54,6 +58,7 @@ enum Epilogue {
 struct GemmArgs {
   const void* a[3];
   const void* w[3];
+  const void* w_lo[3];  // mma.cuh: a float32 W pre-split, its lo parts
   int k[3];
   int wt[3];
   long long lda[3];

@@ -13,11 +13,13 @@
 //
 //   gather  emb[r] = table[pw[r]]               (ids stay int32)
 //   kernel 2's chain: dec, attention (attend.cuh), gate, cell GEMMs,
-//           cell, head GEMM, head top-K (gemm.cuh, step.cuh)
+//           cell, head GEMM, head top-K (the tensor-core GEMM of mma.cuh,
+//           step.cuh)
 //   select  one block per image: the K*K candidates
 //           cand = max(sc + (topv - lse), NEG), NEG where sc <= NEG,
 //           K rounds of max / lowest-flat-index argmax / mask with NEG
-//           (lax.top_k's order), the records at [b, step, k], the
+//           (lax.top_k's order; each round looks past the last winner,
+//           so any K), the records at [b, step, k], the
 //           bookkeeping of span_pallas.py:487-494 (valid = lane < alive
 //           and val > NEG; alive -= ends; sc = val where the lane goes on,
 //           else NEG; pw = word) and the (h, c) reorder by parent, a gather
@@ -47,11 +49,15 @@
 // per step.  What the design does about it: the host makes one call per
 // span (kernel 7) or per decode (kernel 13) instead of one per step, the
 // selection and the reorder run on the card, and kernel 7's driver reads
-// the alive counts once per span.  The step chain itself is kernel 2's.
+// the alive counts once per span.  The step chain itself is kernel 2's;
+// its products (dec, the gate, the SCN factors and gates or the LSTM
+// gates, the head) run on the tensor cores (mma.cuh: bf16 wgmma, 3xTF32
+// at float32), split over K where their output tiles do not fill the
+// card, with the scratch s_part for the partials.
 #include <type_traits>
 
 #include "attend.cuh"
-#include "gemm.cuh"
+#include "mma.cuh"
 #include "step.cuh"
 
 namespace iic {
@@ -100,62 +106,74 @@ struct SelectArgs {
   int* live_out;         // the next step's, or null
 };
 
-// One block per image.
+// One block per image.  Candidate j = k' * K + q (lane k' of the image,
+// its q-th word) is max(sc + (topv - lse), NEG), NEG where sc <= NEG,
+// computed where it is read.  Round q takes, among the values above NEG,
+// the largest that comes after round q - 1's winner in the order (value
+// descending, flat index ascending): lax.top_k's order, the Pallas body's
+// K rounds of max / lowest-index argmax / mask with NEG.  Once no value
+// above NEG is left every round takes flat index 0 at NEG, as masking
+// does when all K*K values are NEG.  Nothing is kept per candidate or per
+// winner, so any K fits: the winners go straight to the records (a
+// round writes its flat index, turned into word and parent after the
+// rounds), which the bookkeeping and the reorder read back.
 template <typename T>
 __global__ void __launch_bounds__(kSelectThreads)
 select_kernel(SelectArgs a) {
   if (skip(a.live_in)) return;
-  __shared__ float cand[kMaxK * kMaxK];
-  __shared__ int cid[kMaxK * kMaxK];
-  __shared__ float s_val[kMaxK];
-  __shared__ int s_flat[kMaxK];
-  __shared__ int s_lane[kMaxK];
   __shared__ int s_upd;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int K = a.K, KK = K * K, D = a.D;
-
-  for (int j = tid; j < KK; j += blockDim.x) {
+  const long long rec = ((long long)b * a.rec_steps + a.step) * K;
+  auto cand = [&](int j) {
     const int r = b * K + j / K;
-    const int q = j % K;
+    const long long t = (long long)r * K + j % K;
     const float s = a.sc_in[r];
-    const float lp = a.lse != nullptr ? a.topv[r * K + q] - a.lse[r]
-                                      : a.topv[r * K + q];
-    float v = fmaxf(s + lp, kNeg);
-    if (s <= kNeg) v = kNeg;
-    cand[j] = v;
-    cid[j] = a.topi[r * K + q];
+    const float lp = a.lse != nullptr ? a.topv[t] - a.lse[r] : a.topv[t];
+    const float v = fmaxf(s + lp, kNeg);
+    return s <= kNeg ? kNeg : v;
+  };
+
+  // the K rounds, in warp 0
+  if (tid < 32) {
+    float pv = INFINITY;   // the previous round's winner
+    int pi = -1;
+    for (int q = 0; q < K; ++q) {
+      float bv = kNeg;
+      int bi = INT_MAX;
+      if (pv > kNeg) {
+        for (int j = tid; j < KK; j += 32) {
+          const float v = cand(j);
+          if (!(v > kNeg) || !(v < pv || (v == pv && j > pi))) continue;
+          if (v > bv || (v == bv && j < bi)) {
+            bv = v;
+            bi = j;
+          }
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+          if (ov > bv || (ov == bv && oi < bi)) {
+            bv = ov;
+            bi = oi;
+          }
+        }
+      }
+      if (bi == INT_MAX) bi = 0;   // none left: index 0 at NEG
+      pv = bv;
+      pi = bi;
+      if (tid == 0) {
+        a.words[rec + q] = bi;       // the flat index, for now
+        a.vals[rec + q] = bv;
+      }
+    }
   }
   __syncthreads();
-
-  // K rounds over the K*K candidates in warp 0: the largest value, ties to
-  // the lowest flat index, masked with NEG before the next round.
-  if (tid < 32) {
-    for (int q = 0; q < K; ++q) {
-      float bv = -INFINITY;
-      int bi = INT_MAX;
-      for (int j = tid; j < KK; j += 32) {
-        const float v = cand[j];
-        if (v > bv || (v == bv && j < bi)) {
-          bv = v;
-          bi = j;
-        }
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-        if (ov > bv || (ov == bv && oi < bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      if (tid == 0) {
-        s_val[q] = bv;
-        s_flat[q] = bi;
-        cand[bi] = kNeg;
-      }
-      __syncwarp();
-    }
+  for (int k = tid; k < K; k += blockDim.x) {
+    const int flat = a.words[rec + k];
+    a.words[rec + k] = a.topi[(long long)(b * K + flat / K) * K + flat % K];
+    a.parents[rec + k] = flat / K;
   }
   __syncthreads();
 
@@ -164,14 +182,8 @@ select_kernel(SelectArgs a) {
     const int upd = !a.freeze || al > 0;
     int n_done = 0;
     for (int k = 0; k < K; ++k) {
-      const float tv = s_val[k];
-      const int flat = s_flat[k];
-      const int word = cid[flat];
-      const long long ri = ((long long)b * a.rec_steps + a.step) * K + k;
-      a.words[ri] = word;
-      a.parents[ri] = flat / K;
-      a.vals[ri] = tv;
-      s_lane[k] = flat / K;
+      const float tv = a.vals[rec + k];
+      const int word = a.words[rec + k];
       const int r = b * K + k;
       if (upd) {
         const bool valid = k < al && tv > kNeg;
@@ -203,7 +215,8 @@ select_kernel(SelectArgs a) {
   for (int idx = tid; idx < K * D; idx += blockDim.x) {
     const int k = idx / D;
     const int j = idx % D;
-    const long long src = (long long)(b * K + (upd ? s_lane[k] : k)) * D + j;
+    const long long src =
+        (long long)(b * K + (upd ? a.parents[rec + k] : k)) * D + j;
     const long long dst = (long long)(b * K + k) * D + j;
     h[dst] = hs[src];
     c[dst] = cs[src];
@@ -219,19 +232,26 @@ select_kernel(SelectArgs a) {
 // records (B, rec_steps, K); weights as ops/step_cuda.py pack_step_weights.
 struct SpanArgs {
   long long B, K, P, E, A, D, Emb, F4, V, steps, rec_steps, lstm, end_id,
-      esplit;
+      esplit, part_cap;
   const void *enc, *ea, *semx, *semh, *emb_tab;
-  const void *wda, *bda, *wf, *wfb, *bfb, *wxe, *wxa, *wh, *wxp, *whp, *wih,
-      *bx, *bh, *fcw, *fcb;
+  const void *bda, *wf, *bfb, *bx, *bh, *fcb;
+  // the products' weights for the tensor-core GEMM (step_cuda.pack_tc):
+  // transposed to (N, K) -- the gates' per gate, (4H, F) -- and at float32
+  // split into TF32 hi parts (*_t) and lo parts (*_tlo, null at bf16)
+  const void *wda_t, *wfb_t, *wxe_t, *wxa_t, *wh_t, *wxp_t, *whp_t, *wih_t,
+      *fcw_t;
+  const void *wda_tlo, *wfb_tlo, *wxe_tlo, *wxa_tlo, *wh_tlo, *wxp_tlo,
+      *whp_tlo, *wih_tlo, *fcw_tlo;
   const void *h_in, *c_in, *sc_in, *pw_in, *alive_in;  // the state on entry
   void *h, *c, *sc, *pw, *alive;                       // ... and on return
   void *words, *parents, *vals;
   void* live;  // int (steps + 1): the megakernel's early-exit words
   // scratch: emb (R, Emb), dec (R, A), scores (B, K, P) f32, awe and gawe
   // (R, E), xfac/hfac (R, F4), pre (R, 4D) f32, hnew/cnew (R, D), logits
-  // (R, V) f32, topv (R, K) f32, topi (R, K) int32, lse (R,) f32
+  // (R, V) f32, topv (R, K) f32, topi (R, K) int32, lse (R,) f32, and
+  // part_cap float32 for the GEMM's split-K partials
   void *s_emb, *s_dec, *s_scores, *s_awe, *s_gawe, *s_xfac, *s_hfac, *s_pre,
-      *s_hnew, *s_cnew, *s_logits, *s_topv, *s_topi, *s_lse;
+      *s_hnew, *s_cnew, *s_logits, *s_topv, *s_topi, *s_lse, *s_part;
 };
 
 #define IIC_TRY(x)              \
@@ -240,9 +260,12 @@ struct SpanArgs {
     if (err_ != 0) return err_; \
   } while (0)
 
-static inline GemmArgs gemm_args(int M, int N, int epi, void* c,
-                                 long long ldc, int c_f32, const int* live) {
+static inline GemmArgs gemm_args(const SpanArgs& r, int M, int N, int epi,
+                                 void* c, long long ldc, int c_f32,
+                                 const int* live) {
   GemmArgs g = {};
+  g.part = (float*)r.s_part;
+  g.part_cap = r.part_cap;
   g.M = M;
   g.N = N;
   g.epi = epi;
@@ -253,13 +276,24 @@ static inline GemmArgs gemm_args(int M, int N, int epi, void* c,
   return g;
 }
 
+// Source s: a (M, k) with row stride lda times the weight stored (N, k)
+// with row stride ldw (w_t, and its lo parts w_tlo at float32).
 static inline void src(GemmArgs& g, int s, const void* a, long long lda,
-                       const void* w, long long ldw, int k) {
+                       const void* w_t, const void* w_tlo, long long ldw,
+                       int k) {
   g.a[s] = a;
   g.lda[s] = lda;
-  g.w[s] = w;
+  g.w[s] = w_t;
+  g.w_lo[s] = w_tlo;
+  g.wt[s] = 1;
   g.ldw[s] = ldw;
   g.k[s] = k;
+}
+
+// p + off elements of T (the lo parts are float32), or null.
+template <typename T>
+static inline const void* at(const void* p, long long off) {
+  return p == nullptr ? nullptr : (const T*)p + off;
 }
 
 // raw_head / freeze / early exit: 0 / 0 / no for kernel 7, 1 / 1 / yes for
@@ -282,59 +316,59 @@ static int run_steps(const SpanArgs& r, int raw_head, int freeze,
     gather_kernel<T><<<gather_blocks, 256, 0, st>>>(
         (const T*)r.emb_tab, pw, (T*)r.s_emb, R, Emb, V, live);
     IIC_TRY((int)cudaGetLastError());
-    GemmArgs g = gemm_args(R, A, kEpiBias, r.s_dec, A, 0, live);
-    src(g, 0, h, D, r.wda, A, D);
+    GemmArgs g = gemm_args(r, R, A, kEpiBias, r.s_dec, A, 0, live);
+    src(g, 0, h, D, r.wda_t, r.wda_tlo, D, D);
     g.bias1 = r.bda;
-    IIC_TRY(launch_gemm<T>(g, 1, st));
+    IIC_TRY(launch_gemm_tc<T>(g, 1, st));
     IIC_TRY(launch_attend<T>(r.enc, r.ea, r.s_dec, r.wf, r.s_scores, r.s_awe,
                              nullptr, B, K, P, E, A, (int)r.esplit, st,
                              live));
-    g = gemm_args(R, E, kEpiSigmoidMul, r.s_gawe, E, 0, live);
-    src(g, 0, h, D, r.wfb, E, D);
+    g = gemm_args(r, R, E, kEpiSigmoidMul, r.s_gawe, E, 0, live);
+    src(g, 0, h, D, r.wfb_t, r.wfb_tlo, D, D);
     g.bias1 = r.bfb;
     g.aux = r.s_awe;
     g.ldaux = E;
-    IIC_TRY(launch_gemm<T>(g, 1, st));
+    IIC_TRY(launch_gemm_tc<T>(g, 1, st));
     if (!lstm) {
-      g = gemm_args(R, F4, kEpiMul, r.s_xfac, F4, 0, live);
-      src(g, 0, r.s_emb, Emb, r.wxe, F4, Emb);
-      src(g, 1, r.s_gawe, E, r.wxa, F4, E);
+      g = gemm_args(r, R, F4, kEpiMul, r.s_xfac, F4, 0, live);
+      src(g, 0, r.s_emb, Emb, r.wxe_t, r.wxe_tlo, Emb, Emb);
+      src(g, 1, r.s_gawe, E, r.wxa_t, r.wxa_tlo, E, E);
       g.aux = r.semx;
       g.ldaux = F4;
-      IIC_TRY(launch_gemm<T>(g, 1, st));
-      g = gemm_args(R, F4, kEpiMul, r.s_hfac, F4, 0, live);
-      src(g, 0, h, D, r.wh, F4, D);
+      IIC_TRY(launch_gemm_tc<T>(g, 1, st));
+      g = gemm_args(r, R, F4, kEpiMul, r.s_hfac, F4, 0, live);
+      src(g, 0, h, D, r.wh_t, r.wh_tlo, D, D);
       g.aux = r.semh;
       g.ldaux = F4;
-      IIC_TRY(launch_gemm<T>(g, 1, st));
+      IIC_TRY(launch_gemm_tc<T>(g, 1, st));
       // the four gates as gridDim.z, as step_cuda.launch_step
-      g = gemm_args(R, H, kEpiPre, r.s_pre, 4 * H, 1, live);
-      src(g, 0, r.s_xfac, F4, r.wxp, H, F);
-      src(g, 1, r.s_hfac, F4, r.whp, H, F);
+      g = gemm_args(r, R, H, kEpiPre, r.s_pre, 4 * H, 1, live);
+      src(g, 0, r.s_xfac, F4, r.wxp_t, r.wxp_tlo, F, F);
+      src(g, 1, r.s_hfac, F4, r.whp_t, r.whp_tlo, F, F);
       g.bias1 = r.bx;
       g.bias2 = r.bh;
       g.za = F;
       g.zw = (long long)F * H;
       g.zc = H;
       g.zb = H;
-      IIC_TRY(launch_gemm<T>(g, 4, st));
+      IIC_TRY(launch_gemm_tc<T>(g, 4, st));
     } else {
       // [emb | gawe] @ wih + h @ wh: the concatenated input as two sources
-      g = gemm_args(R, 4 * H, kEpiPre, r.s_pre, 4 * H, 1, live);
-      src(g, 0, r.s_emb, Emb, r.wih, 4 * H, Emb);
-      src(g, 1, r.s_gawe, E, (const T*)r.wih + (long long)Emb * 4 * H, 4 * H,
-          E);
-      src(g, 2, h, D, r.wh, 4 * H, D);
+      g = gemm_args(r, R, 4 * H, kEpiPre, r.s_pre, 4 * H, 1, live);
+      src(g, 0, r.s_emb, Emb, r.wih_t, r.wih_tlo, Emb + E, Emb);
+      src(g, 1, r.s_gawe, E, at<T>(r.wih_t, Emb), at<float>(r.wih_tlo, Emb),
+          Emb + E, E);
+      src(g, 2, h, D, r.wh_t, r.wh_tlo, D, D);
       g.bias1 = r.bx;
       g.bias2 = r.bh;
-      IIC_TRY(launch_gemm<T>(g, 1, st));
+      IIC_TRY(launch_gemm_tc<T>(g, 1, st));
     }
     IIC_TRY(launch_cell<T>(r.s_pre, c, r.s_hnew, r.s_cnew, R, H, lstm, st,
                            live));
-    g = gemm_args(R, V, kEpiBias, r.s_logits, V, 1, live);
-    src(g, 0, r.s_hnew, D, r.fcw, V, D);
+    g = gemm_args(r, R, V, kEpiBias, r.s_logits, V, 1, live);
+    src(g, 0, r.s_hnew, D, r.fcw_t, r.fcw_tlo, D, D);
     g.bias1 = r.fcb;
-    IIC_TRY(launch_gemm<T>(g, 1, st));
+    IIC_TRY(launch_gemm_tc<T>(g, 1, st));
     IIC_TRY(launch_head(r.s_logits, R, V, K, r.s_topv, r.s_topi, r.s_lse,
                         raw_head, st, live));
 
@@ -372,7 +406,7 @@ static int run_steps(const SpanArgs& r, int raw_head, int freeze,
 }
 
 static int valid(const SpanArgs& r) {
-  return r.B >= 1 && r.K >= 1 && r.K <= kMaxK && r.K <= r.V && r.P >= 1 &&
+  return r.B >= 1 && r.K >= 1 && r.K <= r.V && r.P >= 1 &&
          r.steps >= 1 && r.rec_steps >= r.steps && r.F4 % 4 == 0 &&
          r.esplit >= 1;
 }
@@ -387,6 +421,14 @@ static int dispatch(int dtype, F_ f) {
 }  // namespace iic
 
 extern "C" int iic_span_args_bytes() { return (int)sizeof(iic::SpanArgs); }
+
+// The tensor-core GEMM's launches by this library since the last call
+// (ops/span_cuda.py adds them to step_cuda.gemm.launches after each call).
+extern "C" int iic_tc_launches_take() {
+  const int n = iic::tc_launches;
+  iic::tc_launches = 0;
+  return n;
+}
 
 // Kernel 7: r.steps beam steps, both cells.  Returns the first failing
 // launch's CUDA error code, 0 on success.

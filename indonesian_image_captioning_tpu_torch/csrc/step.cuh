@@ -63,7 +63,10 @@ constexpr int kHeadThreads = 256;
 
 // One block per row of logits (R, V) float32 -> topv, topi (R, K), lse (R).
 // A round's winner is the largest value, ties going to the lowest vocab id,
-// and is masked with kNeg before the next round.
+// and takes no part in the later rounds: round q + 1 looks only at the
+// entries that come after round q's winner (v, i) in the order (value
+// descending, id ascending), which is the Pallas body's "mask the winner
+// with NEG" on rows whose logits are finite, at O(1) a value for any K.
 //
 //   raw = 0 (kernel 2, step_pallas.py:343-370; the span kernel): the rounds
 //     run on x - max, topv holds x - max and lse = log sum exp(x - max).
@@ -79,7 +82,6 @@ head_topk_kernel(const float* __restrict__ logits, int V, int K,
   if (skip(live)) return;
   __shared__ float red_v[kHeadThreads];
   __shared__ int red_i[kHeadThreads];
-  __shared__ int sel[kMaxK];
   const int r = blockIdx.x;
   const int tid = threadIdx.x;
   const float* row = logits + (size_t)r * V;
@@ -107,13 +109,14 @@ head_topk_kernel(const float* __restrict__ logits, int V, int K,
   if (tid == 0) lse[r] = lrow;
   __syncthreads();
 
+  float pv = INFINITY;   // the previous round's winner
+  int pi = -1;
   for (int q = 0; q < K; ++q) {
     float bv = -INFINITY;
     int bi = INT_MAX;
     for (int j = tid; j < V; j += blockDim.x) {
-      float v = raw ? row[j] : row[j] - mrow;
-      for (int t = 0; t < q; ++t)
-        if (sel[t] == j) v = kNeg;
+      const float v = raw ? row[j] : row[j] - mrow;
+      if (!(v < pv || (v == pv && j > pi))) continue;
       if (v > bv || (v == bv && j < bi)) {
         bv = v;
         bi = j;
@@ -133,10 +136,11 @@ head_topk_kernel(const float* __restrict__ logits, int V, int K,
       }
       __syncthreads();
     }
+    pv = red_v[0];
+    pi = red_i[0];
     if (tid == 0) {
-      topv[(size_t)r * K + q] = raw == 1 ? red_v[0] - lrow : red_v[0];
-      topi[(size_t)r * K + q] = red_i[0];
-      sel[q] = red_i[0];
+      topv[(size_t)r * K + q] = raw == 1 ? pv - lrow : pv;
+      topi[(size_t)r * K + q] = pi;
     }
     __syncthreads();
   }
@@ -145,7 +149,7 @@ head_topk_kernel(const float* __restrict__ logits, int V, int K,
 static int launch_head(const void* logits, int R, int V, int K, void* topv,
                        void* topi, void* lse, int raw, cudaStream_t stream,
                        const int* live = nullptr) {
-  if (K < 1 || K > kMaxK || K > V) return (int)cudaErrorInvalidValue;
+  if (K < 1 || K > V) return (int)cudaErrorInvalidValue;
   head_topk_kernel<<<R, kHeadThreads, 0, stream>>>(
       (const float*)logits, V, K, (float*)topv, (int*)topi, (float*)lse, raw,
       live);

@@ -1,4 +1,5 @@
-// Kernel 10: exact per-row top-k (k <= 8) of an (R, V) table in one pass.
+// Kernel 10: exact per-row top-k of an (R, V) table, any k, in one pass
+// up to k = 32.
 //
 // Replaces indonesian_image_captioning_tpu/ops/topk_pallas.py
 // row_topk_pallas (body _make_kernel).  Its contract holds: the k largest
@@ -18,19 +19,28 @@
 // thread; each thread keeps its own sorted top-k in registers (a strictly
 // greater value enters, so an equal later index stays behind), and the
 // block merges the per-thread lists in k rounds of a (value, index)
-// maximum.  Nothing but the k winners reaches device memory.
+// maximum.  Nothing but the k winners reaches device memory.  A thread's
+// list has KK >= k slots: k itself up to 8, then 16 or 32, with 128
+// threads a block past 8 so the lists stay within 32 KB of shared memory.
+// Past 32 the kernel runs in passes of 32 slots: pass p reads the row
+// again and takes only the values that come after pass p - 1's last
+// winner (read back from the output) in the (value desc, index asc)
+// order, so the table is read ceil(k / 32) times and no list grows.
+#include <algorithm>
 #include <climits>
+#include <cmath>
 
 #include "common.cuh"
 
 namespace iic {
 
-constexpr int kTopkThreads = 256;
+template <int KK>
+constexpr int topk_threads() { return KK <= 8 ? 256 : 128; }
 
-template <typename T, int KK>
+template <typename T, int KK, int kTopkThreads = topk_threads<KK>()>
 __global__ void __launch_bounds__(kTopkThreads)
-row_topk_kernel(const T* __restrict__ x, int V, int k, T* __restrict__ vals,
-                int* __restrict__ idx) {
+row_topk_kernel(const T* __restrict__ x, int V, int k, int q0, int kk,
+                T* __restrict__ vals, int* __restrict__ idx) {
   __shared__ float sv[KK][kTopkThreads];
   __shared__ int si[KK][kTopkThreads];
   __shared__ float wv[kTopkThreads / 32];
@@ -38,6 +48,11 @@ row_topk_kernel(const T* __restrict__ x, int V, int k, T* __restrict__ vals,
   __shared__ int s_win;
   const int tid = threadIdx.x;
   const T* row = x + (long long)blockIdx.x * V;
+  T* out_v = vals + (long long)blockIdx.x * k;
+  int* out_i = idx + (long long)blockIdx.x * k;
+  // slots q0.. take what comes after slot q0 - 1's winner (tv, ti)
+  const float tv = q0 > 0 ? to_f(out_v[q0 - 1]) : INFINITY;
+  const int ti = q0 > 0 ? out_i[q0 - 1] : -1;
 
   float lv[KK];
   int li[KK];
@@ -48,6 +63,7 @@ row_topk_kernel(const T* __restrict__ x, int V, int k, T* __restrict__ vals,
   }
   auto insert = [&](float v, int j) {
     if (!(v > lv[KK - 1])) return;   // also keeps values <= NEG out
+    if (!(v < tv || (v == tv && j > ti))) return;
     bool placed = false;
 #pragma unroll
     for (int p = KK - 1; p > 0; --p) {
@@ -83,11 +99,11 @@ row_topk_kernel(const T* __restrict__ x, int V, int k, T* __restrict__ vals,
     si[q][tid] = li[q];
   }
 
-  // k rounds: every thread offers the head of its list; the (value desc,
+  // kk rounds: every thread offers the head of its list; the (value desc,
   // index asc) maximum wins and its owner moves to its next entry.
   int head = 0;
   const int lane = tid & 31, warp = tid >> 5;
-  for (int q = 0; q < k; ++q) {
+  for (int q = 0; q < kk; ++q) {
     float bv = head < KK ? sv[head][tid] : kNeg;
     int bi = head < KK ? si[head][tid] : INT_MAX;
     for (int o = 16; o > 0; o >>= 1) {
@@ -111,8 +127,8 @@ row_topk_kernel(const T* __restrict__ x, int V, int k, T* __restrict__ vals,
         }
       }
       const bool real = bv > kNeg;
-      vals[(long long)blockIdx.x * k + q] = from_f<T>(real ? bv : kNeg);
-      idx[(long long)blockIdx.x * k + q] = real ? bi : 0;
+      out_v[q0 + q] = from_f<T>(real ? bv : kNeg);
+      out_i[q0 + q] = real ? bi : 0;
       s_win = real ? bi : -1;
     }
     __syncthreads();
@@ -124,11 +140,11 @@ row_topk_kernel(const T* __restrict__ x, int V, int k, T* __restrict__ vals,
 template <typename T>
 static int launch_row_topk(const void* x, int R, int V, int k, void* vals,
                            void* idx, cudaStream_t s) {
-  const dim3 grid(R), block(kTopkThreads);
+  const dim3 grid(R), block(topk_threads<8>());
   switch (k) {
 #define IIC_TOPK_CASE(KK)                                                  \
   case KK:                                                                 \
-    row_topk_kernel<T, KK><<<grid, block, 0, s>>>((const T*)x, V, k,       \
+    row_topk_kernel<T, KK><<<grid, block, 0, s>>>((const T*)x, V, k, 0, k, \
                                                   (T*)vals, (int*)idx);    \
     break;
     IIC_TOPK_CASE(1)
@@ -141,7 +157,18 @@ static int launch_row_topk(const void* x, int R, int V, int k, void* vals,
     IIC_TOPK_CASE(8)
 #undef IIC_TOPK_CASE
     default:
-      return (int)cudaErrorInvalidValue;
+      if (k <= 16) {
+        row_topk_kernel<T, 16><<<grid, topk_threads<16>(), 0, s>>>(
+            (const T*)x, V, k, 0, k, (T*)vals, (int*)idx);
+        break;
+      }
+      for (int q0 = 0; q0 < k; q0 += 32) {   // passes of 32 slots
+        row_topk_kernel<T, 32><<<grid, topk_threads<32>(), 0, s>>>(
+            (const T*)x, V, k, q0, std::min(32, k - q0), (T*)vals,
+            (int*)idx);
+        const int err = (int)cudaGetLastError();
+        if (err != 0) return err;
+      }
   }
   return (int)cudaGetLastError();
 }
@@ -152,7 +179,7 @@ static int launch_row_topk(const void* x, int R, int V, int k, void* vals,
 // idx (R, k) int32.  Returns the launch's CUDA error code.
 extern "C" int iic_row_topk(int dtype, const void* x, int R, int V, int k,
                             void* vals, void* idx, void* stream) {
-  if (R < 1 || V < 1 || k < 1 || k > iic::kMaxK || k > V)
+  if (R < 1 || V < 1 || k < 1 || k > V)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == iic::kF32)

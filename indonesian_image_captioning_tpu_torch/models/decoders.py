@@ -321,7 +321,8 @@ def resolve_attention_impl(cfg: ModelConfig, device: torch.device) -> str:
     "auto" is the kernel on CUDA and the plain version on the CPU.  The
     JAX package's two kernel names, "pallas" and "pallas_mxu", compute the
     same values and map to the one kernel (which runs its plain version on
-    CPU tensors); "xla" and "xla_pk" map to the plain version."""
+    CPU tensors); "xla" and "xla_pk" map to the plain version.  Kernels 1
+    and 5 take any beam width (as lane groups of eight)."""
     impl = cfg.attention_impl
     if impl not in ATTENTION_IMPLS:
         raise ValueError(f"unknown attention_impl {impl!r}")

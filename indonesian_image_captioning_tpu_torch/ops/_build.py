@@ -27,6 +27,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_GEMM = [_I, _I, _I, _I, _I,         # csrc/step.cu iic_gemm's arguments
+         _P, _L, _P, _L, _I,
+         _P, _L, _P, _L, _I,
+         _P, _P, _P, _L, _P, _L, _I,
+         _L, _L, _L, _L, _P, _L, _P, _P, _I, _P]
 # C entry points of each library: name -> argtypes (restype is int, the
 # CUDA error code of the launch).
 SIGNATURES = {
@@ -39,11 +44,8 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "step": {
-        "iic_gemm": [_I, _I, _I, _I, _I,
-                     _P, _L, _P, _L, _I,
-                     _P, _L, _P, _L, _I,
-                     _P, _P, _P, _L, _P, _L, _I,
-                     _L, _L, _L, _L, _P],
+        "iic_gemm": _GEMM,
+        "iic_gemm_ffma": _GEMM,
         "iic_cell": [_I, _I, _P, _P, _P, _P, _I, _I, _P],
         "iic_head_topk": [_P, _I, _I, _I, _P, _P, _P, _P],
     },
@@ -56,6 +58,7 @@ SIGNATURES = {
         "iic_span_args_bytes": [],
         "iic_span": [_I, _P, _P],
         "iic_decode_records": [_I, _P, _P],
+        "iic_tc_launches_take": [],
     },
     "topk": {
         "iic_row_topk": [_I, _P, _I, _I, _I, _P, _P, _P],
@@ -67,7 +70,7 @@ SIGNATURES = {
         "iic_fc_topk": [_P] * 7 + [_I, _I, _I, _I, _P],
     },
     "embed_grad": {
-        "iic_embed_grad": [_I, _P, _P, _I, _I, _I, _P, _P],
+        "iic_embed_grad": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     },
 }
 

@@ -19,7 +19,6 @@ import torch
 
 from . import _build
 
-MAX_K = 8                      # csrc/attend.cu kMaxK
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -52,8 +51,8 @@ def _check(enc, ea, dec, wf):
         raise ValueError(f"shape mismatch: enc {tuple(enc.shape)}, ea "
                          f"{tuple(ea.shape)}, dec {tuple(dec.shape)}, wf "
                          f"{tuple(wf.shape)}")
-    if not 1 <= dec.shape[1] <= MAX_K:
-        raise ValueError(f"K={dec.shape[1]} lanes; the kernel takes 1..{MAX_K}")
+    if dec.shape[1] < 1:
+        raise ValueError(f"K={dec.shape[1]} lanes; the kernel takes K >= 1")
     for t in (enc, ea, dec, wf):
         if not t.is_contiguous():
             raise ValueError("the attention kernel takes contiguous tensors")

@@ -7,9 +7,11 @@ package: ``d_table[ids[n]] += g[n]`` over the N = B*T caption tokens, a
 when ``embed_grad_impl="pallas"``.
 
 The Pallas kernel's ``feasible`` (its VMEM budget for a table-sized
-accumulator) has no counterpart: the CUDA kernel keeps one (64, 128) tile
-of the table per block and no table-sized scratch.  What bounds it and
-what its design does about it is noted at the top of the source.
+accumulator) has no counterpart: the CUDA kernel sorts the tokens by id
+and sums the sorted list in short segments, with scratch that grows with
+N and V (counts, ranks, the sorted list, the segments' partial rows) and
+that this wrapper allocates.  What bounds it and what its design does
+about it is noted at the top of the source.
 
 :func:`embed_grad_scatter` launches the kernel for CUDA tensors and raises
 where it cannot; only tensors on the CPU take :func:`embed_grad_plain`.
@@ -22,6 +24,13 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_CHUNK, _MAX_CHUNKS = 1024, 16            # csrc/embed_grad.cu
+
+
+def _segment(N: int) -> int:
+    """Sorted places per segment block: 32 up to 8,192 tokens, then 32
+    more per 8,192 (at most 256), so a heavy id's partials stay few."""
+    return min(256, 32 * max(1, -(-N // 8192)))
 
 
 def embed_grad_plain(ids: torch.Tensor, g: torch.Tensor,
@@ -56,18 +65,25 @@ def embed_grad_scatter(ids: torch.Tensor, g: torch.Tensor,
     """Segment-sum ``d_table[ids[n]] += g[n]`` -> (vocab, E) float32.
 
     ids (N,) int32 in [0, vocab); g (N, E) float32 or bfloat16.  Kernel 14
-    on CUDA tensors (each table element summed in token order, bitwise the
-    same from run to run); :func:`embed_grad_plain` on CPU tensors."""
+    on CUDA tensors (each table element summed in a fixed order, bitwise
+    the same from run to run); :func:`embed_grad_plain` on CPU tensors."""
     _check(ids, g, vocab)
     if g.device.type == "cpu":
         return embed_grad_plain(ids, g, vocab)
     if g.device.type != "cuda":
         raise RuntimeError(f"embed_grad_scatter: no kernel for {g.device}")
     N, E = g.shape
+    nch = min(_MAX_CHUNKS, max(1, -(-N // _CHUNK)))
     out = torch.empty((vocab, E), dtype=torch.float32, device=g.device)
+    # one buffer: the segments' partial rows, then the counts, ranks and
+    # the sorted list (4-byte words both)
+    seg = _segment(N)
+    scratch = torch.empty(-(-N // seg) * 2 * E + nch * vocab + 3 * vocab
+                          + 2 * N + 1, dtype=torch.int32, device=g.device)
     rc = _build.load("embed_grad").iic_embed_grad(
-        _DTYPES[g.dtype], ids.data_ptr(), g.data_ptr(), N, vocab, E,
-        out.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
+        _DTYPES[g.dtype], ids.data_ptr(), g.data_ptr(), N, vocab, E, nch,
+        seg, scratch.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(g.device).cuda_stream)
     _build.check(rc, "embed_grad_scatter")
     embed_grad_scatter.launches += 1
     return out

@@ -21,7 +21,6 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .attention_cuda import MAX_K
 from .topk import row_topk_iterative
 
 
@@ -39,7 +38,7 @@ def fc_topk_plain(h, w, b, k: int):
 def fc_topk(h, w, b, k: int):
     """h (R, D) @ w (D, V) + b (V,) -> (topv (R, k) raw logits, topi (R, k)
     int32, lse (R,)), all float32 -- kernel 11 on CUDA tensors.  Takes
-    1 <= k <= min(8, V)."""
+    1 <= k <= V."""
     f32 = torch.float32
     h, w, b = (t.to(f32).contiguous() for t in (h, w, b))
     R, D = h.shape
@@ -47,9 +46,8 @@ def fc_topk(h, w, b, k: int):
     if w.shape[0] != D or b.shape != (V,):
         raise ValueError(f"shape mismatch: h {tuple(h.shape)}, w "
                          f"{tuple(w.shape)}, b {tuple(b.shape)}")
-    if not 1 <= k <= min(MAX_K, V):
-        raise ValueError(f"top-{k} of {V} columns; the kernel takes "
-                         f"1..{MAX_K}")
+    if not 1 <= k <= V:
+        raise ValueError(f"top-{k} of {V} columns")
     if not h.device == w.device == b.device:
         raise ValueError(f"tensors on {h.device}, {w.device}, {b.device}")
     if h.device.type == "cpu":

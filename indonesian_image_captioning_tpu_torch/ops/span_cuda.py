@@ -34,8 +34,9 @@ from typing import Dict, Optional
 import torch
 
 from . import _build
-from .attention_cuda import MAX_K, _esplit
-from .step_cuda import fused_decode_step_plain, pack_step_weights
+from .attention_cuda import _esplit
+from .step_cuda import (TC_WEIGHTS, fused_decode_step_plain, gemm,
+                        pack_step_weights, split_k_floats)
 from .topk import row_topk_iterative
 
 NEG = -1e30
@@ -111,17 +112,18 @@ class _Args(ctypes.Structure):
 
     _fields_ = ([(n, ctypes.c_longlong) for n in
                  ("B", "K", "P", "E", "A", "D", "Emb", "F4", "V", "steps",
-                  "rec_steps", "lstm", "end_id", "esplit")]
+                  "rec_steps", "lstm", "end_id", "esplit", "part_cap")]
                 + [(n, ctypes.c_void_p) for n in (
                     "enc", "ea", "semx", "semh", "emb_tab",
-                    "wda", "bda", "wf", "wfb", "bfb", "wxe", "wxa", "wh",
-                    "wxp", "whp", "wih", "bx", "bh", "fcw", "fcb",
+                    "bda", "wf", "bfb", "bx", "bh", "fcb",
+                    *(f"{n}_t" for n in TC_WEIGHTS),
+                    *(f"{n}_tlo" for n in TC_WEIGHTS),
                     "h_in", "c_in", "sc_in", "pw_in", "alive_in",
                     "h", "c", "sc", "pw", "alive",
                     "words", "parents", "vals", "live",
                     "s_emb", "s_dec", "s_scores", "s_awe", "s_gawe",
                     "s_xfac", "s_hfac", "s_pre", "s_hnew", "s_cnew",
-                    "s_logits", "s_topv", "s_topi", "s_lse")])
+                    "s_logits", "s_topv", "s_topi", "s_lse", "s_part")])
 
 
 def _lib():
@@ -159,18 +161,22 @@ def launch_chain(entry: str, weights, emb_tab, enc, ea, semx, semh, state,
                "s_topv": empty(R, K, dtype=f32),
                "s_topi": empty(R, K, dtype=torch.int32),
                "s_lse": empty(R, dtype=f32)}
+    part_cap = split_k_floats(R, A, E, F4, 4 * D)
+    scratch["s_part"] = empty(part_cap, dtype=f32)
     args = _Args(B=B, K=K, P=P, E=E, A=A, D=D, Emb=Emb, F4=F4, V=V,
                  steps=steps, rec_steps=records["words"].shape[1],
                  lstm=int(cell == "lstm"), end_id=end_id,
-                 esplit=_esplit(B, E))
+                 esplit=_esplit(B, E), part_cap=part_cap)
     ptrs = {"enc": enc, "ea": ea, "semx": semx, "semh": semh,
             "emb_tab": emb_tab, "live": live, **weights, **records,
             **scratch, **out,
             **{f"{k}_in": v for k, v in state.items()}}
+    fields = {n for n, _ in _Args._fields_}
     for name, t in ptrs.items():
-        if t is not None:
+        if t is not None and name in fields:   # the (K, N) weights stay out
             setattr(args, name, t.data_ptr())
     rc = getattr(lib, entry)(_DTYPES[dt], ctypes.byref(args), stream)
+    gemm.launches += lib.iic_tc_launches_take()   # the chain's products
     _build.check(rc, entry)
 
 
@@ -184,8 +190,8 @@ def check_inputs(weights, emb_tab, enc, ea, semx, semh, h, c, sc, pw, alive,
         raise ValueError(f"unknown cell {cell!r}")
     B = enc.shape[0]
     R = h.shape[0]
-    if R % B or not 1 <= R // B <= MAX_K:
-        raise ValueError(f"{R} rows over {B} images: K must be 1..{MAX_K}")
+    if R % B or R < B:
+        raise ValueError(f"{R} rows over {B} images: K must be >= 1")
     K = R // B
     V = weights["fcw"].shape[1]
     if emb_tab.shape[0] != V or K > V:

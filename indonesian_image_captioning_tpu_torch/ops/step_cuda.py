@@ -24,12 +24,13 @@ CUDA tensors it launches the chain or raises.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional
 
 import torch
 
 from . import _build
-from .attention_cuda import MAX_K, attend_plain, launch_attend
+from .attention_cuda import attend_plain, launch_attend
 from .attention_q_cuda import attend_q_plain, launch_attend_q
 from .topk import row_topk_iterative
 
@@ -37,10 +38,80 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 EPI_BIAS, EPI_PRE, EPI_SIGMOID_MUL, EPI_MUL = 0, 1, 2, 3   # csrc/step.cu
 
 
+def split_k_floats(R: int, *widths: int) -> int:
+    """The float32 scratch that the tensor-core GEMM (csrc/mma.cuh) may
+    fill with split-K partials in a chain over R rows whose products are
+    at most max(widths) columns wide: up to four K slices of every output
+    (more are clamped to it)."""
+    return 4 * R * max(widths)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (ten mantissa bits, ties away from zero),
+    as ``cvt.rna.tf32.f32`` rounds on the card."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_tc(w: torch.Tensor, dt, gates: int = 1):
+    """A weight (K, N) as the tensor-core GEMM (csrc/mma.cuh) copies it
+    straight into its tiles: transposed to (N, K) -- a gate-stacked
+    (gates * F, H) weight per gate, to (gates * H, F) -- in dt, and at
+    float32 split into TF32 hi and lo parts (the 3xTF32 operands).
+    Returns (hi, lo); lo is None at bfloat16."""
+    K, N = w.shape
+    t = w.reshape(gates, K // gates, N).transpose(1, 2)
+    t = t.reshape(gates * N, K // gates).to(dt).contiguous()
+    if dt != torch.float32:
+        return t, None
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+TC_WEIGHTS = {"wda": 1, "wfb": 1, "wxe": 1, "wxa": 1, "wh": 1, "wxp": 4,
+              "whp": 4, "wih": 1, "fcw": 1}   # name -> gates
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+_packed: Dict[tuple, tuple] = {}    # key -> (source tensors' refs, packed)
+_PACKED_TREES = 2
+
+
 def pack_step_weights(params, cfg, dt) -> Dict[str, torch.Tensor]:
     """Flatten a decoder parameter tree into the kernels' layout (the JAX
     ``pack_step_weights`` without its 128-column vocab padding: the kernels
-    bound the vocab edge themselves).  Branches per model family."""
+    bound the vocab edge themselves).  Branches per model family.  Each
+    product's weight also comes as :func:`pack_tc` packs it, under
+    ``<name>_t`` (and ``<name>_tlo`` at float32): what the kernels read.
+
+    A tree is packed once per type: while its tensors are the same objects,
+    unchanged in place (their version counters), a later call returns the
+    same dict.  The last two trees are kept; a tree that holds inference
+    tensors (no version counter) is packed anew each time."""
+    src = list(_leaves(params))
+    if any(t.is_inference() for t in src):
+        return _pack(params, cfg, dt)
+    key = (dt, cfg.model_type, cfg.embed_dim, cfg.decoder_dim,
+           cfg.factored_dim, tuple(id(t) for t in src))
+    hit = _packed.get(key)
+    if hit is not None and all(r() is t and v == t._version
+                               for (r, v), t in zip(hit[0], src)):
+        return hit[1]
+    w = _pack(params, cfg, dt)
+    _packed.pop(key, None)
+    _packed[key] = ([(weakref.ref(t), t._version) for t in src], w)
+    while len(_packed) > _PACKED_TREES:
+        _packed.pop(next(iter(_packed)))
+    return w
+
+
+def _pack(params, cfg, dt) -> Dict[str, torch.Tensor]:
     cell = params["decode_step"]
     Emb, H = cfg.embed_dim, cfg.decoder_dim
 
@@ -76,6 +147,12 @@ def pack_step_weights(params, cfg, dt) -> Dict[str, torch.Tensor]:
             "bx": c(cell["b_ih"]),
             "bh": c(cell["b_hh"]),
         })
+    for name, gates in TC_WEIGHTS.items():
+        if name in w:
+            hi, lo = pack_tc(w[name], dt, gates)
+            w[f"{name}_t"] = hi
+            if lo is not None:
+                w[f"{name}_tlo"] = lo
     return w
 
 
@@ -148,15 +225,24 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _gemm(lib, code: int, stream: int, *, epi: int, M: int, N: int, a1, w1,
-          c, a2=None, w2=None, bias1=None, bias2=None, aux=None, nz: int = 1,
-          k=None, za: int = 0, zw: int = 0, zc: int = 0, zb: int = 0):
-    """One launch of csrc/step.cu gemm_kernel.  Leading dimensions are the
-    row strides of the (contiguous) tensors; k is the inner width of each
-    source (default: the width of the source's rows)."""
+def gemm(lib, code: int, stream: int, *, epi: int, M: int, N: int, a1, w1,
+         c, a2=None, w2=None, bias1=None, bias2=None, aux=None, nz: int = 1,
+         k=None, za: int = 0, zw: int = 0, zc: int = 0, zb: int = 0,
+         part=None, wt: bool = False, w1_lo=None, w2_lo=None,
+         entry: str = "iic_gemm"):
+    """One product of csrc/step.cu: ``iic_gemm`` (the tensor-core GEMM of
+    csrc/mma.cuh) or ``iic_gemm_ffma`` (gemm.cuh's float32 FFMA GEMM).
+    Leading dimensions are the row strides of the (contiguous) tensors; k
+    is the inner width of each source (default: the width of the source's
+    rows); part, float32 scratch for split-K partials, or None (unsplit);
+    wt: w1 and w2 are stored (N, K), and w1_lo, w2_lo their float32 lo
+    parts where :func:`pack_tc` split them.  ``gemm.launches`` counts the
+    tensor-core GEMM's launches: here for kernels 2, 6b and 6c, and in
+    ``span_cuda.launch_chain`` the ones csrc/span.cu made for kernels 7
+    and 13."""
     k1 = k if k is not None else a1.shape[1]
     k2 = 0 if a2 is None else (k if k is not None else a2.shape[1])
-    rc = lib.iic_gemm(
+    rc = getattr(lib, entry)(
         code, epi, M, N, nz,
         _ptr(a1), a1.stride(0), _ptr(w1), w1.stride(0), k1,
         _ptr(a2), 0 if a2 is None else a2.stride(0),
@@ -164,8 +250,14 @@ def _gemm(lib, code: int, stream: int, *, epi: int, M: int, N: int, a1, w1,
         _ptr(bias1), _ptr(bias2), _ptr(aux),
         0 if aux is None else aux.stride(0),
         _ptr(c), c.stride(0), int(c.dtype == torch.float32),
-        za, zw, zc, zb, stream)
-    _build.check(rc, "gemm")
+        za, zw, zc, zb, _ptr(part), 0 if part is None else part.numel(),
+        _ptr(w1_lo), _ptr(w2_lo), int(wt), stream)
+    _build.check(rc, entry)
+    if entry == "iic_gemm":
+        gemm.launches += 1
+
+
+gemm.launches = 0
 
 
 def launch_step(weights, enc, ea, emb_rows, h, c, semx, semh, *,
@@ -183,13 +275,21 @@ def launch_step(weights, enc, ea, emb_rows, h, c, semx, semh, *,
     def empty(*shape, dtype=dt):
         return torch.empty(shape, dtype=dtype, device=dev)
 
+    def w(name, s=1):          # source s's packed weight, as gemm takes it
+        kw = {f"w{s}": weights[f"{name}_t"],
+              f"w{s}_lo": weights.get(f"{name}_tlo")}
+        return dict(kw, wt=True) if s == 1 else kw
+
+    V = weights["fcw"].shape[1]
+    widths = [t.shape[-1] for t in (ea, enc, semx) if t is not None]
+    part = empty(split_k_floats(R, 4 * H, *widths), dtype=f32)
     gawe = None
     if enc is not None:
         B, P, E = enc.shape
         A, K = ea.shape[-1], R // B
         dec = empty(R, A)
-        _gemm(lib, code, stream, epi=EPI_BIAS, M=R, N=A, a1=h,
-              w1=weights["wda"], bias1=weights["bda"], c=dec)
+        gemm(lib, code, stream, epi=EPI_BIAS, M=R, N=A, a1=h, **w("wda"),
+             bias1=weights["bda"], c=dec, part=part)
         awe = empty(R, E)
         if scales is None:
             launch_attend(enc, ea, dec.view(B, K, A), weights["wf"],
@@ -199,39 +299,38 @@ def launch_step(weights, enc, ea, emb_rows, h, c, semx, semh, *,
                             weights["wf"], awe.view(B, K, E), None,
                             P if p_actual is None else p_actual, stream)
         gawe = empty(R, E)
-        _gemm(lib, code, stream, epi=EPI_SIGMOID_MUL, M=R, N=E, a1=h,
-              w1=weights["wfb"], bias1=weights["bfb"], aux=awe, c=gawe)
+        gemm(lib, code, stream, epi=EPI_SIGMOID_MUL, M=R, N=E, a1=h,
+             **w("wfb"), bias1=weights["bfb"], aux=awe, c=gawe, part=part)
     pre = empty(R, 4 * H, dtype=f32)
     if cell == "scn":
         F4 = semx.shape[1]
         F = F4 // 4
         xfac = empty(R, F4)
-        _gemm(lib, code, stream, epi=EPI_MUL, M=R, N=F4, a1=emb_rows,
-              w1=weights["wxe"], a2=gawe,
-              w2=weights["wxa"] if gawe is not None else None,
-              aux=semx, c=xfac)
+        gemm(lib, code, stream, epi=EPI_MUL, M=R, N=F4, a1=emb_rows,
+             **w("wxe"), a2=gawe, **(w("wxa", 2) if gawe is not None else {}),
+             aux=semx, c=xfac, part=part)
         hfac = empty(R, F4)
-        _gemm(lib, code, stream, epi=EPI_MUL, M=R, N=F4, a1=h,
-              w1=weights["wh"], aux=semh, c=hfac)
+        gemm(lib, code, stream, epi=EPI_MUL, M=R, N=F4, a1=h, **w("wh"),
+             aux=semh, c=hfac, part=part)
         # the four gates as gridDim.z: gate g reads columns g*F.. of
-        # xfac/hfac and rows g*F.. of wxp/whp, and writes columns g*H..
-        _gemm(lib, code, stream, epi=EPI_PRE, M=R, N=H, nz=4, k=F,
-              a1=xfac, w1=weights["wxp"], a2=hfac, w2=weights["whp"],
-              bias1=weights["bx"], bias2=weights["bh"], c=pre,
-              za=F, zw=F * H, zc=H, zb=H)
+        # xfac/hfac and rows g*H.. of the packed wxp/whp (4H, F), and
+        # writes columns g*H..
+        gemm(lib, code, stream, epi=EPI_PRE, M=R, N=H, nz=4, k=F,
+             a1=xfac, **w("wxp"), a2=hfac, **w("whp", 2),
+             bias1=weights["bx"], bias2=weights["bh"], c=pre,
+             za=F, zw=F * H, zc=H, zb=H, part=part)
     else:
         xcat = torch.cat([emb_rows, gawe], dim=1)
-        _gemm(lib, code, stream, epi=EPI_PRE, M=R, N=4 * H, a1=xcat,
-              w1=weights["wih"], a2=h, w2=weights["wh"],
-              bias1=weights["bx"], bias2=weights["bh"], c=pre)
+        gemm(lib, code, stream, epi=EPI_PRE, M=R, N=4 * H, a1=xcat,
+             **w("wih"), a2=h, **w("wh", 2), bias1=weights["bx"],
+             bias2=weights["bh"], c=pre, part=part)
     h_new, c_new = empty(R, H), empty(R, H)
     _build.check(lib.iic_cell(code, int(cell == "lstm"), _ptr(pre), _ptr(c),
                               _ptr(h_new), _ptr(c_new), R, H, stream),
                  "cell")
-    V = weights["fcw"].shape[1]
     logits = empty(R, V, dtype=f32)
-    _gemm(lib, code, stream, epi=EPI_BIAS, M=R, N=V, a1=h_new,
-          w1=weights["fcw"], bias1=weights["fcb"], c=logits)
+    gemm(lib, code, stream, epi=EPI_BIAS, M=R, N=V, a1=h_new, **w("fcw"),
+         bias1=weights["fcb"], c=logits, part=part)
     topv = empty(R, topk, dtype=f32)
     topi = empty(R, topk, dtype=torch.int32)
     lse = empty(R, 1, dtype=f32)
@@ -248,8 +347,8 @@ def _check(weights, enc, ea, emb_rows, h, c, semx, semh, cell, topk,
         raise TypeError(f"fused step takes float32 or bfloat16, got {dt}")
     if cell not in ("scn", "lstm"):
         raise ValueError(f"unknown cell {cell!r}")
-    if not 1 <= topk <= MAX_K:
-        raise ValueError(f"top-{topk}; the head kernel takes 1..{MAX_K}")
+    if topk < 1:
+        raise ValueError(f"top-{topk}; the head kernel takes k >= 1")
     R = h.shape[0]
     ts = [emb_rows, h, c] + ([semx, semh] if cell == "scn" else [])
     if enc is not None:

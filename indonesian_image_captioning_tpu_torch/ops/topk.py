@@ -28,7 +28,6 @@ import torch
 from . import _build
 
 NEG = -1e30
-MAX_K = 8                      # csrc/common.cuh kMaxK
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -59,9 +58,8 @@ def row_topk_pallas(x: torch.Tensor, k: int):
         raise TypeError(f"row_topk_pallas takes a 2-D float32 or bfloat16 "
                         f"table, got {x.dim()}-D {x.dtype}")
     R, V = x.shape
-    if not 1 <= k <= min(MAX_K, V):
-        raise ValueError(f"top-{k} of {V} columns; the kernel takes "
-                         f"1..{MAX_K}")
+    if not 1 <= k <= V:
+        raise ValueError(f"top-{k} of {V} columns")
     if x.device.type == "cpu":
         # values at or below NEG never win a slot: clamped to NEG, they
         # leave the slots past a row's last larger value at (NEG, 0)

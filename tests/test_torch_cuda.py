@@ -11,8 +11,11 @@ the CPU tests; these tests import only torch and the port.)
 
 ``chip_smoke.py`` holds the kernels at the flagship widths.  These hold
 them at small, ragged shapes -- pixel counts, widths and row counts that
-are not multiples of the kernels' tiles, beam widths 1 to 8 -- and on exact
-ties in the head, where the lowest vocabulary id must win.  Tolerances:
+are not multiples of the kernels' tiles, beam widths 1 to 64 (no kernel
+caps K) -- and on exact ties in the head, where the
+lowest vocabulary id must win.  The tensor-core GEMM of the decode chain
+(csrc/mma.cuh) is held against a float64 product and gemm.cuh's FFMA GEMM
+at ragged M, N and K.  Tolerances:
 1e-5 at float32 (summation order); at bfloat16 a few ulps of the values'
 magnitudes (the kernels round once where the plain versions round twice);
 ids exactly, except where the two logits are within 1e-5 at float32.
@@ -84,7 +87,7 @@ def err(a, b):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("K", [1, 5, 8])
+@pytest.mark.parametrize("K", [1, 5, 8, 9, 32])
 @pytest.mark.parametrize("P, E", [(9, 72), (37, 600)])
 def test_attend_kernel_matches_plain(dev, dtype, K, P, E):
     gen = torch.Generator().manual_seed(K * 100 + P)
@@ -143,7 +146,8 @@ def _step_case(dev, dtype, cfg, B, K, gen, params=None):
 
 @pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("B, K", [(3, 1), (14, 5), (3, 8)])
+@pytest.mark.parametrize("B, K", [(3, 1), (14, 5), (3, 8), (3, 9), (2, 32),
+                                  (2, 48)])
 def test_fused_step_kernel_matches_plain(dev, family, dtype, B, K):
     """Kernel 2, and 6b for pure_scn, each counted on its own wrapper."""
     cfg = small_cfg(family)
@@ -186,6 +190,129 @@ def test_head_ties_go_to_the_lowest_id(dev, dtype):
     want = torch.tensor(tied[:5], dtype=torch.int32, device=dev)
     assert bool((out[1] == want).all())
     assert bool((out[0] == out[0][:, :1]).all())
+
+
+GEMM_CASES = [  # M, N, K1, K2, nz, split
+    (1, 1, 1, 0, 1, False), (37, 70, 33, 0, 1, False),
+    (65, 129, 100, 31, 1, True), (160, 512, 512, 0, 1, True),
+    (160, 300, 512, 2048, 1, True), (192, 72, 40, 40, 4, False),
+    (192, 72, 40, 40, 4, True), (70, 67, 45, 13, 1, True),
+    (37, 70, 36, 12, 1, False), (160, 6763, 512, 0, 1, False)]
+
+
+def _gemm_inputs(dev, dtype, M, N, K1, K2, nz, gen):
+    """Sources and weights (nz, K, N) of an nz-gate product as the step
+    chain lays them out (gate z reads columns z*K of the sources and
+    weight block z, and writes columns z*N; with nz > 1 both sources are
+    K1 wide, as the gates' xfac and hfac are)."""
+    def w(K):
+        t = randn(gen, nz, K, N, scale=K ** -0.5)
+        return t.to(dev, dtype).contiguous()
+    a1 = randn(gen, M, nz * K1).to(dev, dtype)
+    a2 = randn(gen, M, nz * K2).to(dev, dtype) if K2 else None
+    return a1, w(K1), a2, (w(K2) if K2 else None)
+
+
+def _gemm_ref(a1, w1, a2, w2, nz):
+    """The float64 product of the sources and weights (nz, K, N) as
+    stored (the operands already in the working type), gate by gate:
+    (M, nz * N)."""
+    outs = []
+    for z in range(nz):
+        acc = 0
+        for a, w in ((a1, w1), (a2, w2)):
+            if a is not None:
+                K = w.shape[1]
+                acc = acc + a[:, z * K:(z + 1) * K].double() @ w[z].double()
+        outs.append(acc)
+    return torch.cat(outs, dim=1)
+
+
+def _gemm_weight(w, packed, dtype):
+    """gemm's keyword arguments for weight w (nz, K, N): packed as pack_tc
+    packs the chain's weights (transposed, pre-split into TF32 parts at
+    float32), the tensor-core GEMM's only layout, or stored (K, N)
+    row-major for the FFMA GEMM."""
+    nz, K, N = w.shape
+    if not packed:
+        return {"w": w.reshape(nz * K, N), "lo": None, "wt": False}
+    hi, lo = step_cuda.pack_tc(w.reshape(nz * K, N), dtype, nz)
+    return {"w": hi, "lo": lo, "wt": True}
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("M, N, K1, K2, nz, split", GEMM_CASES)
+def test_tc_gemm_matches_ffma_and_float64(dev, dtype, M, N, K1, K2, nz,
+                                          split):
+    """The tensor-core GEMM (csrc/mma.cuh: 3xTF32 at float32, bf16 wgmma)
+    at ragged M, N and K (rows not 16-byte aligned take its element
+    loads), two sources, four gates, W packed as the chain packs it,
+    split-K or not: its float32 sums within 1e-5 of sum |a||w| of the
+    float64 product, as gemm.cuh's FFMA sums are (the FFMA GEMM on W
+    (K, N)); each epilogue beside the FFMA GEMM's.  An unpacked W is
+    refused."""
+    gen = torch.Generator().manual_seed(M + N + K1)
+    lib = step_cuda._build.load("step")
+    code = {F32: 0, BF16: 1}[dtype]
+    stream = torch.cuda.current_stream().cuda_stream
+    a1, w1, a2, w2 = _gemm_inputs(dev, dtype, M, N, K1, K2, nz, gen)
+    ref = _gemm_ref(a1, w1, a2, w2, nz)
+    bound = _gemm_ref(a1.abs(), w1.abs(), None if a2 is None else a2.abs(),
+                      None if w2 is None else w2.abs(), nz)
+    part = (torch.empty(step_cuda.split_k_floats(M, nz * N), device=dev)
+            if split else None)
+    zkw = dict(nz=nz, za=K1 if nz > 1 else 0, zw=K1 * N if nz > 1 else 0,
+               zc=N if nz > 1 else 0, zb=N if nz > 1 else 0,
+               k=K1 if nz > 1 else None)
+    b1 = randn(gen, nz * N).to(dev, dtype)
+    b2 = randn(gen, nz * N).to(dev, dtype)
+    aux = randn(gen, M, nz * N).to(dev, dtype)
+    srcs = {}
+    for entry, lay in (("iic_gemm", True), ("iic_gemm_ffma", False)):
+        p1 = _gemm_weight(w1, lay, dtype)
+        p2 = _gemm_weight(w2, lay, dtype) if w2 is not None else None
+        srcs[entry] = dict(a1=a1, w1=p1["w"], w1_lo=p1["lo"], a2=a2,
+                           w2=None if p2 is None else p2["w"],
+                           w2_lo=None if p2 is None else p2["lo"],
+                           wt=p1["wt"], **zkw)
+    outs = {}
+    for entry, src in srcs.items():
+        pre = torch.empty(M, nz * N, device=dev)
+        step_cuda.gemm(lib, code, stream, epi=step_cuda.EPI_PRE, M=M, N=N,
+                       c=pre, part=part, entry=entry, **src)
+        outs[entry, "pre"] = pre
+        for epi, kw in ((step_cuda.EPI_BIAS, dict(bias1=b1)),
+                        (step_cuda.EPI_SIGMOID_MUL, dict(bias1=b1, aux=aux)),
+                        (step_cuda.EPI_MUL, dict(aux=aux))):
+            c = torch.empty(M, nz * N, device=dev, dtype=dtype)
+            step_cuda.gemm(lib, code, stream, epi=epi, M=M, N=N, c=c,
+                           part=part, entry=entry, **src, **kw)
+            outs[entry, epi] = c
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):            # W (K, N): not packed
+        step_cuda.gemm(lib, code, stream, epi=step_cuda.EPI_PRE, M=M, N=N,
+                       c=torch.empty(M, nz * N, device=dev), part=part,
+                       **srcs["iic_gemm_ffma"])
+    tol = 1e-5 * bound + 1e-6
+    for entry in srcs:
+        assert bool(((outs[entry, "pre"].double() - ref).abs()
+                     <= tol).all()), entry
+    # the epilogues on two sums each within tol of the exact one: twice
+    # tol times the aux factor; at bfloat16 the sums round to bf16 before
+    # the epilogue and its output rounds again, so a sum on the other side
+    # of a rounding boundary moves the output by up to an ulp of the sum
+    # and of the output (2^-7 of each), times the aux factor
+    pre = outs["iic_gemm", "pre"].double().abs() + b1.double().abs()
+    for epi in (step_cuda.EPI_BIAS, step_cuda.EPI_SIGMOID_MUL,
+                step_cuda.EPI_MUL):
+        a = outs["iic_gemm", epi].double()
+        b = outs["iic_gemm_ffma", epi].double()
+        lim = 2 * tol * (1 + aux.double().abs())
+        if dtype == BF16:
+            lim = lim + 2.0 ** -7 * (
+                (pre + 1) * (1 + aux.double().abs())
+                + torch.maximum(a.abs(), b.abs()))
+        assert bool(((a - b).abs() <= lim).all()), epi
 
 
 def _to(tree, dev):
@@ -247,7 +374,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     wf = randn(gen, 8).to(dev)
     n0 = attention_cuda.attend_fused.launches
     with pytest.raises(ValueError, match="lanes"):
-        attention_cuda.attend_fused(enc, ea, randn(gen, 2, 9, 8).to(dev), wf)
+        attention_cuda.attend_fused(enc, ea, randn(gen, 2, 0, 8).to(dev), wf)
     with pytest.raises(ValueError, match="contiguous"):
         attention_cuda.attend_fused(enc.transpose(1, 2).contiguous()
                                     .transpose(1, 2), ea,
@@ -489,7 +616,8 @@ def _match_records(out, ref, dtype):
 
 @pytest.mark.parametrize("family", ATT_FAMILIES)
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("K, S", [(1, 1), (5, 1), (5, 3)])
+@pytest.mark.parametrize("K, S", [(1, 1), (5, 1), (5, 3), (9, 2), (32, 1),
+                                  (48, 2)])
 def test_span_kernel_matches_plain(dev, family, dtype, K, S):
     """Kernel 7 from a mid-decode state (dead images, retired lanes),
     V=300: records equal but for near-ties, the carried state within the
@@ -557,12 +685,15 @@ def test_span_with_every_image_dead(dev):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("K", [1, 5, 16, 40])
 @pytest.mark.parametrize("end_bias", [0.0, 8.0])
 def test_megakernel_matches_plain(dev, dtype, K, end_bias):
-    """Kernel 13, T=7, V=300: records equal but for near-ties; with a
-    strong <end> bias every image dies early and the steps after carry
-    the inert records (words 0, parents 0, vals NEG) in both."""
+    """Kernel 13, T=7, V=300: records equal but for near-ties (none at
+    float32 up to K = 16; at K = 40 an image's 1,600 candidates a step
+    hold pairs an ulp apart, which the kernel's and the plain version's
+    sums may order either way); with a strong <end> bias every image dies
+    early and the steps after carry the inert records (words 0, parents 0,
+    vals NEG) in both."""
     cfg = small_cfg(vocab_size=300)
     gen = torch.Generator().manual_seed(K + 7)
     V, B, T = cfg.vocab_size, 3, 7
@@ -582,7 +713,7 @@ def test_megakernel_matches_plain(dev, dtype, K, end_bias):
     recs = [out[k] for k in ("words", "parents", "vals")]
     diverged = _match_records(recs, [ref[k] for k in ("words", "parents",
                                                       "vals")], dtype)
-    if dtype == F32:
+    if dtype == F32 and K <= 16:
         assert not diverged
     if end_bias:
         dead = (ref["vals"] == NEG).all(dim=2).all(dim=0)      # (T,)
@@ -592,7 +723,7 @@ def test_megakernel_matches_plain(dev, dtype, K, end_bias):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("k", [1, 5, 8, 9, 16, 32, 33, 70])
 @pytest.mark.parametrize("V", [300, 4099])
 def test_row_topk_kernel_matches_plain(dev, dtype, k, V):
     """Kernel 10 on a ragged table with exact ties across threads and,
@@ -647,6 +778,48 @@ def test_record_rungs_on_card_match_cpu(dev, impl, family):
     assert err(out["scores"].cpu(), ref["scores"]) <= 1e-4
 
 
+WIDE_RUNGS = {"auto": ("fused_span", lambda: span_cuda.fused_decode_span),
+              "fused_span": ("fused_span",
+                             lambda: span_cuda.fused_decode_span),
+              "fused_step": ("fused_step",
+                             lambda: step_cuda.fused_decode_step),
+              "fused": ("fused", lambda: decode_cuda.beam_decode_records),
+              "steps": ("steps", lambda: topk.row_topk_pallas)}
+
+
+@pytest.mark.parametrize("impl", list(WIDE_RUNGS))
+@pytest.mark.parametrize("K", [9, 16, 32, 33, 64])
+def test_wide_beams_on_card_match_cpu(dev, impl, K):
+    """Beams 9 to 64 through "auto" and each explicit rung: the rung
+    named runs its kernel (its launch counter moves; "steps" runs kernel 1
+    and kernel 10 through topk_backend="pallas") and gives the beams of
+    the same rung's plain version on the CPU."""
+    want, counter = WIDE_RUNGS[impl]
+    cfg = small_cfg(decode_impl=impl, decode_span=3, topk_backend="pallas")
+    gen = torch.Generator().manual_seed(K)
+    params = decoders.init_decoder(gen, cfg)
+    V = cfg.vocab_size
+    params["fc"]["b"][V - 1] = 1.2
+    enc = torch.relu(randn(gen, 3, 3, 3, cfg.encoder_dim, scale=0.5))
+    tags = torch.rand((3, cfg.semantic_dim), generator=gen)
+    kw = dict(start_id=V - 2, end_id=V - 1,
+              beam_cfg=BeamConfig(beam_size=K, max_steps=8))
+    ref = caption_beam_search(params, cfg, enc, tags, **kw)
+    n0 = counter().launches
+    n_att = attention_cuda.attend_fused.launches
+    out = caption_beam_search(_to(params, dev), cfg, enc.to(dev),
+                              tags.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert out["decode_impl"] == want
+    assert counter().launches > n0
+    if want == "steps":
+        assert attention_cuda.attend_fused.launches > n_att
+    for k in ("sequences", "lengths", "completed_count",
+              "completed_lengths"):
+        assert torch.equal(out[k].cpu(), ref[k]), k
+    assert err(out["scores"].cpu(), ref["scores"]) <= 1e-4
+
+
 def test_pallas_topk_backend_on_card_matches_cpu(dev):
     """The step engine with the dense head and topk_backend="pallas"
     (kernel 10 over the (B, K*V) candidates every step) gives the CPU's
@@ -675,7 +848,7 @@ def test_pallas_topk_backend_on_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("K", [1, 5, 8])
+@pytest.mark.parametrize("K", [1, 5, 8, 9, 32])
 @pytest.mark.parametrize("P, pa, E", [(9, 9, 72), (37, 30, 600)])
 def test_attend_q_kernel_matches_plain(dev, dtype, K, P, pa, E):
     """Kernel 5 on ragged shapes, with p_actual < P (the pixels past it
@@ -709,7 +882,8 @@ def test_attend_q_kernel_matches_plain(dev, dtype, K, P, pa, E):
 
 @pytest.mark.parametrize("family", ["attention_scn", "pure_attention"])
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("B, K, cut", [(3, 1, 0), (14, 5, 2), (3, 8, 0)])
+@pytest.mark.parametrize("B, K, cut", [(3, 1, 0), (14, 5, 2), (3, 8, 0),
+                                       (3, 9, 2)])
 def test_fused_step_q_kernel_matches_plain(dev, family, dtype, B, K, cut):
     """Kernel 6c against its plain version (p_actual = P - cut); it
     launches kernel 5 and neither kernel 1 nor kernel 2's counter moves."""
@@ -790,7 +964,8 @@ def test_scn_step_fused_kernel_matches_plain(dev, dtype, lead, In, H, F):
 
 
 @pytest.mark.parametrize("R, D, V, k", [(7, 16, 40, 5), (65, 36, 1000, 8),
-                                        (3, 8, 513, 1), (160, 64, 6763, 5)])
+                                        (3, 8, 513, 1), (160, 64, 6763, 5),
+                                        (9, 36, 700, 40)])
 def test_fc_topk_kernel_matches_plain(dev, R, D, V, k):
     """Kernel 11: raw-logit values and the log-sum within 1e-5, ids equal
     but at near-ties."""
@@ -888,7 +1063,8 @@ def _col_tol(g):
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("N, V, E, pad", [
     (0, 37, 16, 0), (1, 1, 1, 0), (257, 130, 200, 0), (3000, 6763, 130, 0),
-    (1632, 6763, 512, 700), (4099, 65, 129, 0)])
+    (1632, 6763, 512, 700), (4099, 65, 129, 0), (20000, 17000, 12, 0),
+    (52224, 6763, 512, 39000)])
 def test_embed_grad_kernel_matches_plain(dev, dtype, N, V, E, pad):
     """Ragged N, V and E; a padded tail (id 0, zero g) adds nothing; two
     calls are bitwise equal; one launch per call."""
@@ -916,8 +1092,9 @@ def test_embed_grad_kernel_matches_plain(dev, dtype, N, V, E, pad):
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_embed_grad_kernel_duplicate_heavy(dev, dtype):
-    """Every token hits row 0 or row 7: one block adds all of them, in
-    token order (the float64 sum within 1e-6 of each column's |g| sum)."""
+    """Every token hits row 0 or row 7: each row's tokens span many
+    segments, whose partials are added in order (the float64 sum within
+    1e-6 of each column's |g| sum)."""
     gen = torch.Generator().manual_seed(5)
     N, V, E = 5000, 300, 96
     ids = ((torch.arange(N) % 2) * 7).to(torch.int32)
@@ -928,6 +1105,30 @@ def test_embed_grad_kernel_duplicate_heavy(dev, dtype):
     assert bool(((out.cpu().double() - exact).abs()
                  <= _col_tol(g)[None].double()).all())
     assert not out[[1, 2, 3, 4, 5, 6, 8]].any()
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("N, E", [(31, 512), (33, 40), (1633, 512),
+                                  (70000, 7)])
+def test_embed_grad_kernel_one_id(dev, dtype, N, E):
+    """Every in-range token has one id (and every tenth is out of range,
+    which adds nothing): one row holds every token, in one segment or
+    across many; two calls bitwise equal; every other row zero."""
+    gen = torch.Generator().manual_seed(N)
+    V = 300
+    ids = torch.full((N,), 123, dtype=torch.int32)
+    ids[::10] = torch.tensor([-1, V, 2 ** 31 - 1], dtype=torch.int32)[
+        torch.arange(len(ids[::10])) % 3]
+    g = randn(gen, N, E).to(dtype)
+    out = embed_grad_cuda.embed_grad_scatter(ids.to(dev), g.to(dev), V)
+    again = embed_grad_cuda.embed_grad_scatter(ids.to(dev), g.to(dev), V)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    keep = (ids >= 0) & (ids < V)
+    exact = g[keep].double().sum(0)
+    tol = g[keep].double().abs().sum(0) * 1e-6
+    assert bool(((out[123].cpu().double() - exact).abs() <= tol).all())
+    assert not out[:123].any() and not out[124:].any()
 
 
 def test_embed_grad_wrapper_rejects_what_the_kernel_does_not_take(dev):

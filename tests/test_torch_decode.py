@@ -9,6 +9,7 @@ sequences, lengths and counts exactly.
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +28,7 @@ from indonesian_image_captioning_tpu_torch.decode.api import (
 from indonesian_image_captioning_tpu_torch.models import attention, decoders
 from indonesian_image_captioning_tpu_torch.models.jax_bridge import \
     params_from_jax
-from indonesian_image_captioning_tpu_torch.ops import step_cuda
+from indonesian_image_captioning_tpu_torch.ops import step_cuda, topk
 from indonesian_image_captioning_tpu_torch.ops.attention_cuda import \
     attend_fused_mxu
 
@@ -243,6 +244,69 @@ def test_decode_ladder_and_unported_names():
         assert decoders.resolve_attention_impl(c, cuda) == want
 
 
+PROBE = dict(model_type="attention_scn", vocab_size=40, embed_dim=12,
+             attention_dim=8, decoder_dim=16, factored_dim=8,
+             semantic_dim=11, encoder_dim=32, enc_image_size=3,
+             attention_impl="pallas_mxu")
+
+
+@pytest.mark.parametrize("decode_impl",
+                         ["steps", "fused_step", "fused_span", "fused"])
+def test_beam_9_matches_jax_under_every_kernel_name(decode_impl):
+    """Beam 9, past the eight lanes the port's kernels once took, under
+    each rung and the kernel attention: the port equals JAX's
+    caption_beam_search with the same names (V=40, E=32, D=16, B=2, T=5,
+    float32)."""
+    cfg = ModelConfig(**PROBE, decode_impl=decode_impl)
+    rng = np.random.default_rng(19)
+    params = jax_decoders.init_decoder(jax.random.key(9), cfg)
+    params["fc"]["b"] = params["fc"]["b"].at[cfg.vocab_size - 1].set(1.0)
+    enc = rng.normal(size=(2, 9, 32)).astype(np.float32) * 0.5
+    tags = rng.uniform(size=(2, 11)).astype(np.float32)
+    V = cfg.vocab_size
+    kw = dict(start_id=V - 2, end_id=V - 1,
+              beam_cfg=BeamConfig(beam_size=9, max_steps=5))
+    ref = jax_caption_beam_search(params, cfg, enc, tags, **kw)
+    out = caption_beam_search(params_from_jax(params), cfg, t(enc), t(tags),
+                              **kw)
+    assert out["decode_impl"] == decode_impl
+    assert out["sequences"].shape == (2, 6)
+    for k in ("sequences", "lengths"):
+        np.testing.assert_array_equal(out[k].numpy(), np.asarray(ref[k]))
+    close(out["scores"], ref["scores"])
+
+
+@pytest.mark.parametrize("K", [9, 33, 200])
+def test_no_beam_width_moves_the_ladder(K):
+    """Every kernel takes any K (decode/api.py, "Beam width"), so the
+    ladder never falls for K: wide beams keep "auto"'s rung and every
+    explicit one, on the card and the CPU, and the plain top-k, kernel
+    10's CPU side, takes any k."""
+    cfg = tiny_cfg()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+
+    def rung(device, **kw):
+        return resolve_decode_impl(dataclasses.replace(cfg, **kw),
+                                   record_alphas=False, device=device)
+
+    assert "beam_size" not in inspect.signature(resolve_decode_impl).parameters
+    assert rung(cuda) == "fused_span"
+    assert rung(cuda, model_type="pure_scn") == "fused_step"
+    assert rung(cuda, enc_quant="int8") == "fused_step"
+    for impl in ("fused_span", "fused_step", "fused", "steps"):
+        assert rung(cuda, decode_impl=impl) == impl
+        assert rung(cpu, decode_impl=impl) == impl
+    assert decoders.resolve_attention_impl(cfg, cuda) == "kernel"
+    gen = torch.Generator().manual_seed(K)
+    x = torch.randn((3, K + 50), generator=gen)
+    x[0, :K] = 10.0                         # K-way tie, taken in id order
+    vals, idx = topk.row_topk_pallas(x, K)
+    ref_v, ref_i = topk.row_topk_iterative(x, K)
+    assert idx.dtype == torch.int32 and torch.equal(idx.long(), ref_i)
+    assert torch.equal(vals, ref_v)
+    assert idx[0].tolist() == list(range(K))
+
+
 def test_sequences_to_tokens_matches_jax():
     from indonesian_image_captioning_tpu.decode.api import \
         sequences_to_tokens as jax_sequences_to_tokens
@@ -254,3 +318,30 @@ def test_sequences_to_tokens_matches_jax():
     assert (sequences_to_tokens(t(seqs), t(lens), rev, skip_ids=(8, 9))
             == jax_sequences_to_tokens(seqs, lens, rev, skip_ids=(8, 9))
             == [["w3", "w1"], ["w2"]])
+
+
+def test_packed_weights_are_kept_per_tree():
+    """step_cuda.pack_step_weights packs a tree once per type: the same
+    tensors, unchanged, give the same dict back; an in-place update, a
+    new tree or another type packs anew, and a tree of inference tensors
+    is never kept."""
+    cfg = ModelConfig(**PROBE)
+    params = decoders.init_decoder(torch.Generator().manual_seed(0), cfg)
+    first = step_cuda.pack_step_weights(params, cfg, torch.float32)
+    assert step_cuda.pack_step_weights(params, cfg, torch.float32) is first
+    with torch.no_grad():
+        params["fc"]["w"].add_(1.0)
+    again = step_cuda.pack_step_weights(params, cfg, torch.float32)
+    assert again is not first and torch.equal(again["fcw"], params["fc"]["w"])
+    hi, lo = step_cuda.pack_tc(params["fc"]["w"], torch.float32)
+    assert torch.equal(again["fcw_t"], hi) and torch.equal(again["fcw_tlo"], lo)
+    bf = step_cuda.pack_step_weights(params, cfg, torch.bfloat16)
+    assert bf["fcw_t"].dtype == torch.bfloat16 and "fcw_tlo" not in bf
+    other = decoders.init_decoder(torch.Generator().manual_seed(0), cfg)
+    assert step_cuda.pack_step_weights(other, cfg, torch.float32) \
+        is not again
+    with torch.inference_mode():
+        frozen = decoders.cast_params(params, torch.bfloat16)
+        a = step_cuda.pack_step_weights(frozen, cfg, torch.bfloat16)
+        assert step_cuda.pack_step_weights(frozen, cfg, torch.bfloat16) \
+            is not a

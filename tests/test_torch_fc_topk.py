@@ -81,9 +81,11 @@ def test_casts_to_float32_and_checks_k():
     for a, b_ in zip(bf, want):
         assert torch.equal(a, b_)
     assert not torch.equal(f32[0], bf[0])
-    for k in (0, 9):
+    for k in (0, 31):                  # 1 <= k <= V = 30 on CPU tensors
         with pytest.raises(ValueError, match="top-"):
             fc_topk(*args, k)
+    wide = fc_topk(*args, 9)           # past 8: the cap is the card's, 32
+    assert wide[1].shape == (6, 9) and torch.equal(wide[1][:, :5], f32[1])
     with pytest.raises(ValueError, match="top-"):
         fc_topk(args[0], args[1][:, :3], args[2][:3], 5)
 
