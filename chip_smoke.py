@@ -12,7 +12,8 @@ Phases, each of which exits non-zero on failure:
    K=5 beams, P=196 pixels, E=2048, A=D=Emb=F=512, V=6,763), in float32
    and bfloat16, against its plain PyTorch version on the same inputs: the
    largest error with its tolerance, and the median time of each over 20
-   runs (CUDA events, in turns plain, kernel, kernel, plain).  Kernel 2 is
+   runs (CUDA events, in turns plain, kernel, kernel, plain); kernels 2,
+   6b, 6c, 7 and 13 also with their device time (torch.profiler).  Kernel 2 is
    checked for all three model families (SCN and LSTM cells, with and
    without attention; pure_scn's form is kernel 6b).  Kernel 7 (the span decode) runs one S=4 call from
    a mid-decode state (two plain steps with a head biased toward <end>,
@@ -86,8 +87,12 @@ Phases, each of which exits non-zero on failure:
    bfloat16.  Kernels 8 and 9 (the teacher-forcing scan, forward and
    backward) against their plain versions on the same inputs, float32 and
    bfloat16, SCN and LSTM cells: the error of every output and stream
-   against TRAIN_TOL (forward) and TRAIN_BWD_TOL (backward), and the
-   median time of each over 20 runs.
+   against TRAIN_TOL (forward) and TRAIN_BWD_TOL (backward), the median
+   time of each over 20 runs beside its device time (torch.profiler), the
+   six kernels of one call that take the most device time, the launches a
+   step read from csrc/train.cu's counter (at most 4 forward and 5 in the
+   backward's loop), and the host time of the weight packs made on every
+   call.
    Then one caption_loss gradient through the kernels ("fused") and
    through the eager autograd scan ("xla") on the cached features of one
    batch, dropout off: every parameter within 5e-3 of its largest value,
@@ -248,6 +253,21 @@ def device_ms(fn, runs=20, by_kernel=None):
     if by_kernel is not None:
         by_kernel.update(times)
     return sum(times.values())
+
+
+def kernel_counts(fn):
+    """Launches of each kernel name in one call of fn (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
 
 
 def max_err(a, b):
@@ -810,13 +830,15 @@ def mega_case(dev, dtype, cfg, params, enc, gen):
                                     label)
     ran = int((ref["vals"] > NEG).any(2).any(0).sum())   # steps that ran
     plain_ms, ms = median_ms([plain, kernel], runs=10)
+    dev_ms = device_ms(kernel, runs=3)
     bound_ms, bound_by, ffma_ms = chain_bound(
         record_work(cfg, nb, ran, dtype.itemsize), name)
     print(f"kernel {label}: {ran} steps ran; max_abs_err vals {err:.3g} "
-          f"(tol {REC_TOL[name]['vals']}); {summary}; ms {ms:.4f} plain_ms "
-          f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; FFMA peak "
-          f"{ffma_ms:.4f})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, steps=ran)
+          f"(tol {REC_TOL[name]['vals']}); {summary}; ms {ms:.4f} device_ms "
+          f"{dev_ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
+          f"({bound_by}; FFMA peak {ffma_ms:.4f})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, steps=ran,
+                device_ms=dev_ms)
 
 
 def topk_case(dev, nb):
@@ -951,14 +973,16 @@ def step_case(dev, dtype, cfg, params, enc, gen, quant=False):
         n = near_tie_rows(out[1], ref[1], lg, f"fused step {label}")
         ties = f", topi equal but {n} near-tie rows"
     plain_ms, ms = median_ms([plain, kernel])
+    dev_ms = device_ms(kernel, runs=5)
     bound_ms, bound_by, ffma_ms = chain_bound(
         step_work(cfg, nb, dtype.itemsize, quant), name)
     print(f"kernel {counted.__name__}[{cfg.model_type}] {name}: max_abs_err "
           f"topv/lse {e_vals:.3g} (tol {tol['step_vals']}), h/c "
           f"{e_state:.3g} (tol {tol['step_state']}){ties}; ms {ms:.4f} "
-          f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
-          f"FFMA peak {ffma_ms:.4f})")
-    return dict(max_abs_err=max(e_vals, e_state), ms=ms, plain_ms=plain_ms)
+          f"device_ms {dev_ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bound_ms:.4f} ({bound_by}; FFMA peak {ffma_ms:.4f})")
+    return dict(max_abs_err=max(e_vals, e_state), ms=ms, plain_ms=plain_ms,
+                device_ms=dev_ms)
 
 
 def make_state(dev, cfg, images_u8):
@@ -1515,8 +1539,9 @@ def bound(nbytes, flops, dtype="float32"):
 
 def chain_bound(work, name):
     """(bound_ms, bound_by, ffma_bound_ms) of a kernel whose products run
-    on the tensor-core GEMM (kernels 2, 6b, 6c, 7, 13): at float32 against
-    the 3xTF32 peak, with the FFMA peak's bound beside it."""
+    on the tensor cores (kernels 2, 6b, 6c, 7, 13 on csrc/mma.cuh; 8 and 9
+    on csrc/mma_small.cuh and mma.cuh): at float32 against the 3xTF32
+    peak, with the FFMA peak's bound beside it."""
     if name == "float32":
         ms, by = bound(*work, "tf32x3")
         return ms, by, bound(*work, "float32")[0]
@@ -1738,15 +1763,48 @@ def train_kernel_case(dev, dtype, cfg, B):
         lambda: train_cuda.train_fwd(*args, cell=cell),
         lambda: train_cuda.train_bwd_plain(*bargs, cell=cell),
         lambda: train_cuda.train_bwd(*bargs, cell=cell)])
-    fwd_work, bwd_work = train_work(cfg, B, cfg.max_caption_len - 1,
-                                    dtype.itemsize)
-    f_bound, b_bound = bound(*fwd_work, name), bound(*bwd_work, name)
-    print(f"kernel train_fwd[{label}]: ms {f_ms:.4f} plain_ms "
-          f"{f_plain:.4f} bound_ms {f_bound[0]:.4f} ({f_bound[1]}); "
-          f"train_bwd: ms {b_ms:.4f} plain_ms {b_plain:.4f} bound_ms "
-          f"{b_bound[0]:.4f} ({b_bound[1]})")
-    return {"train_fwd": dict(max_abs_err=e_fwd, ms=f_ms, plain_ms=f_plain),
-            "train_bwd": dict(max_abs_err=e_bwd, ms=b_ms, plain_ms=b_plain)}
+    T = cfg.max_caption_len - 1
+    fwd_work, bwd_work = train_work(cfg, B, T, dtype.itemsize)
+    calls = {"train_fwd": lambda: train_cuda.train_fwd(*args, cell=cell),
+             "train_bwd": lambda: train_cuda.train_bwd(*bargs, cell=cell)}
+    steps = {}
+    for what, fn in calls.items():      # csrc/train.cu's launch counter
+        fn()
+        n = train_cuda.last_launches()
+        steps[what] = (n["fwd"] if what == "train_fwd" else
+                       n["bwd_loop"]) / T
+        check(steps[what] <= {"train_fwd": 4, "train_bwd": 5}[what],
+              f"{what} {label}: {steps[what]} launches a step")
+    kw = args[0]
+    pack_f, pack_b = median_ms([
+        lambda: train_cuda.pack_fwd(kw, cell, dtype),
+        lambda: train_cuda.pack_bwd(kw, cell, dtype)])
+    print(f"kernel train[{label}]: launches a step (library counter) "
+          f"forward {steps['train_fwd']:.2f}, backward loop "
+          f"{steps['train_bwd']:.2f}; weight packs made every call: "
+          f"forward {pack_f:.4f} ms, backward (pass A) {pack_b:.4f} ms")
+    res = {}
+    for what, fn, ms, plain, err, work in (
+            ("train_fwd", calls["train_fwd"], f_ms, f_plain, e_fwd,
+             fwd_work),
+            ("train_bwd", calls["train_bwd"], b_ms, b_plain, e_bwd,
+             bwd_work)):
+        parts = {}
+        dev_ms = device_ms(fn, runs=5, by_kernel=parts)
+        counts = kernel_counts(fn)
+        bound_ms, bound_by, ffma_ms = chain_bound(work, name)
+        top = sorted(parts.items(), key=lambda kv: -kv[1])[:6]
+        print(f"kernel {what}[{label}]: ms {ms:.4f} device_ms {dev_ms:.4f} "
+              f"plain_ms {plain:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
+              f"FFMA {ffma_ms:.4f}); launches per call "
+              f"{sum(counts.values())} ({sum(counts.values()) / T:.1f} per "
+              "step, profiler)")
+        print(f"  {what}[{label}] top 6 by device time: " + "; ".join(
+            f"{k.split('(')[0][:56]} x{counts.get(k, 0)} {v:.4f} ms"
+            for k, v in top))
+        res[what] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                         device_ms=dev_ms, launches_per_step=steps[what])
+    return res
 
 
 def train_phase(dev, cfg, B, image_size):
@@ -1818,7 +1876,7 @@ def train_phase(dev, cfg, B, image_size):
         grads[impl] = [torch.zeros_like(p) if x is None else x
                        for p, x in zip(leaves, g)]
         lossv[impl] = loss.item()
-    worst = 0.0
+    worst = (0.0, None)
     for i, (gf, gx) in enumerate(zip(grads["fused"], grads["xla"])):
         scale = float(gx.abs().max())
         if scale < 1e-7:           # the full_att bias: exactly zero in math
@@ -1826,12 +1884,13 @@ def train_phase(dev, cfg, B, image_size):
         rel = float((gf - gx).abs().max()) / scale
         check(rel < GRAD_TOL, f"gradient leaf {i} {tuple(gx.shape)}: fused "
               f"vs eager {rel} >= {GRAD_TOL}")
-        worst = max(worst, rel)
+        worst = max(worst, (rel, (i, tuple(gx.shape))))
     lrel = abs(lossv["fused"] - lossv["xla"]) / abs(lossv["xla"])
     check(lrel < LOSS_TOL, f"loss fused {lossv['fused']} vs eager "
           f"{lossv['xla']}: {lrel} >= {LOSS_TOL}")
     print(f"train: gradient check over {len(leaves)} leaves, fused vs "
-          f"eager: worst {worst:.3g} of scale (tol {GRAD_TOL}); loss "
+          f"eager: worst {worst[0]:.3g} of scale, leaf {worst[1]} (tol "
+          f"{GRAD_TOL}); loss "
           f"{lossv['fused']:.6f} vs {lossv['xla']:.6f} ({lrel:.2g})")
     del grads
 
@@ -2207,11 +2266,12 @@ def main() -> int:
              fc_topk_work(B * K, cfg.decoder_dim, VOCAB, K)),
             ("train_fwd", "train.cu", "train_pallas.py:768",
              train_res[("float32", "attention_scn")]["train_fwd"],
-             train_res[("bfloat16", "attention_scn")]["train_fwd"], fwd_work),
+             train_res[("bfloat16", "attention_scn")]["train_fwd"], fwd_work,
+             chain),
             ("train_bwd", "train.cu", "train_pallas.py:856",
              train_res[("float32", "attention_scn")]["train_bwd"],
              train_res[("bfloat16", "attention_scn")]["train_bwd"],
-             bwd_work),
+             bwd_work, chain),
             ("embed_grad_scatter", "embed_grad.cu",
              "embed_grad_pallas.py:111", embed_res["float32"],
              embed_res["bfloat16"],

@@ -6,191 +6,269 @@
 // behind the custom VJP _train_scan, for both attention-bearing cells: SCN
 // (attention_scn, gate order i, f, o, c) and the torch LSTM (pure_attention,
 // gate order i, f, g, o).  The Pallas kernels keep each image chunk's
-// encoder windows resident in VMEM across the whole scan; an image's
-// encoder state (1.06 MB at bf16) does not fit an SM's shared memory, so
-// here each time step is a chain of launches, looped over T by the host
-// functions at the bottom (one C call per scan), on one stream.
+// encoder windows resident in VMEM across the whole scan; here the encoder
+// state (B x 196 x 2,560 values: 64 MB at float32) is larger than all the
+// card's shared memory, so each time step is a chain of launches, looped
+// over T by the host functions at the bottom (one C call per scan), on one
+// stream.
 //
-// Forward, per step t (h_prev = h0 or h_all[:, t-1]):
-//   gemm   hall  = h_prev @ [wda | wfb] + [bda | bfb]           (float32)
-//   scores s[p]  = sum_a rt(relu(rt(ea[p] + rt(hall_dec))) * rt(wf))
-//   sum    alpha = softmax_p(s) -> alphas[:, t] (float32)
-//          awe_raw = sum_p rt(alpha[p]) enc[p] -> awe_raw[:, t]
-//          gawe = rt(rt(sigmoid(hall_gate)) * awe_raw)
-//   gemm   xin = rt(emb_fac[:, t] + rt(gawe @ wxa)); SCN xfac = rt(xin semx)
-//   SCN:   gemm hfac = rt(rt(h_prev @ wh) * semh)
-//          gemm pre[g] = xfac[g] @ wxp[g] + hfac[g] @ whp[g] + bx[g] + bh[g]
-//   LSTM:  gemm pre = xin + h_prev @ wh + bx + bh
-//   cell   c = rt(rt(f c) + rt(i g)), h = rt(o rt(tanh c)) -> h_all, c_all
+// Forward, per step t (h_prev = h0 or h_all[:, t-1]); "small" is the
+// swap-AB tensor-core GEMM of mma_small.cuh on packed weights
+// (ops/train_cuda.py pack_fwd):
+//   small  hall = h_prev @ [wda | wfb] + [bda | bfb] (float32), and in
+//          the same product SCN hfac = rt(rt(h_prev @ wh) semh), LSTM
+//          hh = h_prev @ wh (float32)
+//   attend one cluster of kCs CTAs per image (train_attend_kernel):
+//          scores s[p] = sum_a rt(relu(rt(ea[p] + rt(hall_dec))) rt(wf)),
+//          alpha = softmax_p(s) -> alphas[:, t] (float32),
+//          awe_raw = rt(sum_p rt(alpha[p]) enc[p]) -> awe_raw[:, t],
+//          gawe = rt(rt(sigmoid(hall_gate)) awe_raw)
+//   SCN:   small xfac = rt(rt(emb_fac[:, t] + rt(gawe @ wxa)) semx)
+//          small pre[g] = xfac[g] @ wxp[g] + hfac[g] @ whp[g] + bx + bh,
+//                the cell in its epilogue -> h_all, c_all
+//   LSTM:  small pre = rt(emb_fac[:, t] + rt(gawe @ wxa)) + hh + bx + bh,
+//                the cell in its epilogue
+//   cell   c = rt(rt(f c) + rt(i g)), h = rt(o rt(tanh c))
+// Four launches a step for SCN, three for the LSTM.
 //
-// Backward: pass A recomputes, once for all T at M = B*T rows, everything
+// Backward: pass A recomputes, once for all T at M = B*T rows on the
+// tensor-core GEMM of the decode chain (mma.cuh launch_gemm_tc), everything
 // that depends only on the streamed inputs (h_prev, awe_raw, emb_fac):
 // dec, the f_beta gate, awe, xin, xfac, hfac and the gate pre-activations
-// (train_pallas.py:449-502).  Then a reverse loop over t, per step:
-//   cell    the cell backward -> dpre[:, t]; dc carried in float32
-//   SCN:    gemm d_xfac = dpre[g] @ wxp[g]^T: d_emb = rt(d_xfac semx),
+// (train_pallas.py:449-502).  The cell backward of the last step runs
+// alone; then a reverse loop over t, per step:
+//   SCN:    small (two products in one launch)
+//           d_xfac = dpre[g] @ wxp[g]^T: d_emb = rt(d_xfac semx),
 //                d_semx += d_xfac xin
-//           gemm d_hfac = dpre[g] @ whp[g]^T: dhfr = rt(d_hfac semh),
+//           d_hfac = dpre[g] @ whp[g]^T: dhfr = rt(d_hfac semh),
 //                d_semh += d_hfac hfac_raw
-//   gemm    d_awe = d_xin @ wxa^T: dfb = rt(d_awe awe_raw g (1 - g)),
+//   small   d_awe = d_xin @ wxa^T: dfb = rt(d_awe awe_raw g (1 - g)),
 //           d_awe_raw = rt(d_awe g)
-//   dalpha  d_alpha[p] = sum_e d_awe_raw[e] enc[p, e] + d_alphas[:, t]
-//   attbwd  softmax backward; mask = rt(ea + dec) > 0;
+//   attbwd  one cluster per image (train_att_bwd_kernel):
+//           d_alpha[p] = sum_e d_awe_raw[e] enc[p, e] + d_alphas[:, t];
+//           softmax backward; mask = rt(ea + dec) > 0;
 //           d_ea += d_att mask (float32, in device memory);
 //           d_dec_raw = sum_p rt(d_att) mask; wfdec += d_dec_raw dec;
 //           ddec = rt(d_dec_raw wf)
-//   gemm    dh = [dhfr | dfb | ddec] @ [wh ; wfb ; wda]^T   (float32)
-// and a finalize: d_wf = sum_b (wfdec + sum_p rt(d_ea ea)), d_ea *= wf.
-// The weight gradients are (B*T)-row products over the streams, outside
-// (ops/train_cuda.py), as the JAX package computes them outside its
-// pallas_call.  Every product of the two Pallas bodies runs in gemm_kernel
-// (gemm.cuh) or in the kernels below.
+//   small   dh = [dhfr | dfb | ddec] @ [wh ; wfb ; wda]^T (float32), and in
+//           its epilogue the cell backward of step t - 1 -> dpre[:, t-1],
+//           dc carried in float32 (at t = 0: dh0)
+// Four launches a step for SCN, three for the LSTM; and a finalize: d_wf =
+// sum_b (wfdec + sum_p rt(d_ea ea)), d_ea *= wf.  The weight gradients
+// are (B*T)-row products over the streams, outside (ops/train_cuda.py), as
+// the JAX package computes them outside its pallas_call.
 //
-// Determinism: no atomics.  Every accumulation (d_ea, d_semx, d_semh,
-// wfdec, dc) is owned by one thread per launch and the launches run in
-// order; d_wf reduces over images in a fixed order.
+// Determinism: no float atomics.  Every accumulation (d_ea, d_semx,
+// d_semh, wfdec, dc) has one owner per launch and the launches run in
+// order; split-K partials and the cluster's partial sums add in a fixed
+// order; d_wf reduces over images in order.
 //
-// What bounds it: at B = 32 the per-step products have 32 rows, so each
-// reads its weight (up to 2048 x 2048) for little arithmetic, and the
-// attention steps read the encoder state (2 MB per image at float32) once
-// forward and once backward per step.  The scan is a chain of about 7
-// launches per step (forward) and 7 (backward), 51 steps each.  What the
-// design does about it, in this first version: the 32-row products run
-// split-K (gemm.cuh) so they fill the card instead of 8-40 blocks, the
-// encoder state is read once per step for all of an image's pixels and
-// columns, every elementwise stage is fused into a GEMM epilogue or the
-// attention kernels, and pass A moves the recompute half of the backward
-// into large (B*T)-row GEMMs.  Tensor cores and CUDA graphs over the step
-// chain are later work.
-#include "gemm.cuh"
+// What bounds it: per step the encoder state streams from device memory
+// (64 MB at float32 forward, and again backward with d_ea's 25.6 MB
+// read-modify-write: about 1.0 and 1.4 ms over 51 steps at 3.35 TB/s),
+// while the weights (8.65 M values, 35 MB at float32) are read again from
+// L2 every step; the products' operations at 3xTF32 are a smaller bound.
+// What the design does about it: every product runs on the tensor cores,
+// the per-step ones shaped for 32 rows (swap-AB, mma_small.cuh) with the
+// weights brought in by TMA under an L2 evict-last policy and the encoder
+// state read with evict-first loads (ld.global.cs), so a step's traffic
+// to device memory is the encoder stream; split-K sums inside a cluster
+// without a reduce launch; the attention step is one cluster launch per
+// image that exchanges the softmax statistics and the partial sums
+// through distributed shared memory; the cell runs in the epilogue of the
+// product that makes its pre-activations, its backward in the epilogue of
+// the dh product.  What is left (PERF.md): each launch of the chain
+// costs its own fixed 6-7 us on the card, 3-4 a step, each waiting on the
+// one before; the attention kernels stream at about 2.2 TB/s.
+#include <cooperative_groups.h>
+
+#include "mma_small.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace iic {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kCs = 8;                 // CTAs of a cluster: one image
+constexpr int kAttThreads = 256;
+constexpr int kAttWarps = kAttThreads / 32;
+constexpr int kMaxSlices = 8;          // pixel slices of the mask pass
+
+// V elements of T at p (16-byte aligned for V = 8, 8- or 16-byte for V = 4)
+// as float32, by an evict-first (streaming) load: the encoder state is read
+// once a step and must not push the weights out of L2.
+template <typename T, int V>
+__device__ __forceinline__ void ld_stream(const T* p, float* x) {
+  if constexpr (V == 1) {
+    if constexpr (sizeof(T) == 4)
+      x[0] = __ldcs((const float*)p);
+    else
+      x[0] = __bfloat162float(
+          __ushort_as_bfloat16(__ldcs((const unsigned short*)p)));
+  } else if constexpr (sizeof(T) == 4) {
+    static_assert(V == 4, "four float32 values a load");
+    const float4 v = __ldcs((const float4*)p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else {
+    static_assert(V == 4 || V == 8, "four or eight bf16 values a load");
+    uint32_t w[V / 2];
+    if constexpr (V == 4) {
+      const uint2 v = __ldcs((const uint2*)p);
+      w[0] = v.x, w[1] = v.y;
+    } else {
+      const uint4 v = __ldcs((const uint4*)p);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {   // a bf16's bits: a float's top half
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void st_stream(float* p, const float* x) {
+  if constexpr (V == 1) {
+    __stcs(p, x[0]);
+  } else {
+    static_assert(V == 4, "four float32 values a store");
+    __stcs((float4*)p, make_float4(x[0], x[1], x[2], x[3]));
+  }
+}
+
+// Vector widths of the attention kernels: the encoder rows (E) in 16-byte
+// loads, the attention columns (A) four at a time, where both divide.
+template <typename T, bool kVec>
+struct AttV {
+  static constexpr int E = kVec ? 16 / (int)sizeof(T) : 1;
+  static constexpr int A = kVec ? 4 : 1;
+};
+
+template <typename T>
+static bool att_vec(int E, int A) {
+  return E % (16 / (int)sizeof(T)) == 0 && A % 4 == 0;
+}
 
 // ------------------------------------------------------------ forward ----
 
-// Scores of one step: one warp per pixel.  Grid (B, ceil(P / 8)).  dec is
-// the first A columns of hall (float32, bias added), rounded to T.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-train_scores_kernel(const T* __restrict__ ea, const float* __restrict__ hall,
-                    long long ldhall, const float* __restrict__ wf,
-                    float* __restrict__ scores, int P, int A) {
+// The attention step of step t for image blockIdx.x / kCs: cluster rank r
+// takes pixels [r pc, (r + 1) pc), scores them, and the cluster exchanges
+// each CTA's max and sum of exponentials (the image's softmax) and its
+// partial weighted sums (added in rank order) through distributed shared
+// memory; rank r then finishes columns [r ec, (r + 1) ec) of awe_raw and
+// the gated gawe.
+template <typename T, bool kVec>
+__global__ void __cluster_dims__(kCs, 1, 1) __launch_bounds__(kAttThreads)
+    train_attend_kernel(const T* __restrict__ enc, const T* __restrict__ ea,
+                        const float* __restrict__ hall, long long ldh,
+                        const float* __restrict__ wf,
+                        float* __restrict__ alphas, long long ldal,
+                        T* __restrict__ awe_raw, long long ldawe,
+                        T* __restrict__ gawe, int P, int E, int A) {
+  constexpr int VE = AttV<T, kVec>::E, VA = AttV<T, kVec>::A;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int b = blockIdx.x / kCs;
+  const int pc = (P + kCs - 1) / kCs;
+  const int p0 = min(P, rank * pc), np = min(P, p0 + pc) - p0;
   extern __shared__ float smem[];
-  float* dec_s = smem;     // A
-  float* wf_s = smem + A;  // A
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int p = blockIdx.y * kWarps + (tid >> 5);
-  for (int a = tid; a < A; a += blockDim.x) {
-    dec_s[a] = rt<T>(hall[b * ldhall + a]);
+  float* dec_s = smem;        // A
+  float* wf_s = dec_s + A;    // A
+  float* part = wf_s + A;     // E: this CTA's weighted sums
+  float* sc = part + E;       // pc: scores, then rt(alpha)
+  __shared__ float stat[2];   // this CTA's max and sum of exp(s - max)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* hb = hall + b * ldh;
+  for (int a = tid; a < A; a += kAttThreads) {
+    dec_s[a] = rt<T>(hb[a]);
     wf_s[a] = rt<T>(wf[a]);
   }
   __syncthreads();
-  if (p >= P) return;
-  const T* row = ea + ((size_t)b * P + p) * A;
-  float acc = 0.0f;
+  for (int i = warp; i < np; i += kAttWarps) {       // a warp a pixel
+    const T* row = ea + ((size_t)b * P + p0 + i) * A;
+    float acc = 0.0f;
 #pragma unroll 4
-  for (int a = lane; a < A; a += 32) {
-    const float e = fmaxf(rt<T>(to_f(row[a]) + dec_s[a]), 0.0f);
-    acc += rt<T>(e * wf_s[a]);
+    for (int a = lane * VA; a < A; a += 32 * VA) {
+      float x[VA];
+      ld_stream<T, VA>(row + a, x);
+#pragma unroll
+      for (int u = 0; u < VA; ++u) {
+        const float e = fmaxf(rt<T>(x[u] + dec_s[a + u]), 0.0f);
+        acc += rt<T>(e * wf_s[a + u]);
+      }
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) sc[i] = acc;
   }
-  acc = warp_sum(acc);
-  if (lane == 0) scores[(size_t)b * P + p] = acc;
-}
-
-// Softmax, the weighted sum over this block's columns and the f_beta gate.
-// Grid (B, esplit); block y == 0 writes alpha.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-train_attend_kernel(const T* __restrict__ enc,
-                    const float* __restrict__ scores,
-                    const float* __restrict__ hall, long long ldhall, int A,
-                    float* __restrict__ alphas, long long ldal,
-                    T* __restrict__ awe_raw, long long ldawe,
-                    T* __restrict__ gawe, int P, int E, int e_chunk) {
-  extern __shared__ float smem[];
-  float* att = smem;       // P: scores, then alpha
-  float* att_t = smem + P; // P: alpha rounded to T
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int p = tid; p < P; p += blockDim.x) att[p] = scores[(size_t)b * P + p];
   __syncthreads();
-  if (tid < 32) {
+  if (warp == 0) {
     float m = -INFINITY;
-    for (int p = tid; p < P; p += 32) m = fmaxf(m, att[p]);
+    for (int i = lane; i < np; i += 32) m = fmaxf(m, sc[i]);
     m = warp_max(m);
     float s = 0.0f;
-    for (int p = tid; p < P; p += 32) s += expf(att[p] - m);
+    for (int i = lane; i < np; i += 32) s += expf(sc[i] - m);
     s = warp_sum(s);
-    for (int p = tid; p < P; p += 32) {
-      const float v = expf(att[p] - m) / s;
-      att[p] = v;
-      att_t[p] = rt<T>(v);
-      if (blockIdx.y == 0) alphas[b * ldal + p] = v;
-    }
+    if (lane == 0) stat[0] = m, stat[1] = s;
+  }
+  cl.sync();
+  float m = -INFINITY, ssum = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kCs; ++r) m = fmaxf(m, cl.map_shared_rank(stat, r)[0]);
+#pragma unroll
+  for (int r = 0; r < kCs; ++r) {
+    const float* st = cl.map_shared_rank(stat, r);
+    if (st[1] > 0.0f) ssum += st[1] * expf(st[0] - m);
+  }
+  for (int i = tid; i < np; i += kAttThreads) {
+    const float al = expf(sc[i] - m) / ssum;
+    alphas[b * ldal + p0 + i] = al;
+    sc[i] = rt<T>(al);
   }
   __syncthreads();
-  const T* enc_b = enc + (size_t)b * P * E;
-  const int e0 = blockIdx.y * e_chunk;
-  const int e1 = min(E, e0 + e_chunk);
-  for (int e = e0 + tid; e < e1; e += blockDim.x) {
-    float acc = 0.0f;
-    int p = 0;
-    for (; p + 8 <= P; p += 8) {
-      float x[8];
+  const T* eb = enc + ((size_t)b * P + p0) * E;
+  for (int q = tid * VE; q < E; q += kAttThreads * VE) {
+    float acc[VE];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) x[j] = to_f(enc_b[(size_t)(p + j) * E + e]);
+    for (int v = 0; v < VE; ++v) acc[v] = 0.0f;
+    int i = 0;
+    for (; i + 8 <= np; i += 8) {     // eight pixels' loads in flight
+      float x[8][VE];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc += att_t[p + j] * x[j];
+      for (int u = 0; u < 8; ++u)
+        ld_stream<T, VE>(eb + (size_t)(i + u) * E + q, x[u]);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int v = 0; v < VE; ++v) acc[v] += sc[i + u] * x[u][v];
     }
-    for (; p < P; ++p) acc += att_t[p] * to_f(enc_b[(size_t)p * E + e]);
-    const float ar = rt<T>(acc);
+    for (; i < np; ++i) {
+      float x[VE];
+      ld_stream<T, VE>(eb + (size_t)i * E + q, x);
+#pragma unroll
+      for (int v = 0; v < VE; ++v) acc[v] += sc[i] * x[v];
+    }
+#pragma unroll
+    for (int v = 0; v < VE; ++v) part[q + v] = acc[v];
+  }
+  cl.sync();
+  const int ec = (E + kCs - 1) / kCs;
+  const int e1 = min(E, (rank + 1) * ec);
+  for (int e = rank * ec + tid; e < e1; e += kAttThreads) {
+    float s = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kCs; ++r) s += cl.map_shared_rank(part, r)[e];
+    const float ar = rt<T>(s);
     awe_raw[b * ldawe + e] = from_f<T>(ar);
-    const float gate = rt<T>(sigmoidf_(hall[b * ldhall + A + e]));
+    const float gate = rt<T>(sigmoidf_(hb[A + e]));
     gawe[(size_t)b * E + e] = from_f<T>(gate * ar);
   }
-}
-
-// The cell on float32 pre-activations (not rounded first, as the Pallas
-// forward): SCN gates i, f, o, c; LSTM i, f, g, o.
-template <typename T>
-__global__ void train_cell_kernel(const float* __restrict__ pre,
-                                  const T* __restrict__ c_prev,
-                                  long long ldcp, T* __restrict__ h_out,
-                                  T* __restrict__ c_out, long long ldo, int B,
-                                  int H, int lstm) {
-  const int n = B * H;
-  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += gridDim.x * blockDim.x) {
-    const int b = idx / H, j = idx % H;
-    const float* p = pre + (size_t)b * 4 * H;
-    const float ig = rt<T>(sigmoidf_(p[j]));
-    const float fg = rt<T>(sigmoidf_(p[H + j]));
-    float og, gg;
-    if (lstm) {
-      gg = rt<T>(tanhf(p[2 * H + j]));
-      og = rt<T>(sigmoidf_(p[3 * H + j]));
-    } else {
-      og = rt<T>(sigmoidf_(p[2 * H + j]));
-      gg = rt<T>(tanhf(p[3 * H + j]));
-    }
-    const float cn =
-        rt<T>(rt<T>(fg * to_f(c_prev[b * ldcp + j])) + rt<T>(ig * gg));
-    const float hn = rt<T>(og * rt<T>(tanhf(cn)));
-    h_out[b * ldo + j] = from_f<T>(hn);
-    c_out[b * ldo + j] = from_f<T>(cn);
-  }
+  cl.sync();   // no CTA leaves while another reads its shared memory
 }
 
 // ----------------------------------------------------------- backward ----
 
-// The cell backward of step t from the pass-A pre-activations: writes the
-// gate cotangents (rounded, in the pre-activations' gate positions) and
-// carries dc; reads the dh carry (the previous launch's dh GEMM).
+// The cell backward of the last step (dh = 0 on entry, so dh_t = d_hall):
+// gate cotangents from the pass-A pre-activations and the dc carry.
 template <typename T>
 __global__ void train_cell_bwd_kernel(
     const float* __restrict__ pre, long long ldpre, const T* __restrict__ c_t,
@@ -201,126 +279,126 @@ __global__ void train_cell_bwd_kernel(
   for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < n;
        idx += gridDim.x * blockDim.x) {
     const int b = idx / H, j = idx % H;
-    const float* p = pre + b * ldpre;
-    const float ig = sigmoidf_(p[j]);
-    const float fg = sigmoidf_(p[H + j]);
-    const int go = lstm ? 3 : 2, gg_ = lstm ? 2 : 3;  // o and g positions
-    const float og = sigmoidf_(p[go * H + j]);
-    const float gg = tanhf(p[gg_ * H + j]);
-    const float tc = tanhf(to_f(c_t[b * ldc + j]));
-    const float dh_t = dh[idx] + to_f(d_hall[b * ldc + j]);
-    const float d_o = dh_t * tc * og * (1.0f - og);
-    const float dc_t = dc[idx] + dh_t * og * (1.0f - tc * tc);
-    const float d_f = dc_t * to_f(c_prev[b * ldcp + j]) * fg * (1.0f - fg);
-    const float d_i = dc_t * gg * ig * (1.0f - ig);
-    const float d_g = dc_t * ig * (1.0f - gg * gg);
-    dc[idx] = dc_t * fg;
-    T* out = dpre + b * lddp;
-    out[j] = from_f<T>(d_i);
-    out[H + j] = from_f<T>(d_f);
-    out[go * H + j] = from_f<T>(d_o);
-    out[gg_ * H + j] = from_f<T>(d_g);
+    const float* p = pre + b * ldpre + j;
+    const float pg[4] = {p[0], p[H], p[2 * H], p[3 * H]};
+    float d[4];
+    cell_bwd(pg, to_f(c_t[b * ldc + j]), to_f(c_prev[b * ldcp + j]),
+             dh[idx] + to_f(d_hall[b * ldc + j]), dc[idx], d, lstm);
+    T* out = dpre + b * lddp + j;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) out[g * H] = from_f<T>(d[g]);
   }
 }
 
-// d_alpha[p] = sum_e d_awe_raw[e] enc[p, e] + d_alphas[p]: one warp per
-// pixel.  Grid (B, ceil(P / 8)).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-train_dalpha_kernel(const T* __restrict__ enc, const T* __restrict__ d_awe_raw,
-                    const float* __restrict__ d_alphas, long long ldda,
-                    float* __restrict__ d_alpha, int P, int E) {
-  extern __shared__ float g_s[];  // E
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  for (int e = tid; e < E; e += blockDim.x)
+// The attention backward of step t for one image, a cluster of kCs CTAs
+// (the forward's split of the pixels): d_alpha of this CTA's pixels, the
+// image's softmax inner product summed over the cluster in rank order,
+// d_att, then the relu-mask pass over ea: d_ea (each pixel's rows owned by
+// one CTA) and this CTA's partial d_dec_raw, in pixel slices; rank r adds
+// the partials (ranks, then slices, in order) for columns [r ac, (r + 1)
+// ac): wfdec += d_dec_raw dec, ddec = rt(d_dec_raw wf).
+template <typename T, bool kVec>
+__global__ void __cluster_dims__(kCs, 1, 1) __launch_bounds__(kAttThreads)
+    train_att_bwd_kernel(const T* __restrict__ enc, const T* __restrict__ ea,
+                         const T* __restrict__ d_awe_raw,
+                         const float* __restrict__ d_alphas, long long ldda,
+                         const float* __restrict__ alphas, long long ldal,
+                         const T* __restrict__ dec, long long lddec,
+                         const float* __restrict__ wf,
+                         float* __restrict__ d_ea, float* __restrict__ wfdec,
+                         T* __restrict__ ddec, long long ldddec, int P, int E,
+                         int A, int nsl) {
+  constexpr int VE = AttV<T, kVec>::E, VA = AttV<T, kVec>::A;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int b = blockIdx.x / kCs;
+  const int pc = (P + kCs - 1) / kCs;
+  const int p0 = min(P, rank * pc), np = min(P, p0 + pc) - p0;
+  extern __shared__ float smem[];
+  float* g_s = smem;          // E: d_awe_raw
+  float* part = g_s + E;      // nsl x A: partial d_dec_raw per slice
+  float* dat = part + nsl * A;  // pc: d_alpha, then d_att
+  float* datt = dat + pc;     // pc: rt(d_att)
+  __shared__ float stat[1];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int e = tid; e < E; e += kAttThreads)
     g_s[e] = to_f(d_awe_raw[(size_t)b * E + e]);
   __syncthreads();
-  const int p = blockIdx.y * kWarps + (tid >> 5);
-  if (p >= P) return;
-  const T* row = enc + ((size_t)b * P + p) * E;
-  float acc = 0.0f;
+  for (int i = warp; i < np; i += kAttWarps) {       // a warp a pixel
+    const T* row = enc + ((size_t)b * P + p0 + i) * E;
+    float acc = 0.0f;
 #pragma unroll 4
-  for (int e = lane; e < E; e += 32) acc += g_s[e] * to_f(row[e]);
-  acc = warp_sum(acc);
-  if (lane == 0)
-    d_alpha[(size_t)b * P + p] = acc + d_alphas[b * ldda + p];
+    for (int e = lane * VE; e < E; e += 32 * VE) {
+      float x[VE];
+      ld_stream<T, VE>(row + e, x);
+#pragma unroll
+      for (int v = 0; v < VE; ++v) acc += g_s[e + v] * x[v];
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) dat[i] = acc + d_alphas[b * ldda + p0 + i];
+  }
+  __syncthreads();
+  const float* al = alphas + b * ldal + p0;
+  if (warp == 0) {
+    float inner = 0.0f;
+    for (int i = lane; i < np; i += 32) inner += dat[i] * al[i];
+    inner = warp_sum(inner);
+    if (lane == 0) stat[0] = inner;
+  }
+  cl.sync();
+  float inner = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kCs; ++r) inner += cl.map_shared_rank(stat, r)[0];
+  for (int i = tid; i < np; i += kAttThreads) {
+    const float v = al[i] * (dat[i] - inner);
+    dat[i] = v;
+    datt[i] = rt<T>(v);
+  }
+  __syncthreads();
+  const int nq = (A + VA - 1) / VA;
+  const T* dec_b = dec + b * lddec;
+  for (int w = tid; w < nq * nsl; w += kAttThreads) {
+    const int a = (w % nq) * VA, sl = w / nq;
+    float dv[VA], acc[VA];
+#pragma unroll
+    for (int v = 0; v < VA; ++v) {
+      dv[v] = to_f(dec_b[a + v]);
+      acc[v] = 0.0f;
+    }
+#pragma unroll 4
+    for (int i = sl; i < np; i += nsl) {
+      const size_t at = ((size_t)b * P + p0 + i) * A + a;
+      float x[VA], d[VA];
+      ld_stream<T, VA>(ea + at, x);
+      ld_stream<float, VA>(d_ea + at, d);
+#pragma unroll
+      for (int v = 0; v < VA; ++v) {
+        if (rt<T>(x[v] + dv[v]) > 0.0f) {
+          d[v] += dat[i];
+          acc[v] += datt[i];
+        }
+      }
+      st_stream<VA>(d_ea + at, d);
+    }
+#pragma unroll
+    for (int v = 0; v < VA; ++v) part[sl * A + a + v] = acc[v];
+  }
+  cl.sync();
+  const int ac = (A + kCs - 1) / kCs;
+  const int a1 = min(A, (rank + 1) * ac);
+  for (int a = rank * ac + tid; a < a1; a += kAttThreads) {
+    float s = 0.0f;
+    for (int r = 0; r < kCs; ++r) {
+      const float* pr = cl.map_shared_rank(part, r);
+      for (int sl = 0; sl < nsl; ++sl) s += pr[sl * A + a];
+    }
+    wfdec[(size_t)b * A + a] += s * to_f(dec_b[a]);
+    ddec[b * ldddec + a] = from_f<T>(s * wf[a]);
+  }
+  cl.sync();
 }
 
 constexpr int kColThreads = 128;
-constexpr int kBwdCols = 64, kBwdSlices = 4, kBwdUnroll = 4;
-
-// The softmax and relu-mask backward of step t.  Grid (ceil(A / 64), B),
-// 256 threads: every block of an image recomputes the (tiny) softmax
-// backward, then each of 64 attention columns is walked by 4 threads, one
-// slice of the pixels each (p = slice mod 4), with four pixels' loads in
-// flight; the slices' d_dec_raw sums add in slice order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-train_att_bwd_kernel(const T* __restrict__ ea, const T* __restrict__ dec,
-                     long long lddec, const float* __restrict__ alphas,
-                     long long ldal, const float* __restrict__ d_alpha,
-                     const float* __restrict__ wf, float* __restrict__ d_ea,
-                     float* __restrict__ wfdec, T* __restrict__ ddec,
-                     long long ldddec, int P, int A) {
-  extern __shared__ float smem[];
-  float* d_att = smem;       // P
-  float* d_att_t = smem + P; // P, rounded to T
-  __shared__ float red[kWarps];
-  __shared__ float part[kBwdSlices][kBwdCols];
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const float* al = alphas + b * ldal;
-  const float* da = d_alpha + (size_t)b * P;
-  float inner = 0.0f;
-  for (int p = tid; p < P; p += blockDim.x) inner += da[p] * al[p];
-  inner = warp_sum(inner);
-  if ((tid & 31) == 0) red[tid >> 5] = inner;
-  __syncthreads();
-  inner = 0.0f;
-  for (int w = 0; w < kWarps; ++w) inner += red[w];
-  for (int p = tid; p < P; p += blockDim.x) {
-    const float v = al[p] * (da[p] - inner);
-    d_att[p] = v;
-    d_att_t[p] = rt<T>(v);
-  }
-  __syncthreads();
-  const int c = tid % kBwdCols, sl = tid / kBwdCols;
-  const int a = blockIdx.x * kBwdCols + c;
-  float acc = 0.0f;
-  float dec_a = 0.0f;
-  if (a < A) {
-    dec_a = to_f(dec[b * lddec + a]);
-    const T* ea_b = ea + (size_t)b * P * A + a;
-    float* dea_b = d_ea + (size_t)b * P * A + a;
-    for (int p0 = sl; p0 < P; p0 += kBwdSlices * kBwdUnroll) {
-      float x[kBwdUnroll], d[kBwdUnroll];
-#pragma unroll
-      for (int u = 0; u < kBwdUnroll; ++u) {
-        const int p = p0 + u * kBwdSlices;
-        if (p < P) {
-          x[u] = to_f(ea_b[(size_t)p * A]);
-          d[u] = dea_b[(size_t)p * A];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBwdUnroll; ++u) {
-        const int p = p0 + u * kBwdSlices;
-        if (p < P && rt<T>(x[u] + dec_a) > 0.0f) {
-          dea_b[(size_t)p * A] = d[u] + d_att[p];
-          acc += d_att_t[p];
-        }
-      }
-    }
-  }
-  part[sl][c] = acc;
-  __syncthreads();
-  if (sl != 0 || a >= A) return;
-  for (int k = 1; k < kBwdSlices; ++k) acc += part[k][c];
-  wfdec[(size_t)b * A + a] += acc * dec_a;
-  ddec[b * ldddec + a] = from_f<T>(acc * wf[a]);
-}
 
 // part[b, a] = wfdec[b, a] + sum_p rt(d_ea ea); d_ea *= wf.
 // Grid (ceil(A / 128), B).
@@ -360,30 +438,45 @@ __global__ void train_wf_sum_kernel(const float* __restrict__ part,
 // Every field is 8 bytes; ops/train_cuda.py mirrors it field for field and
 // checks its size against iic_train_args_bytes().  Shapes: enc (B, P, E),
 // ea (B, P, A), emb_fac (B, T, F4), semx/semh (B, F4), h0/c0 (B, D); (B, T,
-// .) tensors are contiguous, time-major within an image.
+// .) tensors are contiguous, time-major within an image.  The packed
+// weights are ops/train_cuda.py's (rows, ld) K-major forms.
 struct TrainArgs {
-  long long B, T, P, E, A, D, F4, lstm, esplit, split_cap;
+  long long B, T, P, E, A, D, F4, lstm, split_cap;
+  long long ldw1, ldwxa, ldwg, fp, ldwxan;
   const void *enc, *ea, *emb_fac, *semx, *semh, *h0, *c0;
-  const void *whcat, *bhcat, *wda, *bda, *wf, *wfb, *bfb, *wxa, *wh, *wxp,
-      *whp, *bx, *bh;
+  // the weights as the JAX package lays them out (the backward's products
+  // read wda, wfb, wxa, wh, wxp, whp in place), biases and wf
+  const void *wda, *bda, *wf, *wfb, *bfb, *wxa, *wh, *wxp, *whp, *bx, *bh;
+  const void* bxh;  // bx + bh, float32 (the forward's cell)
+  // forward packs: w1 = [wda | wfb | wh]^T, wxa^T (SCN: as is; LSTM: gate
+  // interleaved), SCN gates [wxp_g | whp_g]^T interleaved (halves fp apart)
+  const void *w1, *wxa_p, *wg;
+  // pass A's packs (mma.cuh, hi and lo at float32): w1, wxa^T as is, and
+  // wxp^T, whp^T per gate (step_cuda.pack_tc)
+  const void *w1_hi, *w1_lo, *wxan_hi, *wxan_lo, *wxp_hi, *wxp_lo, *whp_hi,
+      *whp_lo;
   void *h_all, *c_all, *alphas, *awe_raw;  // forward out, backward in
   const void *h_prev, *d_hall, *d_alphas;  // backward in; h_prev (B*T, D)
   void *d_ea, *d_emb, *d_semx, *d_semh, *dh, *dc, *d_wf;  // backward out
   void *awe, *xfac, *hfac, *dpre, *dhfr, *dfb, *ddec;     // streams (B*T, .)
-  // forward scratch: hall (B, A+E) f32, scores (B, P) f32, gawe (B, E),
-  // xin/xfac/hfac (B, F4), pre (B, 4D) f32
-  void *s_hall, *s_scores, *s_gawe, *s_xin, *s_xfac, *s_hfac, *s_pre;
+  // forward scratch: hall (B, A+E) f32, hh (B, 4D) f32 (LSTM), gawe (B,
+  // E), xfac/hfac (B, F4)
+  void *s_hall, *s_hh, *s_gawe, *s_xfac, *s_hfac;
   // backward scratch: dec (B*T, A), gate (B*T, E) f32, xin (B*T, F4),
   // hfac_raw (B*T, F4) f32, pre (B*T, 4D) f32, d_awe_raw (B, E),
-  // d_alpha (B, P) f32, wfdec (B, A) f32, part (B, A) f32
+  // wfdec (B, A) f32, part (B, A) f32
   void *s_dec, *s_gate, *s_xin_all, *s_hfac_raw, *s_pre_all, *s_d_awe_raw,
-      *s_d_alpha, *s_wfdec, *s_part;
-  void* s_split;  // the GEMM's split-K partials, split_cap floats
+      *s_wfdec, *s_part;
+  void* s_split;    // pass A's split-K partials, split_cap floats
 };
 
-#define IIC_TRY(x)            \
-  do {                        \
-    const int err_ = (x);     \
+// Launches of the last forward call, of the last backward's reverse loop
+// and of the rest of that backward (ops/train_cuda.py last_launches).
+static long long g_launches[3] = {0, 0, 0};
+
+#define IIC_TRY(x)              \
+  do {                          \
+    const int err_ = (x);       \
     if (err_ != 0) return err_; \
   } while (0)
 
@@ -397,242 +490,336 @@ static inline GemmArgs gemm_args(const TrainArgs& r, int M, int N, int epi) {
   return g;
 }
 
-static inline void src(GemmArgs& g, int s, const void* a, long long lda,
-                       const void* w, long long ldw, int k, int wt = 0) {
+// Source s of a pass-A product: A (M, lda) times the packed W (N, K)
+// rows from `row` on, hi and lo parts.
+template <typename T>
+static void src_tc(GemmArgs& g, int s, const void* a, long long lda,
+                   const void* hi, const void* lo, long long ldw,
+                   long long row, int k) {
   g.a[s] = a;
   g.lda[s] = lda;
-  g.w[s] = w;
+  g.w[s] = (const T*)hi + row * ldw;
+  g.w_lo[s] = lo ? (const void*)((const T*)lo + row * ldw) : nullptr;
   g.ldw[s] = ldw;
   g.k[s] = k;
-  g.wt[s] = wt;
+  g.wt[s] = 1;
+}
+
+static SmallProb small_prob(int rows, int epi) {
+  SmallProb p = {};
+  p.rows = rows;
+  p.nz = 1;
+  p.group = 1;
+  p.lt_rows = kSmM;
+  p.epi = epi;
+  return p;
+}
+
+// Source s of a small product: x (batch rows, ldx) times W (wrows rows,
+// ldw), K = k.
+static void small_src(SmallProb& p, const void* x, long long ldx,
+                      const void* w, long long ldw, long long wrows, int k) {
+  const int s = p.nsrc++;
+  p.x[s] = x;
+  p.ldx[s] = ldx;
+  p.w[s] = w;
+  p.ldw[s] = ldw;
+  p.wrows[s] = wrows;
+  p.k[s] = k;
+}
+
+// The gate-interleaved packs: z-slice g of 64-row tile u at rows (4 u + g)
+// 64 (ops/train_cuda.py pack_gates).
+static void gates_interleaved(SmallProb& p) {
+  p.nz = 4;
+  p.group = 4;
+  p.z_rows = kSmM;
+  p.lt_rows = 4 * kSmM;
 }
 
 template <typename T>
-static const T* at(const void* base, long long offset) {
-  return (const T*)base + offset;
+static int small(const TrainArgs& r, const SmallProb& p0,
+                 const SmallProb* p1, cudaStream_t s, int slot) {
+  SmallLaunch L = {};
+  L.p[0] = p0;
+  L.nprob = 1;
+  if (p1 != nullptr) L.p[L.nprob++] = *p1;
+  L.B = (int)r.B;
+  ++g_launches[slot];
+  return launch_small_epi<T>(L, s);
 }
 
-template <typename T>
-static T* at(void* base, long long offset) {
-  return (T*)base + offset;
+template <typename T, bool kVec>
+static int launch_attend(const TrainArgs& r, int t, cudaStream_t s) {
+  const int P = r.P, E = r.E, A = r.A;
+  const int pc = (P + kCs - 1) / kCs;
+  const size_t smem = sizeof(float) * (2 * A + E + pc);
+  IIC_TRY(allow_smem(train_attend_kernel<T, kVec>, smem));
+  train_attend_kernel<T, kVec><<<(int)r.B * kCs, kAttThreads, smem, s>>>(
+      (const T*)r.enc, (const T*)r.ea, (const float*)r.s_hall, A + E,
+      (const float*)r.wf, (float*)r.alphas + (long long)t * P,
+      (long long)r.T * P, (T*)r.awe_raw + (long long)t * E,
+      (long long)r.T * E, (T*)r.s_gawe, P, E, A);
+  ++g_launches[0];
+  return (int)cudaGetLastError();
 }
 
-static int blocks_for(long long n, int threads) {
-  return (int)((n + threads - 1) / threads);
+template <typename T, bool kVec>
+static int launch_att_bwd(const TrainArgs& r, int t, cudaStream_t s) {
+  const int P = r.P, E = r.E, A = r.A;
+  const int pc = (P + kCs - 1) / kCs;
+  const int nq = (A + AttV<T, kVec>::A - 1) / AttV<T, kVec>::A;
+  const int nsl = std::max(1, std::min(kMaxSlices, kAttThreads / nq));
+  const size_t smem = sizeof(float) * (E + nsl * A + 2 * pc);
+  IIC_TRY(allow_smem(train_att_bwd_kernel<T, kVec>, smem));
+  const long long TP = r.T * P, TA = r.T * A;
+  train_att_bwd_kernel<T, kVec><<<(int)r.B * kCs, kAttThreads, smem, s>>>(
+      (const T*)r.enc, (const T*)r.ea, (const T*)r.s_d_awe_raw,
+      (const float*)r.d_alphas + (long long)t * P, TP,
+      (const float*)r.alphas + (long long)t * P, TP,
+      (const T*)r.s_dec + (long long)t * A, TA, (const float*)r.wf,
+      (float*)r.d_ea, (float*)r.s_wfdec, (T*)r.ddec + (long long)t * A, TA,
+      P, E, A, nsl);
+  ++g_launches[1];
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int train_fwd(const TrainArgs& r, cudaStream_t s) {
-  const int B = r.B, T_ = r.T, P = r.P, E = r.E, A = r.A, D = r.D;
-  const int F4 = r.F4, H = D, F = F4 / 4, AE = A + E;
+  const int T_ = r.T, E = r.E, A = r.A, D = r.D;
+  const int F4 = r.F4, H = D, F = F4 / 4;
   const int lstm = (int)r.lstm;
-  const size_t smem_sc = sizeof(float) * 2 * A, smem_at = sizeof(float) * 2 * P;
-  IIC_TRY(allow_smem(train_scores_kernel<T>, smem_sc));
-  IIC_TRY(allow_smem(train_attend_kernel<T>, smem_at));
-  const int e_chunk = (E + (int)r.esplit - 1) / (int)r.esplit;
+  const int Nh = lstm ? 4 * H : F4;    // the h @ wh columns of w1
+  const int Hp = (H + kSmM - 1) / kSmM * kSmM;   // a gate pack's units
+  const bool vec = att_vec<T>(E, A);
+  g_launches[0] = 0;
   for (int t = 0; t < T_; ++t) {
-    const void* hp = t == 0 ? r.h0 : at<T>(r.h_all, (long long)(t - 1) * D);
-    const void* cp = t == 0 ? r.c0 : at<T>(r.c_all, (long long)(t - 1) * D);
+    const T* hp = t == 0 ? (const T*)r.h0 : (const T*)r.h_all + (t - 1) * D;
+    const T* cp = t == 0 ? (const T*)r.c0 : (const T*)r.c_all + (t - 1) * D;
     const long long ldh = t == 0 ? D : (long long)T_ * D;
-    GemmArgs g = gemm_args(r, B, AE, kEpiPre);
-    src(g, 0, hp, ldh, r.whcat, AE, D);
-    g.bias1 = r.bhcat;
-    g.c = r.s_hall, g.ldc = AE, g.c_f32 = 1;
-    IIC_TRY(launch_gemm<T>(g, 1, s));
-    train_scores_kernel<T><<<dim3(B, (P + kWarps - 1) / kWarps), kThreads,
-                             smem_sc, s>>>(
-        (const T*)r.ea, (const float*)r.s_hall, AE, (const float*)r.wf,
-        (float*)r.s_scores, P, A);
-    IIC_TRY((int)cudaGetLastError());
-    train_attend_kernel<T><<<dim3(B, r.esplit), kThreads, smem_at, s>>>(
-        (const T*)r.enc, (const float*)r.s_scores, (const float*)r.s_hall, AE,
-        A, at<float>(r.alphas, (long long)t * P), (long long)T_ * P,
-        at<T>(r.awe_raw, (long long)t * E), (long long)T_ * E, (T*)r.s_gawe,
-        P, E, e_chunk);
-    IIC_TRY((int)cudaGetLastError());
-    g = gemm_args(r, B, F4, kEpiAddMul);
-    src(g, 0, r.s_gawe, E, r.wxa, F4, E);
-    g.aux = at<T>(r.emb_fac, (long long)t * F4), g.ldaux = (long long)T_ * F4;
-    g.c = r.s_xin, g.ldc = F4;
-    if (!lstm) {
-      g.aux2 = r.semx, g.ldaux2 = F4, g.aux2_div = 1;
-      g.c2 = r.s_xfac, g.ldc2 = F4;
-    }
-    IIC_TRY(launch_gemm<T>(g, 1, s));
-    if (!lstm) {
-      g = gemm_args(r, B, F4, kEpiMul);
-      src(g, 0, hp, ldh, r.wh, F4, D);
-      g.aux = r.semh, g.ldaux = F4;
-      g.c = r.s_hfac, g.ldc = F4;
-      IIC_TRY(launch_gemm<T>(g, 1, s));
-      g = gemm_args(r, B, H, kEpiPre);   // the four gates as gridDim.z
-      src(g, 0, r.s_xfac, F4, r.wxp, H, F);
-      src(g, 1, r.s_hfac, F4, r.whp, H, F);
-      g.bias1 = r.bx, g.bias2 = r.bh;
-      g.c = r.s_pre, g.ldc = 4 * H, g.c_f32 = 1;
-      g.za = F, g.zw = (long long)F * H, g.zc = H, g.zb = H;
-      IIC_TRY(launch_gemm<T>(g, 4, s));
+    T* h_out = (T*)r.h_all + (long long)t * D;
+    T* c_out = (T*)r.c_all + (long long)t * D;
+    // hall | hfac (SCN) or hh (LSTM)
+    SmallProb p = small_prob(A + E + Nh, kSmHall);
+    small_src(p, hp, ldh, r.w1, r.ldw1, A + E + Nh, D);
+    p.n1 = A, p.n2 = A + E, p.lstm = lstm;
+    p.bias1 = r.bda, p.bias2 = r.bfb;
+    p.out = r.s_hall, p.ldo = A + E;
+    if (lstm) {
+      p.out2 = r.s_hh, p.ldo2 = 4 * H;
     } else {
-      g = gemm_args(r, B, 4 * H, kEpiPre);
-      src(g, 0, hp, ldh, r.wh, 4 * H, D);
-      g.bias1 = r.bx, g.bias2 = r.bh;
-      g.aux = r.s_xin, g.ldaux = 4 * H;
-      g.c = r.s_pre, g.ldc = 4 * H, g.c_f32 = 1;
-      IIC_TRY(launch_gemm<T>(g, 1, s));
+      p.aux = r.semh, p.ldaux = F4;
+      p.out2 = r.s_hfac, p.ldo2 = F4;
     }
-    train_cell_kernel<T><<<blocks_for((long long)B * H, 256), 256, 0, s>>>(
-        (const float*)r.s_pre, (const T*)cp, ldh,
-        at<T>(r.h_all, (long long)t * D), at<T>(r.c_all, (long long)t * D),
-        (long long)T_ * D, B, H, lstm);
-    IIC_TRY((int)cudaGetLastError());
+    IIC_TRY(small<T>(r, p, nullptr, s, 0));
+    IIC_TRY((vec ? launch_attend<T, true>(r, t, s)
+                 : launch_attend<T, false>(r, t, s)));
+    const T* emb_t = (const T*)r.emb_fac + (long long)t * F4;
+    if (lstm) {   // gawe @ wxa, the cell in the epilogue
+      p = small_prob(H, kSmCell);
+      gates_interleaved(p);
+      small_src(p, r.s_gawe, E, r.wxa_p, r.ldwxa, 4 * Hp, E);
+      p.lstm = 1;
+      p.aux = emb_t, p.ldaux = (long long)T_ * F4;
+      p.aux2 = r.s_hh, p.ldaux2 = 4 * H;
+    } else {      // xfac, then the gates with the cell in the epilogue
+      p = small_prob(F4, kSmXfac);
+      small_src(p, r.s_gawe, E, r.wxa_p, r.ldwxa, F4, E);
+      p.aux = emb_t, p.ldaux = (long long)T_ * F4;
+      p.aux2 = r.semx, p.ldaux2 = F4;
+      p.out = r.s_xfac, p.ldo = F4;
+      IIC_TRY(small<T>(r, p, nullptr, s, 0));
+      p = small_prob(H, kSmCell);
+      gates_interleaved(p);
+      p.zx = F;
+      small_src(p, r.s_xfac, F4, r.wg, r.ldwg, 4 * Hp, F);
+      small_src(p, r.s_hfac, F4, (const T*)r.wg + r.fp, r.ldwg, 4 * Hp, F);
+    }
+    p.bias1 = r.bxh;
+    p.aux3 = cp, p.ldaux3 = ldh;
+    p.out = h_out, p.ldo = (long long)T_ * D;
+    p.out2 = c_out, p.ldo2 = (long long)T_ * D;
+    IIC_TRY(small<T>(r, p, nullptr, s, 0));
   }
   return 0;
 }
 
 template <typename T>
 static int train_bwd(const TrainArgs& r, cudaStream_t s) {
-  const int B = r.B, T_ = r.T, P = r.P, E = r.E, A = r.A, D = r.D;
+  const int B = r.B, T_ = r.T, E = r.E, A = r.A, D = r.D;
   const int F4 = r.F4, H = D, F = F4 / 4, M = B * T_;
   const int lstm = (int)r.lstm;
-  const long long TD = (long long)T_ * D, TP = (long long)T_ * P;
-  const size_t smem_da = sizeof(float) * E, smem_ab = sizeof(float) * 2 * P;
-  IIC_TRY(allow_smem(train_dalpha_kernel<T>, smem_da));
-  IIC_TRY(allow_smem(train_att_bwd_kernel<T>, smem_ab));
+  const int N4 = lstm ? 4 * H : F4;    // wxa's and wh's output width
+  const long long TD = (long long)T_ * D, T4 = (long long)T_ * 4 * H;
+  const bool vec = att_vec<T>(E, A);
+  g_launches[1] = g_launches[2] = 0;
+  const int tc0 = tc_launches;
 
   // ---- pass A: the recompute, at M = B*T rows ----
   GemmArgs g = gemm_args(r, M, A, kEpiBias);
-  src(g, 0, r.h_prev, D, r.wda, A, D);
+  src_tc<T>(g, 0, r.h_prev, D, r.w1_hi, r.w1_lo, r.ldw1, 0, D);
   g.bias1 = r.bda;
   g.c = r.s_dec, g.ldc = A;
-  IIC_TRY(launch_gemm<T>(g, 1, s));
+  IIC_TRY(launch_gemm_tc<T>(g, 1, s));
   g = gemm_args(r, M, E, kEpiGate);
-  src(g, 0, r.h_prev, D, r.wfb, E, D);
+  src_tc<T>(g, 0, r.h_prev, D, r.w1_hi, r.w1_lo, r.ldw1, A, D);
   g.bias1 = r.bfb;
   g.aux = r.awe_raw, g.ldaux = E;
   g.c = r.s_gate, g.ldc = E, g.c_f32 = 1;
   g.c2 = r.awe, g.ldc2 = E;
-  IIC_TRY(launch_gemm<T>(g, 1, s));
-  g = gemm_args(r, M, F4, kEpiAddMul);
-  src(g, 0, r.awe, E, r.wxa, F4, E);
-  g.aux = r.emb_fac, g.ldaux = F4;
-  g.c = r.s_xin_all, g.ldc = F4;
+  IIC_TRY(launch_gemm_tc<T>(g, 1, s));
+  g = gemm_args(r, M, N4, kEpiAddMul);
+  src_tc<T>(g, 0, r.awe, E, r.wxan_hi, r.wxan_lo, r.ldwxan, 0, E);
+  g.aux = r.emb_fac, g.ldaux = N4;
+  g.c = r.s_xin_all, g.ldc = N4;
   if (!lstm) {
     g.aux2 = r.semx, g.ldaux2 = F4, g.aux2_div = T_;
     g.c2 = r.xfac, g.ldc2 = F4;
   }
-  IIC_TRY(launch_gemm<T>(g, 1, s));
+  IIC_TRY(launch_gemm_tc<T>(g, 1, s));
   if (!lstm) {
     g = gemm_args(r, M, F4, kEpiRawMul);
-    src(g, 0, r.h_prev, D, r.wh, F4, D);
+    src_tc<T>(g, 0, r.h_prev, D, r.w1_hi, r.w1_lo, r.ldw1, A + E, D);
     g.aux2 = r.semh, g.ldaux2 = F4, g.aux2_div = T_;
     g.c = r.s_hfac_raw, g.ldc = F4, g.c_f32 = 1;
     g.c2 = r.hfac, g.ldc2 = F4;
-    IIC_TRY(launch_gemm<T>(g, 1, s));
-    g = gemm_args(r, M, H, kEpiPre);
-    src(g, 0, r.xfac, F4, r.wxp, H, F);
-    src(g, 1, r.hfac, F4, r.whp, H, F);
+    IIC_TRY(launch_gemm_tc<T>(g, 1, s));
+    g = gemm_args(r, M, H, kEpiPre);   // the four gates as z
+    src_tc<T>(g, 0, r.xfac, F4, r.wxp_hi, r.wxp_lo, F, 0, F);
+    src_tc<T>(g, 1, r.hfac, F4, r.whp_hi, r.whp_lo, F, 0, F);
     g.bias1 = r.bx, g.bias2 = r.bh;
     g.c = r.s_pre_all, g.ldc = 4 * H, g.c_f32 = 1;
-    g.za = F, g.zw = (long long)F * H, g.zc = H, g.zb = H;
-    IIC_TRY(launch_gemm<T>(g, 4, s));
+    g.za = F, g.zw = (long long)H * F, g.zc = H, g.zb = H;
+    IIC_TRY(launch_gemm_tc<T>(g, 4, s));
   } else {
     g = gemm_args(r, M, 4 * H, kEpiPre);
-    src(g, 0, r.h_prev, D, r.wh, 4 * H, D);
+    src_tc<T>(g, 0, r.h_prev, D, r.w1_hi, r.w1_lo, r.ldw1, A + E, D);
     g.bias1 = r.bx, g.bias2 = r.bh;
     g.aux = r.s_xin_all, g.ldaux = 4 * H;
     g.c = r.s_pre_all, g.ldc = 4 * H, g.c_f32 = 1;
-    IIC_TRY(launch_gemm<T>(g, 1, s));
+    IIC_TRY(launch_gemm_tc<T>(g, 1, s));
+  }
+  g_launches[2] += tc_launches - tc0;
+
+  // ---- the cell backward of the last step (dh = 0) ----
+  {
+    const int t = T_ - 1;
+    const void* cp = t == 0 ? r.c0 : (const T*)r.c_all + (t - 1) * D;
+    train_cell_bwd_kernel<T><<<(B * H + 255) / 256, 256, 0, s>>>(
+        (const float*)r.s_pre_all + (long long)t * 4 * H, T4,
+        (const T*)r.c_all + (long long)t * D, (const T*)cp, t == 0 ? D : TD,
+        (const T*)r.d_hall + (long long)t * D, TD, (const float*)r.dh,
+        (float*)r.dc, (T*)r.dpre + (long long)t * 4 * H, T4, B, H, lstm);
+    ++g_launches[2];
+    IIC_TRY((int)cudaGetLastError());
   }
 
   // ---- the reverse scan ----
   for (int t = T_ - 1; t >= 0; --t) {
-    const void* cp = t == 0 ? r.c0 : at<T>(r.c_all, (long long)(t - 1) * D);
-    train_cell_bwd_kernel<T><<<blocks_for((long long)B * H, 256), 256, 0,
-                               s>>>(
-        at<float>(r.s_pre_all, (long long)t * 4 * H), (long long)T_ * 4 * H,
-        at<T>(r.c_all, (long long)t * D), (const T*)cp, t == 0 ? D : TD,
-        at<T>(r.d_hall, (long long)t * D), TD, (const float*)r.dh,
-        (float*)r.dc, at<T>(r.dpre, (long long)t * 4 * H),
-        (long long)T_ * 4 * H, B, H, lstm);
-    IIC_TRY((int)cudaGetLastError());
-    const void* dpre_t = at<T>(r.dpre, (long long)t * 4 * H);
+    const T* dpre_t = (const T*)r.dpre + (long long)t * 4 * H;
     const void* dxin = dpre_t;
-    long long lddx = (long long)T_ * 4 * H;
-    if (!lstm) {
+    long long lddx = T4;
+    if (!lstm) {   // the two factor products, one launch
       const long long ldf = (long long)T_ * F4;
-      for (int branch = 0; branch < 2; ++branch) {
-        // x: d_emb = rt(d_xfac semx), d_semx += d_xfac xin
-        // h: dhfr = rt(d_hfac semh),  d_semh += d_hfac hfac_raw
-        g = gemm_args(r, B, F, kEpiFacBwd);
-        src(g, 0, dpre_t, (long long)T_ * 4 * H, branch ? r.whp : r.wxp, H,
-            H, /*wt=*/1);
-        g.za = H, g.zw = (long long)F * H, g.zc = F;
-        g.aux = branch ? r.semh : r.semx, g.ldaux = F4;
-        g.aux2 = branch ? (const void*)at<float>(r.s_hfac_raw,
-                                                 (long long)t * F4)
-                        : (const void*)at<T>(r.s_xin_all, (long long)t * F4);
-        g.ldaux2 = ldf, g.aux2_div = 1, g.aux2_f32 = branch;
-        g.acc = (float*)(branch ? r.d_semh : r.d_semx), g.ldacc = F4;
-        g.c = branch ? at<T>(r.dhfr, (long long)t * F4)
-                     : at<T>(r.d_emb, (long long)t * F4);
-        g.ldc = ldf;
-        IIC_TRY(launch_gemm<T>(g, 4, s));
-      }
-      dxin = at<T>(r.d_emb, (long long)t * F4);
+      SmallProb px = small_prob(F, kSmFac);
+      px.nz = 4, px.z_rows = F, px.zx = H;
+      small_src(px, dpre_t, T4, r.wxp, H, F4, H);
+      SmallProb ph = px;
+      px.aux = r.semx, px.ldaux = F4;
+      px.aux2 = (const T*)r.s_xin_all + (long long)t * F4, px.ldaux2 = ldf;
+      px.acc = (float*)r.d_semx, px.ldacc = F4;
+      px.out = (T*)r.d_emb + (long long)t * F4, px.ldo = ldf;
+      ph.w[0] = r.whp;
+      ph.aux = r.semh, ph.ldaux = F4;
+      ph.aux2 = (const float*)r.s_hfac_raw + (long long)t * F4;
+      ph.ldaux2 = ldf, ph.aux2_f32 = 1;
+      ph.acc = (float*)r.d_semh, ph.ldacc = F4;
+      ph.out = (T*)r.dhfr + (long long)t * F4, ph.ldo = ldf;
+      IIC_TRY(small<T>(r, px, &ph, s, 1));
+      dxin = (const T*)r.d_emb + (long long)t * F4;
       lddx = ldf;
     }
     // d_awe = d_xin @ wxa^T -> dfb, d_awe_raw
-    g = gemm_args(r, B, E, kEpiGateBwd);
-    src(g, 0, dxin, lddx, r.wxa, F4, F4, /*wt=*/1);
-    g.aux = at<T>(r.awe_raw, (long long)t * E), g.ldaux = (long long)T_ * E;
-    g.aux2 = at<float>(r.s_gate, (long long)t * E);
-    g.ldaux2 = (long long)T_ * E, g.aux2_div = 1, g.aux2_f32 = 1;
-    g.c = at<T>(r.dfb, (long long)t * E), g.ldc = (long long)T_ * E;
-    g.c2 = r.s_d_awe_raw, g.ldc2 = E;
-    IIC_TRY(launch_gemm<T>(g, 1, s));
-    train_dalpha_kernel<T><<<dim3(B, (P + kWarps - 1) / kWarps), kThreads,
-                             smem_da, s>>>(
-        (const T*)r.enc, (const T*)r.s_d_awe_raw,
-        at<float>(r.d_alphas, (long long)t * P), TP, (float*)r.s_d_alpha, P,
-        E);
-    IIC_TRY((int)cudaGetLastError());
-    train_att_bwd_kernel<T><<<dim3((A + kBwdCols - 1) / kBwdCols, B),
-                              kThreads, smem_ab, s>>>(
-        (const T*)r.ea, at<T>(r.s_dec, (long long)t * A), (long long)T_ * A,
-        at<float>(r.alphas, (long long)t * P), TP,
-        (const float*)r.s_d_alpha, (const float*)r.wf, (float*)r.d_ea,
-        (float*)r.s_wfdec, at<T>(r.ddec, (long long)t * A), (long long)T_ * A,
-        P, A);
-    IIC_TRY((int)cudaGetLastError());
-    // dh = [dhfr | dfb | ddec] @ [wh ; wfb ; wda]^T  (LSTM: dpre for dhfr)
-    g = gemm_args(r, B, D, kEpiPre);
+    const long long TE = (long long)T_ * E;
+    SmallProb p = small_prob(E, kSmGateBwd);
+    small_src(p, dxin, lddx, r.wxa, N4, E, N4);
+    p.aux = (const T*)r.awe_raw + (long long)t * E, p.ldaux = TE;
+    p.aux2 = (const float*)r.s_gate + (long long)t * E, p.ldaux2 = TE;
+    p.out = (T*)r.dfb + (long long)t * E, p.ldo = TE;
+    p.out2 = r.s_d_awe_raw, p.ldo2 = E;
+    IIC_TRY(small<T>(r, p, nullptr, s, 1));
+    IIC_TRY((vec ? launch_att_bwd<T, true>(r, t, s)
+                 : launch_att_bwd<T, false>(r, t, s)));
+    // dh = [dhfr | dfb | ddec] @ [wh ; wfb ; wda]^T (LSTM: dpre for dhfr),
+    // then the cell backward of step t - 1
+    p = small_prob(D, kSmDh);
     if (!lstm)
-      src(g, 0, at<T>(r.dhfr, (long long)t * F4), (long long)T_ * F4, r.wh,
-          F4, F4, /*wt=*/1);
+      small_src(p, (const T*)r.dhfr + (long long)t * F4, (long long)T_ * F4,
+                r.wh, F4, D, F4);
     else
-      src(g, 0, dpre_t, (long long)T_ * 4 * H, r.wh, 4 * H, 4 * H, 1);
-    src(g, 1, at<T>(r.dfb, (long long)t * E), (long long)T_ * E, r.wfb, E, E,
-        1);
-    src(g, 2, at<T>(r.ddec, (long long)t * A), (long long)T_ * A, r.wda, A,
-        A, 1);
-    g.c = r.dh, g.ldc = D, g.c_f32 = 1;
-    IIC_TRY(launch_gemm<T>(g, 1, s));
+      small_src(p, dpre_t, T4, r.wh, 4 * H, D, 4 * H);
+    small_src(p, (const T*)r.dfb + (long long)t * E, TE, r.wfb, E, D, E);
+    small_src(p, (const T*)r.ddec + (long long)t * A, (long long)T_ * A,
+              r.wda, A, D, A);
+    if (t == 0) {
+      p.out = r.dh, p.ldo = D;
+    } else {
+      p.n1 = 1, p.lstm = lstm;
+      p.aux2 = (const float*)r.s_pre_all + (long long)(t - 1) * 4 * H;
+      p.ldaux2 = T4;
+      p.aux = (const T*)r.c_all + (long long)(t - 1) * D, p.ldaux = TD;
+      p.aux3 = t == 1 ? r.c0 : (const T*)r.c_all + (long long)(t - 2) * D;
+      p.ldaux3 = t == 1 ? D : TD;
+      p.aux4 = (const T*)r.d_hall + (long long)(t - 1) * D, p.ldaux4 = TD;
+      p.acc = (float*)r.dc, p.ldacc = D;
+      p.out2 = (T*)r.dpre + (long long)(t - 1) * 4 * H, p.ldo2 = T4;
+    }
+    IIC_TRY(small<T>(r, p, nullptr, s, 1));
   }
 
   // ---- finalize: the wf gradient and d_ea *= wf ----
   const dim3 grid_a((A + kColThreads - 1) / kColThreads, B);
   train_wf_part_kernel<T><<<grid_a, kColThreads, 0, s>>>(
       (float*)r.d_ea, (const T*)r.ea, (const float*)r.wf,
-      (const float*)r.s_wfdec, (float*)r.s_part, P, A);
+      (const float*)r.s_wfdec, (float*)r.s_part, r.P, A);
   IIC_TRY((int)cudaGetLastError());
-  train_wf_sum_kernel<<<blocks_for(A, kColThreads), kColThreads, 0, s>>>(
-      (const float*)r.s_part, (float*)r.d_wf, B, A);
+  train_wf_sum_kernel<<<(A + kColThreads - 1) / kColThreads, kColThreads, 0,
+                        s>>>((const float*)r.s_part, (float*)r.d_wf, B, A);
+  g_launches[2] += 2;
   return (int)cudaGetLastError();
 }
 
 }  // namespace iic
 
 extern "C" int iic_train_args_bytes() { return (int)sizeof(iic::TrainArgs); }
+
+// Launches of the last call: 0 the forward's, 1 the backward's reverse
+// loop, 2 the rest of the backward (pass A's products and the cell and
+// finalize kernels).
+extern "C" int iic_train_launches(int which) {
+  return which >= 0 && which < 3 ? (int)iic::g_launches[which] : -1;
+}
+
+// The per-step GEMM alone, for the card tests: out (B, N) float32 = x (B,
+// K) @ w (N, K)^T, w K-major.
+extern "C" int iic_small_gemm(int dtype, const void* x, long long ldx,
+                              const void* w, long long ldw, int B, int N,
+                              int K, void* out, void* stream) {
+  iic::SmallLaunch L = {};
+  L.nprob = 1;
+  L.B = B;
+  iic::SmallProb& p = L.p[0];
+  p = iic::small_prob(N, iic::kSmPlain);
+  iic::small_src(p, x, ldx, w, ldw, N, K);
+  p.out = out;
+  p.ldo = N;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == iic::kF32)
+    return iic::launch_small<float, iic::kSmPlain>(L, s);
+  if (dtype == iic::kBF16)
+    return iic::launch_small<__nv_bfloat16, iic::kSmPlain>(L, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // Run the whole forward scan (every step's launches) on the stream.
 // Returns the first failing launch's CUDA error code, 0 on success.

@@ -53,6 +53,8 @@ SIGNATURES = {
         "iic_train_args_bytes": [],
         "iic_train_fwd": [_I, _P, _P],
         "iic_train_bwd": [_I, _P, _P],
+        "iic_train_launches": [_I],
+        "iic_small_gemm": [_I, _P, _L, _P, _L, _I, _I, _I, _P, _P],
     },
     "span": {
         "iic_span_args_bytes": [],

@@ -5,8 +5,18 @@ Replaces ``ops/train_pallas.py`` of the JAX package: the forward
 ``_train_scan`` and here as one ``torch.autograd.Function``.  Both
 attention-bearing cells are covered, SCN (``attention_scn``) and the torch
 LSTM (``pure_attention``); ``pure_scn`` keeps the eager scan, as in JAX.
-What bounds the kernels on the H100 and what their design does about it is
-noted at the top of ``csrc/train.cu``.
+
+Each time step is a short chain of launches (forward: 4 for SCN, 3 for
+the LSTM; backward: 4 and 3, after one pass of (B*T)-row products): the
+32-row products on a swap-AB tensor-core GEMM (``csrc/mma_small.cuh``,
+3xTF32 at float32), the attention step as one thread-block cluster per
+image, the cell in the epilogue of the gate product and its backward in
+the epilogue of the dh product.  What bounds the kernels on the H100 (the
+encoder state streamed every step, the weights re-read from L2, the
+chain's launches) and what the design does about it is noted at the top
+of ``csrc/train.cu``.  The weights reach the kernels in packed, K-major
+forms (:func:`pack_fwd`, :func:`pack_bwd`) made anew on every call, since
+the optimizer updates them in place between steps.
 
 The contracts of the JAX pair hold:
 
@@ -34,7 +44,6 @@ from typing import Dict
 import torch
 
 from . import _build
-from .attention_cuda import _esplit
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COMMON = ("wda", "bda", "wf", "wfb", "bfb", "wxa", "wh", "bx", "bh")
@@ -302,40 +311,143 @@ def stream_weight_grads(streams, h_prev, *, cell: str):
     return g
 
 
+# ------------------------------------------------------- the kernels' packs
+
+KPAD = 8         # packed rows are padded to a multiple of 8 values (16 bytes)
+GATE_TILE = 64   # csrc/mma_small.cuh kSmM: the rows of one output tile
+
+
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pack_kmajor(w: torch.Tensor, dt) -> torch.Tensor:
+    """A weight (K, N) as the small GEMM (csrc/mma_small.cuh) reads it: its
+    transpose (N, K) in dt, each row padded with zeros to a multiple of
+    KPAD values, so every row starts on 16 bytes."""
+    K, N = w.shape
+    out = torch.zeros((N, _ceil(K, KPAD)), dtype=dt, device=w.device)
+    out[:, :K] = w.t()
+    return out
+
+
+def unpack_kmajor(p: torch.Tensor, K: int) -> torch.Tensor:
+    return p[:, :K].t()
+
+
+def pack_gates(w: torch.Tensor, H: int, dt) -> torch.Tensor:
+    """A four-gate weight (K, 4H) (gate g in columns g H .. g H + H - 1) as
+    pack_kmajor packs it, its rows gate-interleaved: row (4 u + g) 64 + j
+    holds unit u 64 + j of gate g, so that the four gates of 64 units are
+    four neighbouring output tiles whose sums one epilogue sees (the cell).
+    Units past H are zero rows."""
+    K = w.shape[0]
+    Hp = _ceil(H, GATE_TILE)
+    t = torch.zeros((4, Hp, _ceil(K, KPAD)), dtype=dt, device=w.device)
+    t[:, :H, :K] = w.t().reshape(4, H, K)
+    return t.reshape(4, Hp // GATE_TILE, GATE_TILE, -1).transpose(0, 1) \
+        .reshape(4 * Hp, -1).contiguous()
+
+
+def unpack_gates(p: torch.Tensor, K: int, H: int) -> torch.Tensor:
+    Hp = _ceil(H, GATE_TILE)
+    t = p.reshape(Hp // GATE_TILE, 4, GATE_TILE, -1).transpose(0, 1)
+    return t.reshape(4, Hp, -1)[:, :H, :K].reshape(4 * H, K).t()
+
+
+def pack_scn_gates(wxp: torch.Tensor, whp: torch.Tensor, dt) -> torch.Tensor:
+    """The SCN gate weights wxp, whp (4F, H) as one gate-interleaved pack
+    (pack_gates) over K = [xfac_g | hfac_g]: row (unit, gate g) holds
+    wxp[g F:(g + 1) F, unit], zero-padded to Fp = ceil(F / KPAD) KPAD
+    values, then whp's, so the hfac half starts Fp values in."""
+    F4, H = wxp.shape
+    F, Fp = F4 // 4, _ceil(F4 // 4, KPAD)
+    cat = torch.zeros((2 * Fp, 4, H), dtype=wxp.dtype, device=wxp.device)
+    cat[:F] = wxp.reshape(4, F, H).transpose(0, 1)
+    cat[Fp:Fp + F] = whp.reshape(4, F, H).transpose(0, 1)
+    return pack_gates(cat.reshape(2 * Fp, 4 * H), H, dt)
+
+
+def unpack_scn_gates(p: torch.Tensor, F: int, H: int):
+    Fp = _ceil(F, KPAD)
+    cat = unpack_gates(p, 2 * Fp, H).reshape(2 * Fp, 4, H)
+    return (cat[:F].transpose(0, 1).reshape(4 * F, H),
+            cat[Fp:Fp + F].transpose(0, 1).reshape(4 * F, H))
+
+
+def pack_fwd(kw, cell: str, dt) -> Dict[str, torch.Tensor]:
+    """The forward's packs, made anew on every call (the optimizer updates
+    the weights in place between steps): w1 = [wda | wfb | wh]^T (the three
+    products of h_prev, one launch), wxa^T (SCN as is; LSTM
+    gate-interleaved, the cell in the epilogue) and the SCN gates."""
+    w = {"w1": pack_kmajor(torch.cat([kw["wda"], kw["wfb"], kw["wh"]], 1),
+                           dt)}
+    if cell == "lstm":
+        w["wxa_p"] = pack_gates(kw["wxa"], kw["wh"].shape[0], dt)
+    else:
+        w["wxa_p"] = pack_kmajor(kw["wxa"], dt)
+        w["wg"] = pack_scn_gates(kw["wxp"], kw["whp"], dt)
+    return w
+
+
+def pack_bwd(kw, cell: str, dt) -> Dict[str, torch.Tensor]:
+    """Pass A's packs (the (B*T)-row products on csrc/mma.cuh), made anew
+    on every call, as step_cuda.pack_tc packs the decode chain's weights:
+    [wda | wfb | wh]^T, wxa^T, and wxp^T, whp^T per gate, split into TF32
+    hi and lo parts at float32 (lo None at bfloat16).  The reverse loop
+    reads the weights in place."""
+    from .step_cuda import pack_tc
+    w = {}
+    w["w1_hi"], w["w1_lo"] = pack_tc(
+        torch.cat([kw["wda"], kw["wfb"], kw["wh"]], 1), dt)
+    w["wxan_hi"], w["wxan_lo"] = pack_tc(kw["wxa"], dt)
+    if cell == "scn":
+        w["wxp_hi"], w["wxp_lo"] = pack_tc(kw["wxp"], dt, gates=4)
+        w["whp_hi"], w["whp_lo"] = pack_tc(kw["whp"], dt, gates=4)
+    return w
+
+
 # ------------------------------------------------------------- the kernels
 
 class _Args(ctypes.Structure):
     """csrc/train.cu TrainArgs, field for field."""
 
     _fields_ = ([(n, ctypes.c_longlong) for n in
-                 ("B", "T", "P", "E", "A", "D", "F4", "lstm", "esplit",
-                  "split_cap")]
+                 ("B", "T", "P", "E", "A", "D", "F4", "lstm", "split_cap",
+                  "ldw1", "ldwxa", "ldwg", "fp", "ldwxan")]
                 + [(n, ctypes.c_void_p) for n in (
                     "enc", "ea", "emb_fac", "semx", "semh", "h0", "c0",
-                    "whcat", "bhcat", "wda", "bda", "wf", "wfb", "bfb",
-                    "wxa", "wh", "wxp", "whp", "bx", "bh",
+                    "wda", "bda", "wf", "wfb", "bfb", "wxa", "wh", "wxp",
+                    "whp", "bx", "bh", "bxh", "w1", "wxa_p", "wg",
+                    "w1_hi", "w1_lo", "wxan_hi", "wxan_lo", "wxp_hi",
+                    "wxp_lo", "whp_hi", "whp_lo",
                     "h_all", "c_all", "alphas", "awe_raw",
                     "h_prev", "d_hall", "d_alphas",
                     "d_ea", "d_emb", "d_semx", "d_semh", "dh", "dc", "d_wf",
                     "awe", "xfac", "hfac", "dpre", "dhfr", "dfb", "ddec",
-                    "s_hall", "s_scores", "s_gawe", "s_xin", "s_xfac",
-                    "s_hfac", "s_pre",
+                    "s_hall", "s_hh", "s_gawe", "s_xfac", "s_hfac",
                     "s_dec", "s_gate", "s_xin_all", "s_hfac_raw",
-                    "s_pre_all", "s_d_awe_raw", "s_d_alpha", "s_wfdec",
-                    "s_part", "s_split")])
+                    "s_pre_all", "s_d_awe_raw", "s_wfdec", "s_part",
+                    "s_split")])
 
 
-# Floats of split-K scratch: csrc/gemm.cuh splits only a product of fewer
-# than 2 x 132 output tiles of 4,096 (64 x 64 or 32 x 128), into about 264
-# blocks, so the partials stay under 2 x 264 tiles.
+# Floats of pass A's split-K scratch (csrc/mma.cuh splits only a product of
+# fewer than 2 x 132 output tiles, within this many floats).
 SPLIT_CAP = 2 * 264 * 64 * 64
-
-
 def _lib():
     lib = _build.load("train")
     if lib.iic_train_args_bytes() != ctypes.sizeof(_Args):
         raise RuntimeError("csrc/train.cu TrainArgs does not match _Args")
     return lib
+
+
+def last_launches() -> Dict[str, int]:
+    """Kernel launches of the library's last calls (csrc/train.cu's
+    counter): the forward's, the backward's reverse loop's and the rest of
+    the backward's (pass A's products, the last step's cell, finalize)."""
+    lib = _lib()
+    return {k: lib.iic_train_launches(i)
+            for i, k in enumerate(("fwd", "bwd_loop", "bwd_other"))}
 
 
 def _args(tensors: Dict[str, torch.Tensor], dims) -> _Args:
@@ -346,11 +458,18 @@ def _args(tensors: Dict[str, torch.Tensor], dims) -> _Args:
     return a
 
 
-def _dims(enc, ea, emb_fac, h0, cell):
+def _dims(enc, ea, emb_fac, h0, cell, packs):
     B, P, E = enc.shape
-    return dict(B=B, T=emb_fac.shape[1], P=P, E=E, A=ea.shape[-1],
+    dims = dict(B=B, T=emb_fac.shape[1], P=P, E=E, A=ea.shape[-1],
                 D=h0.shape[1], F4=emb_fac.shape[2], lstm=int(cell == "lstm"),
-                esplit=_esplit(B, E), split_cap=SPLIT_CAP)
+                split_cap=SPLIT_CAP)
+    for ld, name in (("ldw1", "w1"), ("ldwxa", "wxa_p"), ("ldwg", "wg"),
+                     ("ldw1", "w1_hi"), ("ldwxan", "wxan_hi")):
+        if name in packs:
+            dims[ld] = packs[name].shape[1]
+    if "wg" in packs:
+        dims["fp"] = packs["wg"].shape[1] // 2
+    return dims
 
 
 def _check(kw, enc, ea, emb_fac, semx, semh, h0, c0, cell, *extra):
@@ -406,25 +525,24 @@ def launch_fwd(kw, enc, ea, emb_fac, semx, semh, h0, c0, *, cell, stream):
     """The forward chain (csrc/train.cu iic_train_fwd) on already-checked
     tensors; returns (h_all, c_all, alphas, awe_raw)."""
     lib = _lib()
-    dims = _dims(enc, ea, emb_fac, h0, cell)
-    B, T, P, E, A, D, F4 = (dims[k] for k in "B T P E A D F4".split())
     dt, f32, dev = h0.dtype, torch.float32, h0.device
+    packs = pack_fwd(kw, cell, dt)
+    dims = _dims(enc, ea, emb_fac, h0, cell, packs)
+    B, T, P, E, A, D, F4 = (dims[k] for k in "B T P E A D F4".split())
 
     def empty(*shape, dtype=dt):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     out = {"h_all": empty(B, T, D), "c_all": empty(B, T, D),
            "alphas": empty(B, T, P, dtype=f32), "awe_raw": empty(B, T, E)}
-    whcat = torch.cat([kw["wda"], kw["wfb"]], dim=1).contiguous()
-    bhcat = torch.cat([kw["bda"], kw["bfb"]]).contiguous()
     scratch = {"s_hall": empty(B, A + E, dtype=f32),
-               "s_scores": empty(B, P, dtype=f32), "s_gawe": empty(B, E),
-               "s_xin": empty(B, F4), "s_xfac": empty(B, F4),
-               "s_hfac": empty(B, F4), "s_pre": empty(B, 4 * D, dtype=f32),
-               "s_split": empty(SPLIT_CAP, dtype=f32)}
+               "s_hh": empty(B, 4 * D, dtype=f32) if cell == "lstm" else None,
+               "s_gawe": empty(B, E), "s_xfac": empty(B, F4),
+               "s_hfac": empty(B, F4)}
+    bxh = (kw["bx"].to(f32) + kw["bh"].to(f32)).contiguous()
     args = _args({"enc": enc, "ea": ea, "emb_fac": emb_fac, "semx": semx,
-                  "semh": semh, "h0": h0, "c0": c0, "whcat": whcat,
-                  "bhcat": bhcat, **kw, **out, **scratch}, dims)
+                  "semh": semh, "h0": h0, "c0": c0, **kw, "bxh": bxh,
+                  **packs, **out, **scratch}, dims)
     _build.check(lib.iic_train_fwd(_DTYPES[dt], ctypes.byref(args), stream),
                  "train_fwd")
     return out["h_all"], out["c_all"], out["alphas"], out["awe_raw"]
@@ -461,9 +579,10 @@ def launch_bwd(kw, enc, ea, emb_fac, semx, semh, h0, c0, h_all, c_all,
     """The backward chain (csrc/train.cu iic_train_bwd) on already-checked
     tensors; returns the dict of :func:`train_bwd_plain`."""
     lib = _lib()
-    dims = _dims(enc, ea, emb_fac, h0, cell)
-    B, T, P, E, A, D, F4 = (dims[k] for k in "B T P E A D F4".split())
     dt, f32, dev = h0.dtype, torch.float32, h0.device
+    packs = pack_bwd(kw, cell, dt)
+    dims = _dims(enc, ea, emb_fac, h0, cell, packs)
+    B, T, P, E, A, D, F4 = (dims[k] for k in "B T P E A D F4".split())
 
     def empty(*shape, dtype=dt):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -483,15 +602,15 @@ def launch_bwd(kw, enc, ea, emb_fac, semx, semh, h0, c0, h_all, c_all,
                "s_xin_all": empty(B * T, F4),
                "s_hfac_raw": empty(B * T, F4, dtype=f32),
                "s_pre_all": empty(B * T, 4 * D, dtype=f32),
-               "s_d_awe_raw": empty(B, E), "s_d_alpha": empty(B, P, dtype=f32),
-               "s_wfdec": zeros(B, A), "s_part": empty(B, A, dtype=f32),
+               "s_d_awe_raw": empty(B, E), "s_wfdec": zeros(B, A),
+               "s_part": empty(B, A, dtype=f32),
                "s_split": empty(SPLIT_CAP, dtype=f32)}
     h_prev = _prev(h0, h_all).contiguous()
     args = _args({"enc": enc, "ea": ea, "emb_fac": emb_fac, "semx": semx,
-                  "semh": semh, "h0": h0, "c0": c0, **kw, "h_all": h_all,
-                  "c_all": c_all, "alphas": alphas, "awe_raw": awe_raw,
-                  "h_prev": h_prev, "d_hall": d_hall, "d_alphas": d_alphas,
-                  **out, **streams, **scratch}, dims)
+                  "semh": semh, "h0": h0, "c0": c0, **kw, **packs,
+                  "h_all": h_all, "c_all": c_all, "alphas": alphas,
+                  "awe_raw": awe_raw, "h_prev": h_prev, "d_hall": d_hall,
+                  "d_alphas": d_alphas, **out, **streams, **scratch}, dims)
     _build.check(lib.iic_train_bwd(_DTYPES[dt], ctypes.byref(args), stream),
                  "train_bwd")
     res = {**streams, "d_ea": out["d_ea"], "dh0": out["dh"],
@@ -502,6 +621,31 @@ def launch_bwd(kw, enc, ea, emb_fac, semx, semh, h0, c0, h_all, c_all,
     else:
         res["d_emb"] = streams["dpre"]
     return res
+
+
+def small_gemm(x, w):
+    """x (B, K) @ w (N, K)^T as float32 on the per-step GEMM of the scan
+    (csrc/mma_small.cuh, 3xTF32 at float32) for CUDA tensors, in plain
+    PyTorch for CPU tensors: the GEMM alone, for the card tests."""
+    if x.dtype not in _DTYPES or w.dtype != x.dtype or x.device != w.device \
+            or x.shape[1] != w.shape[1] or x.stride(1) != 1 \
+            or w.stride(1) != 1:
+        raise ValueError("small_gemm takes x (B, K) and w (N, K) of one "
+                         "type, rows contiguous")
+    if x.device.type == "cpu":
+        return x.float() @ w.float().t()
+    B, K = x.shape
+    N = w.shape[0]
+    out = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    _build.check(_lib().iic_small_gemm(
+        _DTYPES[x.dtype], x.data_ptr(), x.stride(0), w.data_ptr(),
+        w.stride(0), B, N, K, out.data_ptr(), _on_card(x, "small_gemm")),
+        "small_gemm")
+    small_gemm.launches += 1
+    return out
+
+
+small_gemm.launches = 0
 
 
 class _TrainScan(torch.autograd.Function):

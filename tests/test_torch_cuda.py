@@ -15,7 +15,9 @@ are not multiples of the kernels' tiles, beam widths 1 to 64 (no kernel
 caps K) -- and on exact ties in the head, where the
 lowest vocabulary id must win.  The tensor-core GEMM of the decode chain
 (csrc/mma.cuh) is held against a float64 product and gemm.cuh's FFMA GEMM
-at ragged M, N and K.  Tolerances:
+at ragged M, N and K, and the train scan's per-step GEMM
+(csrc/mma_small.cuh) against a float64 product at ragged batches, rows,
+K and row strides.  Tolerances:
 1e-5 at float32 (summation order); at bfloat16 a few ulps of the values'
 magnitudes (the kernels round once where the plain versions round twice);
 ids exactly, except where the two logits are within 1e-5 at float32.
@@ -315,6 +317,33 @@ def test_tc_gemm_matches_ffma_and_float64(dev, dtype, M, N, K1, K2, nz,
         assert bool(((a - b).abs() <= lim).all()), epi
 
 
+SMALL_CASES = [  # B, N, K, ldw padding; K split 1, 3, 2, 8, 1, 16, 1
+    (1, 1, 1, 0), (32, 4608, 512, 0), (33, 70, 100, 0), (5, 2048, 2048, 0),
+    (17, 129, 37, 3), (32, 512, 4608, 0), (64, 300, 72, 1)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B, N, K, pad", SMALL_CASES)
+def test_small_gemm_matches_float64(dev, dtype, B, N, K, pad):
+    """The train scan's per-step GEMM (csrc/mma_small.cuh: swap-AB wgmma,
+    3xTF32 at float32) at ragged batches (one and two batch tiles), rows,
+    K and row strides (pad: rows not 16-byte aligned take its element
+    loads), with K split over clusters of 1 to 16 blocks: within 1e-5 of
+    sum |x||w| of the float64 product, as the tensor-core GEMM of the
+    decode chain is held."""
+    gen = torch.Generator().manual_seed(B + N + K)
+    x = randn(gen, B, K + pad).to(dev, dtype)[:, :K]
+    w = randn(gen, N, K + pad, scale=K ** -0.5).to(dev, dtype)[:, :K]
+    n0 = train_cuda.small_gemm.launches
+    out = train_cuda.small_gemm(x, w)
+    torch.cuda.synchronize()
+    assert train_cuda.small_gemm.launches == n0 + 1
+    ref = x.double() @ w.double().t()
+    bound = x.double().abs() @ w.double().abs().t()
+    assert out.dtype == F32 and out.shape == (B, N)
+    assert bool(((out.double() - ref).abs() <= 1e-5 * bound + 1e-6).all())
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -424,10 +453,13 @@ def _train_args(dev, dtype, cfg, B, T, gen):
 
 @pytest.mark.parametrize("family", ATT_FAMILIES)
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("B, T, S, E", [(3, 4, 3, 72), (17, 9, 7, 600)])
+@pytest.mark.parametrize("B, T, S, E", [(3, 4, 3, 72), (17, 9, 7, 600),
+                                        (1, 5, 3, 72), (33, 4, 7, 600)])
 def test_train_kernels_match_plain(dev, family, dtype, B, T, S, E):
     """Kernel 8 (forward) and kernel 9 (backward, on the plain forward's
-    residuals) against their plain versions: every output and stream."""
+    residuals) against their plain versions: every output and stream.
+    B = 1 and 33: a ragged batch tile of the swap-AB GEMM, and two of them;
+    9 and 49 pixels: not divisible by the attention cluster's 4 CTAs."""
     cfg = small_cfg(family, enc_image_size=S, encoder_dim=E)
     gen = torch.Generator().manual_seed(B * 100 + T)
     with torch.no_grad():
@@ -450,6 +482,38 @@ def test_train_kernels_match_plain(dev, family, dtype, B, T, S, E):
     assert set(got) == set(exp)
     for k in exp:
         assert got[k].shape == exp[k].shape and got[k].dtype == exp[k].dtype
+        assert rel_norm(got[k], exp[k]) <= TRAIN_TOL[dtype], k
+
+
+@pytest.mark.parametrize("family", ATT_FAMILIES)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_train_kernels_see_weights_updated_in_place(dev, family, dtype):
+    """Two scans with an in-place update of every weight between them (as
+    the optimizer does): the second matches the plain version on the new
+    weights, so no pack of the first call's weights is reused."""
+    cfg = small_cfg(family, enc_image_size=3, encoder_dim=72)
+    gen = torch.Generator().manual_seed(51)
+    with torch.no_grad():
+        cell, args = _train_args(dev, dtype, cfg, 5, 4, gen)
+        kw = args[0]
+        first = train_cuda.train_fwd(*args, cell=cell)
+        for w in kw.values():
+            w.mul_(-1.5).add_(0.01)
+        out = train_cuda.train_fwd(*args, cell=cell)
+        ref = train_cuda.train_fwd_plain(*args, cell=cell)
+        for a, b in zip(out, ref):
+            assert rel(a, b) <= TRAIN_TOL[dtype]
+        assert rel(first[0], ref[0]) > 10 * TRAIN_TOL[dtype]
+        d_hall = randn(gen, *ref[0].shape).to(dev, dtype)
+        d_alphas = randn(gen, *ref[2].shape, scale=0.1).to(dev)
+        bargs = args + tuple(ref) + (d_hall, d_alphas)
+        train_cuda.train_bwd(*bargs, cell=cell)
+        for w in kw.values():
+            w.mul_(0.5)
+        got = train_cuda.train_bwd(*bargs, cell=cell)
+        exp = train_cuda.train_bwd_plain(*bargs, cell=cell)
+        torch.cuda.synchronize()
+    for k in exp:
         assert rel_norm(got[k], exp[k]) <= TRAIN_TOL[dtype], k
 
 
