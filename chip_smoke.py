@@ -444,11 +444,13 @@ def scn_case(dev, dtype, cfg, nb, gen):
     plain_ms, ms = median_ms([
         lambda: scn_cuda.scn_step_fused_plain(cell, *rows),
         lambda: scn_cuda.scn_step_fused(cell, x, sx, sh, h, c)])
+    dev_ms = device_ms(lambda: scn_cuda.scn_step_fused(cell, x, sx, sh, h,
+                                                        c))
     bound_ms, bound_by = bound(*scn_work(cfg, nb * K, dtype.itemsize), name)
     print(f"kernel scn_step_fused[{label}]: {nb * K} rows; max_abs_err h/c "
-          f"{err:.3g} (tol {tol}); ms {ms:.4f} plain_ms {plain_ms:.4f} "
-          f"bound_ms {bound_ms:.4f} ({bound_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"{err:.3g} (tol {tol}); ms {ms:.4f} device_ms {dev_ms:.4f} "
+          f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms)
 
 
 def fc_topk_case(dev, cfg, nb):
@@ -480,21 +482,22 @@ def fc_topk_case(dev, cfg, nb):
     ties = near_tie_rows(ti, ri, h @ fc["w"] + fc["b"], "fc_topk")
     plain_ms, ms = median_ms([lambda: fc_topk.fc_topk_plain(*args),
                               lambda: fc_topk.fc_topk(*args)])
+    dev_ms = device_ms(lambda: fc_topk.fc_topk(*args))
     bound_ms, bound_by = bound(*fc_topk_work(nb * K, cfg.decoder_dim,
                                              cfg.vocab_size, K))
     print(f"kernel fc_topk float32 ({nb * K}, {cfg.decoder_dim}) x "
           f"({cfg.decoder_dim}, {cfg.vocab_size}) k={K}: max_abs_err "
           f"{err:.3g} "
           f"(tol {FC_TOL} x {scale:.3g}); topi equal but {ties} near-tie "
-          f"rows; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-          f"{bound_ms:.4f} ({bound_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"rows; ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
+          f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms)
 
 
 def gemm_case(dev, dtype, M, K_in, N, label):
     """The tensor-core GEMM (csrc/mma.cuh, step_cuda.gemm) on one product
-    of the decode step chain, M rows x K_in -> N, split-K scratch as the
-    chain gives it: against gemm.cuh's FFMA GEMM and a float64 product on
+    of the span chain (kernels 7 and 13), M rows x K_in -> N, split-K
+    scratch as the chain gives it: against gemm.cuh's FFMA GEMM and a float64 product on
     the same inputs (each within GEMM_TOL of sum |a||w|), and the medians
     of both and of torch.matmul (the library yardstick)."""
     import torch
@@ -557,13 +560,54 @@ def gemm_case(dev, dtype, M, K_in, N, label):
                 work=work, device_ms=dev["tc"])
 
 
+def wide_gemm_case(dev, dtype, M, K_in, N, label):
+    """The fused step's GEMM (csrc/mma_small.cuh at its wide batch tile,
+    step_cuda.wide_gemm) on one of the step's products, M rows x K_in -> N:
+    against a float64 product (within GEMM_TOL of sum |x||w|), with its
+    device time beside torch.matmul's."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import step_cuda
+
+    name = str(dtype).replace("torch.", "")
+    gen = torch.Generator().manual_seed(SEED + M + K_in + N + 1)
+    x = torch.randn((M, K_in), generator=gen).to(dev, dtype)
+    w = (torch.randn((N, K_in), generator=gen) * K_in ** -0.5).to(dev, dtype)
+    n0 = step_cuda.wide_gemm.launches
+    out = step_cuda.wide_gemm(x, w)
+    torch.cuda.synchronize()
+    check(step_cuda.wide_gemm.launches == n0 + 1,
+          f"wide gemm {label}: the kernel was not launched")
+    ref = x.double() @ w.double().t()
+    e = float(((out.double() - ref).abs()
+               / (x.double().abs() @ w.double().abs().t())).max())
+    check(e <= GEMM_TOL, f"wide gemm {label} {name}: error {e:.3g} of "
+          f"sum|x||w| > {GEMM_TOL}")
+    wt = w.t()
+    ms, lib_ms = median_ms([lambda: step_cuda.wide_gemm(x, w),
+                            lambda: x @ wt])
+    dev_ms = device_ms(lambda: step_cuda.wide_gemm(x, w))
+    lib_dev = device_ms(lambda: x @ wt)
+    work = (dtype.itemsize * (M * K_in + K_in * N) + 4 * M * N,
+            2 * M * N * K_in)
+    bound_ms, bound_by, _ = chain_bound(work, name)
+    print(f"kernel wide_gemm[{label} {name}, {M} x {K_in} -> {N}]: error "
+          f"vs float64 {e:.3g} of sum|x||w| (tol {GEMM_TOL}); ms {ms:.4f} "
+          f"device_ms {dev_ms:.4f} torch.matmul {lib_ms:.4f} (device "
+          f"{lib_dev:.4f}) bound_ms {bound_ms:.4f} ({bound_by}); "
+          f"{work[0] / dev_ms / 1e6:.0f} GB/s of its bytes")
+
+
 def gemm_phase(dev, cfg):
-    """The tensor-core GEMM at two products of the chain at R = B*K = 160
-    rows: the SCN input factor ([emb | gawe], In = 2,560 -> 4F = 2,048) and
-    the head (D = 512 -> V = 6,763), in float32 and bfloat16."""
+    """The tensor-core GEMM of the span chain at two of its products at R =
+    B*K = 160 rows: the SCN input factor ([emb | gawe], In = 2,560 -> 4F =
+    2,048) and the head (D = 512 -> V = 6,763), in float32 and bfloat16;
+    and the fused step's wide GEMM at its products of h (512 -> 4,608),
+    gawe (2,048 -> 2,048) and the head."""
     import torch
 
     R, In = B * K, cfg.embed_dim + cfg.encoder_dim
+    A, E, F4 = cfg.attention_dim, cfg.encoder_dim, 4 * cfg.factored_dim
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).replace("torch.", "")
@@ -571,6 +615,10 @@ def gemm_phase(dev, cfg):
                                       "xfac")
         res[name, "head"] = gemm_case(dev, dt, R, cfg.decoder_dim, VOCAB,
                                       "head")
+        for label, k_in, n in (("h", cfg.decoder_dim, A + E + F4),
+                               ("xfac", E, F4),
+                               ("head", cfg.decoder_dim, VOCAB)):
+            wide_gemm_case(dev, dt, R, k_in, n, label)
     return res
 
 
@@ -872,12 +920,13 @@ def topk_case(dev, nb):
         lambda: topk.row_topk_iterative(x, K),
         lambda: topk.row_topk_pallas(x, K),
         lambda: torch.topk(x, K, dim=1)])
+    dev_ms = device_ms(lambda: topk.row_topk_pallas(x, K))
     work = topk_work(nb, K * VOCAB, K)
     bound_ms, bound_by = bound(*work)
     print(f"kernel row_topk_pallas float32 ({nb}, {K * VOCAB}) k={K}: equal "
-          f"to row_topk_iterative bitwise; ms {ms:.4f} plain_ms "
-          f"{plain_ms:.4f} library_ms (torch.topk) {lib_ms:.4f} bound_ms "
-          f"{bound_ms:.4f} ({bound_by})")
+          f"to row_topk_iterative bitwise; ms {ms:.4f} device_ms "
+          f"{dev_ms:.4f} plain_ms {plain_ms:.4f} library_ms (torch.topk) "
+          f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
     # past 32 slots kernel 10 runs in passes of 32 over the same table
     kw = 2 * 32 + 5
     n0 = topk.row_topk_pallas.launches
@@ -890,7 +939,8 @@ def topk_case(dev, nb):
     wide_ms, = median_ms([lambda: topk.row_topk_pallas(x, kw)])
     print(f"kernel row_topk_pallas float32 ({nb}, {K * VOCAB}) k={kw} (three "
           f"passes): equal to row_topk_iterative bitwise; ms {wide_ms:.4f}")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                device_ms=dev_ms)
 
 
 def step_case(dev, dtype, cfg, params, enc, gen, quant=False):
@@ -954,6 +1004,7 @@ def step_case(dev, dtype, cfg, params, enc, gen, quant=False):
         return step_cuda.fused_decode_step_plain(*args, cell=cell, topk=K,
                                                  scales=scales)
 
+    label = f"{cfg.model_type}{' int8' if quant else ''} {name}"
     n0 = counted.launches
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
@@ -961,7 +1012,6 @@ def step_case(dev, dtype, cfg, params, enc, gen, quant=False):
           f"fused step {cfg.model_type}: the kernel was not launched")
     e_vals = max(max_err(out[0], ref[0]), max_err(out[2], ref[2]))
     e_state = max(max_err(out[3], ref[3]), max_err(out[4], ref[4]))
-    label = f"{cfg.model_type}{' int8' if quant else ''} {name}"
     check(e_vals <= tol["step_vals"],
           f"fused step {label}: topv/lse error {e_vals}")
     check(e_state <= tol["step_state"],
@@ -972,17 +1022,45 @@ def step_case(dev, dtype, cfg, params, enc, gen, quant=False):
         lg = (ref[3] @ weights["fcw"] + weights["fcb"]).float()
         n = near_tie_rows(out[1], ref[1], lg, f"fused step {label}")
         ties = f", topi equal but {n} near-tie rows"
+    # launches a step from csrc/step.cu's counter: 7 SCN with attention,
+    # 6 the LSTM, 4 pure_scn (6b)
+    want = 4 if not cfg.uses_attention else (
+        7 if cell == "scn" else 6)
+    n_step = step_cuda.last_launches()
+    check(n_step == want, f"fused step {label}: {n_step} launches a step, "
+          f"not {want}")
     plain_ms, ms = median_ms([plain, kernel])
-    dev_ms = device_ms(kernel, runs=5)
+    parts = {}
+    dev_ms = device_ms(kernel, runs=5, by_kernel=parts)
+    split = step_split(parts)
     bound_ms, bound_by, ffma_ms = chain_bound(
         step_work(cfg, nb, dtype.itemsize, quant), name)
     print(f"kernel {counted.__name__}[{cfg.model_type}] {name}: max_abs_err "
           f"topv/lse {e_vals:.3g} (tol {tol['step_vals']}), h/c "
           f"{e_state:.3g} (tol {tol['step_state']}){ties}; ms {ms:.4f} "
           f"device_ms {dev_ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-          f"{bound_ms:.4f} ({bound_by}; FFMA peak {ffma_ms:.4f})")
+          f"{bound_ms:.4f} ({bound_by}; FFMA peak {ffma_ms:.4f}); "
+          f"{n_step} launches a step (library counter); device ms by "
+          "stage: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     return dict(max_abs_err=max(e_vals, e_state), ms=ms, plain_ms=plain_ms,
-                device_ms=dev_ms)
+                device_ms=dev_ms, launches_per_step=n_step, split=split)
+
+
+def step_split(parts):
+    """Device ms of one fused step by stage, from its kernels' names: the
+    products (the wide GEMM of csrc/mma_small.cuh), the attention (kernel
+    1 or 5), the head and the rest."""
+    split = {"gemm": 0.0, "attention": 0.0, "head": 0.0, "rest": 0.0}
+    for k, v in parts.items():
+        if "small_gemm_kernel" in k:
+            split["gemm"] += v
+        elif "attend" in k:
+            split["attention"] += v
+        elif "head_topk" in k:
+            split["head"] += v
+        else:
+            split["rest"] += v
+    return split
 
 
 def make_state(dev, cfg, images_u8):
@@ -1104,6 +1182,7 @@ def serve_and_inference(dev, cfg, B, image_size):
     from indonesian_image_captioning_tpu_torch.decode.api import \
         caption_beam_search
     from indonesian_image_captioning_tpu_torch.models import encoders
+    from indonesian_image_captioning_tpu_torch.ops import step_cuda
     from indonesian_image_captioning_tpu_torch.serve import (CaptionEngine,
                                                              ServeConfig)
 
@@ -1192,7 +1271,12 @@ def serve_and_inference(dev, cfg, B, image_size):
           f"the int8 batch ran kernel 6c {qlaunches['fused_decode_step_q']} "
           f"times in {qcalls} decode calls; launches {qlaunches}")
     found["fused_decode_step_q"] = qlaunches["fused_decode_step_q"]
-    check(qlaunches["gemm_tc"] > 0, "the int8 batch ran no tensor-core GEMM")
+    # the int8 step's chain: kernel 5 inside it, its products on the wide
+    # GEMM of csrc/mma_small.cuh (none on mma.cuh), 7 launches a step
+    check(qlaunches["attend_fused_q"] == qlaunches["fused_decode_step_q"]
+          and qlaunches["gemm_tc"] == 0 and step_cuda.last_launches() == 7,
+          f"the int8 batch's chain: launches {qlaunches}, "
+          f"{step_cuda.last_launches()} launches a step (7 expected)")
     print(f"serve: int8 caption_batch({B}) {t_qbatch:.3f} s; decode "
           f"{qengine.stats.decode_impls[0]}, {qcalls[0]} kernel 6c calls; "
           f"{sum(a == b for a, b in zip(qcaps, caps))} captions equal to "
@@ -1285,30 +1369,52 @@ def wide_beam(params, cfg, enc, tags, kw, k=16):
     print(f"inference: beam {k} through auto ({out['decode_impl']}, "
           f"{ran} kernel 7 calls, {t_wide:.3f} s): {equal}/{enc.shape[0]} "
           f"rows equal to steps at beam {k}, {ties} near-tie rows")
+    # the fused step at the same width: B*K rows in batch tiles of 160
+    t0 = time.perf_counter()
+    fs, ran = decode_path(
+        params, dataclasses.replace(cfg, decode_impl="fused_step"), enc,
+        tags, bkw, "fused_decode_step", impl="fused_step")
+    t_fs = time.perf_counter() - t0
+    equal, ties = same_beams(params, cfg, enc, tags, ref, fs,
+                             f"K={k} fused_step")
+    print(f"inference: beam {k} through fused_step ({ran} kernel 2 calls, "
+          f"{t_fs:.3f} s): {equal}/{enc.shape[0]} rows equal to steps at "
+          f"beam {k}, {ties} near-tie rows")
 
 
 def pack_times(params, cfg):
-    """Host milliseconds of packing the decode chain's weights
-    (step_cuda.pack_step_weights: transposes, TF32 splits) from cold, as
-    every decode paid it before packs were kept per parameter tree, and
-    from its cache, as a decode pays it now; float32 and bfloat16."""
+    """Host milliseconds of packing the decode chains' weights
+    (step_cuda.pack_step_weights: transposes, TF32 splits; then the fused
+    step's K-major packs, step_cuda.step_packs, and their bytes) from
+    cold, as every decode paid it before packs were kept per parameter
+    tree, and from the caches, as a decode pays it now; float32 and
+    bfloat16."""
     import torch
 
     from indonesian_image_captioning_tpu_torch.ops import step_cuda
 
+    cell = "scn" if cfg.uses_tags else "lstm"
     for dt in (torch.float32, torch.bfloat16):
-        ms = []
+        ms, step_ms = [], []
         for cold in (True, False):
             if cold:
                 step_cuda._packed.clear()
+                step_cuda._step_packs.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            step_cuda.pack_step_weights(params, cfg, dt)
+            w = step_cuda.pack_step_weights(params, cfg, dt)
             torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
+            t1 = time.perf_counter()
+            packs, _ = step_cuda.step_packs(w, cell)
+            torch.cuda.synchronize()
+            ms.append((t1 - t0) * 1e3)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        mb = sum(t.numel() * t.element_size() for t in packs.values()) / 1e6
         print(f"serve: pack_step_weights {str(dt).replace('torch.', '')}: "
-              f"cold {ms[0]:.3f} ms, cached {ms[1]:.4f} ms (host, with a "
-              f"synchronize)")
+              f"cold {ms[0]:.3f} ms, cached {ms[1]:.4f} ms; the fused "
+              f"step's K-major packs (step_cuda.step_packs, {mb:.1f} MB): "
+              f"cold {step_ms[0]:.3f} ms, cached {step_ms[1]:.4f} ms (host, "
+              "with a synchronize)")
 
 
 def decode_path(params, cfg, enc, tags, kw, kernel, record_alphas=False,

@@ -95,13 +95,15 @@ attend_scores_kernel(const T* __restrict__ ea, const T* __restrict__ dec,
 // Softmax over the P pixels, then the weighted sum over this block's
 // columns, for the lanes k0 .. k0 + kg - 1 of lane group blockIdx.z.  Grid
 // (B, esplit, lane groups); every block of an image recomputes its lanes'
-// tiny kg x P softmax, and block y == 0 writes their alpha.
-template <typename T>
+// tiny kg x P softmax, and block y == 0 writes their alpha.  kGate (the
+// fused decode step, step.cu): awe receives the gated rt(gate rt(awe)),
+// gate (B, K, E) the f_beta gate, as the Pallas body's gate * awe.
+template <typename T, bool kGate = false>
 __global__ void __launch_bounds__(kAttendThreads)
 attend_sum_kernel(const T* __restrict__ enc,
                   const float* __restrict__ scores, T* __restrict__ awe,
                   T* __restrict__ alpha, int K, int P, int E, int e_chunk,
-                  const int* live) {
+                  const int* live, const T* __restrict__ gate) {
   if (skip(live)) return;
   extern __shared__ float smem[];
   float* att = smem;            // kg * P: scores, then alpha
@@ -162,24 +164,35 @@ attend_sum_kernel(const T* __restrict__ enc,
         if (k < kg) acc[k] += att[k * P + p] * x;
     }
 #pragma unroll
-    for (int k = 0; k < kLaneGroup; ++k)
-      if (k < kg) awe[((size_t)b * K + k0 + k) * E + e] = from_f<T>(acc[k]);
+    for (int k = 0; k < kLaneGroup; ++k) {
+      if (k < kg) {
+        const size_t at = ((size_t)b * K + k0 + k) * E + e;
+        if constexpr (kGate)
+          awe[at] = from_f<T>(to_f(gate[at]) * rt<T>(acc[k]));
+        else
+          awe[at] = from_f<T>(acc[k]);
+      }
+    }
   }
 }
 
-// Both launches; alpha and live may be null.  Returns the CUDA error code.
+// Both launches; alpha, live and gate may be null.  With a gate (B, K, E)
+// awe receives rt(gate rt(awe)).  Returns the CUDA error code.
 template <typename T>
 static int launch_attend(const void* enc, const void* ea, const void* dec,
                          const void* wf, void* scores, void* awe, void* alpha,
                          int B, int K, int P, int E, int A, int esplit,
-                         cudaStream_t stream, const int* live = nullptr) {
+                         cudaStream_t stream, const int* live = nullptr,
+                         const void* gate = nullptr) {
   const int warps = kAttendThreads / 32;
   const int kg = min(K, kLaneGroup);
   const int groups = (K + kLaneGroup - 1) / kLaneGroup;
   const size_t smem1 = sizeof(float) * ((size_t)kg * A + A);
   const size_t smem2 = sizeof(float) * (size_t)kg * P;
   int err = allow_smem(attend_scores_kernel<T>, smem1);
-  if (err == 0) err = allow_smem(attend_sum_kernel<T>, smem2);
+  if (err == 0)
+    err = gate ? allow_smem(attend_sum_kernel<T, true>, smem2)
+               : allow_smem(attend_sum_kernel<T>, smem2);
   if (err != 0) return err;
   attend_scores_kernel<T><<<dim3(B, (P + warps - 1) / warps, groups),
                             kAttendThreads, smem1, stream>>>(
@@ -188,10 +201,15 @@ static int launch_attend(const void* enc, const void* ea, const void* dec,
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const int e_chunk = (E + esplit - 1) / esplit;
-  attend_sum_kernel<T><<<dim3(B, esplit, groups), kAttendThreads, smem2,
-                         stream>>>(
-      (const T*)enc, (const float*)scores, (T*)awe, (T*)alpha, K, P, E,
-      e_chunk, live);
+  const dim3 grid(B, esplit, groups);
+  if (gate)
+    attend_sum_kernel<T, true><<<grid, kAttendThreads, smem2, stream>>>(
+        (const T*)enc, (const float*)scores, (T*)awe, (T*)alpha, K, P, E,
+        e_chunk, live, (const T*)gate);
+  else
+    attend_sum_kernel<T><<<grid, kAttendThreads, smem2, stream>>>(
+        (const T*)enc, (const float*)scores, (T*)awe, (T*)alpha, K, P, E,
+        e_chunk, live, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -1,18 +1,24 @@
-// The tensor-core GEMM of the train scan's per-step products (train.cu),
-// shaped for a few rows: the batch of a train step (B = 32 images).
+// The tensor-core GEMM of the per-step products of few rows: the train
+// scan's (train.cu, the batch of a train step, B = 32 images) and the
+// fused decode step's (step.cu, the beam batch, R = B*K rows).
 //
 //   out[b, r] = epilogue(sum_s X_s[b, :] . W_s[r, :])
 //
 // computed transposed ("swap-AB"): the weight's output rows fill wgmma's
-// 64-row M side and the batch is wgmma's N, n = 32 (a ragged batch is
-// masked, a larger one takes more batch tiles).  Both operands are
-// K-major in shared memory, in mma.cuh's 128-byte swizzle: W as stored
+// 64-row M side and the batch is wgmma's N.  A block's batch tile is NB
+// rows (a ragged batch is masked, a larger one takes more batch tiles):
+// NB = 32 (kSmN), one warpgroup at n = 32, for the train scan; NB = 160
+// (kSmWide), two consumer warpgroups at n = 80 that share every W tile,
+// for the decode step, whose whole beam batch (R = 160 at B = 32, K = 5)
+// is then one batch tile, so each W tile is read from device memory once
+// a step.  Both operands are K-major in shared memory, in mma.cuh's
+// 128-byte swizzle: W as stored
 // (rows, K) -- a forward weight packed so by ops/train_cuda.py, a
 // backward weight x @ W^T read in its own (in, out) layout -- and X as the
 // activations' rows.  Up to three K segments (sources) add into one sum.
 //
 // - float32: 3xTF32, as mma.cuh: each operand is split into TF32 hi and lo
-//   parts and C sums lo.hi + hi.lo + hi.hi (wgmma.m64n32k8), here with hi
+//   parts and C sums lo.hi + hi.lo + hi.hi (wgmma.m64nNk8), here with hi
 //   truncated rather than rounded: hi is x itself, which the tensor cores
 //   read as TF32 by dropping its 13 low mantissa bits, so lo = x - hi is
 //   exact and only lo is written.  The error is about 3 x 2^-20 of sum
@@ -20,21 +26,26 @@
 //   are held to.  W comes from device memory once, as float32, and is
 //   split in shared memory: a pre-split W would double the bytes that
 //   every step reads again.
-// - bfloat16: wgmma.m64n32k16 on bf16 operands.
+// - bfloat16: wgmma.m64nNk16 on bf16 operands.
 // - Each K tile's tensor-core sums go into fresh registers and are added
 //   to the float32 accumulator after the tile (mma.cuh, "per-K-tile
 //   promotion"): it keeps the 51-step recurrences within float32's
 //   tolerances.
 //
-// One warpgroup (128 threads) a block; a block owns one 64-row tile of W,
-// one 32-row batch tile and one slice of K.  Tiles land in a ring of
-// kSmStages, kSmStages - 2 tiles ahead: W by TMA (one thread, a tensor map
-// per weight, the hardware's 128-byte swizzle, an mbarrier a stage) under
-// an L2 evict-last policy -- the weights, 35 MB at float32, are read again
-// every step and fit the 50 MB L2, while the encoder state streams past
-// them with evict-first loads in train.cu -- and X by cp.async.  Tile t's
-// products run while the threads split tile t + 1 (wgmma.wait_group 1);
-// one barrier a tile.
+// Sm<T, NB>::kWG warpgroups a block; a block owns one 64-row tile of W,
+// one NB-row batch tile and one slice of K.  Tiles land in a ring of
+// Sm::kStages: W by TMA (one thread, a tensor map per weight, the
+// hardware's 128-byte swizzle, an mbarrier a stage) under an L2
+// evict-last policy -- the scan's weights, 35 MB at float32, are read
+// again every step and fit the 50 MB L2, while the encoder state streams
+// past them with evict-first loads in train.cu; the decode step's 52.7 MB
+// do not fit, and another policy measured the same -- and X by cp.async.
+// One barrier a tile; six stages, four tiles ahead: tile t's products
+// run while the threads split tile t + 1 (wgmma.wait_group 1).  The wide
+// tile at float32 instead waits for each tile's products before the next
+// barrier (a read of a group in flight makes the compiler wait after
+// every wgmma, so the tile's 12 products would run one at a time), and
+// its ring runs five tiles ahead (28 KB stages, two lo buffers).
 //
 // Split-K in one launch: the K slices of an output tile -- and, with
 // group = 4, the tiles of the four gates of the same 64 units -- are one
@@ -44,14 +55,20 @@
 // order (so the sum does not depend on which block ran first) and runs the
 // epilogue on that share.  So a gate group's blocks finish the cell
 // together, and no partial goes through device memory.  One launch may
-// carry two products of one cluster shape (kSmProbs).
+// carry two products of one cluster shape (kSmProbs).  A wide block fills
+// its SM, so the launcher cuts the split until every cluster is resident
+// at once (cudaOccupancyMaxActiveClusters).
 //
 // What bounds it at the scan's shapes (PERF.md): not the operations
 // and not the bytes at the card's rates.  A launch costs about 6-7 us
 // however small its product (the ring's fill, the cluster barriers, the
 // epilogue's loads), and the W stream then runs at about 2 TB/s from L2;
 // a float32 product costs 2-3 times its bfloat16 twin (twice the tiles,
-// three products a tile, the lo split).
+// three products a tile, the lo split).  At the decode step's (PERF.md,
+// the step chain's findings): about 4 us a launch before its first tile,
+// 3-26 us of epilogue (more with a cluster's slices and the epilogue's
+// own loads), then about 1 us a K tile at bfloat16 and 2 at float32
+// however few the batch rows -- the per-tile code, not the bytes.
 #pragma once
 
 #include <cstdint>
@@ -64,21 +81,45 @@
 namespace iic {
 
 constexpr int kSmM = 64, kSmN = 32, kSmThreads = 128, kSmStages = 6;
+constexpr int kSmWide = 160;          // the decode step's batch tile
 constexpr int kSmProbs = 2;
-constexpr int kSmMaxCluster = 16;     // blocks of a cluster, at most
-constexpr int kSmTarget = 2 * kSms;   // blocks a launch aims for
 
-template <typename T>
+// The shape of a block of batch tile NB (kSmN or kSmWide).
+template <typename T, int NB = kSmN>
 struct Sm {
   static constexpr int kBK = 128 / sizeof(T);   // K of a tile: 128 bytes
   static constexpr int kEpc = 16 / sizeof(T);
   static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kWG = NB > kSmN ? 2 : 1;  // consumer warpgroups
+  static constexpr int kNW = NB / kWG;           // batch rows of one: its n
+  static constexpr int kThreads = kWG * kSmThreads;
+  // the ring: the wide float32 tile waits for each tile's products before
+  // the next tile's barrier (kWait), so its loads run a stage further
+  // ahead and two lo buffers do (see the K loop)
+  static constexpr bool kWait = NB > kSmN && kF32;
+  static constexpr int kStages = kSmStages;
+  static constexpr int kAhead = kWait ? kStages - 1 : kStages - 2;
+  static constexpr int kLo = kF32 ? (kWait ? 2 : 3) : 0;
   static constexpr int kW = kSmM * kBK;          // elements of a W tile
-  static constexpr int kX = kSmN * kBK;          // of an X tile
+  static constexpr int kX = NB * kBK;            // of an X tile
   static constexpr int kStage = kW + kX;        // a ring stage: W, X
+  static constexpr int kWJ = kSmM * 8 / kThreads;   // 16-byte chunks a
+  static constexpr int kXC = NB * 8 / kThreads;     // thread: W's, X's
+  // the row stride of the block's sums in the epilogue: the wide tile's
+  // padded by a float, so a warp's reads down a column hit 32 banks
+  static constexpr int kLdr = NB > kSmN ? NB + 1 : NB;
+  // blocks of a cluster, at most (a wide block fills its SM; clusters of
+  // 12 and 16 such blocks measured no faster), and the blocks a launch
+  // aims for
+  static constexpr int kMaxCluster = NB > kSmN ? 8 : 16;
+  static constexpr int kTarget = NB > kSmN ? kSms : 2 * kSms;
+  // TMA descriptors kept by the launcher (a decode serves several trees)
+  static constexpr int kMaps = NB > kSmN ? 64 : 16;
   // the ring, [3 x (W lo, X lo)]; 1024 bytes for the alignment
   static constexpr size_t kSmem =
-      sizeof(T) * ((size_t)(kSmStages + (kF32 ? 3 : 0)) * kStage) + 1024;
+      sizeof(T) * ((size_t)(kStages + kLo) * kStage) + 1024;
+  static_assert(kNW % 8 == 0 && kNW <= 256, "wgmma takes n = 8 .. 256");
+  static_assert(kSmem <= 232448, "a block's shared memory");
 };
 
 // Epilogues (SmallProb::epi); v is the float32 sum, r the output row of
@@ -95,7 +136,16 @@ enum SmallEpi {
                    // out = rt(v aux g (1 - g))
   kSmDh = 5,       // n1 == 0: out = v (float32); else the cell backward of
                    // the step before, with dh = v
-  kSmPlain = 6,    // out = v (float32): the GEMM alone (iic_small_gemm)
+  kSmPlain = 6,    // out = v (float32): the GEMM alone (iic_small_gemm,
+                   // iic_wide_gemm)
+  // the decode step's (step.cu), rounding where the Pallas body casts:
+  kSmStepIn = 7,   // r < n1: out = rt(rt(v) + bias1[r]) (dec); r < n2:
+                   // out2 = rt(sigmoid(rt(rt(v) + bias2[r - n1]))) (the
+                   // f_beta gate); else out3 = rt(rt(v) aux[b, r - n2])
+                   // (hfac, 6b's xfac), or rt(v) without aux (xe)
+  kSmStepCell = 8, // group 4: pre = rt(v + bias1) (float32, bx + bh), the
+                   // cell on c = aux3 -> h (out), c (out2)
+  kSmLogits = 9,   // out (float32) = rt(rt(v) + bias1[r])
 };
 
 struct SmallProb {
@@ -131,6 +181,8 @@ struct SmallProb {
   long long ldo;
   void* out2;            // T or float32, by epi
   long long ldo2;
+  void* out3;            // T (kSmStepIn)
+  long long ldo3;
   float* acc;            // float32, read and written
   long long ldacc;
   // set by the launcher
@@ -143,6 +195,25 @@ struct SmallLaunch {
   int B;                 // batch rows
   int cluster;           // blocks of a cluster (set by the launcher)
 };
+
+// The fields an epilogue reads, copied out of the kernel's parameter into
+// registers by the wide tile: read through the parameter's generic address,
+// they would be loaded again after every store the compiler cannot prove
+// apart from them.
+struct EpiP {
+  int n1, n2, lstm, rows, aux2_f32;
+  const void *bias1, *bias2, *aux, *aux2, *aux3, *aux4;
+  long long ldaux, ldaux2, ldaux3, ldaux4, ldo, ldo2, ldo3, ldacc;
+  void *out, *out2, *out3;
+  float* acc;
+};
+
+__device__ __forceinline__ EpiP epi_params(const SmallProb& P) {
+  return {P.n1,    P.n2,     P.lstm,   P.rows,   P.aux2_f32, P.bias1,
+          P.bias2, P.aux,    P.aux2,   P.aux3,   P.aux4,     P.ldaux,
+          P.ldaux2, P.ldaux3, P.ldaux4, P.ldo,    P.ldo2,     P.ldo3,
+          P.ldacc, P.out,    P.out2,   P.out3,   P.acc};
+}
 
 #define IIC_D16                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
@@ -177,18 +248,67 @@ __device__ __forceinline__ void wgmma_64x32<__nv_bfloat16>(float* d,
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_wait_all16(float* d) {
+#define IIC_D40                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}"
+#define IIC_D40_OUT(d)                                                     \
+  IIC_D16_OUT(d), IIC_D16_OUT((d + 16)), "+f"(d[32]), "+f"(d[33]),        \
+      "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]),     \
+      "+f"(d[39])
+
+// d (64 x 80, float32) += A (64 x k) . B (80 x k)^T, both K-major: a
+// consumer warpgroup's half of the wide batch tile.
+template <typename T>
+__device__ __forceinline__ void wgmma_64x80(float* d, uint64_t da,
+                                            uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_64x80<float>(float* d, uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 " IIC_D40
+      ", %40, %41, p, 1, 1;\n}\n"
+      : IIC_D40_OUT(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_64x80<__nv_bfloat16>(float* d,
+                                                           uint64_t da,
+                                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " IIC_D40
+      ", %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : IIC_D40_OUT(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x N) += A . B^T for a warpgroup's n = N.
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_64xn(float* d, uint64_t da,
+                                           uint64_t db) {
+  static_assert(N == 32 || N == 80, "the batch widths instantiated");
+  if constexpr (N == 32)
+    wgmma_64x32<T>(d, da, db);
+  else
+    wgmma_64x80<T>(d, da, db);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait_all_n(float* d) {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Waits until at most the latest wgmma group is in flight: d, the sums of
 // the group before it, are final.
-__device__ __forceinline__ void wgmma_wait_one16(float* d) {
+template <int N>
+__device__ __forceinline__ void wgmma_wait_one_n(float* d) {
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 #pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // x with its 13 low mantissa bits cleared: a TF32 value, the hi part of a
@@ -269,12 +389,14 @@ __device__ __forceinline__ float ld_t(const void* p, long long i) {
 template <int EPI>
 struct EpiIn {
   static constexpr int n = EPI == kSmCell ? 13 : EPI == kSmDh ? 8
-                         : EPI == kSmFac ? 3 : EPI == kSmHall ? 1 : 2;
+                         : EPI == kSmFac ? 3 : EPI == kSmStepCell ? 5
+                         : EPI == kSmHall || EPI == kSmStepIn
+                                 || EPI == kSmLogits ? 1 : 2;
   // (kSmPlain reads nothing; one slot keeps the array non-empty)
 };
 
-template <typename T, int EPI>
-__device__ __forceinline__ void epi_load(const SmallProb& P, int z, int r,
+template <typename T, int EPI, typename PP>
+__device__ __forceinline__ void epi_load(const PP& P, int z, int r,
                                          int b, float* x) {
   if constexpr (EPI == kSmHall) {
     if (r < P.n1)
@@ -318,11 +440,25 @@ __device__ __forceinline__ void epi_load(const SmallProb& P, int z, int r,
     x[5] = ld_t<T>(P.aux3, b * P.ldaux3 + r);
     x[6] = ld_t<T>(P.aux4, b * P.ldaux4 + r);
     x[7] = P.acc[b * P.ldacc + r];
+  } else if constexpr (EPI == kSmStepIn) {
+    if (r < P.n1)
+      x[0] = ld_t<T>(P.bias1, r);
+    else if (r < P.n2)
+      x[0] = ld_t<T>(P.bias2, r - P.n1);
+    else
+      x[0] = P.aux ? ld_t<T>(P.aux, b * P.ldaux + r - P.n2) : 1.0f;
+  } else if constexpr (EPI == kSmStepCell) {
+    const int H = P.rows;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) x[g] = ((const float*)P.bias1)[g * H + r];
+    x[4] = ld_t<T>(P.aux3, b * P.ldaux3 + r);
+  } else if constexpr (EPI == kSmLogits) {
+    x[0] = ld_t<T>(P.bias1, r);
   }
 }
 
-template <typename T, int EPI>
-__device__ __forceinline__ void epi_store(const SmallProb& P, int z, int r,
+template <typename T, int EPI, typename PP>
+__device__ __forceinline__ void epi_store(const PP& P, int z, int r,
                                           int b, const float* v,
                                           const float* x) {
   if constexpr (EPI == kSmHall) {
@@ -359,8 +495,29 @@ __device__ __forceinline__ void epi_store(const SmallProb& P, int z, int r,
     ((T*)P.out)[b * P.ldo + r] = from_f<T>(v[0] * x[1] * g * (1.0f - g));
   } else if constexpr (EPI == kSmPlain) {
     ((float*)P.out)[b * P.ldo + r] = v[0];
-  } else if constexpr (EPI == kSmPlain) {
-    ((float*)P.out)[b * P.ldo + r] = v[0];
+  } else if constexpr (EPI == kSmStepIn) {
+    const float x0 = rt<T>(v[0]);
+    if (r < P.n1)
+      ((T*)P.out)[b * P.ldo + r] = from_f<T>(x0 + x[0]);
+    else if (r < P.n2)
+      ((T*)P.out2)[b * P.ldo2 + r - P.n1] =
+          from_f<T>(sigmoidf_(rt<T>(x0 + x[0])));
+    else
+      ((T*)P.out3)[b * P.ldo3 + r - P.n2] = from_f<T>(x0 * x[0]);
+  } else if constexpr (EPI == kSmStepCell) {
+    float pre[4];   // as the body: the gates' float32 sums cast to T
+#pragma unroll
+    for (int g = 0; g < 4; ++g) pre[g] = rt<T>(v[g] + x[g]);
+    const float ig = rt<T>(sigmoidf_(pre[0]));
+    const float fg = rt<T>(sigmoidf_(pre[1]));
+    const float og = rt<T>(sigmoidf_(P.lstm ? pre[3] : pre[2]));
+    const float gg = rt<T>(tanhf(P.lstm ? pre[2] : pre[3]));
+    const float cn = rt<T>(rt<T>(fg * x[4]) + rt<T>(ig * gg));
+    const float hn = rt<T>(og * rt<T>(tanhf(cn)));
+    ((T*)P.out)[b * P.ldo + r] = from_f<T>(hn);
+    ((T*)P.out2)[b * P.ldo2 + r] = from_f<T>(cn);
+  } else if constexpr (EPI == kSmLogits) {
+    ((float*)P.out)[b * P.ldo + r] = rt<T>(rt<T>(v[0]) + x[0]);
   } else if constexpr (EPI == kSmDh) {
     if (P.n1 == 0) {
       ((float*)P.out)[b * P.ldo + r] = v[0];
@@ -377,24 +534,47 @@ __device__ __forceinline__ void epi_store(const SmallProb& P, int z, int r,
 }
 
 
-template <typename T, int EPI>
-__global__ void __launch_bounds__(kSmThreads)
+// The product's fields where the block reads them: the parameter itself (n
+// = 32), or a copy in shared memory (the wide tile).
+template <int NB>
+__device__ __forceinline__ const SmallProb& param_copy(const SmallProb& g) {
+  if constexpr (NB > kSmN) {
+    __shared__ __align__(64) SmallProb s;
+    static_assert(sizeof(SmallProb) % 4 == 0, "copied in words");
+    for (int i = threadIdx.x; i < (int)(sizeof(SmallProb) / 4);
+         i += blockDim.x)
+      ((int*)&s)[i] = ((const int*)&g)[i];
+    __syncthreads();
+    return s;
+  } else {
+    return g;
+  }
+}
+
+template <typename T, int EPI, int NB>
+__global__ void __launch_bounds__(Sm<T, NB>::kThreads)
     small_gemm_kernel(const __grid_constant__ SmallLaunch L) {
-  using C = Sm<T>;
-  constexpr int BK = C::kBK, EPC = C::kEpc, S = kSmStages, D = S - 2;
+  using C = Sm<T, NB>;
+  constexpr int BK = C::kBK, EPC = C::kEpc, S = C::kStages, D = C::kAhead;
+  constexpr int NT = C::kThreads, NW = C::kNW;
   namespace cg = cooperative_groups;
   extern __shared__ __align__(1024) unsigned char sm_raw[];
   __shared__ __align__(8) uint64_t full[S];   // W tile t landed (TMA)
   T* ring = (T*)(((uintptr_t)sm_raw + 1023) & ~(uintptr_t)1023);
-  T* lo_buf = ring + S * C::kStage;    // 3 x (W lo, X lo), float32 only
+  T* lo_buf = ring + S * C::kStage;    // kLo x (W lo, X lo), float32 only
 
   int blk = blockIdx.x, pi = 0;
   while (pi + 1 < L.nprob && blk >= L.p[pi].blocks) blk -= L.p[pi++].blocks;
-  const SmallProb& P = L.p[pi];
+  // the wide tile reads its product's fields from a copy in shared memory:
+  // the parameter, indexed by a block-dependent pi, is read through its
+  // generic address, slowly, and again after every store; only the TMA
+  // descriptors must stay in parameter space
+  const SmallProb& Pg = L.p[pi];
+  const SmallProb& P = param_copy<NB>(Pg);
   const int tid = threadIdx.x;
   const int ks = blk % P.ksplit, rt = blk / P.ksplit;
   const int z = rt % P.nz, lt = rt / P.nz;
-  const int r0 = lt * kSmM, b0 = blockIdx.y * kSmN;
+  const int r0 = lt * kSmM, b0 = blockIdx.y * NB;
   const long long wrow0 = z * P.z_rows + lt * P.lt_rows;
 
   // this block's K tiles [t_lo, t_lo + nt) of the sources' tiles in order;
@@ -420,16 +600,21 @@ __global__ void __launch_bounds__(kSmThreads)
 
   // W: one TMA copy a tile (thread 0), or, for a row stride TMA does not
   // take, element loads by every thread into this thread's chunks: chunk
-  // wc of rows wr + 16 j (j < 4); X: chunks xc, xc + 1 of row xr
+  // wc of rows wr + (NT / 8) j (j < kWJ); X: this thread's chunks q (h <
+  // kXC), chunk q % 8 of row q / 8, q = tid kXC + h, or, in the wide tile,
+  // tid + h NT: a warp's copy is then four whole 128-byte rows
   const uint64_t pol = l2_evict_last();
   const int wc = tid & 7, wr = tid >> 3;
-  const int xr = tid >> 2, xc = (tid & 3) * 2;
   auto w_at = [&](int j) {
-    const int r = wr + 16 * j;
+    const int r = wr + (NT / 8) * j;
     return r * BK + ((wc ^ (r & 7)) * EPC);
   };
+  auto xq = [&](int h) {
+    return NB > kSmN ? tid + h * NT : tid * C::kXC + h;
+  };
   auto x_at = [&](int h) {
-    return C::kW + xr * BK + (((xc + h) ^ (xr & 7)) * EPC);
+    const int q = xq(h), xr = q >> 3;
+    return C::kW + xr * BK + (((q & 7) ^ (xr & 7)) * EPC);
   };
   auto load_w = [&](int u, int st) {
     const int s = source(u);
@@ -439,14 +624,14 @@ __global__ void __launch_bounds__(kSmThreads)
     if (P.w_al[s]) {
       if (tid == 0) {
         mbar_expect_tx(&full[st], C::kW * (int)sizeof(T));
-        tma_load_2d(dst, &P.map[s], u * BK, (int)wrow0, &full[st], pol);
+        tma_load_2d(dst, &Pg.map[s], u * BK, (int)wrow0, &full[st], pol);
       }
     } else {
       const int gw = u * BK + wc * EPC;
       const int kw = min(max(P.k[s] - gw, 0), EPC);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = wr + 16 * j;
+      for (int j = 0; j < C::kWJ; ++j) {
+        const int r = wr + (NT / 8) * j;
         const bool ok = r0 + r < P.rows && kw > 0;
         const T* src = W + (wrow0 + r) * ldw + gw;
         T* d = dst + w_at(j);
@@ -461,10 +646,11 @@ __global__ void __launch_bounds__(kSmThreads)
     const int s = source(u);
     T* dst = ring + st * C::kStage;
     const T* X = (const T*)P.x[s] + z * P.zx;
-    const int b = b0 + xr;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gx = u * BK + (xc + h) * EPC;
+    for (int h = 0; h < C::kXC; ++h) {
+      const int q = xq(h);
+      const int b = b0 + (q >> 3);
+      const int gx = u * BK + (q & 7) * EPC;
       const int kx = b < L.B ? min(max(P.k[s] - gx, 0), EPC) : 0;
       const T* src = X + (long long)b * P.ldx[s] + gx;
       T* d = dst + x_at(h);
@@ -490,14 +676,18 @@ __global__ void __launch_bounds__(kSmThreads)
                       x.z - tf32_trunc(x.z), x.w - tf32_trunc(x.w));
     };
 #pragma unroll
-    for (int j = 0; j < 4; ++j) one(w_at(j));
+    for (int j = 0; j < C::kWJ; ++j) one(w_at(j));
 #pragma unroll
-    for (int h = 0; h < 2; ++h) one(x_at(h));
+    for (int h = 0; h < C::kXC; ++h) one(x_at(h));
   };
 
-  float d[16], da[16], db[16];
+  // consumer warpgroup wg multiplies the W tile by batch rows [wg NW, (wg
+  // + 1) NW) of the X tile: NW rows of 128 bytes, whole swizzle atoms
+  const int wg = tid / kSmThreads;
+  const int xoff = C::kW + wg * NW * BK;
+  float d[NW / 2], da[NW / 2], db[NW / 2];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) d[i] = 0.0f;
+  for (int i = 0; i < NW / 2; ++i) d[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     if (i < nt) {
@@ -506,73 +696,86 @@ __global__ void __launch_bounds__(kSmThreads)
     }
     cp_async_commit();
   }
-  auto step = [&](float (&cur)[16], float (&prev)[16], int t) {
+  auto step = [&](float (&cur)[NW / 2], float (&prev)[NW / 2], int t) {
     cp_async_wait<D - 1>();            // this thread's copies of tile t
     mbar_wait(&full[t % S], (t / S) & 1);   // and its W tile
     T* sw = ring + (t % S) * C::kStage;
     // tile t's lo parts: written before this tile's barrier, while a warp
     // may still wait on tile t - 2's products (a warp's wgmma.wait_group
-    // covers its own part), so three buffers
-    T* lo = lo_buf + (t % 3) * C::kStage;
+    // covers its own part; with kWait, on tile t - 1's), so three buffers
+    // (two)
+    T* lo = lo_buf + (t % (C::kLo > 0 ? C::kLo : 1)) * C::kStage;
     if constexpr (C::kF32) split(sw, lo);
     fence_proxy_async();
-    __syncthreads();   // tile t is in; tile t - 2's products are done
+    __syncthreads();   // tile t is in; tile t + D - S's products are done
     if (t + D < nt) {
       load_w(t_lo + t + D, (t + D) % S);
       load_x(t_lo + t + D, (t + D) % S);
     }
     cp_async_commit();
 #pragma unroll
-    for (int i = 0; i < 16; ++i) cur[i] = 0.0f;
+    for (int i = 0; i < NW / 2; ++i) cur[i] = 0.0f;
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int o = k * 32 / (int)sizeof(T);   // 32 bytes of K a step
       const uint64_t wh = wgmma_desc(sw + o);
-      const uint64_t xh = wgmma_desc(sw + C::kW + o);
+      const uint64_t xh = wgmma_desc(sw + xoff + o);
       if constexpr (C::kF32) {
-        wgmma_64x32<T>(cur, wgmma_desc(lo + o), xh);
-        wgmma_64x32<T>(cur, wh, wgmma_desc(lo + C::kW + o));
+        wgmma_64xn<T, NW>(cur, wgmma_desc(lo + o), xh);
+        wgmma_64xn<T, NW>(cur, wh, wgmma_desc(lo + xoff + o));
       }
-      wgmma_64x32<T>(cur, wh, xh);
+      wgmma_64xn<T, NW>(cur, wh, xh);
     }
     wgmma_commit();
-    if (t > 0) {                       // tile t - 1's sums are final
-      wgmma_wait_one16(prev);
+    if constexpr (C::kWait) {
+      // the sums of tile t, at once: reading the accumulators of a group
+      // in flight (below) makes the compiler wait after every wgmma, so a
+      // tile's 12 float32 products would run one at a time
+      wgmma_wait_all_n<NW>(cur);
 #pragma unroll
-      for (int i = 0; i < 16; ++i) d[i] += prev[i];
+      for (int i = 0; i < NW / 2; ++i) d[i] += cur[i];
+    } else if (t > 0) {                // tile t - 1's sums are final
+      wgmma_wait_one_n<NW>(prev);
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) d[i] += prev[i];
     }
   };
   int t = 0;
-  for (; t + 1 < nt; t += 2) {
-    step(da, db, t);
-    step(db, da, t + 1);
+  if constexpr (C::kWait) {
+    for (; t < nt; ++t) step(da, da, t);
+  } else {
+    for (; t + 1 < nt; t += 2) {
+      step(da, db, t);
+      step(db, da, t + 1);
+    }
+    if (t < nt) step(da, db, t);
   }
-  if (t < nt) step(da, db, t);
-  if (nt > 0) {
+  if (!C::kWait && nt > 0) {
     if ((nt - 1) & 1) {
-      wgmma_wait_all16(db);
+      wgmma_wait_all_n<NW>(db);
 #pragma unroll
-      for (int i = 0; i < 16; ++i) d[i] += db[i];
+      for (int i = 0; i < NW / 2; ++i) d[i] += db[i];
     } else {
-      wgmma_wait_all16(da);
+      wgmma_wait_all_n<NW>(da);
 #pragma unroll
-      for (int i = 0; i < 16; ++i) d[i] += da[i];
+      for (int i = 0; i < NW / 2; ++i) d[i] += da[i];
     }
   }
   cp_async_wait<0>();
   __syncthreads();                     // the ring is free
 
-  // this block's sums, 64 rows x 32 batch columns, row-major: accumulator
-  // j*4 + i of thread (warp w, lane l) is row 16 w + l / 4 (+8 for i >=
-  // 2), column 8 j + 2 (l % 4) + i % 2
+  // this block's sums, 64 rows x NB batch columns, row-major: accumulator
+  // j*4 + i of thread (warp w of warpgroup wg, lane l) is row 16 w + l / 4
+  // (+8 for i >= 2), column wg NW + 8 j + 2 (l % 4) + i % 2
   float* red = (float*)ring;
-  const int warp = tid >> 5, lane = tid & 31;
+  constexpr int LDR = C::kLdr;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < NW / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      red[(16 * warp + lane / 4 + (i >= 2 ? 8 : 0)) * kSmN + 8 * j +
+      red[(16 * warp + lane / 4 + (i >= 2 ? 8 : 0)) * LDR + wg * NW + 8 * j +
           2 * (lane % 4) + (i & 1)] = d[j * 4 + i];
   cg::cluster_group cl = cg::this_cluster();
   cl.sync();
@@ -581,36 +784,69 @@ __global__ void __launch_bounds__(kSmThreads)
   // sl; rank c finishes rows [c nr, (c + 1) nr) of the group's outputs
   const int G = P.group, CS = G * P.ksplit;
   const int rank = (int)cl.block_rank();
+  // block rk's sums; the wide tile reads its own without the cluster's
+  // address window
+  auto sums = [&](int rk) -> const float* {
+    if constexpr (NB > kSmN)
+      if (rk == rank) return red;
+    return cl.map_shared_rank(red, rk);
+  };
   const int nr = (kSmM + CS - 1) / CS;
   const int zg = G == 1 ? z : 0;
-  const int npos = nr * kSmN;
-  for (int p0 = 0; p0 < npos; p0 += 4 * kSmThreads) {
-    float x[4][EpiIn<EPI>::n], v[4][4];
-    int rr[4], bb[4];
-    bool ok[4];
+  // each output's (row of the tile, batch column): the n = 32 tile walks
+  // positions pos = p NT + tid; the wide one gives each thread one row and
+  // walks columns, with no division in the loop (its 8 warps a block leave
+  // little to hide an instruction's latency behind)
+  const int npos = nr * NB, cpt = NT / nr;   // wide: columns a pass
+  const int my_r = tid % nr, my_c = tid / nr;
+  const int passes = NB > kSmN ? (NB + cpt - 1) / cpt : (npos + NT - 1) / NT;
+  constexpr int U = NB > kSmN ? 8 : 4;   // outputs whose loads fly together
+  const int ksl = P.ksplit, nb = L.B;
+  auto finish = [&](const auto& E) {
+    for (int p = 0; p < passes; p += U) {
+      float x[U][EpiIn<EPI>::n], v[U][4];
+      int rr[U], bb[U];
+      bool ok[U];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {      // four outputs' loads in flight
-      const int pos = p0 + u * kSmThreads + tid;
-      const int rl = rank * nr + pos % nr;   // row of the tile
-      rr[u] = r0 + rl;
-      bb[u] = b0 + pos / nr;
-      ok[u] = pos < npos && rl < kSmM && rr[u] < P.rows && bb[u] < L.B;
-      if (!ok[u]) continue;
+      for (int u = 0; u < U; ++u) {
+        int rl, col;                     // row of the tile, batch column
+        bool in;
+        if constexpr (NB > kSmN) {
+          rl = rank * nr + my_r;
+          col = my_c + (p + u) * cpt;
+          in = my_c < cpt && col < NB;
+        } else {
+          const int pos = (p + u) * NT + tid;
+          rl = rank * nr + pos % nr;
+          col = pos / nr;
+          in = pos < npos;
+        }
+        rr[u] = r0 + rl;
+        bb[u] = b0 + col;
+        ok[u] = in && rl < kSmM && rr[u] < E.rows && bb[u] < nb;
+        if (!ok[u]) continue;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        v[u][g] = 0.0f;
-        if (g >= G) continue;
-        for (int sl = 0; sl < P.ksplit; ++sl)
-          v[u][g] += cl.map_shared_rank(red, g * P.ksplit + sl)
-                         [rl * kSmN + pos / nr];
+        for (int g = 0; g < 4; ++g) {
+          v[u][g] = 0.0f;
+          if (g >= G) continue;
+          if (NB > kSmN && CS == 1)      // the block's own sums, no window
+            v[u][g] = red[rl * LDR + col];
+          else
+            for (int sl = 0; sl < ksl; ++sl)
+              v[u][g] += sums(g * ksl + sl)[rl * LDR + col];
+        }
+        if constexpr (EPI != kSmPlain)
+          epi_load<T, EPI>(E, zg, rr[u], bb[u], x[u]);
       }
-      if constexpr (EPI != kSmPlain)
-        epi_load<T, EPI>(P, zg, rr[u], bb[u], x[u]);
-    }
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (ok[u]) epi_store<T, EPI>(P, zg, rr[u], bb[u], v[u], x[u]);
-  }
+      for (int u = 0; u < U; ++u)
+        if (ok[u]) epi_store<T, EPI>(E, zg, rr[u], bb[u], v[u], x[u]);
+    }
+  };
+  if constexpr (NB > kSmN)
+    finish(epi_params(P));
+  else
+    finish(P);
   cl.sync();   // no block leaves while another reads its shared memory
 }
 
@@ -638,9 +874,9 @@ static EncodeTiled encode_tiled() {
 
 // W source s of p as a TMA descriptor: (wrows, k) values, row stride ldw,
 // boxes of 64 rows x 128 bytes in the 128-byte swizzle, zeros past the
-// edges.  The last few descriptors are kept: a scan's weights are the same
-// tensors at every step.
-template <typename T>
+// edges.  The last Sm::kMaps descriptors are kept: a scan's weights, and
+// a served tree's packs, are the same tensors at every step.
+template <typename T, int NB>
 static int w_tensor_map(SmallProb& p, int s) {
   struct Entry {
     const void* w;
@@ -648,7 +884,8 @@ static int w_tensor_map(SmallProb& p, int s) {
     int k;
     CUtensorMap map;
   };
-  static Entry cache[16];
+  constexpr int kN = Sm<T, NB>::kMaps;
+  static Entry cache[kN];
   static int next = 0;
   for (const Entry& e : cache)
     if (e.w == p.w[s] && e.ldw == p.ldw[s] && e.rows == p.wrows[s] &&
@@ -671,21 +908,23 @@ static int w_tensor_map(SmallProb& p, int s) {
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
   cache[next] = {p.w[s], p.ldw[s], p.wrows[s], p.k[s], p.map[s]};
-  next = (next + 1) % 16;
+  next = (next + 1) % kN;
   return 0;
 }
 
-// Plans each product's blocks (split-K for about kSmTarget blocks in all,
-// at least two K tiles a slice, a cluster of group x ksplit blocks within
-// kSmMaxCluster, the same for both products of a launch) and launches.
-template <typename T, int EPI>
+// Plans each product's blocks (split-K for about Sm::kTarget blocks in
+// all, at least two K tiles a slice, a cluster of group x ksplit blocks
+// within Sm::kMaxCluster, the same for both products of a launch) and
+// launches batch tiles of NB rows.
+template <typename T, int EPI, int NB = kSmN>
 static int launch_small(SmallLaunch L, cudaStream_t stream) {
-  constexpr int BK = Sm<T>::kBK, EPC = Sm<T>::kEpc;
+  using C = Sm<T, NB>;
+  constexpr int BK = C::kBK, EPC = C::kEpc;
   if (L.B < 1 || L.nprob < 1 || L.nprob > kSmProbs)
     return (int)cudaErrorInvalidValue;
-  const int nbt = (L.B + kSmN - 1) / kSmN;
+  const int nbt = (L.B + NB - 1) / NB;
   const int G = L.p[0].group;
-  int tiles_all = 0, ks = kSmMaxCluster / G;
+  int tiles_all = 0, ks = C::kMaxCluster / G;
   for (int pi = 0; pi < L.nprob; ++pi) {
     SmallProb& p = L.p[pi];
     if (p.epi != EPI || p.group != G || p.nsrc < 1 || p.nsrc > 3 ||
@@ -697,7 +936,7 @@ static int launch_small(SmallLaunch L, cudaStream_t stream) {
       p.ktiles += (p.k[s] + BK - 1) / BK;
       p.w_al[s] = (uintptr_t)p.w[s] % 16 == 0 && p.ldw[s] % EPC == 0;
       if (p.w_al[s]) {
-        const int err = w_tensor_map<T>(p, s);
+        const int err = w_tensor_map<T, NB>(p, s);
         if (err != 0) return err;
       }
       p.x_al[s] = (uintptr_t)p.x[s] % 16 == 0 && p.ldx[s] % EPC == 0 &&
@@ -706,18 +945,9 @@ static int launch_small(SmallLaunch L, cudaStream_t stream) {
     tiles_all += ((p.rows + kSmM - 1) / kSmM) * p.nz;
     ks = std::min(ks, std::max(1, p.ktiles / 2));
   }
-  ks = std::max(1, std::min(ks, kSmTarget / (tiles_all * nbt)));
-  for (int pi = 0; pi < L.nprob; ++pi) {
-    SmallProb& p = L.p[pi];
-    p.tchunk = (p.ktiles + ks - 1) / ks;
-    p.ksplit = ks;   // a slice past the last tile computes zeros
-    p.blocks = ((p.rows + kSmM - 1) / kSmM) * p.nz * ks;
-  }
-  L.cluster = G * ks;
-  int blocks = 0;
-  for (int pi = 0; pi < L.nprob; ++pi) blocks += L.p[pi].blocks;
-  const auto kernel = small_gemm_kernel<T, EPI>;
-  constexpr size_t smem = Sm<T>::kSmem;
+  ks = std::max(1, std::min(ks, C::kTarget / (tiles_all * nbt)));
+  const auto kernel = small_gemm_kernel<T, EPI, NB>;
+  constexpr size_t smem = C::kSmem;
   static bool ready = false;      // the attributes, once per instance
   if (!ready) {
     int err = allow_smem(kernel, smem);
@@ -727,9 +957,48 @@ static int launch_small(SmallLaunch L, cudaStream_t stream) {
     if (err != 0) return err;
     ready = true;
   }
+  if constexpr (NB > kSmN) {
+    // a wide block fills its SM, and a cluster's blocks share a GPC: take
+    // the largest split whose clusters are all resident at once, so no
+    // cluster waits for a second wave
+    static int fit[5][C::kMaxCluster + 1] = {};   // 1 + clusters resident
+    const int want = tiles_all * nbt / G;          // clusters
+    while (ks > 1) {
+      int& f = fit[G][G * ks];
+      if (f == 0) {
+        cudaLaunchConfig_t q = {};
+        q.gridDim = dim3(G * ks);
+        q.blockDim = dim3(C::kThreads);
+        q.dynamicSmemBytes = smem;
+        cudaLaunchAttribute a[1];
+        a[0].id = cudaLaunchAttributeClusterDimension;
+        a[0].val.clusterDim.x = G * ks;
+        a[0].val.clusterDim.y = a[0].val.clusterDim.z = 1;
+        q.attrs = a;
+        q.numAttrs = 1;
+        int n = 0;
+        if (cudaOccupancyMaxActiveClusters(&n, kernel, &q) != cudaSuccess) {
+          cudaGetLastError();
+          n = 0;
+        }
+        f = 1 + n;
+      }
+      if (f - 1 >= want) break;
+      --ks;
+    }
+  }
+  for (int pi = 0; pi < L.nprob; ++pi) {
+    SmallProb& p = L.p[pi];
+    p.tchunk = (p.ktiles + ks - 1) / ks;
+    p.ksplit = ks;   // a slice past the last tile computes zeros
+    p.blocks = ((p.rows + kSmM - 1) / kSmM) * p.nz * ks;
+  }
+  L.cluster = G * ks;
+  int blocks = 0;
+  for (int pi = 0; pi < L.nprob; ++pi) blocks += L.p[pi].blocks;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks, nbt);
-  cfg.blockDim = dim3(kSmThreads);
+  cfg.blockDim = dim3(C::kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -742,6 +1011,40 @@ static int launch_small(SmallLaunch L, cudaStream_t stream) {
   const int err = (int)cudaLaunchKernelEx(&cfg, kernel, L);
   if (err != 0) return err;
   return (int)cudaGetLastError();
+}
+
+// One product of `rows` output rows with epilogue epi, no sources yet.
+static inline SmallProb small_prob(int rows, int epi) {
+  SmallProb p = {};
+  p.rows = rows;
+  p.nz = 1;
+  p.group = 1;
+  p.lt_rows = kSmM;
+  p.epi = epi;
+  return p;
+}
+
+// Source s of a small product: x (batch rows, ldx) times W (wrows rows,
+// ldw), K = k.
+static inline void small_src(SmallProb& p, const void* x, long long ldx,
+                             const void* w, long long ldw, long long wrows,
+                             int k) {
+  const int s = p.nsrc++;
+  p.x[s] = x;
+  p.ldx[s] = ldx;
+  p.w[s] = w;
+  p.ldw[s] = ldw;
+  p.wrows[s] = wrows;
+  p.k[s] = k;
+}
+
+// The gate-interleaved packs: z-slice g of 64-row tile u at rows (4 u + g)
+// 64 (ops/train_cuda.py pack_gates).
+static inline void gates_interleaved(SmallProb& p) {
+  p.nz = 4;
+  p.group = 4;
+  p.z_rows = kSmM;
+  p.lt_rows = 4 * kSmM;
 }
 
 // launch_small for the epilogue of the launch's products (L.p[0].epi).

@@ -1,52 +1,64 @@
-// Kernel 2: the C entry points of one fused beam-decode step over R = B*K
-// rows.
+// Kernels 2, 6b and 6c: one fused beam-decode step over R = B*K rows, and
+// its C entry point iic_step (one call a step).
 //
 // Replaces indonesian_image_captioning_tpu/ops/step_pallas.py
-// fused_decode_step and fused_decode_step_noattn (body _make_kernel, call
-// _fused_call).  The Pallas body is one kernel; here the step is a short
-// chain of launches of the GEMM (mma.cuh), the cell and head kernels
-// (step.cuh, shared with span.cu) and kernel 1 (attend.cu), driven by
-// ops/step_cuda.py:
+// fused_decode_step, fused_decode_step_q and fused_decode_step_noattn
+// (body _make_kernel, call _fused_call).  The Pallas body is one kernel;
+// here the step is a short chain of launches on one stream, driven from
+// this file by iic_step, with the scratch and packed weights of
+// ops/step_cuda.py.  "small" is the swap-AB tensor-core GEMM of
+// mma_small.cuh at its wide batch tile (kSmWide = 160 rows: the whole beam
+// batch at B = 32, K = 5), on K-major packs (step_cuda.step_packs);
+// rt() rounds through the working type T where the body casts
+// (step_pallas.py:249-324, 343-370):
 //
-//   gemm  dec  = h @ wda + bda                                 (attention)
-//   attend awe = attention(enc, ea, dec)                 kernel 1 (attention)
-//   gemm  gawe = sigmoid(h @ wfb + bfb) * awe                  (attention)
-//   SCN:  gemm xfac = ([emb | gawe] @ [wxe ; wxa]) * semx
-//         gemm hfac = (h @ wh) * semh
-//         gemm pre[g] = xfac[g] @ wxp[g] + hfac[g] @ whp[g] + bx[g] + bh[g],
-//              the four gates as gridDim.z
-//   LSTM: gemm pre = [emb | gawe] @ wih + h @ wh + bx + bh
-//   cell  c' = f*c + i*g;  h' = o*tanh(c')    (SCN gates i,f,o,c; LSTM i,f,g,o)
-//   gemm  logits = h' @ fcw + fcb   (float32 out)
-//   head  per row: max, lse = log sum exp(x - max), K rounds of argmax
+//   L1 small  h @ [wda | wfb | wh]: dec = rt(rt(v) + bda),
+//             g = rt(sigmoid(rt(rt(v) + bfb))), SCN hfac = rt(rt(v) semh);
+//             and in the same launch emb @ wxe: xe = rt(v) (6b: xfac =
+//             rt(rt(v) semx)).  The LSTM's L1 is h @ [wda | wfb] alone.
+//   L2-L3     the attention: kernel 1 (attend.cuh), or kernel 5
+//             (attend_q.cuh) on the int8 state (6c); its weighted-sum
+//             launch writes gawe = rt(g rt(awe))
+//   L4 small  SCN: gawe @ wxa: xfac = rt(rt(rt(v) + xe) semx)
+//   L5 small  the four gates of 64 units in one cluster, the cell in the
+//             epilogue: SCN xfac_g @ wxp_g + hfac_g @ whp_g, LSTM
+//             [emb | gawe | h] @ [wih ; wh]; pre = rt(v + bx + bh),
+//             c' = rt(rt(f c) + rt(i g)), h' = rt(o rt(tanh c'))
+//             (SCN gates i, f, o, c; LSTM i, f, g, o)
+//   L6 small  logits = rt(rt(h' @ fcw) + fcb) (float32 out)
+//   L7 head   per row: max, lse = log sum exp(x - max), K rounds of argmax
+//             (step.cuh)
 //
-// Every product of the Pallas body (wda, wfb, wxe/wxa, wh, wxp/whp, wih,
-// fcw) runs in the tensor-core GEMM of mma.cuh (iic_gemm, on weights
-// packed by step_cuda.pack_tc; gemm.cuh's FFMA GEMM stays callable as
-// iic_gemm_ffma); no library GEMM is called.  Contract of the head (step_pallas.py:343-370): topv holds the max-shifted logits x - max,
-// lse = log sum exp(x - max) in float32, so topv - lse is the log-softmax;
-// a round's winner is the largest value, ties going to the lowest vocab id,
-// and each winner is masked with -1e30 before the next round.  The vocab is
-// not padded, so no padded column exists to win.
+// Seven launches a step for SCN with attention, six for the LSTM, four for
+// 6b (pure_scn: L1, L5, L6, L7); iic_step_launches reports the last call's.
+// Every product of the Pallas body runs on the tensor cores; no library
+// GEMM is called.  Contract of the head (step_pallas.py:343-370): topv
+// holds the max-shifted logits x - max, lse = log sum exp(x - max) in
+// float32, so topv - lse is the log-softmax; a round's winner is the
+// largest value, ties going to the lowest vocab id.  The vocab is not
+// padded, so no padded column exists to win.  No float atomics: every sum
+// has one owner and one order.
 //
-// What bounds it: at R = 640 rows (B = 128, K = 5) the step reads the
-// 512 x 6763 head weight (13.8 MB at float32) and does 4.4 GFLOP in the head
-// GEMM, and the attention reads the encoder state (2 MB per image).  The
-// cell GEMMs are about half the head's flops.  So the head GEMM is the
-// largest arithmetic term and the encoder read the largest byte term.
+// What bounds it: bytes.  At the flagship widths (D = 512, E = 2048, F4 =
+// 2048, V = 6,763) a step reads the weights (13.2 M values, 52.7 MB at
+// float32, more than the 50 MB L2) and the encoder state (P (E + A)
+// values an image, 64 MB at B = 32 and float32); the products' 3xTF32
+// operations at R = 160 are a smaller bound.
 //
-// What the design does about it: the GEMM (mma.cuh) tiles 64 x 64
-// outputs per warpgroup on the tensor cores, K tiles in a ring that a
-// producer warpgroup fills by cp.async (a weight column is read once per
-// row tile, not once per row), and splits K where the output tiles do not
-// fill the card; the
-// elementwise work (bias, sigmoid gate, semantic modulation) is fused into
-// the GEMM epilogues so no pre-activation makes a round trip except the
-// gate pre-activations and the logits; the head reads each logit row from
-// L2 for its K + 2 passes.  TMA and a head that never writes the logits
-// are later work.
+// What the design does about it: the batch rows are wgmma's N, so a block
+// owns one 64-row W tile against the whole beam batch and reads it once,
+// by TMA, as stored (no pre-split TF32 copy: the lo part is made in shared
+// memory); split-K sums inside a thread-block cluster without a reduce
+// launch; every elementwise stage runs in an epilogue (the gates, the
+// factors, the cell), so what reaches device memory between launches is a
+// few (R, .) rows; the host makes one C call a step on scratch it keeps.
+// iic_gemm (mma.cuh, the GEMM of kernels 7 and 13) and iic_gemm_ffma stay
+// callable for chip_smoke.py and the card tests.
+#include "attend.cuh"
+#include "attend_q.cuh"
 #include "gemm.cuh"
 #include "mma.cuh"
+#include "mma_small.cuh"
 #include "step.cuh"
 
 // Pointers are device addresses; a null a2 skips the second source and a
@@ -55,9 +67,9 @@
 // lo parts of W pre-split into TF32 hi (w1, w2) and lo parts
 // (step_cuda.pack_tc).  The tensor-core GEMM takes only that layout; the
 // FFMA GEMM takes W (K, N) or, with wt, (N, K), and ignores the lo parts.
-// tc = 1: the tensor-core GEMM (mma.cuh, the chain's); tc = 0: the float32
-// FFMA GEMM (gemm.cuh), which chip_smoke.py and the card tests hold it
-// against.  Returns the launches' CUDA error code.
+// tc = 1: the tensor-core GEMM (mma.cuh, the products of kernels 7 and
+// 13); tc = 0: the float32 FFMA GEMM (gemm.cuh), which chip_smoke.py and
+// the card tests hold it against.  Returns the launches' CUDA error code.
 static int gemm_entry(int tc, int dtype, int epi, int M, int N, int nz,
                       const void* a1, long long lda1, const void* w1,
                       long long ldw1, int k1, const void* a2, long long lda2,
@@ -110,19 +122,170 @@ extern "C" int iic_gemm_ffma(IIC_GEMM_PARAMS) {
   return gemm_entry(0, IIC_GEMM_ARGS);
 }
 
-extern "C" int iic_cell(int dtype, int lstm, const void* pre, const void* c,
-                        void* h_out, void* c_out, int R, int H, void* stream) {
+namespace iic {
+
+// Everything one step needs (unused pointers null).  Every field is 8
+// bytes; ops/step_cuda.py mirrors it field for field and checks its size
+// against iic_step_args_bytes().  Shapes: enc (B, P, E) and ea (B, P, A)
+// in T, or int8 with enc_s, ea_s (B, P) float32 (quant); emb (R, Emb), h,
+// c (R, D), semx, semh (R, F4); the packs are step_cuda.step_packs'
+// K-major forms (rows ld* values apart), wg's sources starting wg_o1 and
+// wg_o2 values in; bxh = bx + bh float32.
+struct StepArgs {
+  long long R, B, K, P, pa, E, A, D, Emb, F4, V, topk, lstm, quant, esplit;
+  long long ldw1, ldwxe, ldwxa, ldwg, wg_o1, wg_o2, ldfcw;
+  const void *enc, *ea, *enc_s, *ea_s, *emb, *h, *c, *semx, *semh;
+  const void *w1, *wxe, *wxa, *wg, *fcw, *bda, *bfb, *wf, *bxh, *fcb;
+  void *h_out, *c_out, *topv, *topi, *lse;
+  // scratch: dec (R, A), gate (R, E), hfac, xe, xfac (R, F4), gawe (R, E)
+  // in T; scores (B, K, P) and logits (R, V) float32
+  void *s_dec, *s_gate, *s_hfac, *s_xe, *s_xfac, *s_gawe, *s_scores,
+      *s_logits;
+};
+
+// Launches of the last iic_step call.
+static long long g_step_launches = 0;
+
+#define IIC_TRY(x)              \
+  do {                          \
+    const int err_ = (x);       \
+    if (err_ != 0) return err_; \
+  } while (0)
+
+template <typename T, int EPI>
+static int step_small(const StepArgs& r, const SmallProb& p0,
+                      const SmallProb* p1, cudaStream_t s) {
+  SmallLaunch L = {};
+  L.p[0] = p0;
+  L.nprob = 1;
+  if (p1 != nullptr) L.p[L.nprob++] = *p1;
+  L.B = (int)r.R;
+  ++g_step_launches;
+  return launch_small<T, EPI, kSmWide>(L, s);
+}
+
+template <typename T>
+static int run_step(const StepArgs& r, cudaStream_t s) {
+  const int R = r.R, E = r.E, A = r.A, D = r.D, F4 = r.F4, H = D;
+  const int F = F4 / 4, lstm = (int)r.lstm;
+  const int Hp = (H + kSmM - 1) / kSmM * kSmM;   // a gate pack's units
+  const bool att = r.enc != nullptr;
+  g_step_launches = 0;
+  // L1: the products of h (and, SCN, of emb)
+  const int nh = (att ? A + E : 0) + (lstm ? 0 : F4);
+  SmallProb ph = small_prob(nh, kSmStepIn);
+  small_src(ph, r.h, D, r.w1, r.ldw1, nh, D);
+  ph.n1 = att ? A : 0, ph.n2 = att ? A + E : 0;
+  ph.bias1 = r.bda, ph.bias2 = r.bfb;
+  ph.out = r.s_dec, ph.ldo = A;
+  ph.out2 = r.s_gate, ph.ldo2 = E;
+  ph.aux = r.semh, ph.ldaux = F4;
+  ph.out3 = r.s_hfac, ph.ldo3 = F4;
+  if (lstm) {
+    IIC_TRY((step_small<T, kSmStepIn>(r, ph, nullptr, s)));
+  } else {
+    SmallProb pe = small_prob(F4, kSmStepIn);
+    small_src(pe, r.emb, r.Emb, r.wxe, r.ldwxe, F4, (int)r.Emb);
+    pe.aux = att ? nullptr : r.semx, pe.ldaux = F4;
+    pe.out3 = att ? r.s_xe : r.s_xfac, pe.ldo3 = F4;
+    IIC_TRY((step_small<T, kSmStepIn>(r, ph, &pe, s)));
+  }
+  // L2-L3: the attention, gated in its weighted sum
+  if (att) {
+    if (r.quant)
+      IIC_TRY(launch_attend_q<T>(r.enc, r.enc_s, r.ea, r.ea_s, r.s_dec, r.wf,
+                                 r.s_scores, r.s_gawe, nullptr, r.B, r.K,
+                                 r.P, r.pa, E, A, r.esplit, s, r.s_gate));
+    else
+      IIC_TRY(launch_attend<T>(r.enc, r.ea, r.s_dec, r.wf, r.s_scores,
+                               r.s_gawe, nullptr, r.B, r.K, r.P, E, A,
+                               r.esplit, s, nullptr, r.s_gate));
+    g_step_launches += 2;
+  }
+  // L4: SCN's xfac from the attention
+  if (att && !lstm) {
+    SmallProb p = small_prob(F4, kSmXfac);
+    small_src(p, r.s_gawe, E, r.wxa, r.ldwxa, F4, E);
+    p.aux = r.s_xe, p.ldaux = F4;
+    p.aux2 = r.semx, p.ldaux2 = F4;
+    p.out = r.s_xfac, p.ldo = F4;
+    IIC_TRY((step_small<T, kSmXfac>(r, p, nullptr, s)));
+  }
+  // L5: the gates, the cell in the epilogue
+  SmallProb pc = small_prob(H, kSmStepCell);
+  gates_interleaved(pc);
+  if (lstm) {
+    const T* wg = (const T*)r.wg;
+    small_src(pc, r.emb, r.Emb, wg, r.ldwg, 4 * Hp, (int)r.Emb);
+    small_src(pc, r.s_gawe, E, wg + r.wg_o1, r.ldwg, 4 * Hp, E);
+    small_src(pc, r.h, D, wg + r.wg_o2, r.ldwg, 4 * Hp, D);
+  } else {
+    pc.zx = F;
+    small_src(pc, r.s_xfac, F4, r.wg, r.ldwg, 4 * Hp, F);
+    small_src(pc, r.s_hfac, F4, (const T*)r.wg + r.wg_o1, r.ldwg, 4 * Hp, F);
+  }
+  pc.lstm = lstm;
+  pc.bias1 = r.bxh;
+  pc.aux3 = r.c, pc.ldaux3 = D;
+  pc.out = r.h_out, pc.ldo = D;
+  pc.out2 = r.c_out, pc.ldo2 = D;
+  IIC_TRY((step_small<T, kSmStepCell>(r, pc, nullptr, s)));
+  // L6: the logits; L7: the head
+  SmallProb pl = small_prob((int)r.V, kSmLogits);
+  small_src(pl, r.h_out, D, r.fcw, r.ldfcw, r.V, D);
+  pl.bias1 = r.fcb;
+  pl.out = r.s_logits, pl.ldo = r.V;
+  IIC_TRY((step_small<T, kSmLogits>(r, pl, nullptr, s)));
+  ++g_step_launches;
+  return launch_head(r.s_logits, R, (int)r.V, (int)r.topk, r.topv, r.topi,
+                     r.lse, 0, s);
+}
+
+static bool step_valid(const StepArgs& r) {
+  const bool att = r.enc != nullptr;
+  return r.R >= 1 && r.D >= 1 && r.V >= 1 && r.topk >= 1 && r.topk <= r.V &&
+         (r.lstm ? att : r.F4 % 4 == 0 && r.F4 >= 4) &&
+         (!att || (r.B >= 1 && r.K >= 1 && r.R == r.B * r.K && r.esplit >= 1 &&
+                   (!r.quant || (r.pa >= 1 && r.pa <= r.P))));
+}
+
+}  // namespace iic
+
+extern "C" int iic_step_args_bytes() { return (int)sizeof(iic::StepArgs); }
+
+// Kernel launches of the last iic_step call.
+extern "C" int iic_step_launches() { return (int)iic::g_step_launches; }
+
+// One fused decode step (kernels 2, 6b, 6c), every launch of its chain on
+// the stream.  Returns the first failing launch's CUDA error code, 0 on
+// success.
+extern "C" int iic_step(int dtype, const void* args, void* stream) {
+  const iic::StepArgs& r = *(const iic::StepArgs*)args;
+  if (!iic::step_valid(r)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == iic::kF32)
-    return iic::launch_cell<float>(pre, c, h_out, c_out, R, H, lstm, s);
-  if (dtype == iic::kBF16)
-    return iic::launch_cell<__nv_bfloat16>(pre, c, h_out, c_out, R, H, lstm,
-                                           s);
+  if (dtype == iic::kF32) return iic::run_step<float>(r, s);
+  if (dtype == iic::kBF16) return iic::run_step<__nv_bfloat16>(r, s);
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int iic_head_topk(const void* logits, int R, int V, int K,
-                             void* topv, void* topi, void* lse, void* stream) {
-  return iic::launch_head(logits, R, V, K, topv, topi, lse, 0,
-                          (cudaStream_t)stream);
+// The chain's GEMM alone at the wide batch tile, for the card tests and
+// chip_smoke.py: out (B, N) float32 = x (B, K) @ w (N, K)^T, w K-major.
+extern "C" int iic_wide_gemm(int dtype, const void* x, long long ldx,
+                             const void* w, long long ldw, int B, int N,
+                             int K, void* out, void* stream) {
+  iic::SmallLaunch L = {};
+  L.nprob = 1;
+  L.B = B;
+  iic::SmallProb& p = L.p[0];
+  p = iic::small_prob(N, iic::kSmPlain);
+  iic::small_src(p, x, ldx, w, ldw, N, K);
+  p.out = out;
+  p.ldo = N;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == iic::kF32)
+    return iic::launch_small<float, iic::kSmPlain, iic::kSmWide>(L, s);
+  if (dtype == iic::kBF16)
+    return iic::launch_small<__nv_bfloat16, iic::kSmPlain, iic::kSmWide>(L,
+                                                                         s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -505,38 +505,6 @@ static void src_tc(GemmArgs& g, int s, const void* a, long long lda,
   g.wt[s] = 1;
 }
 
-static SmallProb small_prob(int rows, int epi) {
-  SmallProb p = {};
-  p.rows = rows;
-  p.nz = 1;
-  p.group = 1;
-  p.lt_rows = kSmM;
-  p.epi = epi;
-  return p;
-}
-
-// Source s of a small product: x (batch rows, ldx) times W (wrows rows,
-// ldw), K = k.
-static void small_src(SmallProb& p, const void* x, long long ldx,
-                      const void* w, long long ldw, long long wrows, int k) {
-  const int s = p.nsrc++;
-  p.x[s] = x;
-  p.ldx[s] = ldx;
-  p.w[s] = w;
-  p.ldw[s] = ldw;
-  p.wrows[s] = wrows;
-  p.k[s] = k;
-}
-
-// The gate-interleaved packs: z-slice g of 64-row tile u at rows (4 u + g)
-// 64 (ops/train_cuda.py pack_gates).
-static void gates_interleaved(SmallProb& p) {
-  p.nz = 4;
-  p.group = 4;
-  p.z_rows = kSmM;
-  p.lt_rows = 4 * kSmM;
-}
-
 template <typename T>
 static int small(const TrainArgs& r, const SmallProb& p0,
                  const SmallProb* p1, cudaStream_t s, int slot) {

@@ -44,10 +44,12 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "step": {
+        "iic_step_args_bytes": [],
+        "iic_step": [_I, _P, _P],
+        "iic_step_launches": [],
+        "iic_wide_gemm": [_I, _P, _L, _P, _L, _I, _I, _I, _P, _P],
         "iic_gemm": _GEMM,
         "iic_gemm_ffma": _GEMM,
-        "iic_cell": [_I, _I, _P, _P, _P, _P, _I, _I, _P],
-        "iic_head_topk": [_P, _I, _I, _I, _P, _P, _P, _P],
     },
     "train": {
         "iic_train_args_bytes": [],

@@ -67,9 +67,9 @@ def _esplit(B: int, E: int) -> int:
 def launch_attend(enc, ea, dec, wf, awe, alpha, stream: int) -> None:
     """Launch csrc/attend.cu on already-checked tensors (alpha may be None).
 
-    The one place kernel 1 is launched -- by :func:`attend_fused` and by
-    the fused decode step -- so it is where ``attend_fused.launches``
-    counts."""
+    Kernel 1's launch for :func:`attend_fused`, counted in
+    ``attend_fused.launches``; the fused decode step launches it inside its
+    chain (csrc/step.cu) and counts it there."""
     B, P, E = enc.shape
     K, A = dec.shape[1], ea.shape[-1]
     scores = torch.empty((B, K, P), dtype=torch.float32, device=enc.device)

@@ -101,9 +101,9 @@ def launch_attend_q(enc_q, enc_s, ea_q, ea_s, dec, wf, awe, alpha,
     """Launch csrc/attend_q.cu on already-checked tensors (alpha may be
     None).
 
-    The one place kernel 5 is launched -- by :func:`attend_fused_q` and by
-    the int8 fused decode step -- so it is where ``attend_fused_q.launches``
-    counts."""
+    Kernel 5's launch for :func:`attend_fused_q`, counted in
+    ``attend_fused_q.launches``; the int8 fused decode step launches it
+    inside its chain (csrc/step.cu) and counts it there."""
     B, P, E = enc_q.shape
     K, A = dec.shape[1], ea_q.shape[-1]
     scores = torch.empty((B, K, p_actual), dtype=torch.float32,

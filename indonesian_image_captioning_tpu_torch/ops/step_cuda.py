@@ -8,10 +8,16 @@ Replace ``ops/step_pallas.py::fused_decode_step`` (kernel 2),
 package (the Pallas body ``_make_kernel``, called by ``_fused_call``).
 Each wrapper counts its own launches.  One step over R = B*K rows:
 attention, the f_beta gate, the SCN or torch-LSTM cell, the vocab head, the
-float32 log-sum and a per-row top-K.  On the card it is a chain of launches
-of the kernels of ``csrc/step.cu`` and ``csrc/attend.cu``; the top of
+float32 log-sum and a per-row top-K.  On the card it is one C call a step,
+``iic_step`` of ``csrc/step.cu``, which launches a chain of 7 kernels (SCN
+with attention), 6 (the LSTM) or 4 (6b): the products on the swap-AB
+wgmma GEMM of ``csrc/mma_small.cuh`` at its wide batch tile, the
+attention of kernel 1 (or 5), the head of ``csrc/step.cuh``.  The top of
 ``csrc/step.cu`` lists the chain, what bounds it and what the design does
-about that.  Every product of the Pallas body runs in those kernels.
+about that.  Every product of the Pallas body runs in those kernels.  The
+weights reach it as K-major packs made once per packed tree
+(:func:`step_packs`), and its intermediates live in scratch kept per
+shape, type and stream; only the outputs are allocated per call.
 
 Outputs (the contract of ``step_pallas.py:343-370``): topv (R, K) float32
 max-shifted logits ``x - max_row``, topi (R, K) int32 with ties to the
@@ -24,18 +30,20 @@ CUDA tensors it launches the chain or raises.
 
 from __future__ import annotations
 
+import ctypes
 import weakref
 from typing import Dict, Optional
 
 import torch
 
 from . import _build
-from .attention_cuda import attend_plain, launch_attend
-from .attention_q_cuda import attend_q_plain, launch_attend_q
+from .attention_cuda import _esplit, attend_fused, attend_plain
+from .attention_q_cuda import attend_fused_q, attend_q_plain
 from .topk import row_topk_iterative
+from .train_cuda import KPAD, _ceil, pack_gates, pack_kmajor, pack_scn_gates
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-EPI_BIAS, EPI_PRE, EPI_SIGMOID_MUL, EPI_MUL = 0, 1, 2, 3   # csrc/step.cu
+EPI_BIAS, EPI_PRE, EPI_SIGMOID_MUL, EPI_MUL = 0, 1, 2, 3   # csrc/gemm.cuh
 
 
 def split_k_floats(R: int, *widths: int) -> int:
@@ -237,9 +245,9 @@ def gemm(lib, code: int, stream: int, *, epi: int, M: int, N: int, a1, w1,
     rows); part, float32 scratch for split-K partials, or None (unsplit);
     wt: w1 and w2 are stored (N, K), and w1_lo, w2_lo their float32 lo
     parts where :func:`pack_tc` split them.  ``gemm.launches`` counts the
-    tensor-core GEMM's launches: here for kernels 2, 6b and 6c, and in
-    ``span_cuda.launch_chain`` the ones csrc/span.cu made for kernels 7
-    and 13."""
+    tensor-core GEMM's launches: here those of a direct call (chip_smoke.py,
+    the card tests), and in ``span_cuda.launch_chain`` the ones
+    csrc/span.cu made for kernels 7 and 13."""
     k1 = k if k is not None else a1.shape[1]
     k2 = 0 if a2 is None else (k if k is not None else a2.shape[1])
     rc = getattr(lib, entry)(
@@ -260,88 +268,231 @@ def gemm(lib, code: int, stream: int, *, epi: int, M: int, N: int, a1, w1,
 gemm.launches = 0
 
 
-def launch_step(weights, enc, ea, emb_rows, h, c, semx, semh, *,
-                cell: str, topk: int, stream: int, scales=None,
-                p_actual=None):
-    """The chain of launches on already-checked tensors; returns
-    (topv, topi, lse, h', c').  With scales = (enc_s, ea_s), enc and ea
-    are int8 and the attention is kernel 5's."""
+def pack_gates_cat(ws, H: int, dt):
+    """Four-gate weights (K_s, 4H) that add into one sum, as one
+    gate-interleaved pack (``train_cuda.pack_gates``) over K = [K_0 | K_1 |
+    ...], each segment zero-padded to a multiple of KPAD values so that
+    every source's rows start on 16 bytes.  Returns (pack, the segments'
+    offsets in values)."""
+    offs, at = [], 0
+    for w in ws:
+        offs.append(at)
+        at += _ceil(w.shape[0], KPAD)
+    cat = torch.zeros((at, 4 * H), dtype=ws[0].dtype, device=ws[0].device)
+    for o, w in zip(offs, ws):
+        cat[o:o + w.shape[0]] = w
+    return pack_gates(cat, H, dt), offs
+
+
+def _pack_step(weights, cell: str):
+    """The chain's packs of a :func:`pack_step_weights` dict, K-major as
+    ``csrc/mma_small.cuh`` reads them (``train_cuda.pack_kmajor``: W^T,
+    rows padded to 16 bytes) in the weights' own type, never pre-split:
+    w1 = [wda | wfb | wh]^T (the products of h: the LSTM's without wh, 6b's
+    wh alone), wxe^T and wxa^T (SCN), fcw^T, the cell's gate-interleaved
+    wg (SCN [wxp_g | whp_g], LSTM [wih ; wh]) and bxh = bx + bh in
+    float32.  Returns (packs, the offsets of wg's sources in values)."""
+    dt, f32 = weights["fcw"].dtype, torch.float32
+    att = "wda" in weights
+    H = weights["wh"].shape[0]
+    w = {"fcw": pack_kmajor(weights["fcw"], dt),
+         "bxh": (weights["bx"].to(f32) + weights["bh"].to(f32)).contiguous()}
+    h_ws = [weights["wda"], weights["wfb"]] if att else []
+    if cell == "scn":
+        h_ws.append(weights["wh"])
+        w["wxe"] = pack_kmajor(weights["wxe"], dt)
+        if att:
+            w["wxa"] = pack_kmajor(weights["wxa"], dt)
+        w["wg"] = pack_scn_gates(weights["wxp"], weights["whp"], dt)
+        offs = [0, w["wg"].shape[1] // 2]
+    else:
+        E = weights["wfb"].shape[1]
+        wih = weights["wih"]
+        Emb = wih.shape[0] - E
+        w["wg"], offs = pack_gates_cat([wih[:Emb], wih[Emb:], weights["wh"]],
+                                       H, dt)
+    w["w1"] = pack_kmajor(torch.cat(h_ws, 1), dt)
+    return w, tuple(offs)
+
+
+def _signature(weights):
+    return tuple((id(t), -1 if t.is_inference() else t._version)
+                 for t in weights.values())
+
+
+_step_packs: Dict[int, tuple] = {}   # id(weights) -> (weights, sig, packs)
+_STEP_TREES = 4
+
+
+def step_packs(weights, cell: str):
+    """:func:`_pack_step` of a packed tree, made once: while the dict holds
+    the same tensors, unchanged in place (their version counters; an
+    inference tensor by identity), a later call returns the same packs.
+    The tree's tensors are checked (type, contiguity, device) when its
+    packs are made, not on every step.  The last four trees are kept."""
+    hit = _step_packs.get(id(weights))
+    sig = _signature(weights)
+    if hit is not None and hit[0] is weights and hit[1] == sig:
+        return hit[2]
+    _check_weights(weights, weights["fcw"].dtype, weights["fcw"].device)
+    packs = _pack_step(weights, cell)
+    _step_packs.pop(id(weights), None)
+    _step_packs[id(weights)] = (weights, sig, packs)
+    while len(_step_packs) > _STEP_TREES:
+        _step_packs.pop(next(iter(_step_packs)))
+    return packs
+
+
+class _StepArgs(ctypes.Structure):
+    """csrc/step.cu StepArgs, field for field."""
+
+    _fields_ = ([(n, ctypes.c_longlong) for n in
+                 ("R", "B", "K", "P", "pa", "E", "A", "D", "Emb", "F4", "V",
+                  "topk", "lstm", "quant", "esplit",
+                  "ldw1", "ldwxe", "ldwxa", "ldwg", "wg_o1", "wg_o2",
+                  "ldfcw")]
+                + [(n, ctypes.c_void_p) for n in (
+                    "enc", "ea", "enc_s", "ea_s", "emb", "h", "c", "semx",
+                    "semh", "w1", "wxe", "wxa", "wg", "fcw", "bda", "bfb",
+                    "wf", "bxh", "fcb", "h_out", "c_out", "topv", "topi",
+                    "lse", "s_dec", "s_gate", "s_hfac", "s_xe", "s_xfac",
+                    "s_gawe", "s_scores", "s_logits")])
+
+
+def _lib():
     lib = _build.load("step")
-    dt, dev = h.dtype, h.device
-    code = _DTYPES[dt]
-    R, H = h.shape
-    f32 = torch.float32
+    if lib.iic_step_args_bytes() != ctypes.sizeof(_StepArgs):
+        raise RuntimeError("csrc/step.cu StepArgs does not match _StepArgs")
+    return lib
+
+
+_scratch: Dict[tuple, Dict[str, torch.Tensor]] = {}
+_SCRATCH_SETS = 8
+
+
+def step_scratch(key, dt, dev, R, B, K, P, E, A, F4, V):
+    """The chain's intermediates for one shape, type, device and stream,
+    allocated once and reused by every step on that stream (the stream
+    orders a step's reads before the next step's writes).  The last eight
+    sets are kept."""
+    s = _scratch.get(key)
+    if s is not None:
+        return s
 
     def empty(*shape, dtype=dt):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    def w(name, s=1):          # source s's packed weight, as gemm takes it
-        kw = {f"w{s}": weights[f"{name}_t"],
-              f"w{s}_lo": weights.get(f"{name}_tlo")}
-        return dict(kw, wt=True) if s == 1 else kw
+    s = {"s_dec": empty(R, A), "s_gate": empty(R, E), "s_hfac": empty(R, F4),
+         "s_xe": empty(R, F4), "s_xfac": empty(R, F4), "s_gawe": empty(R, E),
+         "s_scores": empty(B, K, P, dtype=torch.float32),
+         "s_logits": empty(R, V, dtype=torch.float32)}
+    _scratch[key] = s
+    while len(_scratch) > _SCRATCH_SETS:
+        _scratch.pop(next(iter(_scratch)))
+    return s
 
+
+def last_launches() -> int:
+    """Kernel launches of the last step on the card (csrc/step.cu's
+    counter): 7 for SCN with attention, 6 for the LSTM, 4 for 6b."""
+    return _lib().iic_step_launches()
+
+
+def launch_step(weights, enc, ea, emb_rows, h, c, semx, semh, *,
+                cell: str, topk: int, stream: int, scales=None,
+                p_actual=None):
+    """One ``iic_step`` call on already-checked tensors; returns (topv,
+    topi, lse, h', c'), the only tensors it allocates.  With scales =
+    (enc_s, ea_s), enc and ea are int8 and the attention is kernel 5's."""
+    lib = _lib()
+    dt, dev = h.dtype, h.device
+    f32 = torch.float32
+    R, D = h.shape
+    if weights["fcw"].dtype != dt or weights["fcw"].device != dev:
+        raise TypeError(f"weights in {weights['fcw'].dtype} on "
+                        f"{weights['fcw'].device} beside {dt} on {dev}")
+    packs, offs = step_packs(weights, cell)
     V = weights["fcw"].shape[1]
-    widths = [t.shape[-1] for t in (ea, enc, semx) if t is not None]
-    part = empty(split_k_floats(R, 4 * H, *widths), dtype=f32)
-    gawe = None
-    if enc is not None:
-        B, P, E = enc.shape
-        A, K = ea.shape[-1], R // B
-        dec = empty(R, A)
-        gemm(lib, code, stream, epi=EPI_BIAS, M=R, N=A, a1=h, **w("wda"),
-             bias1=weights["bda"], c=dec, part=part)
-        awe = empty(R, E)
-        if scales is None:
-            launch_attend(enc, ea, dec.view(B, K, A), weights["wf"],
-                          awe.view(B, K, E), None, stream)
-        else:
-            launch_attend_q(enc, scales[0], ea, scales[1], dec.view(B, K, A),
-                            weights["wf"], awe.view(B, K, E), None,
-                            P if p_actual is None else p_actual, stream)
-        gawe = empty(R, E)
-        gemm(lib, code, stream, epi=EPI_SIGMOID_MUL, M=R, N=E, a1=h,
-             **w("wfb"), bias1=weights["bfb"], aux=awe, c=gawe, part=part)
-    pre = empty(R, 4 * H, dtype=f32)
-    if cell == "scn":
-        F4 = semx.shape[1]
-        F = F4 // 4
-        xfac = empty(R, F4)
-        gemm(lib, code, stream, epi=EPI_MUL, M=R, N=F4, a1=emb_rows,
-             **w("wxe"), a2=gawe, **(w("wxa", 2) if gawe is not None else {}),
-             aux=semx, c=xfac, part=part)
-        hfac = empty(R, F4)
-        gemm(lib, code, stream, epi=EPI_MUL, M=R, N=F4, a1=h, **w("wh"),
-             aux=semh, c=hfac, part=part)
-        # the four gates as gridDim.z: gate g reads columns g*F.. of
-        # xfac/hfac and rows g*H.. of the packed wxp/whp (4H, F), and
-        # writes columns g*H..
-        gemm(lib, code, stream, epi=EPI_PRE, M=R, N=H, nz=4, k=F,
-             a1=xfac, **w("wxp"), a2=hfac, **w("whp", 2),
-             bias1=weights["bx"], bias2=weights["bh"], c=pre,
-             za=F, zw=F * H, zc=H, zb=H, part=part)
-    else:
-        xcat = torch.cat([emb_rows, gawe], dim=1)
-        gemm(lib, code, stream, epi=EPI_PRE, M=R, N=4 * H, a1=xcat,
-             **w("wih"), a2=h, **w("wh", 2), bias1=weights["bx"],
-             bias2=weights["bh"], c=pre, part=part)
-    h_new, c_new = empty(R, H), empty(R, H)
-    _build.check(lib.iic_cell(code, int(cell == "lstm"), _ptr(pre), _ptr(c),
-                              _ptr(h_new), _ptr(c_new), R, H, stream),
-                 "cell")
-    logits = empty(R, V, dtype=f32)
-    gemm(lib, code, stream, epi=EPI_BIAS, M=R, N=V, a1=h_new, **w("fcw"),
-         bias1=weights["fcb"], c=logits, part=part)
-    topv = empty(R, topk, dtype=f32)
-    topi = empty(R, topk, dtype=torch.int32)
-    lse = empty(R, 1, dtype=f32)
-    _build.check(lib.iic_head_topk(_ptr(logits), R, V, topk, _ptr(topv),
-                                   _ptr(topi), _ptr(lse), stream),
-                 "head_topk")
-    return topv, topi, lse, h_new, c_new
+    F4 = 0 if semx is None else semx.shape[1]
+    B, P, E = enc.shape if enc is not None else (R, 0, 0)
+    A = ea.shape[-1] if ea is not None else 0
+    K = R // B
+    key = (dt, dev, stream, R, B, P, E, A, F4, V)
+    scr = step_scratch(key, dt, dev, R, B, K, P, E, A, F4, V)
+    out = [torch.empty((R, topk), dtype=f32, device=dev),
+           torch.empty((R, topk), dtype=torch.int32, device=dev),
+           torch.empty((R, 1), dtype=f32, device=dev),
+           torch.empty((R, D), dtype=dt, device=dev),
+           torch.empty((R, D), dtype=dt, device=dev)]
+    o1, o2 = (offs + (0,))[1:3]
+    g = weights.get
+    args = _StepArgs(
+        R, B, K, P, P if p_actual is None else p_actual, E, A, D,
+        emb_rows.shape[1], F4, V, topk, int(cell == "lstm"),
+        int(scales is not None), _esplit(B, E) if E else 1,
+        packs["w1"].shape[1], packs["wxe"].shape[1] if "wxe" in packs else 0,
+        packs["wxa"].shape[1] if "wxa" in packs else 0, packs["wg"].shape[1],
+        o1, o2, packs["fcw"].shape[1],
+        _ptr(enc), _ptr(ea), *(_ptr(t) for t in (scales or (None, None))),
+        emb_rows.data_ptr(), h.data_ptr(), c.data_ptr(), _ptr(semx),
+        _ptr(semh), packs["w1"].data_ptr(), _ptr(packs.get("wxe")),
+        _ptr(packs.get("wxa")), packs["wg"].data_ptr(),
+        packs["fcw"].data_ptr(), _ptr(g("bda")), _ptr(g("bfb")),
+        _ptr(g("wf")), packs["bxh"].data_ptr(), weights["fcb"].data_ptr(),
+        out[3].data_ptr(), out[4].data_ptr(), out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(),
+        *(scr[k].data_ptr() for k in ("s_dec", "s_gate", "s_hfac", "s_xe",
+                                      "s_xfac", "s_gawe", "s_scores",
+                                      "s_logits")))
+    _build.check(lib.iic_step(_DTYPES[dt], ctypes.byref(args), stream),
+                 "fused decode step")
+    if enc is not None:       # kernel 1 (or 5) ran inside the chain
+        (attend_fused if scales is None else attend_fused_q).launches += 1
+    return tuple(out)
+
+
+def wide_gemm(x, w):
+    """x (B, K) @ w (N, K)^T as float32 on the chain's GEMM
+    (csrc/mma_small.cuh at its wide batch tile, 3xTF32 at float32) for
+    CUDA tensors, in plain PyTorch for CPU tensors: the GEMM alone, for the
+    card tests and chip_smoke.py."""
+    if x.dtype not in _DTYPES or w.dtype != x.dtype or x.device != w.device \
+            or x.shape[1] != w.shape[1] or x.stride(1) != 1 \
+            or w.stride(1) != 1:
+        raise ValueError("wide_gemm takes x (B, K) and w (N, K) of one "
+                         "type, rows contiguous")
+    if x.device.type == "cpu":
+        return x.float() @ w.float().t()
+    if x.device.type != "cuda":
+        raise RuntimeError(f"wide_gemm: no kernel for {x.device}")
+    B, K = x.shape
+    N = w.shape[0]
+    out = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    _build.check(_lib().iic_wide_gemm(
+        _DTYPES[x.dtype], x.data_ptr(), x.stride(0), w.data_ptr(),
+        w.stride(0), B, N, K, out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream), "wide_gemm")
+    wide_gemm.launches += 1
+    return out
+
+
+wide_gemm.launches = 0
+
+
+def _check_weights(weights, dt, dev):
+    for k, w in weights.items():
+        if k != "wf" and w.dtype != dt:
+            raise TypeError(f"mixed types: {w.dtype} beside {dt}")
+        if not w.is_contiguous():
+            raise ValueError("the fused step takes contiguous tensors")
+        if w.device != dev:
+            raise ValueError(f"tensor on {w.device} beside {dev}")
 
 
 def _check(weights, enc, ea, emb_rows, h, c, semx, semh, cell, topk,
            scales, p_actual):
+    """The activations' checks; the weights' are made here on the CPU and
+    once per packed tree on the card (:func:`step_packs`)."""
     dt = h.dtype
     if dt not in _DTYPES:
         raise TypeError(f"fused step takes float32 or bfloat16, got {dt}")
@@ -373,7 +524,6 @@ def _check(weights, enc, ea, emb_rows, h, c, semx, semh, cell, topk,
                                     f"{tuple(t.shape)}")
             if not 1 <= (P if p_actual is None else p_actual) <= P:
                 raise ValueError(f"p_actual={p_actual} outside 1..{P}")
-    ts += [w for k, w in weights.items() if k != "wf"]
     for t in ts:
         if t.dtype != dt:
             raise TypeError(f"mixed types: {t.dtype} beside {dt}")
@@ -393,6 +543,7 @@ def _fused_call(counted, weights, enc, ea, emb_rows, h, c, semx, semh, *,
     _check(weights, enc, ea, emb_rows, h, c, semx, semh, cell, topk, scales,
            p_actual)
     if h.device.type == "cpu":
+        _check_weights(weights, h.dtype, h.device)
         return fused_decode_step_plain(weights, enc, ea, emb_rows, h, c,
                                        semx, semh, cell=cell, topk=topk,
                                        scales=scales, p_actual=p_actual)

@@ -17,7 +17,8 @@ lowest vocabulary id must win.  The tensor-core GEMM of the decode chain
 (csrc/mma.cuh) is held against a float64 product and gemm.cuh's FFMA GEMM
 at ragged M, N and K, and the train scan's per-step GEMM
 (csrc/mma_small.cuh) against a float64 product at ragged batches, rows,
-K and row strides.  Tolerances:
+K and row strides, and at its wide batch tile (the fused decode step's,
+160 rows) at 5 to 300 rows.  Tolerances:
 1e-5 at float32 (summation order); at bfloat16 a few ulps of the values'
 magnitudes (the kernels round once where the plain versions round twice);
 ids exactly, except where the two logits are within 1e-5 at float32.
@@ -63,6 +64,8 @@ TOL = {F32: {"attend": 1e-5, "vals": 1e-5, "state": 1e-5},
        BF16: {"attend": 3e-2, "vals": 1e-1, "state": 5e-2}}
 NEAR_TIE = 1e-5
 FAMILIES = ("attention_scn", "pure_attention", "pure_scn")
+# kernel launches of one fused step (csrc/step.cu's counter)
+STEP_LAUNCHES = {"attention_scn": 7, "pure_attention": 6, "pure_scn": 4}
 
 
 @pytest.fixture
@@ -162,6 +165,7 @@ def test_fused_step_kernel_matches_plain(dev, family, dtype, B, K):
     assert step_cuda.fused_decode_step.launches == n_step + att
     assert step_cuda.fused_decode_step_noattn.launches == n_noattn + 1 - att
     assert attention_cuda.attend_fused.launches == n_att + att
+    assert step_cuda.last_launches() == STEP_LAUNCHES[family]
     topv, topi, lse, h_new, c_new = out
     R = B * K
     assert topv.shape == topi.shape == (R, K) and lse.shape == (R, 1)
@@ -342,6 +346,78 @@ def test_small_gemm_matches_float64(dev, dtype, B, N, K, pad):
     bound = x.double().abs() @ w.double().abs().t()
     assert out.dtype == F32 and out.shape == (B, N)
     assert bool(((out.double() - ref).abs() <= 1e-5 * bound + 1e-6).all())
+
+
+WIDE_CASES = [  # R, N, K, ldw padding: one to two batch tiles of 160
+    (5, 4608, 512, 0), (40, 70, 100, 3), (160, 2048, 2048, 0),
+    (200, 6763, 512, 0), (256, 129, 37, 1), (300, 512, 4608, 0)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("R, N, K, pad", WIDE_CASES)
+def test_wide_gemm_matches_float64(dev, dtype, R, N, K, pad):
+    """The fused decode step's GEMM (csrc/mma_small.cuh at its wide batch
+    tile: two warpgroups at n = 80 sharing each W tile, 3xTF32 at float32)
+    at ragged row counts, widths, K and row strides: within 1e-5 of sum
+    |x||w| of the float64 product, as the train scan's GEMM is held."""
+    gen = torch.Generator().manual_seed(R + N + K)
+    x = randn(gen, R, K + pad).to(dev, dtype)[:, :K]
+    w = randn(gen, N, K + pad, scale=K ** -0.5).to(dev, dtype)[:, :K]
+    n0 = step_cuda.wide_gemm.launches
+    out = step_cuda.wide_gemm(x, w)
+    torch.cuda.synchronize()
+    assert step_cuda.wide_gemm.launches == n0 + 1
+    ref = x.double() @ w.double().t()
+    bound = x.double().abs() @ w.double().abs().t()
+    assert out.dtype == F32 and out.shape == (R, N)
+    assert bool(((out.double() - ref).abs() <= 1e-5 * bound + 1e-6).all())
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_fused_step_reused_scratch_equals_fresh(dev, family, dtype):
+    """Two consecutive steps on the chain's kept scratch equal the same
+    two steps each on scratch made anew, bitwise, and the second step
+    leaves the first one's outputs (which the caller keeps) as they were."""
+    cfg = small_cfg(family)
+    gen = torch.Generator().manual_seed(7)
+    B, K = 4, 5
+    R = B * K
+    h0, c0 = (randn(gen, R, cfg.decoder_dim, scale=0.5).to(dev, dtype)
+              for _ in range(2))
+    params = decoders.init_decoder(gen, cfg, device=dev)
+    weights = step_cuda.pack_step_weights(params, cfg, dtype)
+    emb = randn(gen, R, cfg.embed_dim, scale=0.1).to(dev, dtype)
+    semx = semh = None
+    if cfg.uses_tags:
+        semx, semh = (torch.rand((R, 4 * cfg.factored_dim), generator=gen)
+                      .to(dev, dtype) for _ in range(2))
+    cell = "scn" if cfg.uses_tags else "lstm"
+    if cfg.uses_attention:
+        enc = torch.relu(randn(gen, B, cfg.num_pixels, cfg.encoder_dim))
+        enc = enc.to(dev, dtype)
+        ea = attention.precompute(params["attention"], enc.float())
+        ea = ea.to(dtype).contiguous()
+
+    def step(h, c):
+        if not cfg.uses_attention:
+            return step_cuda.fused_decode_step_noattn(weights, emb, h, c,
+                                                      semx, semh, beam_k=K)
+        return step_cuda.fused_decode_step(weights, enc, ea, emb, h, c,
+                                           semx, semh, cell=cell)
+
+    first = step(h0, c0)
+    kept = [t.clone() for t in first]
+    second = step(first[3], first[4])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, kept))
+    step_cuda._scratch.clear()
+    fresh1 = step(h0, c0)
+    step_cuda._scratch.clear()
+    fresh2 = step(fresh1[3], fresh1[4])
+    torch.cuda.synchronize()
+    for got, ref in ((kept, fresh1), (second, fresh2)):
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
 
 
 def _to(tree, dev):
@@ -987,6 +1063,7 @@ def test_fused_step_q_kernel_matches_plain(dev, family, dtype, B, K, cut):
                                  step_cuda.fused_decode_step,
                                  attention_cuda.attend_fused)] == \
         [counts[0] + 1, counts[1] + 1, counts[2], counts[3]]
+    assert step_cuda.last_launches() == STEP_LAUNCHES[family]
     topv, topi, lse, h_new, c_new = out
     assert err(topv, ref[0]) <= TOL[dtype]["vals"]
     assert err(lse, ref[2]) <= TOL[dtype]["vals"]
