@@ -19,14 +19,23 @@ Phases, each of which exits non-zero on failure:
    a mid-decode state (two plain steps with a head biased toward <end>,
    then every fourth image dead), both cells; kernel 13 (the megakernel)
    one 51-step decode; their records must equal the plain version's but
-   at near-ties (REC_TOL).  Kernel 10 (the top-k) runs on a (32, 5 x
-   6,763) float32 beam candidate table and must equal row_topk_iterative
+   at near-ties (REC_TOL).  Kernel 13 also: at most 8 launches a step
+   (csrc/step.cu's counter), then three decodes of one graph launch each
+   and no capture, no launch of csrc/mma.cuh's or gemm.cuh's GEMM (the
+   profiler's kernel names), the host ms of the graph's capture, of the
+   copy of a decode's inputs into its workspace and of the other way to
+   feed them (every kernel node's parameters set again on the executable
+   graph), and the device ms by stage.  Kernel 10 (the top-k) runs on a
+   (32, 5 x 6,763) float32 beam candidate table and must equal
+   row_topk_iterative
    bitwise; torch.topk, one PyTorch call for the same values, is timed
    beside it as the library yardstick.  Kernel 5 (the int8 attention)
    with and without alpha, kernel 6c (the int8 fused step) for both cells,
    kernel 12 (the fused SCN cell) at attention_scn's input width (2,560)
-   and pure_scn's (512), in float32 and bfloat16, and kernel 11 (the vocab
-   head, float32 only) on 160 rows: the same holds for each (error against
+   and pure_scn's (512), in float32 and bfloat16 (2 launches a call from
+   csrc/scn.cu's counter, no gemm.cuh launch, device ms by launch), and
+   kernel 11 (the vocab head, float32 only) on 160 rows: the same holds
+   for each (error against
    its tolerance, median times, ids equal but at near-ties).  Kernel 14
    (the embedding gradient) on the ids and masked cotangent of 32 seeded
    captions (N = 32 x 51 = 1,632 tokens, V = 6,763, E = 512) in float32
@@ -37,13 +46,14 @@ Phases, each of which exits non-zero on failure:
    one-hot product that embed_grad_impl="onehot" runs.  Beams past eight:
    kernels 1, 5 and 7 at K = 9, 32 and 64 (WIDE_K), held the same way,
    and kernel 10 at k = 69 (three passes).  The
-   tensor-core GEMM of the decode step chain (csrc/mma.cuh; its products
-   run kernels 2, 6b, 6c, 7 and 13) at two of the chain's products at
-   R = 160 rows (In 2,560 -> 2,048 and D 512 -> V 6,763), float32
+   tensor-core GEMM of the span chain (csrc/mma.cuh; its products run
+   kernel 7) at two of the chain's products at R = 160 rows (In 2,560 ->
+   2,048 and D 512 -> V 6,763), float32
    (3xTF32) and bfloat16: within GEMM_TOL of sum |a||w| of a float64
    product, as gemm.cuh's FFMA GEMM is, with the medians of both and of
    torch.matmul (the library yardstick).  The bounds of the kernels whose
-   products run on it are taken at float32 against the 3xTF32 peak
+   products run on the tensor cores (2, 6b, 6c, 7, 8, 9, 12, 13) are
+   taken at float32 against the 3xTF32 peak
    (495 TFLOP/s for three products), the FFMA peak's printed beside.
 4. serve: the main path.  A CaptionEngine on seeded random weights
    (ResNet-152 caption encoder and tagger with BatchNorm statistics
@@ -441,16 +451,44 @@ def scn_case(dev, dtype, cfg, nb, gen):
     err = max(max_err(a.reshape(-1, D), b) for a, b in zip(out, ref))
     label = f"{cfg.model_type} In={In} {name}"
     check(err <= tol, f"scn_step_fused {label}: h/c error {err} > {tol}")
+    n_call = scn_cuda.last_launches()
+    check(n_call == 2, f"scn_step_fused {label}: {n_call} launches a call, "
+          "not 2")
     plain_ms, ms = median_ms([
         lambda: scn_cuda.scn_step_fused_plain(cell, *rows),
         lambda: scn_cuda.scn_step_fused(cell, x, sx, sh, h, c)])
+    parts = {}
     dev_ms = device_ms(lambda: scn_cuda.scn_step_fused(cell, x, sx, sh, h,
-                                                        c))
-    bound_ms, bound_by = bound(*scn_work(cfg, nb * K, dtype.itemsize), name)
+                                                        c), by_kernel=parts)
+    check(not any(library_gemm(k) for k in parts),
+          f"scn_step_fused {label}: gemm.cuh's FFMA GEMM ran")
+    split = scn_split(parts)
+    bound_ms, bound_by, ffma_ms = chain_bound(
+        scn_work(cfg, nb * K, dtype.itemsize), name)
     print(f"kernel scn_step_fused[{label}]: {nb * K} rows; max_abs_err h/c "
           f"{err:.3g} (tol {tol}); ms {ms:.4f} device_ms {dev_ms:.4f} "
-          f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms)
+          f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
+          f"FFMA peak {ffma_ms:.4f}); {n_call} launches a call (library "
+          "counter); device ms by stage: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                split=split)
+
+
+def scn_split(parts):
+    """Device ms of one kernel-12 call by launch, from its kernels' names
+    (the wide GEMM's epilogue, the second template argument): S1 (tx and
+    th, kSmF32Mul = 10), S2 (the gates and the cell, 11 or 12) and the
+    rest (PyTorch's flattening of the rows)."""
+    split = {"S1 tx th": 0.0, "S2 gates cell": 0.0, "rest": 0.0}
+    for k, v in parts.items():
+        if "small_gemm_kernel" in k and ", 10, " in k:
+            split["S1 tx th"] += v
+        elif "small_gemm_kernel" in k:
+            split["S2 gates cell"] += v
+        else:
+            split["rest"] += v
+    return split
 
 
 def fc_topk_case(dev, cfg, nb):
@@ -847,11 +885,17 @@ def span_case(dev, dtype, cfg, params, enc, gen, k=K):
 
 def mega_case(dev, dtype, cfg, params, enc, gen):
     """Kernel 13: one 51-step decode from <start> against its plain
-    version's records, and both times (10 runs each)."""
+    version's records, and both times (10 runs each); its launches a step
+    (csrc/step.cu's counter), one graph launch a decode and no capture
+    after the first, no launch of csrc/mma.cuh's GEMM, the host time of
+    the graph's capture, of copying a decode's inputs into its workspace
+    and of the other way to feed it (every kernel node's parameters set
+    again), and the device time by stage."""
     import torch
 
     from indonesian_image_captioning_tpu_torch.models import decoders
-    from indonesian_image_captioning_tpu_torch.ops import decode_cuda
+    from indonesian_image_captioning_tpu_torch.ops import (decode_cuda,
+                                                           span_cuda)
 
     name = str(dtype).replace("torch.", "")
     label = f"beam_decode_records {name}"
@@ -869,6 +913,7 @@ def mega_case(dev, dtype, cfg, params, enc, gen):
         return decode_cuda.beam_decode_records_plain(p, cfg, enc, tags, **kw)
 
     n0 = decode_cuda.beam_decode_records.launches
+    g0 = decode_cuda.graph_counts()
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
     check(decode_cuda.beam_decode_records.launches == n0 + 1,
@@ -876,17 +921,89 @@ def mega_case(dev, dtype, cfg, params, enc, gen):
     _, err, summary = match_records([out[k] for k in keys],
                                     [ref[k] for k in keys], REC_TOL[name],
                                     label)
+    graph = decode_cuda.beam_decode_records.last_graph
+    n_step = decode_cuda.step_launches()
+    check(n_step <= 8, f"{label}: {n_step} launches a step, more than 8")
+    # the next decodes replay the graph: one launch each, no capture
+    g1 = decode_cuda.graph_counts()
+    for _ in range(3):
+        kernel()
+    torch.cuda.synchronize()
+    g2 = decode_cuda.graph_counts()
+    check(g2["graph_launches"] - g1["graph_launches"] == 3
+          and g2["captures"] == g1["captures"],
+          f"{label}: three decodes made {g2} after {g1}, not three graph "
+          "launches and no capture")
     ran = int((ref["vals"] > NEG).any(2).any(0).sum())   # steps that ran
     plain_ms, ms = median_ms([plain, kernel], runs=10)
-    dev_ms = device_ms(kernel, runs=3)
+    # a decode's inputs: made and written into the workspace (what each
+    # call does), and the copies alone
+    ins = {k: v for k, v in span_cuda.decode_state(p, cfg, enc, tags,
+                                                   K).items()
+           if v is not None}
+    stage_ms, copy_ms = median_ms([
+        lambda: graph.stage(p, cfg, enc, tags),
+        lambda: [graph.ws[k].copy_(v) for k, v in ins.items()]])
+    try:
+        nodes, update_ms = graph.update_probe()
+    except RuntimeError as e:      # a measurement of the path not taken
+        print(f"{label}: node update probe not measured ({e})")
+        nodes, update_ms = 0, float("nan")
+    parts = {}
+    dev_ms = device_ms(kernel, runs=3, by_kernel=parts)
+    check(not any(library_gemm(k) for k in parts),
+          f"{label}: csrc/mma.cuh's or gemm.cuh's GEMM ran in the decode")
+    split = mega_split(parts)
     bound_ms, bound_by, ffma_ms = chain_bound(
         record_work(cfg, nb, ran, dtype.itemsize), name)
+    per_node = update_ms / max(nodes, 1)
     print(f"kernel {label}: {ran} steps ran; max_abs_err vals {err:.3g} "
           f"(tol {REC_TOL[name]['vals']}); {summary}; ms {ms:.4f} device_ms "
           f"{dev_ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
-          f"({bound_by}; FFMA peak {ffma_ms:.4f})")
+          f"({bound_by}; FFMA peak {ffma_ms:.4f}); {n_step} launches a step "
+          f"(library counter), one graph launch a decode (captures "
+          f"{g1['captures'] - g0['captures']} on the first call, 0 on the "
+          f"next 3); graph capture {graph.capture_ms:.3f} ms host (with "
+          f"packs and workspace {graph.setup_ms:.3f}); inputs made and "
+          f"written into the workspace {stage_ms:.4f} ms (events), the "
+          f"copies alone {copy_ms:.4f}; node update probe: "
+          f"{nodes} kernel nodes set in {update_ms:.3f} ms host, "
+          f"{per_node * 1e3:.2f} us a node, {4 * T * per_node:.3f} ms for "
+          f"the {4 * T} nodes that read a decode's inputs; device ms by "
+          "stage: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, steps=ran,
-                device_ms=dev_ms)
+                device_ms=dev_ms, launches_per_step=n_step, split=split,
+                capture_ms=graph.capture_ms, stage_ms=stage_ms,
+                copy_ms=copy_ms, update_ms=update_ms)
+
+
+def library_gemm(name):
+    """Whether a kernel name is one of the GEMMs kernels 12 and 13 left:
+    csrc/mma.cuh's tensor-core GEMM or gemm.cuh's FFMA GEMM and its
+    split-K reduce (not mma_small.cuh's small_gemm_kernel)."""
+    return any(f"iic::{n}" in name for n in (
+        "gemm_tc_kernel", "gemm_kernel<", "gemm_reduce_kernel"))
+
+
+def mega_split(parts):
+    """Device ms of kernel 13's decode by stage, from its kernels' names:
+    the products (the wide GEMM), the attention, the head, the selection,
+    and the rest (the graph's start, the input copies, the records'
+    copy)."""
+    split = {"gemm": 0.0, "attention": 0.0, "head": 0.0, "select": 0.0,
+             "rest": 0.0}
+    for k, v in parts.items():
+        if "small_gemm_kernel" in k:
+            split["gemm"] += v
+        elif "attend" in k:
+            split["attention"] += v
+        elif "head_topk" in k:
+            split["head"] += v
+        elif "select_kernel" in k:
+            split["select"] += v
+        else:
+            split["rest"] += v
+    return split
 
 
 def topk_case(dev, nb):
@@ -2349,7 +2466,7 @@ def main() -> int:
              f32["step"], bf16["step"], step_work(cfg, B), chain),
             ("fused_decode_span", "span.cu", "span_pallas.py:521",
              f32["span"], bf16["span"], record_work(cfg, B, SPAN), chain),
-            ("beam_decode_records", "span.cu", "decode_pallas.py:305",
+            ("beam_decode_records", "step.cu", "decode_pallas.py:305",
              f32["mega"], bf16["mega"],
              record_work(cfg, B, f32["mega"]["steps"]), chain),
             ("gemm_tc", "mma.cuh", None,
@@ -2367,7 +2484,7 @@ def main() -> int:
              chain),
             ("scn_step_fused", "scn.cu", "scn_pallas.py:56",
              f32["scn_attention_scn"], bf16["scn_attention_scn"],
-             scn_work(cfg, B * K)),
+             scn_work(cfg, B * K), chain),
             ("fc_topk", "fc_topk.cu", "fc_topk_pallas.py:119", fc_res, None,
              fc_topk_work(B * K, cfg.decoder_dim, VOCAB, K)),
             ("train_fwd", "train.cu", "train_pallas.py:768",

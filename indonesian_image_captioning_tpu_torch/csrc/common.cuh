@@ -19,7 +19,7 @@ enum DType { kF32 = 0, kBF16 = 1 };
 constexpr int kLaneGroup = 8;
 constexpr float kNeg = -1e30f;    // the beam's dead-lane sentinel (NEG)
 
-// The decode megakernel's early exit (span.cu iic_decode_records): a chain
+// The decode megakernel's early exit (step.cu iic_decode_capture): a chain
 // kernel given a `live` word returns at once when it reads 0.  Null for
 // every other caller.
 __device__ __forceinline__ bool skip(const int* live) {

@@ -85,7 +85,6 @@ struct GemmArgs {
   int kchunk;          // the concatenated K of one slice (set by launch_gemm)
   float* part;         // float32 scratch for split-K partials, or null
   long long part_cap;  // its size in floats
-  const int* live;     // the megakernel's early-exit word, or null
 };
 
 constexpr int kSms = 132;
@@ -160,7 +159,6 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, int z, int gm,
 template <typename T, int BM, int BN, typename TA>
 __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs g) {
   static_assert((BM / 4) * (BN / 4) == kGemmThreads, "4 x 4 per thread");
-  if (skip(g.live)) return;
   __shared__ float As[kBK][BM + 1];
   __shared__ float Ws[kBK][BN + 1];
   const int z = blockIdx.z / g.ksplit;
@@ -273,7 +271,6 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs g) {
 // epilogue.  One thread per output of every z-slice.
 template <typename T>
 __global__ void gemm_reduce_kernel(GemmArgs g) {
-  if (skip(g.live)) return;
   const long long per_z = (long long)g.M * g.N;
   const long long n = per_z * g.nz;
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;

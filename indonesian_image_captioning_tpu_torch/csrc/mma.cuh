@@ -246,7 +246,6 @@ __global__ void __launch_bounds__(Tc<T>::kThreads)
   constexpr int NC = C::kNC;
   constexpr int kA = NC * C::kTile;           // one part of the A tile
   constexpr bool kF32 = sizeof(T) == 4;
-  if (skip(g.live)) return;
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   T* ring = (T*)(((uintptr_t)tc_smem + 1023) & ~(uintptr_t)1023);
   uint64_t* full = (uint64_t*)(ring + (size_t)S * C::kStage);

@@ -15,17 +15,26 @@
 // 128-byte swizzle: W as stored
 // (rows, K) -- a forward weight packed so by ops/train_cuda.py, a
 // backward weight x @ W^T read in its own (in, out) layout -- and X as the
-// activations' rows.  Up to three K segments (sources) add into one sum.
+// activations' rows.  Up to three K segments (sources) add into one sum;
+// kSmStepGather reads source 0's rows through a row index (the megakernel's
+// embedding rows by the previous words).  A launch given an early-exit
+// word (SmallLaunch::live) returns at once when the word is 0.
 //
 // - float32: 3xTF32, as mma.cuh: each operand is split into TF32 hi and lo
 //   parts and C sums lo.hi + hi.lo + hi.hi (wgmma.m64nNk8), here with hi
 //   truncated rather than rounded: hi is x itself, which the tensor cores
 //   read as TF32 by dropping its 13 low mantissa bits, so lo = x - hi is
 //   exact and only lo is written.  The error is about 3 x 2^-20 of sum
-//   |x||w| (2^-21 with rounding), within the 1e-5 the tensor-core GEMMs
-//   are held to.  W comes from device memory once, as float32, and is
-//   split in shared memory: a pre-split W would double the bytes that
-//   every step reads again.
+//   |x||w|, within the 1e-5 the tensor-core GEMMs are held to, but it
+//   leans one way (lo has x's sign, so every term shrinks a little).  The
+//   decode's vocab head (kSmLogits) rounds hi instead: hi = x rounded to
+//   TF32 (ties away, as cvt.rna, in two integer operations) written back
+//   over x, lo = x - hi, which has either sign, so the error, about 2^-21
+//   of sum |x||w|, does not lean -- kernel 13 adds 51 steps'
+//   log-probabilities, and the truncated head's lean reached 1.5e-4 in
+//   its scores, over its 1e-4.  W comes from device memory once, as
+//   float32, and is split in shared memory: a pre-split W would double
+//   the bytes that every step reads again.
 // - bfloat16: wgmma.m64nNk16 on bf16 operands.
 // - Each K tile's tensor-core sums go into fresh registers and are added
 //   to the float32 accumulator after the tile (mma.cuh, "per-K-tile
@@ -72,6 +81,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -146,13 +156,30 @@ enum SmallEpi {
   kSmStepCell = 8, // group 4: pre = rt(v + bias1) (float32, bx + bh), the
                    // cell on c = aux3 -> h (out), c (out2)
   kSmLogits = 9,   // out (float32) = rt(rt(v) + bias1[r])
+  // the fused SCN cell (scn.cu), float32 up to one final cast:
+  kSmF32Mul = 10,  // out (float32) = v aux[b, r], not rounded
+  kSmScnCell = 11, // group 4: pre = v + bias1 (float32, b_x + b_h), the
+                   // float32 cell on c = aux3 -> h (out), c (out2) in T
+  kSmScnCellBf = 12,  // kSmScnCell at T = float with c, h, c' in bfloat16:
+                      // X float32 (tx, th), W bfloat16 values held as
+                      // float32, exact in TF32, so W has no lo part (2xTF32)
+  kSmStepGather = 13, // kSmStepIn whose products may gather the rows of
+                      // source 0 (xid): the megakernel's L1, emb @ wxe on
+                      // the embedding rows of the previous words.  Its own
+                      // instance: the row indices cost the others' loads
 };
+
+// The float32 product's W has a lo part (3xTF32); kSmScnCellBf's does not.
+template <int EPI>
+constexpr bool kSmWLo = EPI != kSmScnCellBf;
 
 struct SmallProb {
   // the product: sources s < nsrc, K segments of the one sum
   CUtensorMap map[3];    // W's TMA descriptors (set by the launcher)
   const void* x[3];      // activations (batch rows, ldx), type T
   const void* w[3];      // weights: row R at w + R ldw, K-major, type T
+  const int* xid;        // kSmStepGather: null, or row b of source 0 is
+  int xid_rows;          //   row xid[b] of x[0], an id in [0, xid_rows)
   long long ldx[3], ldw[3];
   long long wrows[3];    // W's rows in its allocation (the TMA bound)
   int k[3];
@@ -194,6 +221,7 @@ struct SmallLaunch {
   int nprob;
   int B;                 // batch rows
   int cluster;           // blocks of a cluster (set by the launcher)
+  const int* live;       // or null: every block returns when *live is 0
 };
 
 // The fields an epilogue reads, copied out of the kernel's parameter into
@@ -318,6 +346,13 @@ __device__ __forceinline__ float tf32_trunc(float x) {
   return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
 }
 
+// x rounded to TF32, ties away from zero (cvt.rna.tf32.f32's rounding) in
+// two integer operations: the carry of the half unit runs into the kept
+// bits, and on into the exponent.  x - tf32_near(x) is exact in float32.
+__device__ __forceinline__ float tf32_near(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
 __device__ __forceinline__ uint64_t l2_evict_last() {
   uint64_t p;
   asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
@@ -389,9 +424,12 @@ __device__ __forceinline__ float ld_t(const void* p, long long i) {
 template <int EPI>
 struct EpiIn {
   static constexpr int n = EPI == kSmCell ? 13 : EPI == kSmDh ? 8
-                         : EPI == kSmFac ? 3 : EPI == kSmStepCell ? 5
+                         : EPI == kSmFac ? 3
+                         : EPI == kSmStepCell || EPI == kSmScnCell
+                                 || EPI == kSmScnCellBf ? 5
                          : EPI == kSmHall || EPI == kSmStepIn
-                                 || EPI == kSmLogits ? 1 : 2;
+                                 || EPI == kSmStepGather || EPI == kSmLogits
+                                 || EPI == kSmF32Mul ? 1 : 2;
   // (kSmPlain reads nothing; one slot keeps the array non-empty)
 };
 
@@ -440,7 +478,7 @@ __device__ __forceinline__ void epi_load(const PP& P, int z, int r,
     x[5] = ld_t<T>(P.aux3, b * P.ldaux3 + r);
     x[6] = ld_t<T>(P.aux4, b * P.ldaux4 + r);
     x[7] = P.acc[b * P.ldacc + r];
-  } else if constexpr (EPI == kSmStepIn) {
+  } else if constexpr (EPI == kSmStepIn || EPI == kSmStepGather) {
     if (r < P.n1)
       x[0] = ld_t<T>(P.bias1, r);
     else if (r < P.n2)
@@ -454,6 +492,14 @@ __device__ __forceinline__ void epi_load(const PP& P, int z, int r,
     x[4] = ld_t<T>(P.aux3, b * P.ldaux3 + r);
   } else if constexpr (EPI == kSmLogits) {
     x[0] = ld_t<T>(P.bias1, r);
+  } else if constexpr (EPI == kSmF32Mul) {
+    x[0] = ld_t<T>(P.aux, b * P.ldaux + r);
+  } else if constexpr (EPI == kSmScnCell || EPI == kSmScnCellBf) {
+    const int H = P.rows;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) x[g] = ((const float*)P.bias1)[g * H + r];
+    x[4] = EPI == kSmScnCellBf ? ld_t<__nv_bfloat16>(P.aux3, b * P.ldaux3 + r)
+                               : ld_t<T>(P.aux3, b * P.ldaux3 + r);
   }
 }
 
@@ -495,7 +541,7 @@ __device__ __forceinline__ void epi_store(const PP& P, int z, int r,
     ((T*)P.out)[b * P.ldo + r] = from_f<T>(v[0] * x[1] * g * (1.0f - g));
   } else if constexpr (EPI == kSmPlain) {
     ((float*)P.out)[b * P.ldo + r] = v[0];
-  } else if constexpr (EPI == kSmStepIn) {
+  } else if constexpr (EPI == kSmStepIn || EPI == kSmStepGather) {
     const float x0 = rt<T>(v[0]);
     if (r < P.n1)
       ((T*)P.out)[b * P.ldo + r] = from_f<T>(x0 + x[0]);
@@ -518,6 +564,20 @@ __device__ __forceinline__ void epi_store(const PP& P, int z, int r,
     ((T*)P.out2)[b * P.ldo2 + r] = from_f<T>(cn);
   } else if constexpr (EPI == kSmLogits) {
     ((float*)P.out)[b * P.ldo + r] = rt<T>(rt<T>(v[0]) + x[0]);
+  } else if constexpr (EPI == kSmF32Mul) {
+    ((float*)P.out)[b * P.ldo + r] = v[0] * x[0];
+  } else if constexpr (EPI == kSmScnCell || EPI == kSmScnCellBf) {
+    // as scn_pallas.py: the gates' float32 sums plus b, the sigmoid, tanh
+    // and cell in float32, one cast of h' and c' (SCN gates i, f, o, c)
+    const float ig = sigmoidf_(v[0] + x[0]);
+    const float fg = sigmoidf_(v[1] + x[1]);
+    const float og = sigmoidf_(v[2] + x[2]);
+    const float gg = tanhf(v[3] + x[3]);
+    const float cn = fg * x[4] + ig * gg;
+    const float hn = og * tanhf(cn);
+    using O = std::conditional_t<EPI == kSmScnCellBf, __nv_bfloat16, T>;
+    ((O*)P.out)[b * P.ldo + r] = from_f<O>(hn);
+    ((O*)P.out2)[b * P.ldo2 + r] = from_f<O>(cn);
   } else if constexpr (EPI == kSmDh) {
     if (P.n1 == 0) {
       ((float*)P.out)[b * P.ldo + r] = v[0];
@@ -557,7 +617,11 @@ __global__ void __launch_bounds__(Sm<T, NB>::kThreads)
   using C = Sm<T, NB>;
   constexpr int BK = C::kBK, EPC = C::kEpc, S = C::kStages, D = C::kAhead;
   constexpr int NT = C::kThreads, NW = C::kNW;
+  constexpr bool kWLo = C::kF32 && kSmWLo<EPI>;
+  constexpr bool kRound = NB > kSmN && EPI == kSmLogits;   // see the top
+  constexpr bool kGather = NB > kSmN && EPI == kSmStepGather;
   namespace cg = cooperative_groups;
+  if (skip(L.live)) return;   // every block of the launch reads the same word
   extern __shared__ __align__(1024) unsigned char sm_raw[];
   __shared__ __align__(8) uint64_t full[S];   // W tile t landed (TMA)
   T* ring = (T*)(((uintptr_t)sm_raw + 1023) & ~(uintptr_t)1023);
@@ -616,6 +680,21 @@ __global__ void __launch_bounds__(Sm<T, NB>::kThreads)
     const int q = xq(h), xr = q >> 3;
     return C::kW + xr * BK + (((q & 7) ^ (xr & 7)) * EPC);
   };
+  // kGather: the row of source 0 that each of this thread's X chunks
+  // reads, its batch row or the id of a gather, read once
+  int xrow[C::kXC];
+  if constexpr (kGather) {
+#pragma unroll
+    for (int h = 0; h < C::kXC; ++h) {
+      const int b = b0 + (xq(h) >> 3);
+      xrow[h] = b;
+      if (P.xid != nullptr && b < L.B) {
+        const int id = P.xid[b];
+        if ((unsigned)id >= (unsigned)P.xid_rows) __trap();
+        xrow[h] = id;
+      }
+    }
+  }
   auto load_w = [&](int u, int st) {
     const int s = source(u);
     T* dst = ring + st * C::kStage;
@@ -652,7 +731,8 @@ __global__ void __launch_bounds__(Sm<T, NB>::kThreads)
       const int b = b0 + (q >> 3);
       const int gx = u * BK + (q & 7) * EPC;
       const int kx = b < L.B ? min(max(P.k[s] - gx, 0), EPC) : 0;
-      const T* src = X + (long long)b * P.ldx[s] + gx;
+      const int row = kGather && s == 0 ? xrow[h] : b;
+      const T* src = X + (long long)row * P.ldx[s] + gx;
       T* d = dst + x_at(h);
       if (P.x_al[s]) {
         cp_async16(d, kx > 0 ? src : X, kx * (int)sizeof(T));
@@ -668,15 +748,25 @@ __global__ void __launch_bounds__(Sm<T, NB>::kThreads)
   // (exact) at the same offsets of lo; x itself stays as the hi operand,
   // since the tensor cores read a TF32 operand by dropping the 13 low
   // mantissa bits, which is tf32_trunc
-  auto split = [&](const T* sw, T* lo) {
+  auto split = [&](T* sw, T* lo) {
     auto one = [&](int at) {
       const float4 x = *(const float4*)(sw + at);
-      *(float4*)(lo + at) =
-          make_float4(x.x - tf32_trunc(x.x), x.y - tf32_trunc(x.y),
-                      x.z - tf32_trunc(x.z), x.w - tf32_trunc(x.w));
+      if constexpr (kRound) {           // rounded: hi over x, lo beside
+        const float4 h = make_float4(tf32_near(x.x), tf32_near(x.y),
+                                     tf32_near(x.z), tf32_near(x.w));
+        *(float4*)(sw + at) = h;
+        *(float4*)(lo + at) =
+            make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
+      } else {
+        *(float4*)(lo + at) =
+            make_float4(x.x - tf32_trunc(x.x), x.y - tf32_trunc(x.y),
+                        x.z - tf32_trunc(x.z), x.w - tf32_trunc(x.w));
+      }
     };
+    if constexpr (kWLo) {
 #pragma unroll
-    for (int j = 0; j < C::kWJ; ++j) one(w_at(j));
+      for (int j = 0; j < C::kWJ; ++j) one(w_at(j));
+    }
 #pragma unroll
     for (int h = 0; h < C::kXC; ++h) one(x_at(h));
   };
@@ -722,7 +812,7 @@ __global__ void __launch_bounds__(Sm<T, NB>::kThreads)
       const uint64_t wh = wgmma_desc(sw + o);
       const uint64_t xh = wgmma_desc(sw + xoff + o);
       if constexpr (C::kF32) {
-        wgmma_64xn<T, NW>(cur, wgmma_desc(lo + o), xh);
+        if constexpr (kWLo) wgmma_64xn<T, NW>(cur, wgmma_desc(lo + o), xh);
         wgmma_64xn<T, NW>(cur, wh, wgmma_desc(lo + xoff + o));
       }
       wgmma_64xn<T, NW>(cur, wh, xh);

@@ -1,5 +1,7 @@
 // Kernels 2, 6b and 6c: one fused beam-decode step over R = B*K rows, and
-// its C entry point iic_step (one call a step).
+// its C entry point iic_step (one call a step); kernel 13: the whole
+// decode on the same chain, captured once into a CUDA graph
+// (iic_decode_capture, iic_decode_launch).
 //
 // Replaces indonesian_image_captioning_tpu/ops/step_pallas.py
 // fused_decode_step, fused_decode_step_q and fused_decode_step_noattn
@@ -52,8 +54,45 @@
 // launch; every elementwise stage runs in an epilogue (the gates, the
 // factors, the cell), so what reaches device memory between launches is a
 // few (R, .) rows; the host makes one C call a step on scratch it keeps.
-// iic_gemm (mma.cuh, the GEMM of kernels 7 and 13) and iic_gemm_ffma stay
+// iic_gemm (mma.cuh, the GEMM of kernel 7) and iic_gemm_ffma stay
 // callable for chip_smoke.py and the card tests.
+//
+// Kernel 13 replaces ops/decode_pallas.py beam_decode_records (body
+// _make_kernel): every step of an attention_scn beam decode, with
+// per-step selection records -- words and parents (B, T, K) int32, vals
+// (B, T, K) float32 -- that decode/replay.py turns into beams.  A step is
+// the chain above (the Pallas body rounds at the same points as
+// step_pallas.py) and one more launch, eight in all:
+//
+//   L1        also gathers emb @ wxe's rows from the embedding table by
+//             the previous words (int32 ids, read once a block)
+//   L7 head   raw: lse = log sum exp(x - max) + max, topv = x - lse
+//             (decode_pallas.py:222-235), not kernel 2's shifted form
+//   L8 select one block per image (step.cuh select_kernel): the K*K merge,
+//             the records, the bookkeeping and the parent reorder of
+//             (h, c), in place
+//
+// An image whose lanes are all dead at the start of a step is frozen
+// (act_r, decode_pallas.py:275-293): its state and scores stay, its alive
+// count stays 0.  The early exit reads no value on the host: every
+// selection ORs "this image is alive" into the step's word live[t + 1]
+// (live[0] = 1, the rest 0), and every launch of step t + 1 returns at
+// once when live[t + 1] is 0, so the records of a step that did not run
+// stay inert (words 0, parents 0, vals NEG).  The TPU kernel exits per
+// image chunk; here the exit is for the whole batch.
+//
+// What bounds kernel 13: T times the step's bound, plus the gather and
+// the selection (R * Emb + B * K * K values a step).  What the design
+// does about it beyond the step's: the T steps' 1 + 8 T launches are
+// captured once into a CUDA graph, keyed by ops/decode_cuda.py on what it
+// bakes in, and each decode is one graph launch on the caller's stream,
+// so the card does not wait on the host between launches; each decode's
+// inputs are copied into the workspace whose addresses the graph holds,
+// and the graph's first node resets the beam's state and records.
+#include <algorithm>
+#include <chrono>
+#include <vector>
+
 #include "attend.cuh"
 #include "attend_q.cuh"
 #include "gemm.cuh"
@@ -130,7 +169,11 @@ namespace iic {
 // in T, or int8 with enc_s, ea_s (B, P) float32 (quant); emb (R, Emb), h,
 // c (R, D), semx, semh (R, F4); the packs are step_cuda.step_packs'
 // K-major forms (rows ld* values apart), wg's sources starting wg_o1 and
-// wg_o2 values in; bxh = bx + bh float32.
+// wg_o2 values in; bxh = bx + bh float32.  The megakernel's steps (SCN
+// only) also set: emb_ids (R,) int32, the previous words, with emb the
+// embedding table of emb_tab_rows rows (L1 gathers its rows); raw = 1,
+// the head's raw form (step.cuh head_topk_kernel); live, the step's
+// early-exit word.
 struct StepArgs {
   long long R, B, K, P, pa, E, A, D, Emb, F4, V, topk, lstm, quant, esplit;
   long long ldw1, ldwxe, ldwxa, ldwg, wg_o1, wg_o2, ldfcw;
@@ -141,9 +184,11 @@ struct StepArgs {
   // in T; scores (B, K, P) and logits (R, V) float32
   void *s_dec, *s_gate, *s_hfac, *s_xe, *s_xfac, *s_gawe, *s_scores,
       *s_logits;
+  long long raw, emb_tab_rows;
+  const void *emb_ids, *live;
 };
 
-// Launches of the last iic_step call.
+// Launches of the last iic_step call (or of one captured decode step).
 static long long g_step_launches = 0;
 
 #define IIC_TRY(x)              \
@@ -160,6 +205,7 @@ static int step_small(const StepArgs& r, const SmallProb& p0,
   L.nprob = 1;
   if (p1 != nullptr) L.p[L.nprob++] = *p1;
   L.B = (int)r.R;
+  L.live = (const int*)r.live;
   ++g_step_launches;
   return launch_small<T, EPI, kSmWide>(L, s);
 }
@@ -188,7 +234,13 @@ static int run_step(const StepArgs& r, cudaStream_t s) {
     small_src(pe, r.emb, r.Emb, r.wxe, r.ldwxe, F4, (int)r.Emb);
     pe.aux = att ? nullptr : r.semx, pe.ldaux = F4;
     pe.out3 = att ? r.s_xe : r.s_xfac, pe.ldo3 = F4;
-    IIC_TRY((step_small<T, kSmStepIn>(r, ph, &pe, s)));
+    if (r.emb_ids == nullptr) {
+      IIC_TRY((step_small<T, kSmStepIn>(r, ph, &pe, s)));
+    } else {     // the megakernel: emb's rows gathered by the previous words
+      ph.epi = pe.epi = kSmStepGather;
+      pe.xid = (const int*)r.emb_ids, pe.xid_rows = (int)r.emb_tab_rows;
+      IIC_TRY((step_small<T, kSmStepGather>(r, ph, &pe, s)));
+    }
   }
   // L2-L3: the attention, gated in its weighted sum
   if (att) {
@@ -199,7 +251,7 @@ static int run_step(const StepArgs& r, cudaStream_t s) {
     else
       IIC_TRY(launch_attend<T>(r.enc, r.ea, r.s_dec, r.wf, r.s_scores,
                                r.s_gawe, nullptr, r.B, r.K, r.P, E, A,
-                               r.esplit, s, nullptr, r.s_gate));
+                               r.esplit, s, (const int*)r.live, r.s_gate));
     g_step_launches += 2;
   }
   // L4: SCN's xfac from the attention
@@ -238,20 +290,245 @@ static int run_step(const StepArgs& r, cudaStream_t s) {
   IIC_TRY((step_small<T, kSmLogits>(r, pl, nullptr, s)));
   ++g_step_launches;
   return launch_head(r.s_logits, R, (int)r.V, (int)r.topk, r.topv, r.topi,
-                     r.lse, 0, s);
+                     r.lse, (int)r.raw, s, (const int*)r.live);
 }
 
 static bool step_valid(const StepArgs& r) {
   const bool att = r.enc != nullptr;
+  if (r.emb_ids != nullptr && (r.lstm || r.emb_tab_rows < 1)) return false;
   return r.R >= 1 && r.D >= 1 && r.V >= 1 && r.topk >= 1 && r.topk <= r.V &&
          (r.lstm ? att : r.F4 % 4 == 0 && r.F4 >= 4) &&
          (!att || (r.B >= 1 && r.K >= 1 && r.R == r.B * r.K && r.esplit >= 1 &&
                    (!r.quant || (r.pa >= 1 && r.pa <= r.P))));
 }
 
+// ------------------------------------------------------- kernel 13 ----
+
+// A whole decode (the megakernel): one step's arguments, whose emb is the
+// embedding table, h and c the carried state, h_out, c_out, topv, topi
+// and lse scratch; and the beam's state and records.  Every field is 8
+// bytes; ops/decode_cuda.py mirrors it and checks its size against
+// iic_decode_args_bytes().
+struct DecodeArgs {
+  StepArgs step;
+  long long steps, start_id, end_id;   // T, <start>, <end>
+  void *sc, *pw, *alive;          // (R,) float32, (R,) and (B,) int32
+  void *words, *parents, *vals;   // (B, T, K) int32, int32, float32
+  void* live;                     // (T + 1,) int32
+};
+
+// The decode's first node: beam.init_carry's state (lane 0 of each image
+// holds <start> at score 0, the other lanes are dead, K lanes alive), the
+// records inert (words 0, parents 0, vals NEG) and the early-exit words
+// 1, 0, ..., 0 -- so a replay of the graph starts from nothing a past
+// decode left.
+__global__ void decode_init_kernel(float* sc, int* pw, int* alive,
+                                   int* words, int* parents, float* vals,
+                                   int* live, int B, int K, int T,
+                                   int start_id, long long n) {
+  const long long nrec = (long long)B * T * K;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    if (i < nrec) {
+      words[i] = 0;
+      parents[i] = 0;
+      vals[i] = kNeg;
+    }
+    if (i < B * K) {
+      sc[i] = i % K == 0 ? 0.0f : kNeg;
+      pw[i] = start_id;
+    }
+    if (i < B) alive[i] = K;
+    if (i <= T) live[i] = i == 0;
+  }
+}
+
+// Launches of one step of the last captured decode, graphs captured and
+// graph launches.
+static long long g_decode_step_launches = 0, g_captures = 0,
+                 g_graph_launches = 0;
+
+// The decode's launch sequence on stream s: the start, then T times the
+// step chain (run_step, raw head, early exit) and the selection.
+template <typename T>
+static int run_decode(const DecodeArgs& d, cudaStream_t s) {
+  const StepArgs& r0 = d.step;
+  const int B = (int)r0.B, K = (int)r0.K, TT = (int)d.steps;
+  const long long n = std::max((long long)B * TT * K,
+                               (long long)std::max(B * K, TT + 1));
+  decode_init_kernel<<<(int)std::min((n + 255) / 256, 1024LL), 256, 0, s>>>(
+      (float*)d.sc, (int*)d.pw, (int*)d.alive, (int*)d.words,
+      (int*)d.parents, (float*)d.vals, (int*)d.live, B, K, TT,
+      (int)d.start_id, n);
+  IIC_TRY((int)cudaGetLastError());
+  for (int t = 0; t < TT; ++t) {
+    StepArgs r = r0;
+    r.emb_ids = d.pw;
+    r.raw = 1;
+    r.live = (const int*)d.live + t;
+    IIC_TRY(run_step<T>(r, s));
+    SelectArgs a = {};
+    a.topv = (const float*)r.topv;   // log-probabilities (the raw head)
+    a.topi = (const int*)r.topi;
+    a.lse = nullptr;
+    a.sc_in = (const float*)d.sc;
+    a.pw_in = (const int*)d.pw;
+    a.alive_in = (const int*)d.alive;
+    a.sc = (float*)d.sc;
+    a.pw = (int*)d.pw;
+    a.alive = (int*)d.alive;
+    a.h_new = r.h_out;
+    a.c_new = r.c_out;
+    a.h_src = r.h;
+    a.c_src = r.c;
+    a.h = (void*)r.h;
+    a.c = (void*)r.c;
+    a.words = (int*)d.words;
+    a.parents = (int*)d.parents;
+    a.vals = (float*)d.vals;
+    a.K = K;
+    a.D = (int)r.D;
+    a.end_id = (int)d.end_id;
+    a.freeze = 1;
+    a.step = t;
+    a.rec_steps = TT;
+    a.live_in = (const int*)d.live + t;
+    a.live_out = (int*)d.live + t + 1;
+    select_kernel<T><<<B, kSelectThreads, 0, s>>>(a);
+    IIC_TRY((int)cudaGetLastError());
+    if (t == 0) g_decode_step_launches = g_step_launches + 1;
+  }
+  return 0;
+}
+
+static bool decode_valid(const DecodeArgs& d) {
+  const StepArgs& r = d.step;
+  return r.enc != nullptr && !r.lstm && !r.quant && r.topk == r.K &&
+         r.emb_tab_rows >= 1 && d.steps >= 1 && d.start_id >= 0 &&
+         d.start_id < r.emb_tab_rows && step_valid(r);
+}
+
+// A captured decode: the graph (kept for its node handles) and its
+// executable form.
+struct DecodeGraph {
+  cudaGraph_t graph;
+  cudaGraphExec_t exec;
+};
+
+// The stream the decodes are captured on.  PyTorch's default stream is the
+// legacy one, which cannot be captured; a graph replays on any stream.
+static int capture_stream(cudaStream_t* s) {
+  static cudaStream_t cs = nullptr;
+  if (cs == nullptr) {
+    const int err = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
+    if (err != 0) {
+      cs = nullptr;
+      return err;
+    }
+  }
+  *s = cs;
+  return 0;
+}
+
 }  // namespace iic
 
 extern "C" int iic_step_args_bytes() { return (int)sizeof(iic::StepArgs); }
+
+extern "C" int iic_decode_args_bytes() {
+  return (int)sizeof(iic::DecodeArgs);
+}
+
+// Kernel 13: captures the whole decode's launch sequence (the start, then
+// T steps of eight launches) into a CUDA graph and instantiates it; the
+// handle receives it.  The graph bakes in every address of args: the
+// caller keeps them alive and writes each decode's inputs into them.
+// Relaxed capture: the launchers' first calls set function attributes and
+// query the card while capturing.  Returns a CUDA error code.
+extern "C" int iic_decode_capture(int dtype, const void* args,
+                                  void** handle) {
+  const iic::DecodeArgs& d = *(const iic::DecodeArgs*)args;
+  if (!iic::decode_valid(d) || (dtype != iic::kF32 && dtype != iic::kBF16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t cs;
+  int rc = iic::capture_stream(&cs);
+  if (rc != 0) return rc;
+  rc = (int)cudaStreamBeginCapture(cs, cudaStreamCaptureModeRelaxed);
+  if (rc != 0) return rc;
+  rc = dtype == iic::kF32 ? iic::run_decode<float>(d, cs)
+                          : iic::run_decode<__nv_bfloat16>(d, cs);
+  cudaGraph_t g = nullptr;
+  const int end = (int)cudaStreamEndCapture(cs, &g);
+  if (rc == 0) rc = end;
+  cudaGraphExec_t e = nullptr;
+  if (rc == 0) rc = (int)cudaGraphInstantiate(&e, g, 0);
+  if (rc != 0) {
+    if (g != nullptr) cudaGraphDestroy(g);
+    cudaGetLastError();
+    return rc;
+  }
+  *handle = new iic::DecodeGraph{g, e};
+  ++iic::g_captures;
+  return 0;
+}
+
+// One decode: the captured graph, launched on the stream.
+extern "C" int iic_decode_launch(void* handle, void* stream) {
+  const auto* h = (const iic::DecodeGraph*)handle;
+  const int rc = (int)cudaGraphLaunch(h->exec, (cudaStream_t)stream);
+  if (rc == 0) ++iic::g_graph_launches;
+  return rc;
+}
+
+// Frees a captured decode (a replay in flight finishes first).
+extern "C" int iic_decode_release(void* handle) {
+  auto* h = (iic::DecodeGraph*)handle;
+  int rc = (int)cudaGraphExecDestroy(h->exec);
+  const int rc2 = (int)cudaGraphDestroy(h->graph);
+  delete h;
+  return rc != 0 ? rc : rc2;
+}
+
+// Launches of one step of the last captured decode.
+extern "C" int iic_decode_step_launches() {
+  return (int)iic::g_decode_step_launches;
+}
+
+// Decodes captured, and graph launches, since the library was loaded.
+extern "C" int iic_decode_captures() { return (int)iic::g_captures; }
+extern "C" int iic_decode_graph_launches() {
+  return (int)iic::g_graph_launches;
+}
+
+// What the other way to feed a graph its inputs would cost: every kernel
+// node's parameters set again (to their own values) on the executable
+// graph, on the host clock.  nodes receives the kernel nodes, ms the
+// milliseconds.  For chip_smoke.py; the decode copies its inputs instead.
+extern "C" int iic_decode_update_probe(void* handle, int* nodes, double* ms) {
+  const auto* h = (const iic::DecodeGraph*)handle;
+  size_t n = 0;
+  int rc = (int)cudaGraphGetNodes(h->graph, nullptr, &n);
+  if (rc != 0) return rc;
+  std::vector<cudaGraphNode_t> all(n);
+  rc = (int)cudaGraphGetNodes(h->graph, all.data(), &n);
+  if (rc != 0) return rc;
+  const auto t0 = std::chrono::steady_clock::now();
+  int k = 0;
+  for (cudaGraphNode_t node : all) {
+    cudaGraphNodeType ty;
+    rc = (int)cudaGraphNodeGetType(node, &ty);
+    if (rc != 0) return rc;
+    if (ty != cudaGraphNodeTypeKernel) continue;
+    cudaKernelNodeParams p;
+    rc = (int)cudaGraphKernelNodeGetParams(node, &p);
+    if (rc == 0) rc = (int)cudaGraphExecKernelNodeSetParams(h->exec, node, &p);
+    if (rc != 0) return rc;
+    ++k;
+  }
+  *ms = std::chrono::duration<double, std::milli>(
+            std::chrono::steady_clock::now() - t0).count();
+  *nodes = k;
+  return 0;
+}
 
 // Kernel launches of the last iic_step call.
 extern "C" int iic_step_launches() { return (int)iic::g_step_launches; }

@@ -1,6 +1,6 @@
-// Kernel 2's cell and head kernels, shared by step.cu (their C entry
-// points) and span.cu (the span and megakernel chains).  step.cu's header
-// describes the chain they belong to.
+// The decode chains' cell, head and selection kernels, shared by step.cu
+// (kernels 2, 6b, 6c and the megakernel 13) and span.cu (kernel 7).
+// step.cu's header describes the step chain, span.cu's the selection.
 #pragma once
 
 #include <climits>
@@ -15,9 +15,7 @@ namespace iic {
 template <typename T>
 __global__ void cell_kernel(const float* __restrict__ pre,
                             const T* __restrict__ c, T* __restrict__ h_out,
-                            T* __restrict__ c_out, int R, int H, int lstm,
-                            const int* live) {
-  if (skip(live)) return;
+                            T* __restrict__ c_out, int R, int H, int lstm) {
   const long long n = (long long)R * H;
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        idx < n; idx += (long long)gridDim.x * blockDim.x) {
@@ -48,12 +46,12 @@ __global__ void cell_kernel(const float* __restrict__ pre,
 template <typename T>
 static int launch_cell(const void* pre, const void* c, void* h_out,
                        void* c_out, int R, int H, int lstm,
-                       cudaStream_t stream, const int* live = nullptr) {
+                       cudaStream_t stream) {
   const long long n = (long long)R * H;
   const int threads = 256;
   const int blocks = (int)((n + threads - 1) / threads);
   cell_kernel<T><<<blocks, threads, 0, stream>>>(
-      (const float*)pre, (const T*)c, (T*)h_out, (T*)c_out, R, H, lstm, live);
+      (const float*)pre, (const T*)c, (T*)h_out, (T*)c_out, R, H, lstm);
   return (int)cudaGetLastError();
 }
 
@@ -154,6 +152,151 @@ static int launch_head(const void* logits, int R, int V, int K, void* topv,
       (const float*)logits, V, K, (float*)topv, (int*)topi, (float*)lse, raw,
       live);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ select ----
+
+constexpr int kSelectThreads = 128;
+
+struct SelectArgs {
+  const float* topv;     // (R, K) float32
+  const int* topi;       // (R, K)
+  const float* lse;      // (R,), or null when topv holds log-probabilities
+  const float* sc_in;    // (R,) the scores before the step
+  const int* pw_in;      // (R,)
+  const int* alive_in;   // (B,)
+  float* sc;             // (R,) after the step (may equal sc_in)
+  int* pw;
+  int* alive;
+  const void* h_new;     // (R, D) the cell's output
+  const void* c_new;
+  const void* h_src;     // (R, D) the state before the step
+  const void* c_src;
+  void* h;               // (R, D) the state after the step (may equal h_src)
+  void* c;
+  int* words;            // (B, rec_steps, K)
+  int* parents;
+  float* vals;
+  int K, D, end_id, freeze, step, rec_steps;
+  const int* live_in;    // this step's early-exit word, or null
+  int* live_out;         // the next step's, or null
+};
+
+// One block per image.  Candidate j = k' * K + q (lane k' of the image,
+// its q-th word) is max(sc + (topv - lse), NEG), NEG where sc <= NEG,
+// computed where it is read.  Round q takes, among the values above NEG,
+// the largest that comes after round q - 1's winner in the order (value
+// descending, flat index ascending): lax.top_k's order, the Pallas body's
+// K rounds of max / lowest-index argmax / mask with NEG.  Once no value
+// above NEG is left every round takes flat index 0 at NEG, as masking
+// does when all K*K values are NEG.  Nothing is kept per candidate or per
+// winner, so any K fits: the winners go straight to the records (a
+// round writes its flat index, turned into word and parent after the
+// rounds), which the bookkeeping and the reorder read back.
+template <typename T>
+__global__ void __launch_bounds__(kSelectThreads)
+select_kernel(SelectArgs a) {
+  if (skip(a.live_in)) return;
+  __shared__ int s_upd;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int K = a.K, KK = K * K, D = a.D;
+  const long long rec = ((long long)b * a.rec_steps + a.step) * K;
+  auto cand = [&](int j) {
+    const int r = b * K + j / K;
+    const long long t = (long long)r * K + j % K;
+    const float s = a.sc_in[r];
+    const float lp = a.lse != nullptr ? a.topv[t] - a.lse[r] : a.topv[t];
+    const float v = fmaxf(s + lp, kNeg);
+    return s <= kNeg ? kNeg : v;
+  };
+
+  // the K rounds, in warp 0
+  if (tid < 32) {
+    float pv = INFINITY;   // the previous round's winner
+    int pi = -1;
+    for (int q = 0; q < K; ++q) {
+      float bv = kNeg;
+      int bi = INT_MAX;
+      if (pv > kNeg) {
+        for (int j = tid; j < KK; j += 32) {
+          const float v = cand(j);
+          if (!(v > kNeg) || !(v < pv || (v == pv && j > pi))) continue;
+          if (v > bv || (v == bv && j < bi)) {
+            bv = v;
+            bi = j;
+          }
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+          if (ov > bv || (ov == bv && oi < bi)) {
+            bv = ov;
+            bi = oi;
+          }
+        }
+      }
+      if (bi == INT_MAX) bi = 0;   // none left: index 0 at NEG
+      pv = bv;
+      pi = bi;
+      if (tid == 0) {
+        a.words[rec + q] = bi;       // the flat index, for now
+        a.vals[rec + q] = bv;
+      }
+    }
+  }
+  __syncthreads();
+  for (int k = tid; k < K; k += blockDim.x) {
+    const int flat = a.words[rec + k];
+    a.words[rec + k] = a.topi[(long long)(b * K + flat / K) * K + flat % K];
+    a.parents[rec + k] = flat / K;
+  }
+  __syncthreads();
+
+  if (tid == 0) {
+    const int al = a.alive_in[b];
+    const int upd = !a.freeze || al > 0;
+    int n_done = 0;
+    for (int k = 0; k < K; ++k) {
+      const float tv = a.vals[rec + k];
+      const int word = a.words[rec + k];
+      const int r = b * K + k;
+      if (upd) {
+        const bool valid = k < al && tv > kNeg;
+        const bool is_end = valid && word == a.end_id;
+        n_done += is_end;
+        a.sc[r] = (valid && !is_end) ? tv : kNeg;
+        a.pw[r] = word;
+      } else {
+        a.sc[r] = a.sc_in[r];
+        a.pw[r] = a.pw_in[r];
+      }
+    }
+    const int na = al - n_done;
+    a.alive[b] = na;
+    if (a.live_out != nullptr && na > 0) atomicOr(a.live_out, 1);
+    s_upd = upd;
+  }
+  __syncthreads();
+
+  // The reorder: lane k of the image takes its parent's new (h, c); a
+  // frozen image keeps its state.  Rows are read from buffers the step
+  // wrote and written to the carried state, never in place.
+  const bool upd = s_upd != 0;
+  if (!upd && a.h == a.h_src) return;
+  const T* hs = (const T*)(upd ? a.h_new : a.h_src);
+  const T* cs = (const T*)(upd ? a.c_new : a.c_src);
+  T* h = (T*)a.h;
+  T* c = (T*)a.c;
+  for (int idx = tid; idx < K * D; idx += blockDim.x) {
+    const int k = idx / D;
+    const int j = idx % D;
+    const long long src =
+        (long long)(b * K + (upd ? a.parents[rec + k] : k)) * D + j;
+    const long long dst = (long long)(b * K + k) * D + j;
+    h[dst] = hs[src];
+    c[dst] = cs[src];
+  }
 }
 
 }  // namespace iic

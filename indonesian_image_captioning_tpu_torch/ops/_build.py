@@ -47,6 +47,15 @@ SIGNATURES = {
         "iic_step_args_bytes": [],
         "iic_step": [_I, _P, _P],
         "iic_step_launches": [],
+        "iic_decode_args_bytes": [],
+        "iic_decode_capture": [_I, _P, ctypes.POINTER(_P)],
+        "iic_decode_launch": [_P, _P],
+        "iic_decode_release": [_P],
+        "iic_decode_step_launches": [],
+        "iic_decode_captures": [],
+        "iic_decode_graph_launches": [],
+        "iic_decode_update_probe": [_P, ctypes.POINTER(_I),
+                                    ctypes.POINTER(ctypes.c_double)],
         "iic_wide_gemm": [_I, _P, _L, _P, _L, _I, _I, _I, _P, _P],
         "iic_gemm": _GEMM,
         "iic_gemm_ffma": _GEMM,
@@ -61,14 +70,15 @@ SIGNATURES = {
     "span": {
         "iic_span_args_bytes": [],
         "iic_span": [_I, _P, _P],
-        "iic_decode_records": [_I, _P, _P],
         "iic_tc_launches_take": [],
     },
     "topk": {
         "iic_row_topk": [_I, _P, _I, _I, _I, _P, _P, _P],
     },
     "scn": {
-        "iic_scn_step": [_I] + [_P] * 14 + [_I, _I, _I, _I, _P],
+        "iic_scn_args_bytes": [],
+        "iic_scn_step": [_I, _P, _P],
+        "iic_scn_launches": [],
     },
     "fc_topk": {
         "iic_fc_topk": [_P] * 7 + [_I, _I, _I, _I, _P],

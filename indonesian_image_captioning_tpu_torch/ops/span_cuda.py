@@ -120,7 +120,7 @@ class _Args(ctypes.Structure):
                     *(f"{n}_tlo" for n in TC_WEIGHTS),
                     "h_in", "c_in", "sc_in", "pw_in", "alive_in",
                     "h", "c", "sc", "pw", "alive",
-                    "words", "parents", "vals", "live",
+                    "words", "parents", "vals",
                     "s_emb", "s_dec", "s_scores", "s_awe", "s_gawe",
                     "s_xfac", "s_hfac", "s_pre", "s_hnew", "s_cnew",
                     "s_logits", "s_topv", "s_topi", "s_lse", "s_part")])
@@ -133,13 +133,12 @@ def _lib():
     return lib
 
 
-def launch_chain(entry: str, weights, emb_tab, enc, ea, semx, semh, state,
-                 out, records, *, steps: int, end_id: int, cell: str,
-                 stream: int, live: Optional[torch.Tensor] = None) -> None:
-    """Run ``csrc/span.cu`` ``entry`` ("iic_span" or "iic_decode_records")
-    on already-checked tensors.  state: the entry state h, c, sc, pw,
-    alive; out: the same names, written by the call (may be the state's
-    own tensors); records: words, parents, vals (B, rec_steps, K)."""
+def launch_chain(weights, emb_tab, enc, ea, semx, semh, state, out, records,
+                 *, steps: int, end_id: int, cell: str, stream: int) -> None:
+    """Run ``csrc/span.cu`` ``iic_span`` on already-checked tensors.
+    state: the entry state h, c, sc, pw, alive; out: the same names,
+    written by the call (may be the state's own tensors); records: words,
+    parents, vals (B, rec_steps, K)."""
     lib = _lib()
     h = state["h"]
     dt, dev, f32 = h.dtype, h.device, torch.float32
@@ -168,16 +167,16 @@ def launch_chain(entry: str, weights, emb_tab, enc, ea, semx, semh, state,
                  lstm=int(cell == "lstm"), end_id=end_id,
                  esplit=_esplit(B, E), part_cap=part_cap)
     ptrs = {"enc": enc, "ea": ea, "semx": semx, "semh": semh,
-            "emb_tab": emb_tab, "live": live, **weights, **records,
+            "emb_tab": emb_tab, **weights, **records,
             **scratch, **out,
             **{f"{k}_in": v for k, v in state.items()}}
     fields = {n for n, _ in _Args._fields_}
     for name, t in ptrs.items():
         if t is not None and name in fields:   # the (K, N) weights stay out
             setattr(args, name, t.data_ptr())
-    rc = getattr(lib, entry)(_DTYPES[dt], ctypes.byref(args), stream)
+    rc = lib.iic_span(_DTYPES[dt], ctypes.byref(args), stream)
     gemm.launches += lib.iic_tc_launches_take()   # the chain's products
-    _build.check(rc, entry)
+    _build.check(rc, "iic_span")
 
 
 def check_inputs(weights, emb_tab, enc, ea, semx, semh, h, c, sc, pw, alive,
@@ -249,8 +248,8 @@ def fused_decode_span(weights, emb_tab, enc, ea, semx, semh, h, c, sc, pw,
                                       device=dev),
                "vals": torch.empty((B, span, K), dtype=torch.float32,
                                    device=dev)}
-    launch_chain("iic_span", weights, emb_tab, enc, ea, semx, semh, state,
-                 out, records, steps=span, end_id=end_id, cell=cell,
+    launch_chain(weights, emb_tab, enc, ea, semx, semh, state, out, records,
+                 steps=span, end_id=end_id, cell=cell,
                  stream=torch.cuda.current_stream(dev).cuda_stream)
     fused_decode_span.launches += 1
     return (records["words"], records["parents"], records["vals"], out["h"],
@@ -265,29 +264,47 @@ fused_decode_span.launches = 0
 def decode_inputs(params, cfg, enc_flat, tags, beam_size: int
                   ) -> Dict[str, Optional[torch.Tensor]]:
     """The loop invariants and the initial state of a record decode, as
-    the JAX drivers build them: packed weights, the embedding table, enc
-    and ea, the per-row semantic factors, and h0/c0 tiled over the K
-    lanes -- all in enc_flat's type."""
+    the JAX drivers build them: packed weights, the embedding table, and
+    :func:`decode_state` -- all in enc_flat's type."""
+    dt = enc_flat.dtype
+    return {"weights": pack_step_weights(params, cfg, dt),
+            "emb_tab": params["embedding"].to(dt).contiguous(),
+            **decode_state(params, cfg, enc_flat, tags, beam_size)}
+
+
+def decode_state(params, cfg, enc_flat, tags, beam_size: int, out=None
+                 ) -> Dict[str, Optional[torch.Tensor]]:
+    """What a record decode reads of its images: enc and ea, the per-row
+    semantic factors (None for pure_attention) and h0/c0 tiled over the K
+    lanes, in enc_flat's type.  With out (a dict of tensors of those
+    names and shapes), they are written there and out is returned."""
     from ..models import attention as attn
     from ..models import decoders, scn_cell
 
     K = beam_size
     B = enc_flat.shape[0]
     dt = enc_flat.dtype
-    ins = {"weights": pack_step_weights(params, cfg, dt),
-           "emb_tab": params["embedding"].to(dt).contiguous(),
-           "enc": enc_flat.contiguous(),
-           "ea": attn.precompute(params["attention"], enc_flat).to(dt)
-           .contiguous(),
-           "semx": None, "semh": None}
+
+    def rows(x, name):   # (B, d) -> (B*K, d): each image's row K times
+        if out is None:
+            return x.repeat_interleave(K, dim=0).to(dt).contiguous()
+        out[name].view(B, K, -1).copy_(x.reshape(B, 1, -1))
+        return out[name]
+
+    ea = attn.precompute(params["attention"], enc_flat)
+    if out is None:
+        ins = {"enc": enc_flat.contiguous(), "ea": ea.to(dt).contiguous()}
+    else:
+        out["enc"].copy_(enc_flat)
+        out["ea"].copy_(ea)
+        ins = {"enc": out["enc"], "ea": out["ea"]}
+    ins["semx"] = ins["semh"] = None
     if cfg.model_type == "attention_scn":
         sx, sh = scn_cell.semantic_projections(params["decode_step"], tags)
-        ins["semx"], ins["semh"] = (
-            s.reshape(B, -1).repeat_interleave(K, dim=0).to(dt).contiguous()
-            for s in (sx, sh))
+        ins["semx"] = rows(sx.reshape(B, -1), "semx")
+        ins["semh"] = rows(sh.reshape(B, -1), "semh")
     h0, c0 = decoders.init_hidden_state(params, enc_flat)
-    ins["h"], ins["c"] = (x.repeat_interleave(K, dim=0).to(dt).contiguous()
-                          for x in (h0, c0))
+    ins["h"], ins["c"] = rows(h0, "h"), rows(c0, "c")
     return ins
 
 

@@ -356,7 +356,27 @@ class _StepArgs(ctypes.Structure):
                     "semh", "w1", "wxe", "wxa", "wg", "fcw", "bda", "bfb",
                     "wf", "bxh", "fcb", "h_out", "c_out", "topv", "topi",
                     "lse", "s_dec", "s_gate", "s_hfac", "s_xe", "s_xfac",
-                    "s_gawe", "s_scores", "s_logits")])
+                    "s_gawe", "s_scores", "s_logits")]
+                + [(n, ctypes.c_longlong) for n in ("raw", "emb_tab_rows")]
+                + [(n, ctypes.c_void_p) for n in ("emb_ids", "live")])
+
+
+def pack_fields(weights, packs, offs) -> Dict[str, int]:
+    """The weight fields of a :class:`_StepArgs`: the packs' row strides and
+    offsets, and the addresses of the packs and of the weights read as
+    they are (the biases, wf)."""
+    g = weights.get
+    return dict(
+        ldw1=packs["w1"].shape[1],
+        ldwxe=packs["wxe"].shape[1] if "wxe" in packs else 0,
+        ldwxa=packs["wxa"].shape[1] if "wxa" in packs else 0,
+        ldwg=packs["wg"].shape[1], wg_o1=(offs + (0,))[1],
+        wg_o2=(offs + (0, 0))[2], ldfcw=packs["fcw"].shape[1],
+        w1=packs["w1"].data_ptr(), wxe=_ptr(packs.get("wxe")),
+        wxa=_ptr(packs.get("wxa")), wg=packs["wg"].data_ptr(),
+        fcw=packs["fcw"].data_ptr(), bda=_ptr(g("bda")), bfb=_ptr(g("bfb")),
+        wf=_ptr(g("wf")), bxh=packs["bxh"].data_ptr(),
+        fcb=weights["fcb"].data_ptr())
 
 
 def _lib():
@@ -370,22 +390,28 @@ _scratch: Dict[tuple, Dict[str, torch.Tensor]] = {}
 _SCRATCH_SETS = 8
 
 
+def scratch_tensors(dt, dev, R, B, K, P, E, A, F4, V):
+    """The chain's intermediates (the ``s_*`` fields of :class:`_StepArgs`)
+    for one shape and type."""
+    def empty(*shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    return {"s_dec": empty(R, A), "s_gate": empty(R, E),
+            "s_hfac": empty(R, F4), "s_xe": empty(R, F4),
+            "s_xfac": empty(R, F4), "s_gawe": empty(R, E),
+            "s_scores": empty(B, K, P, dtype=torch.float32),
+            "s_logits": empty(R, V, dtype=torch.float32)}
+
+
 def step_scratch(key, dt, dev, R, B, K, P, E, A, F4, V):
-    """The chain's intermediates for one shape, type, device and stream,
+    """:func:`scratch_tensors` for one shape, type, device and stream,
     allocated once and reused by every step on that stream (the stream
     orders a step's reads before the next step's writes).  The last eight
     sets are kept."""
     s = _scratch.get(key)
     if s is not None:
         return s
-
-    def empty(*shape, dtype=dt):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    s = {"s_dec": empty(R, A), "s_gate": empty(R, E), "s_hfac": empty(R, F4),
-         "s_xe": empty(R, F4), "s_xfac": empty(R, F4), "s_gawe": empty(R, E),
-         "s_scores": empty(B, K, P, dtype=torch.float32),
-         "s_logits": empty(R, V, dtype=torch.float32)}
+    s = scratch_tensors(dt, dev, R, B, K, P, E, A, F4, V)
     _scratch[key] = s
     while len(_scratch) > _SCRATCH_SETS:
         _scratch.pop(next(iter(_scratch)))
@@ -424,26 +450,19 @@ def launch_step(weights, enc, ea, emb_rows, h, c, semx, semh, *,
            torch.empty((R, 1), dtype=f32, device=dev),
            torch.empty((R, D), dtype=dt, device=dev),
            torch.empty((R, D), dtype=dt, device=dev)]
-    o1, o2 = (offs + (0,))[1:3]
-    g = weights.get
+    enc_s, ea_s = scales or (None, None)
     args = _StepArgs(
-        R, B, K, P, P if p_actual is None else p_actual, E, A, D,
-        emb_rows.shape[1], F4, V, topk, int(cell == "lstm"),
-        int(scales is not None), _esplit(B, E) if E else 1,
-        packs["w1"].shape[1], packs["wxe"].shape[1] if "wxe" in packs else 0,
-        packs["wxa"].shape[1] if "wxa" in packs else 0, packs["wg"].shape[1],
-        o1, o2, packs["fcw"].shape[1],
-        _ptr(enc), _ptr(ea), *(_ptr(t) for t in (scales or (None, None))),
-        emb_rows.data_ptr(), h.data_ptr(), c.data_ptr(), _ptr(semx),
-        _ptr(semh), packs["w1"].data_ptr(), _ptr(packs.get("wxe")),
-        _ptr(packs.get("wxa")), packs["wg"].data_ptr(),
-        packs["fcw"].data_ptr(), _ptr(g("bda")), _ptr(g("bfb")),
-        _ptr(g("wf")), packs["bxh"].data_ptr(), weights["fcb"].data_ptr(),
-        out[3].data_ptr(), out[4].data_ptr(), out[0].data_ptr(),
-        out[1].data_ptr(), out[2].data_ptr(),
-        *(scr[k].data_ptr() for k in ("s_dec", "s_gate", "s_hfac", "s_xe",
-                                      "s_xfac", "s_gawe", "s_scores",
-                                      "s_logits")))
+        R=R, B=B, K=K, P=P, pa=P if p_actual is None else p_actual, E=E,
+        A=A, D=D, Emb=emb_rows.shape[1], F4=F4, V=V, topk=topk,
+        lstm=int(cell == "lstm"), quant=int(scales is not None),
+        esplit=_esplit(B, E) if E else 1,
+        **pack_fields(weights, packs, offs),
+        enc=_ptr(enc), ea=_ptr(ea), enc_s=_ptr(enc_s), ea_s=_ptr(ea_s),
+        emb=emb_rows.data_ptr(), h=h.data_ptr(), c=c.data_ptr(),
+        semx=_ptr(semx), semh=_ptr(semh), topv=out[0].data_ptr(),
+        topi=out[1].data_ptr(), lse=out[2].data_ptr(),
+        h_out=out[3].data_ptr(), c_out=out[4].data_ptr(),
+        **{k: v.data_ptr() for k, v in scr.items()})
     _build.check(lib.iic_step(_DTYPES[dt], ctypes.byref(args), stream),
                  "fused decode step")
     if enc is not None:       # kernel 1 (or 5) ran inside the chain

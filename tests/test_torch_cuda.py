@@ -824,19 +824,32 @@ def test_span_with_every_image_dead(dev):
     assert err(out[3], ref[3]) <= 1e-5 and err(out[4], ref[4]) <= 1e-5
 
 
-@pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("K", [1, 5, 16, 40])
-@pytest.mark.parametrize("end_bias", [0.0, 8.0])
-def test_megakernel_matches_plain(dev, dtype, K, end_bias):
-    """Kernel 13, T=7, V=300: records equal but for near-ties (none at
-    float32 up to K = 16; at K = 40 an image's 1,600 candidates a step
-    hold pairs an ulp apart, which the kernel's and the plain version's
-    sums may order either way); with a strong <end> bias every image dies
-    early and the steps after carry the inert records (words 0, parents 0,
-    vals NEG) in both."""
+def _kernel_names(fn):
+    """The names of the kernels one call of fn launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def _library_gemm(name):
+    """csrc/mma.cuh's tensor-core GEMM, gemm.cuh's FFMA GEMM or its split-K
+    reduce (not mma_small.cuh's small_gemm_kernel)."""
+    return any(f"iic::{n}" in name for n in (
+        "gemm_tc_kernel", "gemm_kernel<", "gemm_reduce_kernel"))
+
+
+def _mega_inputs(dev, dtype, B, K, end_bias, gen, T=7):
+    """Kernel 13's inputs at V=300: seeded weights whose head bias leans
+    toward <end> by end_bias, encodings and tags of B images."""
     cfg = small_cfg(vocab_size=300)
-    gen = torch.Generator().manual_seed(K + 7)
-    V, B, T = cfg.vocab_size, 3, 7
+    V = cfg.vocab_size
     params = decoders.init_decoder(gen, cfg, device=dev)
     params["fc"]["b"] = randn(gen, V).to(dev)
     params["fc"]["b"][V - 1] = end_bias
@@ -845,11 +858,31 @@ def test_megakernel_matches_plain(dev, dtype, K, end_bias):
     enc = enc.to(dev, dtype)
     tags = torch.rand((B, cfg.semantic_dim), generator=gen).to(dev, dtype)
     kw = dict(beam_size=K, start_id=V - 2, end_id=V - 1, max_steps=T)
+    return cfg, params, enc, tags, kw
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B, K", [(3, 1), (3, 5), (3, 16), (3, 40), (5, 40)])
+@pytest.mark.parametrize("end_bias", [0.0, 8.0])
+def test_megakernel_matches_plain(dev, dtype, B, K, end_bias):
+    """Kernel 13, T=7, V=300: records equal but for near-ties (none at
+    float32 up to K = 16; at K = 40 an image's 1,600 candidates a step
+    hold pairs an ulp apart, which the kernel's and the plain version's
+    sums may order either way); with a strong <end> bias every image dies
+    early and the steps after carry the inert records (words 0, parents 0,
+    vals NEG) in both.  B = 5, K = 40 is 200 rows: two wide batch tiles.
+    Eight launches a step (csrc/step.cu's counter), none of them
+    csrc/mma.cuh's or gemm.cuh's GEMM."""
+    gen = torch.Generator().manual_seed(K + 7)
+    cfg, params, enc, tags, kw = _mega_inputs(dev, dtype, B, K, end_bias,
+                                              gen)
+    T = kw["max_steps"]
     n0 = decode_cuda.beam_decode_records.launches
     out = decode_cuda.beam_decode_records(params, cfg, enc, tags, **kw)
     ref = decode_cuda.beam_decode_records_plain(params, cfg, enc, tags, **kw)
     torch.cuda.synchronize()
     assert decode_cuda.beam_decode_records.launches == n0 + 1
+    assert out["words"].shape == (B, T, K)
     recs = [out[k] for k in ("words", "parents", "vals")]
     diverged = _match_records(recs, [ref[k] for k in ("words", "parents",
                                                       "vals")], dtype)
@@ -860,6 +893,62 @@ def test_megakernel_matches_plain(dev, dtype, K, end_bias):
         assert bool(dead[-1])
         assert bool((out["vals"][:, dead] == NEG).all())
         assert bool((out["words"][:, dead] == 0).all())
+    assert decode_cuda.step_launches() == 8
+    names = _kernel_names(lambda: decode_cuda.beam_decode_records(
+        params, cfg, enc, tags, **kw))
+    assert names and not any(_library_gemm(k) for k in names), names
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_megakernel_graph_replay_sees_new_inputs(dev, dtype):
+    """Kernel 13's graph bakes in addresses, never values.  A second decode
+    on the same key, with new encodings and tags written in place into the
+    caller's tensors, replays the graph (no capture) and equals its plain
+    version; an in-place update of the weights captures a new graph whose
+    result equals the plain version's; a replay of that graph equals a
+    decode on a fresh capture, bitwise."""
+    gen = torch.Generator().manual_seed(11)
+    cfg, params, enc, tags, kw = _mega_inputs(dev, dtype, 3, 5, 0.5, gen)
+    keys = ("words", "parents", "vals")
+
+    def both():
+        out = decode_cuda.beam_decode_records(params, cfg, enc, tags, **kw)
+        ref = decode_cuda.beam_decode_records_plain(params, cfg, enc, tags,
+                                                    **kw)
+        torch.cuda.synchronize()
+        diverged = _match_records([out[k] for k in keys],
+                                  [ref[k] for k in keys], dtype)
+        if dtype == F32:
+            assert not diverged
+        return out
+
+    first = both()
+    counts = decode_cuda.graph_counts()
+    with torch.no_grad():
+        enc.copy_(torch.relu(randn(gen, *enc.shape)).to(dev, dtype))
+        tags.copy_(torch.rand(tuple(tags.shape), generator=gen).to(dev,
+                                                                   dtype))
+    second = both()                      # the same key: a replay
+    after = decode_cuda.graph_counts()
+    assert after["captures"] == counts["captures"]
+    assert after["graph_launches"] == counts["graph_launches"] + 1
+    assert not torch.equal(second["vals"], first["vals"])
+    with torch.no_grad():
+        params["decode_step"]["w_h"].mul_(1.5)
+        params["fc"]["b"].add_(randn(gen, cfg.vocab_size).to(dev, dtype))
+        params["embedding"].mul_(-1.0)
+    third = both()                       # new weights: a new capture
+    assert decode_cuda.graph_counts()["captures"] == after["captures"] + 1
+    replay = decode_cuda.beam_decode_records(params, cfg, enc, tags, **kw)
+    for g in list(decode_cuda._graphs.values()):
+        g.release()
+    decode_cuda._graphs.clear()
+    fresh = decode_cuda.beam_decode_records(params, cfg, enc, tags, **kw)
+    torch.cuda.synchronize()
+    assert not torch.equal(third["vals"], second["vals"])
+    for k in keys:
+        assert torch.equal(replay[k], third[k]), k
+        assert torch.equal(fresh[k], third[k]), k
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -1079,10 +1168,13 @@ def test_fused_step_q_kernel_matches_plain(dev, family, dtype, B, K, cut):
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("lead, In, H, F", [((7,), 37, 36, 20),
                                             ((13, 5), 600, 40, 24),
-                                            ((160,), 100, 64, 33)])
+                                            ((160,), 100, 64, 33),
+                                            ((300,), 520, 72, 40)])
 def test_scn_step_fused_kernel_matches_plain(dev, dtype, lead, In, H, F):
     """Kernel 12 on ragged rows and widths (none a multiple of the GEMM's
-    tiles), the semantic factors broadcast over the beam axis."""
+    tiles), the semantic factors broadcast over the beam axis; 300 rows
+    take two wide batch tiles.  Two launches a call (csrc/scn.cu's
+    counter), both mma_small.cuh's, and no FFMA GEMM."""
     gen = torch.Generator().manual_seed(In + H)
     params = scn_cell.init_scn_cell(gen, In, H, 30, F, device=dev)
     params = decoders.cast_params(params, dtype)
@@ -1102,6 +1194,54 @@ def test_scn_step_fused_kernel_matches_plain(dev, dtype, lead, In, H, F):
     for a, b in zip(got, ref):
         assert a.shape == (*lead, H) and a.dtype == dtype
         assert err(a.reshape(-1, H), b) <= TOL[dtype]["state"]
+    assert scn_cuda.last_launches() == 2
+    names = _kernel_names(lambda: scn_cuda.scn_step_fused(params, x, sx, sh,
+                                                          h, c))
+    assert not any(_library_gemm(k) for k in names), names
+    assert sum("small_gemm_kernel" in k for k in names) == 2, names
+
+
+def scn_signal_below_bf16(dev):
+    """A bf16 case of kernel 12 whose signal lies below bf16's precision in
+    tx (tests/test_torch_scn_pack.py builds the same): x and w_x make
+    tx_f = 1 + d_f with |d_f| <= 2^-9, which rounds to 1 in bf16, and
+    w_xp alternates in sign with d_f, so every pre-activation is
+    16 sum_f |d_f| (about 1) in float32 and 0 once tx is rounded; h = 0,
+    so th = 0.  Returns (cell, x, sem_x, sem_h, h, c), R = 24 rows."""
+    R, In, H, F = 24, 40, 36, 64
+    g = np.random.default_rng(7)
+    s_f = np.where(np.arange(F) % 2 == 0, 1.0, -1.0)
+    w_x = np.zeros((In, 4, F))
+    w_x[0] = 1.0
+    w_x[1] = s_f * g.choice([0.25, 0.5, 0.75, 1.0], size=F)
+    x = np.zeros((R, In))
+    x[:, 0], x[:, 1] = 1.0, 2.0 ** -9
+    cell = {"w_x": w_x.reshape(In, 4 * F), "w_h": g.normal(size=(H, 4 * F)),
+            "w_xp": np.broadcast_to((16.0 * s_f)[None, :, None], (4, F, H)),
+            "w_hp": g.normal(size=(4, F, H)) * 0.1,
+            "b_x": np.zeros((4, H)), "b_h": np.zeros((4, H))}
+
+    def bf(a):
+        return torch.tensor(np.asarray(a), dtype=F32).to(dev, BF16)
+
+    ones = bf(np.ones((R, 4, F)))
+    return ({k: bf(v) for k, v in cell.items()}, bf(x), ones, ones,
+            bf(np.zeros((R, H))), bf(g.normal(size=(R, H)) * 0.5))
+
+
+def test_scn_step_fused_keeps_tx_in_float32(dev):
+    """Kernel 12 at bf16 on a case whose signal lies below bf16's
+    precision in tx, where a rounding of tx to bf16 moves h' and c' by
+    more than the tolerance (tests/test_torch_scn_pack.py shows it on the
+    plain version): h' and c' within the tolerance of the plain version,
+    which keeps tx in float32."""
+    cell, x, sx, sh, h, c = scn_signal_below_bf16(dev)
+    got = scn_cuda.scn_step_fused(cell, x, sx, sh, h, c)
+    ref = scn_cuda.scn_step_fused_plain(cell, x, sx, sh, h, c)
+    torch.cuda.synchronize()
+    assert scn_cuda.last_launches() == 2
+    for a, b in zip(got, ref):
+        assert err(a, b) <= TOL[BF16]["state"]
 
 
 @pytest.mark.parametrize("R, D, V, k", [(7, 16, 40, 5), (65, 36, 1000, 8),
