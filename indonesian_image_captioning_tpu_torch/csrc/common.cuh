@@ -13,10 +13,6 @@ namespace iic {
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
-// Every kernel takes any beam width K.  The attention kernels (attend.cuh,
-// attend_q.cu) take it as lane groups of kLaneGroup, the width of their
-// register body.
-constexpr int kLaneGroup = 8;
 constexpr float kNeg = -1e30f;    // the beam's dead-lane sentinel (NEG)
 
 // The decode megakernel's early exit (step.cu iic_decode_capture): a chain

@@ -73,7 +73,8 @@ __global__ void gather_kernel(const T* __restrict__ table,
 // records (B, rec_steps, K); weights as ops/step_cuda.py pack_step_weights.
 struct SpanArgs {
   long long B, K, P, E, A, D, Emb, F4, V, steps, rec_steps, lstm, end_id,
-      esplit, part_cap;
+      part_cap;
+  AttendPlan att;   // ops/attention_cuda.py attend_plan
   const void *enc, *ea, *semx, *semh, *emb_tab;
   const void *bda, *wf, *bfb, *bx, *bh, *fcb;
   // the products' weights for the tensor-core GEMM (step_cuda.pack_tc):
@@ -86,11 +87,11 @@ struct SpanArgs {
   const void *h_in, *c_in, *sc_in, *pw_in, *alive_in;  // the state on entry
   void *h, *c, *sc, *pw, *alive;                       // ... and on return
   void *words, *parents, *vals;
-  // scratch: emb (R, Emb), dec (R, A), scores (B, K, P) f32, awe and gawe
+  // scratch: emb (R, Emb), dec (R, A), awe and gawe
   // (R, E), xfac/hfac (R, F4), pre (R, 4D) f32, hnew/cnew (R, D), logits
   // (R, V) f32, topv (R, K) f32, topi (R, K) int32, lse (R,) f32, and
   // part_cap float32 for the GEMM's split-K partials
-  void *s_emb, *s_dec, *s_scores, *s_awe, *s_gawe, *s_xfac, *s_hfac, *s_pre,
+  void *s_emb, *s_dec, *s_awe, *s_gawe, *s_xfac, *s_hfac, *s_pre,
       *s_hnew, *s_cnew, *s_logits, *s_topv, *s_topi, *s_lse, *s_part;
 };
 
@@ -154,8 +155,8 @@ static int run_steps(const SpanArgs& r, cudaStream_t st) {
     src(g, 0, h, D, r.wda_t, r.wda_tlo, D, D);
     g.bias1 = r.bda;
     IIC_TRY(launch_gemm_tc<T>(g, 1, st));
-    IIC_TRY(launch_attend<T>(r.enc, r.ea, r.s_dec, r.wf, r.s_scores, r.s_awe,
-                             nullptr, B, K, P, E, A, (int)r.esplit, st));
+    IIC_TRY(launch_attend<T>(r.enc, r.ea, r.s_dec, r.wf, r.s_awe, nullptr, B,
+                             K, P, E, A, r.att, st));
     g = gemm_args(r, R, E, kEpiSigmoidMul, r.s_gawe, E, 0);
     src(g, 0, h, D, r.wfb_t, r.wfb_tlo, D, D);
     g.bias1 = r.bfb;
@@ -236,8 +237,7 @@ static int run_steps(const SpanArgs& r, cudaStream_t st) {
 
 static int valid(const SpanArgs& r) {
   return r.B >= 1 && r.K >= 1 && r.K <= r.V && r.P >= 1 &&
-         r.steps >= 1 && r.rec_steps >= r.steps && r.F4 % 4 == 0 &&
-         r.esplit >= 1;
+         r.steps >= 1 && r.rec_steps >= r.steps && r.F4 % 4 == 0;
 }
 
 template <typename F_>

@@ -18,21 +18,21 @@
 //             g = rt(sigmoid(rt(rt(v) + bfb))), SCN hfac = rt(rt(v) semh);
 //             and in the same launch emb @ wxe: xe = rt(v) (6b: xfac =
 //             rt(rt(v) semx)).  The LSTM's L1 is h @ [wda | wfb] alone.
-//   L2-L3     the attention: kernel 1 (attend.cuh), or kernel 5
-//             (attend_q.cuh) on the int8 state (6c); its weighted-sum
-//             launch writes gawe = rt(g rt(awe))
-//   L4 small  SCN: gawe @ wxa: xfac = rt(rt(rt(v) + xe) semx)
-//   L5 small  the four gates of 64 units in one cluster, the cell in the
+//   L2        the attention: kernel 1 (attend.cuh), or kernel 5
+//             (attend_q.cuh) on the int8 state (6c), one cluster launch;
+//             its weighted sum writes gawe = rt(g rt(awe))
+//   L3 small  SCN: gawe @ wxa: xfac = rt(rt(rt(v) + xe) semx)
+//   L4 small  the four gates of 64 units in one cluster, the cell in the
 //             epilogue: SCN xfac_g @ wxp_g + hfac_g @ whp_g, LSTM
 //             [emb | gawe | h] @ [wih ; wh]; pre = rt(v + bx + bh),
 //             c' = rt(rt(f c) + rt(i g)), h' = rt(o rt(tanh c'))
 //             (SCN gates i, f, o, c; LSTM i, f, g, o)
-//   L6 small  logits = rt(rt(h' @ fcw) + fcb) (float32 out)
-//   L7 head   per row: max, lse = log sum exp(x - max), K rounds of argmax
+//   L5 small  logits = rt(rt(h' @ fcw) + fcb) (float32 out)
+//   L6 head   per row: max, lse = log sum exp(x - max), K rounds of argmax
 //             (step.cuh)
 //
-// Seven launches a step for SCN with attention, six for the LSTM, four for
-// 6b (pure_scn: L1, L5, L6, L7); iic_step_launches reports the last call's.
+// Six launches a step for SCN with attention, five for the LSTM, four for
+// 6b (pure_scn: L1, L4, L5, L6); iic_step_launches reports the last call's.
 // Every product of the Pallas body runs on the tensor cores; no library
 // GEMM is called.  Contract of the head (step_pallas.py:343-370): topv
 // holds the max-shifted logits x - max, lse = log sum exp(x - max) in
@@ -62,13 +62,13 @@
 // per-step selection records -- words and parents (B, T, K) int32, vals
 // (B, T, K) float32 -- that decode/replay.py turns into beams.  A step is
 // the chain above (the Pallas body rounds at the same points as
-// step_pallas.py) and one more launch, eight in all:
+// step_pallas.py) and one more launch, seven in all:
 //
 //   L1        also gathers emb @ wxe's rows from the embedding table by
 //             the previous words (int32 ids, read once a block)
-//   L7 head   raw: lse = log sum exp(x - max) + max, topv = x - lse
+//   L6 head   raw: lse = log sum exp(x - max) + max, topv = x - lse
 //             (decode_pallas.py:222-235), not kernel 2's shifted form
-//   L8 select one block per image (step.cuh select_kernel): the K*K merge,
+//   L7 select one block per image (step.cuh select_kernel): the K*K merge,
 //             the records, the bookkeeping and the parent reorder of
 //             (h, c), in place
 //
@@ -83,7 +83,7 @@
 //
 // What bounds kernel 13: T times the step's bound, plus the gather and
 // the selection (R * Emb + B * K * K values a step).  What the design
-// does about it beyond the step's: the T steps' 1 + 8 T launches are
+// does about it beyond the step's: the T steps' 1 + 7 T launches are
 // captured once into a CUDA graph, keyed by ops/decode_cuda.py on what it
 // bakes in, and each decode is one graph launch on the caller's stream,
 // so the card does not wait on the host between launches; each decode's
@@ -175,15 +175,15 @@ namespace iic {
 // the head's raw form (step.cuh head_topk_kernel); live, the step's
 // early-exit word.
 struct StepArgs {
-  long long R, B, K, P, pa, E, A, D, Emb, F4, V, topk, lstm, quant, esplit;
+  long long R, B, K, P, pa, E, A, D, Emb, F4, V, topk, lstm, quant;
+  AttendPlan att;   // ops/attention_cuda.py attend_plan (for pa pixels)
   long long ldw1, ldwxe, ldwxa, ldwg, wg_o1, wg_o2, ldfcw;
   const void *enc, *ea, *enc_s, *ea_s, *emb, *h, *c, *semx, *semh;
   const void *w1, *wxe, *wxa, *wg, *fcw, *bda, *bfb, *wf, *bxh, *fcb;
   void *h_out, *c_out, *topv, *topi, *lse;
   // scratch: dec (R, A), gate (R, E), hfac, xe, xfac (R, F4), gawe (R, E)
-  // in T; scores (B, K, P) and logits (R, V) float32
-  void *s_dec, *s_gate, *s_hfac, *s_xe, *s_xfac, *s_gawe, *s_scores,
-      *s_logits;
+  // in T; logits (R, V) float32
+  void *s_dec, *s_gate, *s_hfac, *s_xe, *s_xfac, *s_gawe, *s_logits;
   long long raw, emb_tab_rows;
   const void *emb_ids, *live;
 };
@@ -242,19 +242,19 @@ static int run_step(const StepArgs& r, cudaStream_t s) {
       IIC_TRY((step_small<T, kSmStepGather>(r, ph, &pe, s)));
     }
   }
-  // L2-L3: the attention, gated in its weighted sum
+  // L2: the attention, gated in its weighted sum
   if (att) {
+    ++g_step_launches;
     if (r.quant)
       IIC_TRY(launch_attend_q<T>(r.enc, r.enc_s, r.ea, r.ea_s, r.s_dec, r.wf,
-                                 r.s_scores, r.s_gawe, nullptr, r.B, r.K,
-                                 r.P, r.pa, E, A, r.esplit, s, r.s_gate));
+                                 r.s_gawe, nullptr, r.B, r.K, r.P, r.pa, E,
+                                 A, r.att, s, r.s_gate));
     else
-      IIC_TRY(launch_attend<T>(r.enc, r.ea, r.s_dec, r.wf, r.s_scores,
-                               r.s_gawe, nullptr, r.B, r.K, r.P, E, A,
-                               r.esplit, s, (const int*)r.live, r.s_gate));
-    g_step_launches += 2;
+      IIC_TRY(launch_attend<T>(r.enc, r.ea, r.s_dec, r.wf, r.s_gawe, nullptr,
+                               r.B, r.K, r.P, E, A, r.att, s,
+                               (const int*)r.live, r.s_gate));
   }
-  // L4: SCN's xfac from the attention
+  // L3: SCN's xfac from the attention
   if (att && !lstm) {
     SmallProb p = small_prob(F4, kSmXfac);
     small_src(p, r.s_gawe, E, r.wxa, r.ldwxa, F4, E);
@@ -263,7 +263,7 @@ static int run_step(const StepArgs& r, cudaStream_t s) {
     p.out = r.s_xfac, p.ldo = F4;
     IIC_TRY((step_small<T, kSmXfac>(r, p, nullptr, s)));
   }
-  // L5: the gates, the cell in the epilogue
+  // L4: the gates, the cell in the epilogue
   SmallProb pc = small_prob(H, kSmStepCell);
   gates_interleaved(pc);
   if (lstm) {
@@ -282,7 +282,7 @@ static int run_step(const StepArgs& r, cudaStream_t s) {
   pc.out = r.h_out, pc.ldo = D;
   pc.out2 = r.c_out, pc.ldo2 = D;
   IIC_TRY((step_small<T, kSmStepCell>(r, pc, nullptr, s)));
-  // L6: the logits; L7: the head
+  // L5: the logits; L6: the head
   SmallProb pl = small_prob((int)r.V, kSmLogits);
   small_src(pl, r.h_out, D, r.fcw, r.ldfcw, r.V, D);
   pl.bias1 = r.fcb;
@@ -298,7 +298,7 @@ static bool step_valid(const StepArgs& r) {
   if (r.emb_ids != nullptr && (r.lstm || r.emb_tab_rows < 1)) return false;
   return r.R >= 1 && r.D >= 1 && r.V >= 1 && r.topk >= 1 && r.topk <= r.V &&
          (r.lstm ? att : r.F4 % 4 == 0 && r.F4 >= 4) &&
-         (!att || (r.B >= 1 && r.K >= 1 && r.R == r.B * r.K && r.esplit >= 1 &&
+         (!att || (r.B >= 1 && r.K >= 1 && r.R == r.B * r.K &&
                    (!r.quant || (r.pa >= 1 && r.pa <= r.P))));
 }
 
@@ -439,7 +439,7 @@ extern "C" int iic_decode_args_bytes() {
 }
 
 // Kernel 13: captures the whole decode's launch sequence (the start, then
-// T steps of eight launches) into a CUDA graph and instantiates it; the
+// T steps of seven launches) into a CUDA graph and instantiates it; the
 // handle receives it.  The graph bakes in every address of args: the
 // caller keeps them alive and writes each decode's inputs into them.
 // Relaxed capture: the launchers' first calls set function attributes and

@@ -30,9 +30,10 @@ megakernel, as in JAX, whose eligibility test ignores ``enc_quant``.
 rungs ignore it.
 
 Beam width.  JAX's kernels take any K, and so do the port's: the
-attention kernels (1 and 5) as lane groups of eight, the head top-K of
-kernels 2, 6b and 6c and the beam selection of kernels 7 and 13 by
-rounds that look past the last winner, kernel 10 in passes of 32 slots.
+attention kernels (1 and 5) in one launch (slabs of lanes past what
+shared memory holds), the head top-K of kernels 2, 6b and 6c and the
+beam selection of kernels 7 and 13 by rounds that look past the last
+winner, kernel 10 in passes of 32 slots.
 So no beam width moves a rung.
 """
 

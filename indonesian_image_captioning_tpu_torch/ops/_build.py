@@ -36,12 +36,12 @@ _GEMM = [_I, _I, _I, _I, _I,         # csrc/step.cu iic_gemm's arguments
 # CUDA error code of the launch).
 SIGNATURES = {
     "attend": {
-        "iic_attend": [_I, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _P],
+        "iic_attend": [_I, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _P, _P],
     },
     "attend_q": {
-        "iic_attend_q": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _P],
+        "iic_attend_q": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "step": {
         "iic_step_args_bytes": [],

@@ -10,7 +10,8 @@ int8 with one float32 scale per (image, pixel), half the bytes of
 bfloat16 and a quarter of float32, at about 0.4 % relative error per
 element; beams may differ from the full-precision decode at near-ties.
 What bounds the kernel on the H100 and what its design does about it is
-noted at the top of ``csrc/attend_q.cu``.
+noted at the top of ``csrc/attend_q.cuh``: kernel 1's cluster launch on
+int8 storage, with the plan of ``attention_cuda.attend_plan``.
 
 One difference from the JAX functions, by design: ``quantize_pixels``
 does not pad the pixels to a multiple of 32 (a VMEM tile of the TPU).
@@ -26,10 +27,12 @@ tensors on the CPU take the plain version.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
-from .attention_cuda import _esplit
+from .attention_cuda import attend_plan
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -106,14 +109,12 @@ def launch_attend_q(enc_q, enc_s, ea_q, ea_s, dec, wf, awe, alpha,
     inside its chain (csrc/step.cu) and counts it there."""
     B, P, E = enc_q.shape
     K, A = dec.shape[1], ea_q.shape[-1]
-    scores = torch.empty((B, K, p_actual), dtype=torch.float32,
-                         device=dec.device)
+    plan = attend_plan(K, p_actual, E, A, 1)
     rc = _build.load("attend_q").iic_attend_q(
         _DTYPES[dec.dtype], enc_q.data_ptr(), enc_s.data_ptr(),
         ea_q.data_ptr(), ea_s.data_ptr(), dec.data_ptr(), wf.data_ptr(),
-        scores.data_ptr(), awe.data_ptr(),
-        None if alpha is None else alpha.data_ptr(),
-        B, K, P, p_actual, E, A, _esplit(B, E), stream)
+        awe.data_ptr(), None if alpha is None else alpha.data_ptr(),
+        B, K, P, p_actual, E, A, ctypes.byref(plan), stream)
     _build.check(rc, "attend_q")
     attend_fused_q.launches += 1
 

@@ -21,7 +21,7 @@ its Pallas body has them:
   words 0, parents 0 and vals NEG.  (The TPU kernel exits per image chunk
   and never writes a skipped chunk's records.)
 
-The decode's 1 + 8T launches are captured once into a CUDA graph and each
+The decode's 1 + 7T launches are captured once into a CUDA graph and each
 decode is one ``cudaGraphLaunch`` on PyTorch's current stream.  The graph
 bakes in the addresses of the packed weights and of a workspace, so it is
 kept per key (:func:`graph_key`: the shape, type, device, stream, T, the
@@ -43,7 +43,7 @@ from typing import Dict
 import torch
 
 from . import _build
-from .attention_cuda import _esplit
+from .attention_cuda import attend_plan
 from .span_cuda import (NEG, check_inputs, decode_inputs, decode_state,
                         initial_carry, select_plain)
 from .step_cuda import (_DTYPES, _leaves, _StepArgs, pack_fields,
@@ -183,7 +183,7 @@ def _lib():
 
 def step_launches() -> int:
     """Kernel launches of one step of the last captured decode
-    (csrc/step.cu's counter): 8."""
+    (csrc/step.cu's counter): 7."""
     return _lib().iic_decode_step_launches()
 
 
@@ -244,13 +244,14 @@ class DecodeGraph:
                      ws["alive"][:, None], "scn")
         step = _StepArgs(
             R=R, B=B, K=K, P=P, pa=P, E=E, A=A, D=D, Emb=Emb, F4=F4, V=V,
-            topk=K, lstm=0, quant=0, esplit=_esplit(B, E),
+            topk=K, lstm=0, quant=0,
+            att=attend_plan(K, P, E, A, enc_flat.element_size()),
             raw=1, emb_tab_rows=V, emb=self.emb_tab.data_ptr(),
             **pack_fields(self.weights, self.packs, offs),
             **{n: ws[n].data_ptr() for n in (
                 "enc", "ea", "semx", "semh", "h", "c", "h_out", "c_out",
                 "topv", "topi", "lse", "s_dec", "s_gate", "s_hfac", "s_xe",
-                "s_xfac", "s_gawe", "s_scores", "s_logits")})
+                "s_xfac", "s_gawe", "s_logits")})
         rec = ws["rec"]
         self.args = _DecodeArgs(
             step=step, steps=T, start_id=start_id, end_id=end_id,

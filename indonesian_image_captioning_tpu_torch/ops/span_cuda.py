@@ -34,7 +34,7 @@ from typing import Dict, Optional
 import torch
 
 from . import _build
-from .attention_cuda import _esplit
+from .attention_cuda import AttendPlan, attend_plan
 from .step_cuda import (TC_WEIGHTS, fused_decode_step_plain, gemm,
                         pack_step_weights, split_k_floats)
 from .topk import row_topk_iterative
@@ -112,7 +112,8 @@ class _Args(ctypes.Structure):
 
     _fields_ = ([(n, ctypes.c_longlong) for n in
                  ("B", "K", "P", "E", "A", "D", "Emb", "F4", "V", "steps",
-                  "rec_steps", "lstm", "end_id", "esplit", "part_cap")]
+                  "rec_steps", "lstm", "end_id", "part_cap")]
+                + [("att", AttendPlan)]
                 + [(n, ctypes.c_void_p) for n in (
                     "enc", "ea", "semx", "semh", "emb_tab",
                     "bda", "wf", "bfb", "bx", "bh", "fcb",
@@ -121,7 +122,7 @@ class _Args(ctypes.Structure):
                     "h_in", "c_in", "sc_in", "pw_in", "alive_in",
                     "h", "c", "sc", "pw", "alive",
                     "words", "parents", "vals",
-                    "s_emb", "s_dec", "s_scores", "s_awe", "s_gawe",
+                    "s_emb", "s_dec", "s_awe", "s_gawe",
                     "s_xfac", "s_hfac", "s_pre", "s_hnew", "s_cnew",
                     "s_logits", "s_topv", "s_topi", "s_lse", "s_part")])
 
@@ -152,8 +153,8 @@ def launch_chain(weights, emb_tab, enc, ea, semx, semh, state, out, records,
         return torch.empty(shape, dtype=dtype, device=dev)
 
     scratch = {"s_emb": empty(R, Emb), "s_dec": empty(R, A),
-               "s_scores": empty(B, K, P, dtype=f32), "s_awe": empty(R, E),
-               "s_gawe": empty(R, E), "s_xfac": empty(R, F4),
+               "s_awe": empty(R, E), "s_gawe": empty(R, E),
+               "s_xfac": empty(R, F4),
                "s_hfac": empty(R, F4), "s_pre": empty(R, 4 * D, dtype=f32),
                "s_hnew": empty(R, D), "s_cnew": empty(R, D),
                "s_logits": empty(R, V, dtype=f32),
@@ -165,7 +166,8 @@ def launch_chain(weights, emb_tab, enc, ea, semx, semh, state, out, records,
     args = _Args(B=B, K=K, P=P, E=E, A=A, D=D, Emb=Emb, F4=F4, V=V,
                  steps=steps, rec_steps=records["words"].shape[1],
                  lstm=int(cell == "lstm"), end_id=end_id,
-                 esplit=_esplit(B, E), part_cap=part_cap)
+                 part_cap=part_cap,
+                 att=attend_plan(K, P, E, A, enc.element_size()))
     ptrs = {"enc": enc, "ea": ea, "semx": semx, "semh": semh,
             "emb_tab": emb_tab, **weights, **records,
             **scratch, **out,

@@ -9,8 +9,8 @@ package (the Pallas body ``_make_kernel``, called by ``_fused_call``).
 Each wrapper counts its own launches.  One step over R = B*K rows:
 attention, the f_beta gate, the SCN or torch-LSTM cell, the vocab head, the
 float32 log-sum and a per-row top-K.  On the card it is one C call a step,
-``iic_step`` of ``csrc/step.cu``, which launches a chain of 7 kernels (SCN
-with attention), 6 (the LSTM) or 4 (6b): the products on the swap-AB
+``iic_step`` of ``csrc/step.cu``, which launches a chain of 6 kernels (SCN
+with attention), 5 (the LSTM) or 4 (6b): the products on the swap-AB
 wgmma GEMM of ``csrc/mma_small.cuh`` at its wide batch tile, the
 attention of kernel 1 (or 5), the head of ``csrc/step.cuh``.  The top of
 ``csrc/step.cu`` lists the chain, what bounds it and what the design does
@@ -37,7 +37,8 @@ from typing import Dict, Optional
 import torch
 
 from . import _build
-from .attention_cuda import _esplit, attend_fused, attend_plain
+from .attention_cuda import (AttendPlan, attend_fused, attend_plain,
+                             attend_plan)
 from .attention_q_cuda import attend_fused_q, attend_q_plain
 from .topk import row_topk_iterative
 from .train_cuda import KPAD, _ceil, pack_gates, pack_kmajor, pack_scn_gates
@@ -348,15 +349,17 @@ class _StepArgs(ctypes.Structure):
 
     _fields_ = ([(n, ctypes.c_longlong) for n in
                  ("R", "B", "K", "P", "pa", "E", "A", "D", "Emb", "F4", "V",
-                  "topk", "lstm", "quant", "esplit",
-                  "ldw1", "ldwxe", "ldwxa", "ldwg", "wg_o1", "wg_o2",
-                  "ldfcw")]
+                  "topk", "lstm", "quant")]
+                + [("att", AttendPlan)]
+                + [(n, ctypes.c_longlong) for n in
+                   ("ldw1", "ldwxe", "ldwxa", "ldwg", "wg_o1", "wg_o2",
+                    "ldfcw")]
                 + [(n, ctypes.c_void_p) for n in (
                     "enc", "ea", "enc_s", "ea_s", "emb", "h", "c", "semx",
                     "semh", "w1", "wxe", "wxa", "wg", "fcw", "bda", "bfb",
                     "wf", "bxh", "fcb", "h_out", "c_out", "topv", "topi",
                     "lse", "s_dec", "s_gate", "s_hfac", "s_xe", "s_xfac",
-                    "s_gawe", "s_scores", "s_logits")]
+                    "s_gawe", "s_logits")]
                 + [(n, ctypes.c_longlong) for n in ("raw", "emb_tab_rows")]
                 + [(n, ctypes.c_void_p) for n in ("emb_ids", "live")])
 
@@ -399,7 +402,6 @@ def scratch_tensors(dt, dev, R, B, K, P, E, A, F4, V):
     return {"s_dec": empty(R, A), "s_gate": empty(R, E),
             "s_hfac": empty(R, F4), "s_xe": empty(R, F4),
             "s_xfac": empty(R, F4), "s_gawe": empty(R, E),
-            "s_scores": empty(B, K, P, dtype=torch.float32),
             "s_logits": empty(R, V, dtype=torch.float32)}
 
 
@@ -420,7 +422,7 @@ def step_scratch(key, dt, dev, R, B, K, P, E, A, F4, V):
 
 def last_launches() -> int:
     """Kernel launches of the last step on the card (csrc/step.cu's
-    counter): 7 for SCN with attention, 6 for the LSTM, 4 for 6b."""
+    counter): 6 for SCN with attention, 5 for the LSTM, 4 for 6b."""
     return _lib().iic_step_launches()
 
 
@@ -455,7 +457,8 @@ def launch_step(weights, enc, ea, emb_rows, h, c, semx, semh, *,
         R=R, B=B, K=K, P=P, pa=P if p_actual is None else p_actual, E=E,
         A=A, D=D, Emb=emb_rows.shape[1], F4=F4, V=V, topk=topk,
         lstm=int(cell == "lstm"), quant=int(scales is not None),
-        esplit=_esplit(B, E) if E else 1,
+        att=(attend_plan(K, P if p_actual is None else p_actual, E, A,
+                         enc.element_size()) if E else AttendPlan()),
         **pack_fields(weights, packs, offs),
         enc=_ptr(enc), ea=_ptr(ea), enc_s=_ptr(enc_s), ea_s=_ptr(ea_s),
         emb=emb_rows.data_ptr(), h=h.data_ptr(), c=c.data_ptr(),

@@ -65,7 +65,7 @@ TOL = {F32: {"attend": 1e-5, "vals": 1e-5, "state": 1e-5},
 NEAR_TIE = 1e-5
 FAMILIES = ("attention_scn", "pure_attention", "pure_scn")
 # kernel launches of one fused step (csrc/step.cu's counter)
-STEP_LAUNCHES = {"attention_scn": 7, "pure_attention": 6, "pure_scn": 4}
+STEP_LAUNCHES = {"attention_scn": 6, "pure_attention": 5, "pure_scn": 4}
 
 
 @pytest.fixture
@@ -91,12 +91,18 @@ def err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+ATTEND_SHAPES = [(3, 9, 72, 40), (3, 37, 600, 40), (3, 37, 601, 41),
+                 (32, 1, 72, 40), (32, 196, 72, 40)]     # (B, P, E, A)
+
+
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("K", [1, 5, 8, 9, 32])
-@pytest.mark.parametrize("P, E", [(9, 72), (37, 600)])
-def test_attend_kernel_matches_plain(dev, dtype, K, P, E):
+@pytest.mark.parametrize("K", [1, 5, 8, 9, 32, 64])
+@pytest.mark.parametrize("B, P, E, A", ATTEND_SHAPES)
+def test_attend_kernel_matches_plain(dev, dtype, K, B, P, E, A):
+    """Kernel 1: one cluster launch a call, at ragged and misaligned
+    widths (E * itemsize, A * itemsize not multiples of 16), P = 1 and
+    196 at B = 32, K up to 64."""
     gen = torch.Generator().manual_seed(K * 100 + P)
-    B, A = 3, 40
     enc = torch.relu(randn(gen, B, P, E)).to(dev, dtype)
     ea = randn(gen, B, P, A, scale=0.5).to(dev, dtype)
     dec = randn(gen, B, K, A, scale=0.5).to(dev, dtype)
@@ -112,6 +118,39 @@ def test_attend_kernel_matches_plain(dev, dtype, K, P, E):
     sums = alpha.float().sum(-1)
     assert err(sums, torch.ones_like(sums)) <= (1e-5 if dtype == F32
                                                 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("quant", [False, True])
+def test_attend_kernels_past_the_table_that_fits(dev, dtype, quant):
+    """K = 300 at P = 196: the K x P table of alpha does not fit in a CTA's
+    shared memory beside the staged rows, so the plan cuts the lanes into
+    slabs (enc read once a slab); kernels 1 and 5 still match their plain
+    versions in one launch."""
+    from indonesian_image_captioning_tpu_torch.ops.attention_cuda import \
+        attend_plan
+    B, K, P, E, A = 2, 300, 196, 72, 40
+    assert attend_plan(K, P, E, A, 1 if quant else dtype.itemsize).ks < K
+    gen = torch.Generator().manual_seed(300)
+    enc = torch.relu(randn(gen, B, P, E)).to(dev)
+    ea = randn(gen, B, P, A, scale=0.5).to(dev)
+    dec = randn(gen, B, K, A, scale=0.5).to(dev, dtype)
+    wf = randn(gen, A).to(dev)
+    if quant:
+        args = (attention_q_cuda.quantize_pixels(enc)
+                + attention_q_cuda.quantize_pixels(ea) + (dec, wf))
+        fn, plain = (attention_q_cuda.attend_fused_q,
+                     attention_q_cuda.attend_q_plain)
+    else:
+        args = (enc.to(dtype), ea.to(dtype), dec, wf)
+        fn, plain = attention_cuda.attend_fused, attention_cuda.attend_plain
+    n0 = fn.launches
+    awe, alpha = fn(*args)
+    ref_awe, ref_alpha = plain(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert err(awe, ref_awe) <= TOL[dtype]["attend"]
+    assert err(alpha, ref_alpha) <= TOL[dtype]["attend"]
 
 
 def _step_case(dev, dtype, cfg, B, K, gen, params=None):
@@ -179,6 +218,36 @@ def test_fused_step_kernel_matches_plain(dev, family, dtype, B, K):
         for r, q in (topi != ref[1]).nonzero().tolist():
             a, b = int(topi[r, q]), int(ref[1][r, q])
             assert abs(float(logits[r, a] - logits[r, b])) <= NEAR_TIE
+
+
+@pytest.mark.parametrize("family", ["attention_scn", "pure_attention"])
+def test_fused_step_chain_with_every_image_dead(dev, family, monkeypatch):
+    """Kernel 6's chain given the decode's early-exit word (as kernel 13's
+    graph gives it): at 0 every launch of the step returns at once -- the
+    gated attention leaves its output in the scratch untouched -- and at
+    1 the step equals its plain version."""
+    cfg = small_cfg(family)
+    _step_case(dev, F32, cfg, 3, 5, torch.Generator().manual_seed(8))
+    live = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    class WithLive(step_cuda._StepArgs):
+        def __init__(self, **kw):
+            super().__init__(**kw, live=live.data_ptr())
+
+    monkeypatch.setattr(step_cuda, "_StepArgs", WithLive)
+    for sc in step_cuda._scratch.values():
+        sc["s_gawe"].fill_(float("nan"))
+    n_att = attention_cuda.attend_fused.launches
+    _step_case(dev, F32, cfg, 3, 5, torch.Generator().manual_seed(8))
+    assert attention_cuda.attend_fused.launches == n_att + 1
+    assert step_cuda.last_launches() == STEP_LAUNCHES[family]
+    assert all(bool(sc["s_gawe"].isnan().all())
+               for sc in step_cuda._scratch.values())
+    live.fill_(1)
+    out, ref, _ = _step_case(dev, F32, cfg, 3, 5,
+                             torch.Generator().manual_seed(8))
+    assert err(out[3], ref[3]) <= TOL[F32]["state"]
+    assert err(out[4], ref[4]) <= TOL[F32]["state"]
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -871,7 +940,7 @@ def test_megakernel_matches_plain(dev, dtype, B, K, end_bias):
     sums may order either way); with a strong <end> bias every image dies
     early and the steps after carry the inert records (words 0, parents 0,
     vals NEG) in both.  B = 5, K = 40 is 200 rows: two wide batch tiles.
-    Eight launches a step (csrc/step.cu's counter), none of them
+    Seven launches a step (csrc/step.cu's counter), none of them
     csrc/mma.cuh's or gemm.cuh's GEMM."""
     gen = torch.Generator().manual_seed(K + 7)
     cfg, params, enc, tags, kw = _mega_inputs(dev, dtype, B, K, end_bias,
@@ -893,7 +962,7 @@ def test_megakernel_matches_plain(dev, dtype, B, K, end_bias):
         assert bool(dead[-1])
         assert bool((out["vals"][:, dead] == NEG).all())
         assert bool((out["words"][:, dead] == 0).all())
-    assert decode_cuda.step_launches() == 8
+    assert decode_cuda.step_launches() == 7
     names = _kernel_names(lambda: decode_cuda.beam_decode_records(
         params, cfg, enc, tags, **kw))
     assert names and not any(_library_gemm(k) for k in names), names
@@ -1077,13 +1146,15 @@ def test_pallas_topk_backend_on_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("K", [1, 5, 8, 9, 32])
-@pytest.mark.parametrize("P, pa, E", [(9, 9, 72), (37, 30, 600)])
-def test_attend_q_kernel_matches_plain(dev, dtype, K, P, pa, E):
-    """Kernel 5 on ragged shapes, with p_actual < P (the pixels past it
-    take no part and the softmax stays finite), with and without alpha."""
+@pytest.mark.parametrize("K", [1, 5, 8, 9, 32, 64])
+@pytest.mark.parametrize("B, P, pa, E, A", [
+    (3, 9, 9, 72, 40), (3, 37, 30, 600, 40), (3, 37, 30, 601, 41),
+    (32, 1, 1, 72, 40), (32, 196, 196, 72, 40)])
+def test_attend_q_kernel_matches_plain(dev, dtype, K, B, P, pa, E, A):
+    """Kernel 5 on ragged and misaligned shapes (int8 rows of 601 and 41
+    bytes), with p_actual < P (the pixels past it take no part and the
+    softmax stays finite), with and without alpha."""
     gen = torch.Generator().manual_seed(K * 100 + P)
-    B, A = 3, 40
     enc_q, enc_s = attention_q_cuda.quantize_pixels(
         torch.relu(randn(gen, B, P, E)).to(dev))
     ea_q, ea_s = attention_q_cuda.quantize_pixels(
