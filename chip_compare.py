@@ -4,13 +4,16 @@
     python3 chip_compare.py PARENT_DIR [CHANGE_DIR] [--cases 1,5,6c]
     # CHANGE_DIR: this one; --cases: a subset of CASES
     python3 chip_compare.py --phases     # kernels 1 and 5 phase by phase
+    python3 chip_compare.py --faults [REPS [PROCS]]   # card-test repeats
 
 PARENT_DIR is another checkout of the repository (for example an unpacked
 ``git archive`` of the parent commit in a git-ignored directory).  Both
 checkouts build their kernels at once, then each checkout's own
 ``chip_smoke.py`` cases -- kernel 6 (``step_case``, attention_scn), 6b
 (``step_case``, pure_scn), 6c (``step_case`` on the int8 state), 7
-(``span_case``), 13 (``mega_case``) and 12 (``scn_case``) -- and the
+(``span_case``), 13 (``mega_case``), 12 (``scn_case``), and at float32
+10 (``topk_case``: the (32, 33,815) candidate table at k = 5, its first
+line) and 11 (``fc_topk_case``: 160 rows, 512 -> 6,763, k = 5) -- and the
 attention kernels 1 and 5 alone at K = 5 and 32 (timed here with the
 tree's own wrappers, "1@32" at K = 32), float32 and bfloat16, on the same
 seeded inputs, run in a process of their own, in turns parent, change,
@@ -28,11 +31,21 @@ from the copy, and prints for B = 32 at the flagship widths, K = 5 and
 microseconds of each phase over the CTAs and the spread of their starts
 (a second wave of clusters shows there).  The stamps cost barriers, so
 these are for where the time goes, not for the kernel's time.
+
+--faults counts failures of the card tests that once failed at random
+(``fault_counts``): the two named cases of tests/test_torch_cuda.py
+REPS times (default 200) in one process, in PROCS fresh processes
+(default 10) and under poisoned memory; how often a profile after
+poisoning misses kernels (a single CUDA-only one, and chip_smoke.py's
+``profile_cuda``, which the card tests' launch checks read: kernels 12
+and 13 REPS times each); every case of their two tests after a whole
+card suite in the same process; and three more suites.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -40,7 +53,9 @@ from pathlib import Path
 
 # the chip_smoke.py cases first, in the order (and so on the draws) of
 # the earlier comparisons; then 6c and the attention kernels alone
-CASES = ("6", "6b", "7", "13", "12", "6c", "1", "1@32", "5", "5@32")
+CASES = ("6", "6b", "7", "13", "12", "6c", "1", "1@32", "5", "5@32", "10",
+         "11")
+F32_ONLY = ("10", "11")   # their chip_smoke.py cases take float32 tables
 
 
 def cold_ms(fn, runs=20):
@@ -103,11 +118,30 @@ def attend_times(cs, dev, dt, cfg, params, enc, ea, k, quant):
     return {"ms": ms, "device_ms": dev_ms, "cold_ms": cold}
 
 
+@functools.lru_cache(maxsize=1)
+def _own_smoke():
+    """This checkout's chip_smoke.py as a module of its own name, whatever
+    checkout comes first on sys.path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_compare", Path(__file__).resolve().parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def time_tree(cases) -> dict:
-    """The cases of the checkout first on sys.path, in this process."""
+    """The cases of the checkout first on sys.path, in this process, their
+    device time read by this checkout's chip_smoke.py device_ms (a
+    profile that missed launched kernels is taken again), given to both
+    checkouts' cases so that one instrument reads them: an older
+    checkout's single CUDA-only profile could record none of a call's
+    kernels, or only some."""
     import torch
 
     import chip_smoke as cs
+    cs.device_ms = _own_smoke().device_ms
     from indonesian_image_captioning_tpu_torch.core.config import \
         ModelConfig
     from indonesian_image_captioning_tpu_torch.core.runtime import \
@@ -146,10 +180,15 @@ def time_tree(cases) -> dict:
                                            quant=True),
                 "7": lambda: cs.span_case(dev, dt, cfg, params, enc, gen),
                 "13": lambda: cs.mega_case(dev, dt, cfg, params, enc, gen),
-                "12": lambda: cs.scn_case(dev, dt, cfg, cs.B, gen)}
+                "12": lambda: cs.scn_case(dev, dt, cfg, cs.B, gen),
+                "10": lambda: cs.topk_case(dev, cs.B),
+                "11": lambda: cs.fc_topk_case(dev, cfg, cs.B)}
             r = {}
             for c in CASES:
                 if c not in cases:
+                    continue
+                if c in F32_ONLY and dt != torch.float32:
+                    r[c] = [float("nan"), float("nan")]
                     continue
                 try:
                     v = run[c]()
@@ -277,8 +316,160 @@ def phase_times() -> None:
                                   for i, x in enumerate(d[:5])))
 
 
+def _param_cases(fn):
+    """Every keyword set of a test's parametrize marks, in pytest's order
+    of the axes (the mark nearest the function varies fastest)."""
+    import itertools
+
+    axes = []
+    for m in fn.pytestmark:
+        if m.name != "parametrize":
+            continue
+        names = [n.strip() for n in m.args[0].split(",")]
+        axes.append([dict(zip(names, v if len(names) > 1 else (v,)))
+                     for v in m.args[1]])
+    for combo in itertools.product(*reversed(axes)):
+        kw = {}
+        for d in combo:
+            kw.update(d)
+        yield kw
+
+
+def _count(label, fns, reps, dev=None, tc=None):
+    """Calls each of fns reps times (poisoning the memory before each call
+    when dev is given) and prints how many raised."""
+    bad = {k: 0 for k in fns}
+    why = {}
+    for _ in range(reps):
+        for k, f in fns.items():
+            if dev is not None:
+                tc.poison_memory(dev)
+            try:
+                f()
+            except Exception as e:   # an assertion, or a CUDA error
+                bad[k] += 1
+                why.setdefault(k, f"{type(e).__name__}: {str(e)[:300]}")
+    print(f"faults {label}: " + "; ".join(
+        f"{k} {bad[k]}/{reps} failed" for k in fns), flush=True)
+    for k, w in why.items():
+        print(f"faults {label}: first failure of {k}: {w}", flush=True)
+    return sum(bad.values())
+
+
+def fault_counts(reps: int, procs: int) -> int:
+    """The counts for the card tests' random failures (ROADMAP queue 3),
+    from tests/test_torch_cuda.py's own test functions: its two named
+    cases reps times in this process, in procs fresh processes (reps //
+    procs each), and reps times with the memory poisoned before each call
+    (poison_memory); then the whole card suite in this process followed
+    by every case of both tests five times; then the whole suite three
+    times, each in a process of its own.  Returns the failures."""
+    import re
+
+    import pytest
+    import torch
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tests"))
+    import test_torch_cuda as tc
+
+    from indonesian_image_captioning_tpu_torch.core.runtime import \
+        get_device
+
+    dev = get_device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    named = {
+        "scn[lead1-600-40-24-bf16]": lambda: (
+            tc.test_scn_step_fused_kernel_matches_plain(
+                dev, bf16, (13, 5), 600, 40, 24)),
+        "mega[8.0-3-5-f32]": lambda: tc.test_megakernel_matches_plain(
+            dev, f32, 3, 5, 8.0)}
+    me = str(Path(__file__).resolve())
+    if procs < 0:                        # a fresh process's share
+        return _count("fresh process", named, reps)
+    n = _count("one process", named, reps)
+    for i in range(procs):
+        p = subprocess.run([sys.executable, me, "--faults",
+                            str(max(reps // procs, 1)), "-1"],
+                           capture_output=True, text=True, timeout=900)
+        print("\n".join(line for line in p.stdout.splitlines()
+                        if line.startswith("faults")), flush=True)
+        n += p.returncode != 0
+    n += _count("poisoned", named, reps, dev, tc)
+    # the profile the launch checks read: one CUDA-only profile (the
+    # helper's form before profile_cuda's retakes) against profile_cuda,
+    # each right after poison_memory's device work; and kernels 12 and
+    # 13 as the launch checks see them there (the wide tile's kernel, no
+    # library GEMM)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cs = tc._smoke()
+    call = tc._scn_call(dev, f32)[0]
+    single = 0
+    retries0 = cs.PROFILE_RETRIES[0]
+    for _ in range(reps):
+        tc.poison_memory(dev)
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        single += not any(e.device_type == DeviceType.CUDA
+                          for e in prof.key_averages())
+
+    def seen(kernel):
+        names = tc._kernel_names({"12": tc._scn_call,
+                                  "13": tc._mega_call}[kernel](dev, f32)[0])
+        assert not any(cs.library_gemm(k) for k in names), names
+        n = sum("small_gemm_kernel" in k for k in names)
+        assert n == 2 if kernel == "12" else n >= 4, names
+
+    taken = _count("profile_cuda after poison_memory",
+                   {k: lambda k=k: seen(k) for k in ("12", "13")}, reps,
+                   dev, tc)
+    print(f"faults profiles after poison_memory: one CUDA-only profile "
+          f"recorded no kernel {single}/{reps} times; profile_cuda took "
+          f"{cs.PROFILE_RETRIES[0] - retries0} profiles again", flush=True)
+    n += taken
+    rc = pytest.main(["--noconftest", "-p", "no:cacheprovider", "-q",
+                      "--tb=line", str(root / "tests" / "test_torch_cuda.py")])
+    print(f"faults suite in this process: exit {int(rc)}", flush=True)
+    n += int(rc) != 0
+    every = {}
+    for fn in (tc.test_scn_step_fused_kernel_matches_plain,
+               tc.test_megakernel_matches_plain):
+        for kw in _param_cases(fn):
+            every[fn.__name__[5:20] + str(list(kw.values()))] = (
+                lambda fn=fn, kw=kw: fn(dev, **kw))
+    n += _count("every case after the suite", every, 5)
+    for i in range(3):
+        p = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
+                            "-p", "no:cacheprovider", "-q", "--tb=line",
+                            "tests/test_torch_cuda.py"], cwd=root,
+                           capture_output=True, text=True, timeout=1200)
+        tail = [line for line in p.stdout.splitlines()
+                if re.search(r"\d+ (passed|failed)", line)
+                or line.startswith(("FAILED", "E ", "/"))]
+        print(f"faults suite run {i + 1}: exit {p.returncode}; "
+              + " | ".join(tail[-12:]), flush=True)
+        n += p.returncode != 0
+    print(f"faults total failing runs or calls: {n}; profiles taken "
+          f"again in this process: {cs.PROFILE_RETRIES[0]}", flush=True)
+    return n
+
+
 def main() -> int:
     argv = sys.argv[1:]
+    if argv[:1] == ["--faults"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_compare: no CUDA device", file=sys.stderr)
+            return 2
+        reps = int(argv[1]) if len(argv) > 1 else 200
+        procs = int(argv[2]) if len(argv) > 2 else 10
+        return 1 if fault_counts(reps, procs) else 0
     if argv == ["--phases"]:
         import torch
 

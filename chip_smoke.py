@@ -248,23 +248,89 @@ def median_ms(fns, runs=20):
     return [statistics.median(t) for t in times]
 
 
-def device_ms(fn, runs=20, by_kernel=None):
-    """Milliseconds of device time per call of fn: the kernels' own time
-    from torch.profiler (CUPTI), without the host's launch gaps that the
-    CUDA events of median_ms include when the card waits on the host.
-    by_kernel, a dict, receives the milliseconds of each kernel name."""
+PROFILE_TRIES = 10
+PROFILE_RETRIES = [0]   # profiles taken again: they missed kernels
+# launches that open every profile (profile_cuda) and are not counted
+PROFILE_LEAD = 8
+# the CUDA calls that launch one kernel each, as torch.profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+@dataclasses.dataclass
+class DeviceTime:
+    """One name's device activity in a profile: its records (count) and
+    their microseconds (self_device_time_total), as torch.profiler's
+    key_averages name them."""
+    key: str
+    count: int
+    self_device_time_total: float
+
+
+def profile_cuda(fn, runs=1):
+    """The device activity (kernels, copies) of runs calls of fn, a
+    DeviceTime a name, from torch.profiler's CPU and CUDA activity.
+
+    In a process that has run for a while, a profile on the card loses
+    the kernel records of its first one or two launches (their launch
+    calls are recorded; the later launches' kernels are not lost).  So
+    every profile opens with PROFILE_LEAD launches of a spin kernel and a
+    synchronize, which are not counted, and is complete only if every
+    launch call of fn's (cudaLaunchKernel and kin) has its kernel record,
+    matched by CUPTI correlation id.  An incomplete profile is taken
+    again, up to PROFILE_TRIES times (PROFILE_RETRIES counts them), and
+    SmokeFailure is raised if none is complete, so that no reader sees a
+    time or a kernel list that was not measured.  Graph launches and
+    copies add records that the launch calls do not count.  The card
+    tests (tests/test_torch_cuda.py) and chip_compare.py read this helper
+    too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        raw = prof.profiler.kineto_results.events()
+        calls = sorted((e for e in raw if e.device_type() == DeviceType.CPU
+                        and e.name() in LAUNCH_CALLS),
+                       key=lambda e: e.start_ns())
+        lead = {e.correlation_id() for e in calls[:PROFILE_LEAD]}
+        device = [e for e in raw if e.device_type() == DeviceType.CUDA
+                  and e.correlation_id() not in lead]
+        seen = {e.correlation_id() for e in device}
+        missing = sum(e.correlation_id() not in seen
+                      for e in calls[PROFILE_LEAD:])
+        if device and not missing:
+            PROFILE_RETRIES[0] += attempt
+            got = {}
+            for e in device:
+                d = got.setdefault(e.name(), DeviceTime(e.name(), 0, 0.0))
+                d.count += 1
+                d.self_device_time_total += (e.end_ns() - e.start_ns()) / 1e3
+            return list(got.values())
+    raise SmokeFailure(f"{PROFILE_TRIES} profiles of {fn} missed kernels: "
+                       f"{missing} of {len(calls) - PROFILE_LEAD} launch "
+                       f"calls without a record in the last, {len(device)} "
+                       "device records")
+
+
+def device_ms(fn, runs=20, by_kernel=None):
+    """Milliseconds of device time per call of fn: the kernels' own time
+    from torch.profiler (profile_cuda), without the host's launch gaps
+    that the CUDA events of median_ms include when the card waits on the
+    host.  by_kernel, a dict, receives the milliseconds of each kernel
+    name."""
     times = {e.key: e.self_device_time_total / runs / 1e3
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+             for e in profile_cuda(fn, runs)}
     if by_kernel is not None:
         by_kernel.update(times)
     return sum(times.values())
@@ -293,18 +359,8 @@ def cold_ms(fn, runs=20, flush_bytes=100 << 20):
 
 
 def kernel_counts(fn):
-    """Launches of each kernel name in one call of fn (torch.profiler)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    """Launches of each kernel name in one call of fn (profile_cuda)."""
+    return {e.key: e.count for e in profile_cuda(fn)}
 
 
 def max_err(a, b):
@@ -497,8 +553,10 @@ def scn_case(dev, dtype, cfg, nb, gen):
     parts = {}
     dev_ms = device_ms(lambda: scn_cuda.scn_step_fused(cell, x, sx, sh, h,
                                                         c), by_kernel=parts)
-    check(not any(library_gemm(k) for k in parts),
-          f"scn_step_fused {label}: gemm.cuh's FFMA GEMM ran")
+    check(any("small_gemm_kernel" in k for k in parts)
+          and not any(library_gemm(k) for k in parts),
+          f"scn_step_fused {label}: not mma_small.cuh's kernel alone, or "
+          f"gemm.cuh's FFMA GEMM ran: {list(parts)}")
     split = scn_split(parts)
     bound_ms, bound_by, ffma_ms = chain_bound(
         scn_work(cfg, nb * K, dtype.itemsize), name)
@@ -557,16 +615,29 @@ def fc_topk_case(dev, cfg, nb):
     ties = near_tie_rows(ti, ri, h @ fc["w"] + fc["b"], "fc_topk")
     plain_ms, ms = median_ms([lambda: fc_topk.fc_topk_plain(*args),
                               lambda: fc_topk.fc_topk(*args)])
-    dev_ms = device_ms(lambda: fc_topk.fc_topk(*args))
-    bound_ms, bound_by = bound(*fc_topk_work(nb * K, cfg.decoder_dim,
-                                             cfg.vocab_size, K))
+    parts = {}
+    dev_ms = device_ms(lambda: fc_topk.fc_topk(*args), by_kernel=parts)
+    bound_ms, bound_by, ffma_ms = chain_bound(
+        fc_topk_work(nb * K, cfg.decoder_dim, cfg.vocab_size, K), "float32")
+    # the K-major pack of w, made once per tensor: its host time cold
+    fc_topk._packs.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fc_topk.fc_pack(fc["w"])
+    torch.cuda.synchronize()
+    pack_ms = (time.perf_counter() - t0) * 1e3
     print(f"kernel fc_topk float32 ({nb * K}, {cfg.decoder_dim}) x "
-          f"({cfg.decoder_dim}, {cfg.vocab_size}) k={K}: max_abs_err "
+          f"({cfg.decoder_dim}, {cfg.vocab_size}) k={K} "
+          f"{fc_topk.fc_plan(nb * K, cfg.vocab_size, K)}: max_abs_err "
           f"{err:.3g} "
           f"(tol {FC_TOL} x {scale:.3g}); topi equal but {ties} near-tie "
           f"rows; ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
-          f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms)
+          f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, 3xTF32; "
+          f"FFMA {ffma_ms:.4f}); w's pack {pack_ms:.3f} ms once; device ms "
+          "by launch: " + "; ".join(f"{n[:50]} {v:.4f}"
+                                    for n, v in parts.items()))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                ffma_bound_ms=ffma_ms)
 
 
 def gemm_case(dev, dtype, M, K_in, N, label):
@@ -990,8 +1061,10 @@ def mega_case(dev, dtype, cfg, params, enc, gen):
         nodes, update_ms = 0, float("nan")
     parts = {}
     dev_ms = device_ms(kernel, runs=3, by_kernel=parts)
-    check(not any(library_gemm(k) for k in parts),
-          f"{label}: csrc/mma.cuh's or gemm.cuh's GEMM ran in the decode")
+    check(any("small_gemm_kernel" in k for k in parts)
+          and not any(library_gemm(k) for k in parts),
+          f"{label}: the wide tile did not run, or csrc/mma.cuh's or "
+          f"gemm.cuh's GEMM ran in the decode: {list(parts)}")
     split = mega_split(parts)
     bound_ms, bound_by, ffma_ms = chain_bound(
         record_work(cfg, nb, ran, dtype.itemsize), name)
@@ -1045,14 +1118,28 @@ def mega_split(parts):
     return split
 
 
-def topk_case(dev, nb):
-    """Kernel 10 on the dense head's (B, K*V) float32 candidate table
-    (every other row one live lane, as at the first step): bitwise
-    row_topk_iterative; torch.topk's values equal.  Times of the kernel,
-    the plain version and torch.topk."""
+def host_us(fns, n=200):
+    """Microseconds of host time per call of each of fns, enqueued n times
+    without a synchronise (the wrapper's own cost, not the card's)."""
     import torch
 
-    from indonesian_image_captioning_tpu_torch.ops import topk
+    out = []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return out
+
+
+def topk_tables(dev, nb):
+    """Kernel 10's tables: the dense head's (B, K*V) float32 candidate
+    table (every other row one live lane, as at the first step) and the
+    sparse head's (B*K, V) log-probabilities."""
+    import torch
 
     gen = torch.Generator().manual_seed(SEED + 9)
     logp = torch.log_softmax(torch.randn((nb, K, VOCAB), generator=gen) * 2,
@@ -1061,42 +1148,83 @@ def topk_case(dev, nb):
     scores[::2, 1:] = NEG
     cand = torch.clamp_min(scores + logp, NEG)
     cand = torch.where(scores <= NEG, torch.full_like(cand, NEG), cand)
-    x = cand.reshape(nb, K * VOCAB).to(dev).contiguous()
-    n0 = topk.row_topk_pallas.launches
-    vals, idx = topk.row_topk_pallas(x, K)
-    ref_v, ref_i = topk.row_topk_iterative(x, K)
-    lib_v, _ = torch.topk(x, K, dim=1)
-    torch.cuda.synchronize()
-    check(topk.row_topk_pallas.launches == n0 + 1,
-          "row_topk_pallas: the kernel was not launched")
-    check(torch.equal(idx.long(), ref_i) and torch.equal(vals, ref_v),
-          "row_topk_pallas differs from row_topk_iterative")
-    check(torch.equal(lib_v, ref_v), "torch.topk's values differ")
-    plain_ms, ms, lib_ms = median_ms([
-        lambda: topk.row_topk_iterative(x, K),
-        lambda: topk.row_topk_pallas(x, K),
-        lambda: torch.topk(x, K, dim=1)])
-    dev_ms = device_ms(lambda: topk.row_topk_pallas(x, K))
-    work = topk_work(nb, K * VOCAB, K)
-    bound_ms, bound_by = bound(*work)
-    print(f"kernel row_topk_pallas float32 ({nb}, {K * VOCAB}) k={K}: equal "
-          f"to row_topk_iterative bitwise; ms {ms:.4f} device_ms "
-          f"{dev_ms:.4f} plain_ms {plain_ms:.4f} library_ms (torch.topk) "
-          f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
-    # past 32 slots kernel 10 runs in passes of 32 over the same table
-    kw = 2 * 32 + 5
-    n0 = topk.row_topk_pallas.launches
-    vals, idx = topk.row_topk_pallas(x, kw)
-    ref_v, ref_i = topk.row_topk_iterative(x, kw)
-    torch.cuda.synchronize()
-    check(topk.row_topk_pallas.launches == n0 + 1
-          and torch.equal(idx.long(), ref_i) and torch.equal(vals, ref_v),
-          f"row_topk_pallas at k={kw} differs from row_topk_iterative")
-    wide_ms, = median_ms([lambda: topk.row_topk_pallas(x, kw)])
-    print(f"kernel row_topk_pallas float32 ({nb}, {K * VOCAB}) k={kw} (three "
-          f"passes): equal to row_topk_iterative bitwise; ms {wide_ms:.4f}")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                device_ms=dev_ms)
+    return (cand.reshape(nb, K * VOCAB).to(dev).contiguous(),
+            logp.reshape(nb * K, VOCAB).to(dev).contiguous())
+
+
+def topk_case(dev, nb):
+    """Kernel 10 on the dense head's (B, K*V) candidate table at k = K and
+    k = 69 (three passes), and on the sparse head's (B*K, V) table at k =
+    K, float32 (the dense table in bf16 too): bitwise row_topk_iterative
+    at each; torch.topk's values equal.  Events and device ms of the
+    kernel, the plain version and torch.topk; the wrapper's host time by
+    part.  Returns the dense table's k = K row for the kernels line."""
+    import ctypes
+
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import _build, topk
+
+    dense, sparse = topk_tables(dev, nb)
+    out = None
+    for label, x, k in (("dense", dense, K), ("dense", dense, 69),
+                        ("sparse", sparse, K),
+                        ("dense bf16", dense.bfloat16(), K)):
+        R, V = x.shape
+        n0 = topk.row_topk_pallas.launches
+        vals, idx = topk.row_topk_pallas(x, k)
+        ref_v, ref_i = topk.row_topk_iterative(x, k)
+        lib_v, _ = torch.topk(x, k, dim=1)
+        torch.cuda.synchronize()
+        check(topk.row_topk_pallas.launches == n0 + 1,
+              "row_topk_pallas: the kernel was not launched")
+        check(torch.equal(idx.long(), ref_i) and torch.equal(vals, ref_v),
+              f"row_topk_pallas ({R}, {V}) k={k} differs from "
+              "row_topk_iterative")
+        check(torch.equal(lib_v, ref_v), "torch.topk's values differ")
+        plain_ms, ms, lib_ms = median_ms([
+            lambda: topk.row_topk_iterative(x, k),
+            lambda: topk.row_topk_pallas(x, k),
+            lambda: torch.topk(x, k, dim=1)])
+        dev_ms = device_ms(lambda: topk.row_topk_pallas(x, k))
+        lib_dev_ms = device_ms(lambda: torch.topk(x, k, dim=1))
+        work = topk_work(R, V, k, x.element_size())
+        bound_ms, bound_by = bound(*work)
+        plan = topk.topk_plan(R, V, k, x.element_size())
+        print(f"kernel row_topk_pallas {label} ({R}, {V}) k={k} {plan}: "
+              f"equal to row_topk_iterative bitwise; ms {ms:.4f} device_ms "
+              f"{dev_ms:.4f} launches {len(topk.topk_passes(k, plan.kk))} "
+              f"plain_ms {plain_ms:.4f} library_ms (torch.topk) "
+              f"{lib_ms:.4f} library_device_ms {lib_dev_ms:.4f} bound_ms "
+              f"{bound_ms:.4f} ({bound_by})")
+        if out is None:
+            out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, device_ms=dev_ms,
+                       library_device_ms=lib_dev_ms)
+    # the wrapper's host time at the dense table, k = K, by part
+    x, k = dense, K
+    R, V = x.shape
+    lib = _build.load("topk")
+    plan = topk.topk_plan(R, V, k, 4)
+    v0 = torch.empty((R, k), device=dev)
+    i0 = torch.empty((R, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    parts = dict(zip(("wrapper", "outputs", "plan", "current_stream",
+                      "raw stream", "load", "C call and launch"), host_us([
+        lambda: topk.row_topk_pallas(x, k),
+        lambda: (torch.empty((R, k), device=dev),
+                 torch.empty((R, k), dtype=torch.int32, device=dev)),
+        lambda: topk.topk_plan(R, V, k, x.element_size()),
+        lambda: torch.cuda.current_stream(x.device).cuda_stream,
+        lambda: topk._raw_stream(x.device),
+        lambda: _build.load("topk"),
+        lambda: lib.iic_row_topk(0, x.data_ptr(), R, V, k, v0.data_ptr(),
+                                 i0.data_ptr(), ctypes.byref(plan),
+                                 stream)])))
+    print("kernel row_topk_pallas host us a call by part: " + ", ".join(
+        f"{n} {v:.2f}" for n, v in parts.items()))
+    out["host_us"] = parts["wrapper"]
+    return out
 
 
 def step_case(dev, dtype, cfg, params, enc, gen, quant=False):
@@ -1889,11 +2017,10 @@ def record_work(cfg, B, steps, isz=4, k=K):
     return nbytes, steps * flops
 
 
-def topk_work(R, V, k):
-    """Bytes and operations of kernel 10: the (R, V) float32 table read
-    once, the (R, k) values and indices written once; one comparison per
-    value."""
-    return 4 * R * V + 8 * R * k, R * V
+def topk_work(R, V, k, isz=4):
+    """Bytes and operations of kernel 10: the (R, V) table read once, the
+    (R, k) values and indices written once; one comparison per value."""
+    return isz * R * V + (isz + 4) * R * k, R * V
 
 
 def train_work(cfg, B, T, isz=4):
@@ -2525,7 +2652,7 @@ def main() -> int:
              f32["scn_attention_scn"], bf16["scn_attention_scn"],
              scn_work(cfg, B * K), chain),
             ("fc_topk", "fc_topk.cu", "fc_topk_pallas.py:119", fc_res, None,
-             fc_topk_work(B * K, cfg.decoder_dim, VOCAB, K)),
+             fc_topk_work(B * K, cfg.decoder_dim, VOCAB, K), chain),
             ("train_fwd", "train.cu", "train_pallas.py:768",
              train_res[("float32", "attention_scn")]["train_fwd"],
              train_res[("bfloat16", "attention_scn")]["train_fwd"], fwd_work,
@@ -2551,11 +2678,14 @@ def main() -> int:
             "plain_ms": r32["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r32.get("library_ms"),
             "device_ms": r32.get("device_ms"),
+            "library_device_ms": r32.get("library_device_ms"),
+            "ffma_bound_ms": r32.get("ffma_bound_ms"),
             "bf16_max_abs_err": r16 and r16["max_abs_err"],
             "bf16_ms": r16 and r16["ms"],
             "bf16_plain_ms": r16 and r16["plain_ms"]})
     print(f"phases: all {time.perf_counter() - t_start:.1f} s after the "
-          "build")
+          f"build; profiles taken again (they missed kernels): "
+          f"{PROFILE_RETRIES[0]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,8 +71,6 @@ constexpr int kHeadThreads = 256;
 //   raw = 1 (the megakernel, decode_pallas.py:223-234): the rounds run on
 //     the raw logits, lse = log(sum exp(x - max)) + max and topv = x - lse,
 //     the log-probabilities themselves.
-//   raw = 2 (the vocab head fc_topk.cu, fc_topk_pallas.py): as raw = 1,
-//     but topv holds the raw logits x.
 __global__ void __launch_bounds__(kHeadThreads)
 head_topk_kernel(const float* __restrict__ logits, int V, int K,
                  float* __restrict__ topv, int* __restrict__ topi,
@@ -137,7 +135,7 @@ head_topk_kernel(const float* __restrict__ logits, int V, int K,
     pv = red_v[0];
     pi = red_i[0];
     if (tid == 0) {
-      topv[(size_t)r * K + q] = raw == 1 ? pv - lrow : pv;
+      topv[(size_t)r * K + q] = raw ? pv - lrow : pv;
       topi[(size_t)r * K + q] = pi;
     }
     __syncthreads();

@@ -73,7 +73,7 @@ SIGNATURES = {
         "iic_tc_launches_take": [],
     },
     "topk": {
-        "iic_row_topk": [_I, _P, _I, _I, _I, _P, _P, _P],
+        "iic_row_topk": [_I, _P, _I, _I, _I, _P, _P, _P, _P],
     },
     "scn": {
         "iic_scn_args_bytes": [],
@@ -81,7 +81,8 @@ SIGNATURES = {
         "iic_scn_launches": [],
     },
     "fc_topk": {
-        "iic_fc_topk": [_P] * 7 + [_I, _I, _I, _I, _P],
+        "iic_fc_topk": [_P, _L, _P, _L, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _P, _P],
     },
     "embed_grad": {
         "iic_embed_grad": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],

@@ -35,6 +35,8 @@ scan within 5e-3 of each leaf's largest value (the JAX contract).
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -893,25 +895,30 @@ def test_span_with_every_image_dead(dev):
     assert err(out[3], ref[3]) <= 1e-5 and err(out[4], ref[4]) <= 1e-5
 
 
-def _kernel_names(fn):
-    """The names of the kernels one call of fn launches (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+ROOT = Path(__file__).resolve().parents[1]
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+
+def _smoke():
+    """chip_smoke.py at the repository root: its profiler helper
+    (profile_cuda) and library_gemm are the ones the launch checks read."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    return chip_smoke
+
+
+def _kernel_names(fn):
+    """The names of the kernels one call of fn launches, from
+    chip_smoke.profile_cuda: a profile that recorded fewer kernels than
+    launch calls is taken again, and after ten it raises, so the list is
+    never empty."""
+    return [e.key for e in _smoke().profile_cuda(fn)]
 
 
 def _library_gemm(name):
     """csrc/mma.cuh's tensor-core GEMM, gemm.cuh's FFMA GEMM or its split-K
     reduce (not mma_small.cuh's small_gemm_kernel)."""
-    return any(f"iic::{n}" in name for n in (
-        "gemm_tc_kernel", "gemm_kernel<", "gemm_reduce_kernel"))
+    return _smoke().library_gemm(name)
 
 
 def _mega_inputs(dev, dtype, B, K, end_bias, gen, T=7):
@@ -1045,6 +1052,31 @@ def test_row_topk_kernel_matches_plain(dev, dtype, k, V):
     assert torch.equal(idx.long(), ref_i)
     assert torch.equal(vals, ref_v)
     assert idx[0, :min(k, 3)].tolist() == [5, 257, V - 1][:k]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("k", [5, 33])
+@pytest.mark.parametrize("R", [1, 8])
+def test_row_topk_kernel_on_clusters_of_16(dev, dtype, k, R):
+    """Kernel 10 at the "steps" rung's row length (33,815 = 5 x 6,763) on
+    1 and 8 rows, where topk_plan takes the non-portable cluster of 16
+    CTAs a row; every row starts at another offset from 16 bytes, exact
+    ties lie across ranks, and k = 33 takes two passes: bitwise the plain
+    version."""
+    V = 33815
+    assert topk.topk_plan(R, V, k, 4 if dtype == F32 else 2).cs == 16
+    gen = torch.Generator().manual_seed(R + k)
+    x = randn(gen, R, V)
+    if dtype == F32:
+        x[0, 1::2] = NEG
+    x[:, [3, 2113, 16907, V - 1]] = 9.0
+    x = x.to(dev, dtype)
+    vals, idx = topk.row_topk_pallas(x, k)
+    ref_v, ref_i = topk.row_topk_iterative(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(idx.long(), ref_i)
+    assert torch.equal(vals, ref_v)
+    assert idx[:, :4].tolist() == [[3, 2113, 16907, V - 1]] * R
 
 
 @pytest.mark.parametrize("impl, family", [("fused_span", "attention_scn"),
@@ -1317,10 +1349,17 @@ def test_scn_step_fused_keeps_tx_in_float32(dev):
 
 @pytest.mark.parametrize("R, D, V, k", [(7, 16, 40, 5), (65, 36, 1000, 8),
                                         (3, 8, 513, 1), (160, 64, 6763, 5),
-                                        (9, 36, 700, 40)])
+                                        (9, 36, 700, 40), (5, 36, 38732, 5),
+                                        (9, 36, 700, 70), (7, 37, 300, 5),
+                                        (81, 37, 1000, 33)])
 def test_fc_topk_kernel_matches_plain(dev, R, D, V, k):
     """Kernel 11: raw-logit values and the log-sum within 1e-5, ids equal
-    but at near-ties."""
+    but at near-ties.  COCO's V = 38,732 takes the merge that reads the
+    partials from device memory (its lists pass MERGE_STAGE), k = 70 the
+    lists clamped at 64 (a whole tile), D = 37 h's rows off 16 bytes (the
+    element-store path of its copies)."""
+    plan = fc_topk.fc_plan(R, V, k)
+    assert plan.stage == (V < 38732) and plan.kt == min(k, 64)
     gen = torch.Generator().manual_seed(R + V)
     h = randn(gen, R, D).to(dev)
     w = randn(gen, D, V, scale=0.3).to(dev)
@@ -1546,3 +1585,126 @@ def test_trainer_one_epoch_on_card_matches_cpu(dev, tmp_path):
         assert (tmp_path / where / "checkpoint_attention_scn_tiny").is_file()
         losses[where] = summary["train_loss"]
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"])
+
+
+def poison_memory(dev):
+    """All-ones bytes (NaN in float32 and bfloat16, -1 in int32) in memory
+    a kernel could read before it writes it: the free blocks of the
+    caching allocator -- blocks of both its pools, filled and freed, so
+    that later ``torch.empty`` calls return poisoned memory -- and the
+    scratch the wrappers keep (kernel 12's tx and th, the fused step's
+    intermediates, every buffer of kernel 13's graph workspaces, which
+    each decode overwrites or resets).  A kernel that reads what it did
+    not write then gives NaN, or traps on a gathered id of -1, instead of
+    a near miss."""
+    torch.cuda.synchronize()
+    mb = 1 << 20
+    blocks = ([torch.empty(256 * mb, dtype=torch.uint8, device=dev)]
+              + [torch.empty(n, dtype=torch.uint8, device=dev)
+                 for n in [mb] * 32 + [64 << 10] * 64 + [4 << 10] * 256])
+    kept = [*(t for s in scn_cuda._scratch.values() for t in s),
+            *(t for s in step_cuda._scratch.values() for t in s.values()),
+            *(t for g in decode_cuda._graphs.values() for t in g.ws.values())]
+    for t in blocks + kept:
+        t.view(torch.uint8).fill_(255)
+    del blocks
+    torch.cuda.synchronize()
+
+
+POISON_REPEATS = 50
+
+
+def _scn_call(dev, dtype):
+    """test_scn_step_fused_kernel_matches_plain's case (13, 5), In 600, H
+    40, F 24: (the call, its plain result)."""
+    lead, In, H = (13, 5), 600, 40
+    gen = torch.Generator().manual_seed(In + H)
+    params = scn_cell.init_scn_cell(gen, In, H, 30, 24, device=dev)
+    params = decoders.cast_params(params, dtype)
+    x = randn(gen, *lead, In).to(dev, dtype)
+    h = torch.tanh(randn(gen, *lead, H)).to(dev, dtype)
+    c = randn(gen, *lead, H, scale=0.5).to(dev, dtype)
+    tags = torch.rand((lead[0], 30), generator=gen).to(dev, dtype)
+    sx, sh = scn_cell.semantic_projections(params, tags)
+    sx, sh = sx[:, None], sh[:, None]
+    ref = scn_cuda.scn_step_fused_plain(
+        params, *scn_cuda.to_rows(params, x, sx, sh, h, c)[:5])
+
+    def call():
+        return [t.reshape(-1, H)
+                for t in scn_cuda.scn_step_fused(params, x, sx, sh, h, c)]
+    return call, list(ref)
+
+
+def _mega_call(dev, dtype):
+    """test_megakernel_matches_plain's case B 3, K 5, <end> bias 8."""
+    gen = torch.Generator().manual_seed(5 + 7)
+    cfg, params, enc, tags, kw = _mega_inputs(dev, dtype, 3, 5, 8.0, gen)
+    keys = ("words", "parents", "vals")
+    ref = decode_cuda.beam_decode_records_plain(params, cfg, enc, tags, **kw)
+
+    def call():
+        out = decode_cuda.beam_decode_records(params, cfg, enc, tags, **kw)
+        return [out[k] for k in keys]
+    return call, [ref[k] for k in keys]
+
+
+def _step_call(dev, dtype):
+    """test_fused_step_kernel_matches_plain's attention_scn case B 14, K
+    5 (kernel 2's chain, five wide-tile launches)."""
+    cfg = small_cfg("attention_scn")
+    gen = torch.Generator().manual_seed(14 * 10 + 5)
+    params = decoders.init_decoder(gen, cfg, device=dev)
+    params["fc"]["b"] = randn(gen, cfg.vocab_size).to(dev)
+    B, K = 14, 5
+    R = B * K
+    weights = step_cuda.pack_step_weights(params, cfg, dtype)
+    emb = randn(gen, R, cfg.embed_dim, scale=0.1).to(dev, dtype)
+    h = torch.tanh(randn(gen, R, cfg.decoder_dim)).to(dev, dtype)
+    c = randn(gen, R, cfg.decoder_dim, scale=0.5).to(dev, dtype)
+    tags = torch.rand((B, cfg.semantic_dim), generator=gen).to(dev)
+    sx, sh = scn_cell.semantic_projections(params["decode_step"], tags)
+    semx, semh = (s.reshape(B, -1).repeat_interleave(K, 0).to(dtype)
+                  .contiguous() for s in (sx, sh))
+    enc = torch.relu(randn(gen, B, cfg.num_pixels, cfg.encoder_dim))
+    enc = enc.to(dev, dtype)
+    ea = attention.precompute(params["attention"], enc.float())
+    ea = ea.to(dtype).contiguous()
+    args = (weights, enc, ea, emb, h, c, semx, semh)
+    ref = step_cuda.fused_decode_step_plain(*args, cell="scn", topk=K)
+
+    def call():
+        return list(step_cuda.fused_decode_step(*args, cell="scn"))
+    return call, list(ref)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("kernel", ["12", "13", "2"])
+def test_wide_tile_kernels_under_poisoned_memory(dev, kernel, dtype):
+    """The wide tile's kernels (12, 13 and 2's chain) called again and
+    again with every free and kept buffer poisoned before each call
+    (poison_memory): every call bitwise equal to the first (no kernel here
+    sums with atomics), finite, and within the tolerance of the plain
+    version -- a read of memory the kernel did not write would show."""
+    call, ref = {"12": _scn_call, "13": _mega_call,
+                 "2": _step_call}[kernel](dev, dtype)
+    first = [t.clone() for t in call()]
+    torch.cuda.synchronize()
+    if kernel == "13":
+        diverged = _match_records(first, ref, dtype)
+        assert dtype == BF16 or not diverged
+    else:
+        which = {"12": ("state", "state"),
+                 "2": ("vals", None, "vals", "state", "state")}[kernel]
+        for a, b, t in zip(first, ref, which):
+            if t is not None:
+                assert err(a, b) <= TOL[dtype][t]
+    for i in range(POISON_REPEATS):
+        poison_memory(dev)
+        got = call()
+        torch.cuda.synchronize()
+        for a, b in zip(got, first):
+            assert torch.equal(a, b), (i, err(a, b))
+    for a in first:
+        if a.is_floating_point():
+            assert bool(torch.isfinite(a).all())

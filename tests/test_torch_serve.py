@@ -130,6 +130,115 @@ def test_failed_batch_fails_only_its_requests(engine_parts):
         eng.submit(images[0])
 
 
+@pytest.fixture(scope="module")
+def jax_captions(engine_parts):
+    """The JAX engine's captions of the test images (buckets 1, 2, 8,
+    beam 3)."""
+    cfg, state, wm, images = engine_parts
+    jax_eng = JaxEngine(params_to_jax(state), cfg, wm,
+                        JaxServeConfig(batch_buckets=(1, 2, 8), beam_size=3))
+    return jax_eng.caption_batch(images)
+
+
+def test_oversize_batch_splits_across_buckets(engine_parts, jax_captions):
+    """Five images over buckets (1, 2) run as 2 + 2 + 1, as in the JAX
+    engine, and caption as the JAX engine does."""
+    cfg, state, wm, images = engine_parts
+    eng = CaptionEngine(state, cfg, wm,
+                        ServeConfig(batch_buckets=(1, 2), beam_size=3),
+                        device="cpu")
+    caps = eng.caption_batch(images)
+    assert len(caps) == 5
+    assert eng.stats.batches == [2, 2, 1]
+    assert caps == jax_captions
+    assert eng.caption_batch(images[:1])[0] == caps[0]
+    jax_eng = JaxEngine(params_to_jax(state), cfg, wm,
+                        JaxServeConfig(batch_buckets=(1, 2), beam_size=3))
+    jax_eng.caption_batch(images)
+    assert jax_eng.stats.batches == eng.stats.batches[:3]
+
+
+def test_rejects_unsorted_buckets_and_unstarted_submit(engine_parts):
+    """Buckets out of order are refused at construction and a submit
+    before start() raises, in the port as in the JAX engine."""
+    cfg, state, wm, images = engine_parts
+    jax_state = params_to_jax(state)
+    for make, st, sc in ((lambda *a: CaptionEngine(*a, device="cpu"), state,
+                          ServeConfig), (JaxEngine, jax_state,
+                                         JaxServeConfig)):
+        with pytest.raises(ValueError):
+            make(st, cfg, wm, sc(batch_buckets=(8, 2)))
+        eng = make(st, cfg, wm, sc(batch_buckets=(1,)))
+        with pytest.raises(RuntimeError):
+            eng.submit(images[0])
+
+
+def _strand_and_stop(eng, image):
+    """A request left in the queue of a frozen serve loop, then stop():
+    the request's future."""
+    from concurrent.futures import Future
+
+    eng.start()
+    eng._stop.set()                 # freeze the loop before it picks work up
+    eng._worker.join()
+    eng._worker, worker = None, eng._worker
+    fut = Future()
+    eng._queue.put((image, fut))
+    eng._worker = worker            # restore so stop() runs its drain
+    eng.stop()
+    return fut
+
+
+def test_stop_fails_pending_futures(engine_parts):
+    """stop() resolves a still-queued future with "engine stopped", never
+    strands it -- the port's engine and the JAX engine alike."""
+    cfg, state, wm, images = engine_parts
+    for eng in (CaptionEngine(state, cfg, wm,
+                              ServeConfig(batch_buckets=(1,)), device="cpu"),
+                JaxEngine(params_to_jax(state), cfg, wm,
+                          JaxServeConfig(batch_buckets=(1,)))):
+        fut = _strand_and_stop(eng, images[0])
+        with pytest.raises(RuntimeError, match="engine stopped"):
+            fut.result(timeout=5)
+
+
+def test_cancelled_future_is_skipped(engine_parts, jax_captions):
+    """A request cancelled while queued neither crashes the worker nor
+    strands the rest of its batch: the other request gets the JAX
+    engine's caption."""
+    cfg, state, wm, images = engine_parts
+    eng = CaptionEngine(state, cfg, wm,
+                        ServeConfig(batch_buckets=(1, 2, 8), beam_size=3,
+                                    max_wait_ms=500.0), device="cpu")
+    eng.warmup(image_size=64)
+    eng.start()
+    try:
+        futs = [eng.submit(images[i]) for i in range(2)]
+        assert futs[0].cancel()     # the worker is still coalescing (500 ms)
+        assert futs[1].result(timeout=300) == jax_captions[1]
+    finally:
+        eng.stop()
+    assert futs[0].cancelled()
+
+
+def test_serve_decode_takes_the_default_max_steps(engine_parts):
+    """The engine decodes at most BeamConfig's default 51 steps unless
+    ServeConfig overrides it, as the JAX engine does."""
+    from indonesian_image_captioning_tpu.core.config import \
+        BeamConfig as JaxBeamConfig
+    from indonesian_image_captioning_tpu_torch.core.config import BeamConfig
+
+    cfg, state, wm, _ = engine_parts
+    jax_state = params_to_jax(state)
+    for max_steps, want in ((None, 51), (7, 7)):
+        eng = CaptionEngine(state, cfg, wm, ServeConfig(
+            batch_buckets=(1,), max_steps=max_steps), device="cpu")
+        jax_eng = JaxEngine(jax_state, cfg, wm, JaxServeConfig(
+            batch_buckets=(1,), max_steps=max_steps))
+        assert eng.beam_cfg.max_steps == jax_eng.beam_cfg.max_steps == want
+    assert BeamConfig().max_steps == JaxBeamConfig().max_steps == 51
+
+
 def test_cuda_request_without_a_device_raises(engine_parts):
     """A CUDA request never runs on the CPU."""
     if torch.cuda.is_available():
