@@ -97,7 +97,29 @@ Phases, each of which exits non-zero on failure:
    rung at B=32 (the int8 rungs too): the decode on the host clock,
    captions/s and the device busy share from torch.profiler, beside the
    encoders' time.
-6. train: the cached-feature caption trainer, attention_scn at the
+6. checkpoints and evaluation: the state that make_state builds written
+   three ways (the reference's serve format, a caption file and a tagger
+   file of state_dicts; its training format, whole modules of a class
+   that cannot be imported at load time, so unpickling stubs it; the
+   port's own checkpoint files) and each loaded
+   onto the card through cli.common.load_caption_state and
+   load_tagger_state, every leaf bitwise the state's, with the load time
+   of each.  Then a TEST split of 64 seeded noise images, 5 Zipf-drawn
+   captions each (CaptionDataset.from_arrays: the card's machine has no
+   h5py), beam-decoded by eval_caption.decode_dataset in batches of 32 at
+   beam 5, the counters zeroed just before and read just after (kernel 7
+   launched, kernel 1 not), every hypothesis equal to a direct
+   caption_beam_search's on the same batches, scored without METEOR (it
+   needs nltk), its images/s and the two encoders' share; the tagger's
+   TEST accuracy (eval_tagger.evaluate_dataset over
+   TagDataset.from_arrays) equal to a plain computation over the same
+   outputs, and its images/s; and one image through
+   cli.inference.caption_image (uint8 in, no PIL) with the counters
+   zeroed just before and read just after: the "steps" rung with kernel
+   1, the alphas of every step after <start> summing to 1 within 1e-3,
+   the caption equal to caption_batch's but at a near-tie (the two run
+   on other rungs).
+7. train: the cached-feature caption trainer, attention_scn at the
    flagship widths, V=6,763, T=51, B=32, decoder float32, encoders
    bfloat16.  Kernels 8 and 9 (the teacher-forcing scan, forward and
    backward) against their plain versions on the same inputs, float32 and
@@ -118,7 +140,7 @@ Phases, each of which exits non-zero on failure:
    device busy share and device time by kernel group, torch.profiler); and
    one step with the chunked head, whose loss must equal the dense head's
    within 1e-5.
-7. trainer: the trainer's main path, train.caption.train (the port's
+8. trainer: the trainer's main path, train.caption.train (the port's
    cli/train.py runs it from files) at the same widths with
    embed_grad_impl="pallas", on an in-memory corpus of 96 TRAIN and 32
    VAL seeded noise images, 5 Zipf-drawn captions each: BatchNorm
@@ -202,6 +224,11 @@ TRAIN_STEPS = 5
 EMBED_TOL = 1e-6
 # The trainer phase: TRAIN and VAL images, captions per image, epochs
 TRAINER_IMAGES, TRAINER_CPI, TRAINER_EPOCHS = (96, 32), 5, 2
+# The checkpoints-and-evaluation phase: TEST images, captions per image,
+# the evaluation's batch, and the share of tags set in its tag split; the
+# module named by its training-format checkpoints' classes, absent at load
+EVAL_IMAGES, EVAL_CPI, EVAL_BATCH, EVAL_TAG_RATE = 64, 5, 32, 0.01
+REFERENCE_MODULE = "reference_models_not_installed"
 # one epoch through the uncached path (the device image store) against the
 # cached run's first epoch: each step's loss within this share of it
 UNCACHED_TOL = 1e-4
@@ -2562,6 +2589,392 @@ def train_breakdown(step, sub, batch, gen, B):
                                   groups.items()) + f"; top: {top}")
 
 
+def module_from_state_dict(sd, class_name):
+    """A module tree holding ``sd`` under its keys (tensors as parameters,
+    the BatchNorm statistics as buffers), its root an instance of a class
+    of a module that exists only while this process saves it: unpickling
+    it elsewhere must stub the class, as a reference training-format
+    checkpoint's classes are when the reference package is absent."""
+    import types
+
+    import torch
+
+    mod = sys.modules.setdefault(REFERENCE_MODULE,
+                                 types.ModuleType(REFERENCE_MODULE))
+    cls = getattr(mod, class_name, None)
+    if cls is None:
+        cls = type(class_name, (torch.nn.Module,),
+                   {"__module__": REFERENCE_MODULE})
+        setattr(mod, class_name, cls)
+    root = cls()
+    for key, v in sd.items():
+        *path, leaf = key.split(".")
+        m = root
+        for name in path:
+            if name not in m._modules:
+                m.add_module(name, torch.nn.Module())
+            m = m._modules[name]
+        if leaf.startswith("running_"):
+            m.register_buffer(leaf, v)
+        else:
+            m.register_parameter(leaf, torch.nn.Parameter(
+                v, requires_grad=False))
+    return root
+
+
+def checkpoint_files(state, cfg, directory):
+    """Write the inference state three ways into ``directory``: the
+    reference's serve format (a caption file of encoder and decoder
+    state_dicts, a tagger file of one), its training format (whole
+    modules of classes unresolvable at load, optimizers None) and the
+    port's own checkpoint (``core.checkpoint.save_checkpoint``, its
+    tagger inside).  Returns {family: (caption file, tagger file)}."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.core import checkpoint
+    from indonesian_image_captioning_tpu_torch.models import convert
+
+    d = Path(directory)
+    enc_sd = convert.encoder_caption_to_torch(state["encoder"],
+                                              state["encoder_stats"])
+    dec_sd = convert.decoder_to_torch(state["params"], cfg)
+    tag_sd = convert.encoder_tagger_to_torch(state["tagger"],
+                                             state["tagger_stats"])
+    files = {"serve": (d / "serve_caption.pth.tar",
+                       d / "serve_tagger.pth.tar"),
+             "training": (d / "train_caption.pth.tar",
+                          d / "train_tagger.pth.tar")}
+    torch.save({"encoder_model_state_dict": enc_sd,
+                "decoder_model_state_dict": dec_sd}, files["serve"][0])
+    torch.save({"model_state_dict": tag_sd}, files["serve"][1])
+    try:
+        torch.save({"epoch": 3, "epochs_since_improvement": 0,
+                    "bleu-4": 0.25,
+                    "encoder": module_from_state_dict(enc_sd,
+                                                      "EncoderCaption"),
+                    "decoder": module_from_state_dict(dec_sd,
+                                                      "AttentionSCN"),
+                    "encoder_optimizer": None, "decoder_optimizer": None},
+                   files["training"][0])
+        torch.save({"epoch": 3, "epochs_since_improvement": 0,
+                    "accuracy": 90.0,
+                    "encoder": module_from_state_dict(tag_sd,
+                                                      "EncoderTagger"),
+                    "encoder_optimizer": None}, files["training"][1])
+    finally:
+        sys.modules.pop(REFERENCE_MODULE, None)
+    own = checkpoint.save_checkpoint(
+        str(d), cfg.model_type, "smoke", {"state": state, "epoch": 0,
+                                          "epochs_since_improvement": 0,
+                                          "metric": 0.0}, is_best=False)
+    # the tagger trainer's layout, which init_state(tagger_checkpoint=) reads
+    own_tagger = d / "checkpoint_tagger_smoke"
+    checkpoint.save_pytree(str(own_tagger), {"state": {
+        "params": state["tagger"], "stats": state["tagger_stats"]}})
+    files["own"] = (Path(own), own_tagger)
+    return files
+
+
+def tree_items(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict/list tree, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def same_tree(got, want, label):
+    """Every leaf of got bitwise want's, on want's device; returns the
+    number of leaves."""
+    import torch
+
+    g, w = dict(tree_items(got)), dict(tree_items(want))
+    check(g.keys() == w.keys(), f"{label}: the trees' paths differ: "
+          f"{sorted(g.keys() ^ w.keys())[:6]}")
+    for path, t in w.items():
+        check(g[path].device == t.device and g[path].dtype == t.dtype
+              and torch.equal(g[path], t),
+              f"{label}: leaf {path} differs from the state it came from")
+    return len(w)
+
+
+def load_families(files, cfg, state, dev):
+    """Load each family through ``cli.common`` onto ``dev``; every leaf
+    must be bitwise the state's.  Returns {family: load seconds}."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.cli import common
+
+    seconds = {}
+    want_tagger = {"params": state["tagger"], "stats": state["tagger_stats"]}
+    for family, (cap, tag) in files.items():
+        t0 = time.perf_counter()
+        got = common.load_caption_state(str(cap), cfg, str(tag), device=dev)
+        params, stats = common.load_tagger_state(str(tag), cfg.encoder_arch,
+                                                 device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[family] = time.perf_counter() - t0
+        n = same_tree(got, state, f"the {family} caption file")
+        same_tree({"params": params, "stats": stats}, want_tagger,
+                  f"the {family} tagger file")
+        print(f"checkpoints: {family} format loaded onto {dev} in "
+              f"{seconds[family]:.2f} s, {n} leaves bitwise the state's")
+    return seconds
+
+
+def eval_split(rng, cfg, n, image_size):
+    """A seeded TEST split: n noise images, EVAL_CPI Zipf-drawn captions
+    each, and multi-hot tags for the tagger's split.  Returns
+    (CaptionDataset, TagDataset)."""
+    import numpy as np
+
+    from indonesian_image_captioning_tpu_torch.data.datasets import (
+        CaptionDataset, TagDataset)
+
+    caps, lens = captions(rng, n * EVAL_CPI, cfg.vocab_size,
+                          cfg.max_caption_len)
+    images = rng.integers(0, 256, size=(n, 3, image_size, image_size),
+                          dtype=np.uint8)
+    tags = (rng.random((n, cfg.semantic_dim)) < EVAL_TAG_RATE).astype(
+        np.float32)
+    return (CaptionDataset.from_arrays(images, caps, lens, cpi=EVAL_CPI,
+                                       split="TEST"),
+            TagDataset.from_arrays(images, tags, split="TEST"))
+
+
+def direct_hypotheses(state, cfg, ds, wm, batch, dev):
+    """Each image's beam by caption_beam_search called directly on the
+    evaluation's batches (the last padded with image 0, as the evaluation
+    pads it), as word lists without the special tokens; and the host
+    seconds of the two encoders alone on those batches."""
+    import numpy as np
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.decode.api import \
+        caption_beam_search
+    from indonesian_image_captioning_tpu_torch.models import encoders
+
+    rev = {i: w for w, i in wm.items()}
+    skip = {wm["<start>"], wm["<end>"], wm["<pad>"]}
+    hyps, t_enc = [], 0.0
+    n = ds.num_images
+    for b0 in range(0, n, batch):
+        idx = np.arange(b0, min(b0 + batch, n))
+        img_idx = np.concatenate([idx, np.zeros(batch - len(idx), np.int64)])
+        with torch.inference_mode():
+            x = encoders.prep_images(
+                torch.from_numpy(ds.gather_images(img_idx)).to(dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = encoders.apply_encoder_caption(
+                state["encoder"], state["encoder_stats"], x,
+                enc_image_size=cfg.enc_image_size, arch=cfg.encoder_arch)[0]
+            tags = encoders.apply_encoder_tagger(
+                state["tagger"], state["tagger_stats"], x,
+                arch=cfg.encoder_arch)[0]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t_enc += time.perf_counter() - t0
+            out = caption_beam_search(state["params"], cfg, enc, tags,
+                                      start_id=wm["<start>"],
+                                      end_id=wm["<end>"])
+        seqs, lens = out["sequences"].cpu(), out["lengths"].cpu()
+        for row in range(len(idx)):
+            hyps.append([rev[int(w)] for w in seqs[row, :int(lens[row])]
+                         if int(w) not in skip])
+    return hyps, t_enc
+
+
+def plain_tagger_accuracy(params, stats, ds, batch, arch, dev):
+    """The evaluation's accuracy computed by hand: the tagger on the same
+    batches (the last padded with image 0), each valid row's share of
+    tags on the right side of 0.5 in float32, x100, and their mean."""
+    import numpy as np
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.models import encoders
+
+    rows = []
+    n = len(ds)
+    for b0 in range(0, n, batch):
+        idx = np.arange(b0, min(b0 + batch, n))
+        img_idx = np.concatenate([idx, np.zeros(batch - len(idx), np.int64)])
+        with torch.inference_mode():
+            probs = encoders.apply_encoder_tagger(
+                params, stats, encoders.prep_images(
+                    torch.from_numpy(ds.gather_images(img_idx)).to(dev)),
+                arch=arch)[0][:len(idx)]
+            truth = torch.from_numpy(ds.tags[idx]).to(dev)
+            agree = ((probs >= 0.5) == (truth >= 0.5)).to(torch.float32)
+            rows.append((agree.mean(dim=1) * 100.0).cpu().numpy())
+    return float(np.mean(np.concatenate(rows).astype(np.float64)))
+
+
+def checkpoints_and_evaluation(dev, cfg, image_size, n_images=EVAL_IMAGES,
+                               batch=EVAL_BATCH):
+    """The load and evaluation paths: the seeded state (make_state)
+    written as the reference's serve and training formats and the port's
+    own checkpoint, each loaded back onto the card bitwise; a TEST split
+    beam-decoded and scored (eval_caption.decode_dataset: kernel 7 on the
+    card, each hypothesis equal to a direct caption_beam_search); the
+    tagger's TEST accuracy (eval_tagger.evaluate_dataset) against a plain
+    computation; one image through cli.inference.caption_image (kernel 1:
+    the alphas recorded), its caption against caption_batch's but at a
+    near-tie."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.cli import inference
+    from indonesian_image_captioning_tpu_torch.core.config import BeamConfig
+    from indonesian_image_captioning_tpu_torch.evaluation import (
+        eval_caption, eval_tagger, metrics)
+    from indonesian_image_captioning_tpu_torch.serve import (CaptionEngine,
+                                                             ServeConfig)
+
+    rng = np.random.default_rng(SEED)
+    calib = rng.integers(0, 256, size=(batch, 3, image_size, image_size),
+                         dtype=np.uint8)
+    state = make_state(dev, cfg, calib)
+    wm = word_map(cfg.vocab_size)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files = checkpoint_files(state, cfg, tmp)
+        print(f"checkpoints: three families written in "
+              f"{time.perf_counter() - t0:.2f} s ("
+              + ", ".join(f"{f} {sum(p.stat().st_size for p in set(ps)) / 1e6:.0f} MB"
+                          for f, ps in files.items()) + ")")
+        load_s = load_families(files, cfg, state, dev)
+
+    # ---- TEST-split evaluation: counters zeroed just before, read after --
+    caps_ds, tag_ds = eval_split(np.random.default_rng(SEED + 12), cfg,
+                                 n_images, image_size)
+    beam_cfg = BeamConfig(beam_size=K)
+    sync()
+    zero_counters()
+    t0 = time.perf_counter()
+    refs, hyps = eval_caption.decode_dataset(
+        state, cfg, caps_ds, wm, beam_cfg=beam_cfg, batch_size=batch,
+        log=lambda s: None, device=dev)
+    sync()
+    t_eval = time.perf_counter() - t0
+    ran = read_counters()
+    # ---------------------------------------------------------------------
+    direct, t_enc = direct_hypotheses(state, cfg, caps_ds, wm, batch, dev)
+    check(len(hyps) == len(refs) == n_images
+          and all(len(r) == EVAL_CPI for r in refs),
+          f"{len(hyps)} hypotheses and {len(refs)} reference sets for "
+          f"{n_images} images")
+    bad = [i for i, (a, b) in enumerate(zip(hyps, direct)) if a != b]
+    check(not bad, f"evaluation hypotheses of images {bad[:8]} differ from "
+          "a direct caption_beam_search's")
+    if on_card:
+        check(ran["fused_decode_span"] > 0 and ran["attend_fused"] == 0,
+              f"the evaluation's decode ran kernel 7 "
+              f"{ran['fused_decode_span']} times; launches {ran}")
+    scores = metrics.compute_metrics(refs, hyps, include_cider=False,
+                                     include_meteor=False)
+    check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in scores.values()),
+          f"scores out of [0, 1]: {scores}")
+    has_nltk = importlib.util.find_spec("nltk") is not None
+    print(f"evaluation: {n_images} TEST images at beam {K}, batch {batch}: "
+          f"{t_eval:.3f} s, {n_images / t_eval:.1f} images/s (host clock, "
+          f"ending in a synchronize); the two encoders alone "
+          f"{t_enc:.3f} s, {100 * t_enc / t_eval:.1f} % of it; kernel 7 "
+          f"launches {ran['fused_decode_span']}; hypotheses equal to direct "
+          f"caption_beam_search {n_images}/{n_images}; scores {scores} "
+          f"(METEOR left out: nltk importable here: {has_nltk})")
+
+    # ---- the tagger's TEST accuracy ----
+    sync()
+    t0 = time.perf_counter()
+    acc = eval_tagger.evaluate_dataset(
+        state["tagger"], state["tagger_stats"], tag_ds, batch_size=batch,
+        arch=cfg.encoder_arch, log=lambda s: None, device=dev)
+    sync()
+    t_tag = time.perf_counter() - t0
+    plain = plain_tagger_accuracy(state["tagger"], state["tagger_stats"],
+                                  tag_ds, batch, cfg.encoder_arch, dev)
+    check(acc == plain, f"tagger accuracy {acc} against the plain "
+          f"computation's {plain}")
+    print(f"evaluation: tagger accuracy {acc:.4f} % on {n_images} TEST "
+          f"images (the plain computation's {plain:.4f}), {t_tag:.3f} s, "
+          f"{n_images / t_tag:.1f} images/s")
+
+    # ---- inference on one image: counters zeroed just before, read after --
+    image = caps_ds.image(0)
+    rev_tags = {i: f"tag{i}" for i in range(cfg.semantic_dim)}
+    zero_counters()
+    got = inference.caption_image(state, cfg, image, wm, beam_cfg=beam_cfg,
+                                  rev_tag_map=rev_tags, device=dev)
+    ran_inf = read_counters()
+    # ---------------------------------------------------------------------
+    n = len(got["seq"])
+    check(got["decode_impl"] == "steps" and got["alphas"].shape
+          == (n, cfg.num_pixels), f"inference ran {got['decode_impl']} with "
+          f"alphas {got['alphas'].shape} for {n} steps")
+    if on_card:
+        check(ran_inf["attend_fused"] > 0,
+              f"inference launched kernel 1 {ran_inf['attend_fused']} times")
+    a_err = float(np.abs(got["alphas"][1:].sum(-1) - 1).max()) if n > 1 \
+        else 0.0
+    check(a_err < 1e-3, f"inference alphas sum to 1 within {a_err}")
+    check(len(got["tags"]) == min(20, cfg.semantic_dim)
+          and all(0.0 <= p <= 1.0
+                                         for _, p in got["tags"]),
+          f"inference tags {got['tags'][:3]}")
+    engine = CaptionEngine(state, cfg, wm, ServeConfig(batch_buckets=(1,)),
+                           device=dev)
+    ref_caption = engine.caption_batch(image[None])[0]
+    tie = ""
+    if got["caption"] != ref_caption:
+        from indonesian_image_captioning_tpu_torch.decode.api import \
+            caption_beam_search
+        from indonesian_image_captioning_tpu_torch.models import encoders
+        with torch.inference_mode():
+            x = encoders.prep_images(torch.from_numpy(image[None]).to(dev))
+            enc = encoders.apply_encoder_caption(
+                state["encoder"], state["encoder_stats"], x,
+                enc_image_size=cfg.enc_image_size, arch=cfg.encoder_arch)[0]
+            tags = encoders.apply_encoder_tagger(
+                state["tagger"], state["tagger_stats"], x,
+                arch=cfg.encoder_arch)[0]
+            ref = caption_beam_search(state["params"], cfg, enc, tags,
+                                      start_id=wm["<start>"],
+                                      end_id=wm["<end>"], beam_cfg=beam_cfg)
+            L = ref["sequences"].shape[1]
+            seq = torch.tensor(got["seq"] + [0] * (L - n), device=dev)
+            mine = {"sequences": seq[None], "lengths":
+                    torch.tensor([n], device=dev)}
+            same_beams(state["params"], cfg, enc, tags, ref, mine,
+                       "inference against caption_batch")
+        tie = " (a near-tie: they differ)"
+    print(f"inference: caption_image on one image, {n} tokens, decode "
+          f"{got['decode_impl']}, kernel 1 launches "
+          f"{ran_inf['attend_fused']}, alpha sums within {a_err:.2g} of 1; "
+          f"caption equal to caption_batch's: "
+          f"{got['caption'] == ref_caption}{tie}; top tags "
+          f"{got['tags'][:3]}")
+    print("checkpoints and evaluation: load s "
+          + ", ".join(f"{f} {s:.2f}" for f, s in load_s.items())
+          + f"; TEST images/s {n_images / t_eval:.1f}; tagger images/s "
+          f"{n_images / t_tag:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -2610,6 +3023,10 @@ def main() -> int:
     t0 = time.perf_counter()
     launches = serve_and_inference(dev, cfg, B, IMAGE_SIZE)
     print(f"phases: kernels {t0 - t_start:.1f} s, serve and inference "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    checkpoints_and_evaluation(dev, cfg, IMAGE_SIZE)
+    print(f"phases: checkpoints and evaluation "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     train_res, train_launches = train_phase(dev, cfg, B, IMAGE_SIZE)

@@ -5,9 +5,11 @@ defaults (reference train.py:5-21 surface: ``--type/-t`` dispatch; any
 other type trains the image tagger, as the reference does).  The three
 caption types go to ``train/caption.main`` and run on the card (JAX's CLI
 takes its backend from the platform and has no device flag; neither does
-this one).  Not ported yet, and raising ``NotImplementedError``: the
-tagger trainer (the fall-through), ``--mesh``, ``--fine_tune_encoder``,
-``--encoder_remat`` and ``--encoder_init``.
+this one).  ``--encoder_init`` loads a caption encoder state_dict in the
+reference's layout.  Not ported yet, and raising ``NotImplementedError``
+with the ROADMAP.md queue 1 item that ports it: the tagger trainer (the
+fall-through, item 4), ``--mesh`` (item 7), ``--fine_tune_encoder``
+(item 5) and ``--encoder_remat`` (items 4-5).
 """
 
 from __future__ import annotations
@@ -34,8 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tagger_checkpoint", "-mt", default=None,
                    help="tagger checkpoint for SCN models")
     p.add_argument("--encoder_init", default=None,
-                   help="torch resnet152 state_dict to init the encoder "
-                        "(not ported yet)")
+                   help="torch resnet152 state_dict to init the encoder")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--fine_tune_encoder", action="store_true",
                    help="jointly fine-tune ResNet stages 2-4 (reference "
@@ -104,19 +105,15 @@ def _not_ported(args) -> None:
     if args.mesh:
         raise NotImplementedError(
             "--mesh: the multi-device trainer is not ported yet (ROADMAP.md "
-            "queue 1 item 10)")
+            "queue 1 item 7)")
     if args.fine_tune_encoder:
         raise NotImplementedError(
             "--fine_tune_encoder: the fine-tune step is not ported yet "
-            "(ROADMAP.md queue 1 item 8)")
+            "(ROADMAP.md queue 1 item 5)")
     if args.encoder_remat:
         raise NotImplementedError(
             "--encoder_remat: the differentiated encoder passes are not "
-            "ported yet (ROADMAP.md queue 1 item 8)")
-    if args.encoder_init:
-        raise NotImplementedError(
-            "--encoder_init: the torchvision state_dict loader is not "
-            "ported yet (ROADMAP.md queue 1 item 6)")
+            "ported yet (ROADMAP.md queue 1 items 4-5)")
 
 
 def main(argv=None):
@@ -125,7 +122,7 @@ def main(argv=None):
         # the reference falls through to the tagger for any other --type
         raise NotImplementedError(
             f"--type {args.type!r} trains the image tagger, which is not "
-            "ported yet (ROADMAP.md queue 1 item 8)")
+            "ported yet (ROADMAP.md queue 1 item 4)")
     _not_ported(args)
     data_cfg = DataConfig(data_folder=args.data_folder,
                           data_name=args.data_name)

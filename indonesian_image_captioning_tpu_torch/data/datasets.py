@@ -1,15 +1,15 @@
-"""The caption dataset reader over the HDF5/JSON artifacts, or over arrays.
+"""The caption and tag dataset readers over the HDF5/JSON artifacts, or
+over arrays.
 
-Counterpart of the JAX package's ``data/datasets.py`` ``CaptionDataset``,
-with the same semantics: one item per caption; image index = i //
+Counterpart of the JAX package's ``data/datasets.py``, with the same
+semantics.  ``CaptionDataset``: one item per caption; image index = i //
 captions_per_image; VAL/TEST items also carry all captions of their image
-for the corpus metrics (reference datasets/caption.py:9-68).  Batches are
-numpy gathers; ``data/loader.py`` moves them to the device.
+for the corpus metrics (reference datasets/caption.py:9-68).
+``TagDataset``: one item per image, its pixels and its multi-hot tags.
+Batches are numpy gathers; ``data/loader.py`` moves them to the device.
 
-``h5py`` is imported only by the HDF5 constructor, so a trainer fed
-in-memory splits (:meth:`CaptionDataset.from_arrays`) runs without it.
-The tagger's ``TagDataset`` comes with the tagger trainer, which is not
-ported.
+``h5py`` is imported only by the HDF5 constructors, so a caller fed
+in-memory splits (the ``from_arrays`` constructors) runs without it.
 """
 
 from __future__ import annotations
@@ -141,4 +141,76 @@ class CaptionDataset:
             first = img_idx * self.cpi
             all_idx = first[:, None] + np.arange(self.cpi)[None, :]
             batch["allcaps"] = self.captions[all_idx]  # (B, cpi, L)
+        return batch
+
+
+class TagDataset:
+    """One item per image: (image u8 CHW, tag multi-hot)."""
+
+    def __init__(self, data_folder: str, data_name: str, split: str,
+                 in_memory: Optional[bool] = None):
+        import h5py
+
+        if split not in SPLITS:
+            raise ValueError(f"split {split!r} is not one of {SPLITS}")
+        self.split = split
+        img_path = _artifact(data_folder, split, "IMAGES", data_name, "hdf5")
+        self._h = h5py.File(img_path, "r")
+        self._images = self._h["images"]
+        if in_memory is None:
+            in_memory = self._images.nbytes <= IN_MEMORY_LIMIT
+        if in_memory:
+            self._images = self._images[...]
+            self._h.close()
+            self._h = None
+        with h5py.File(_artifact(data_folder, split, "TAGS", data_name,
+                                 "hdf5"), "r") as t:
+            self.tags = t["tags"][...]
+            self.tag_size = int(t.attrs["tag_size"])
+        # Set False when batches don't need pixels (e.g. a device-resident
+        # image store serves them by index, data/device_store.py).
+        self.load_images = True
+
+    @classmethod
+    def from_arrays(cls, images: np.ndarray, tags: np.ndarray, *,
+                    split: str = "TEST") -> "TagDataset":
+        """The in-memory reader without the files: images (n, 3, S, S)
+        uint8, tags (n, tag_size) multi-hot."""
+        if split not in SPLITS:
+            raise ValueError(f"split {split!r} is not one of {SPLITS}")
+        images = np.asarray(images)
+        tags = np.asarray(tags)
+        if images.dtype != np.uint8 or images.ndim != 4:
+            raise ValueError(f"images must be (n, 3, S, S) uint8, got "
+                             f"{images.shape} {images.dtype}")
+        if tags.ndim != 2 or tags.shape[0] != images.shape[0]:
+            raise ValueError(f"tags {tags.shape} for {images.shape[0]} "
+                             "images")
+        ds = cls.__new__(cls)
+        ds.split = split
+        ds._h = None
+        ds._images = images
+        ds.tags = tags
+        ds.tag_size = int(tags.shape[1])
+        ds.load_images = True
+        return ds
+
+    def __len__(self) -> int:
+        return self.tags.shape[0]
+
+    @property
+    def num_images(self) -> int:
+        return self._images.shape[0]
+
+    def image(self, img_idx: int) -> np.ndarray:
+        return np.asarray(self._images[img_idx])
+
+    def gather_images(self, img_idx: np.ndarray) -> np.ndarray:
+        """Batch fetch of image rows (u8 CHW) by image index."""
+        return _fancy_index(self._images, img_idx)
+
+    def gather(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        batch = {"tags": self.tags[idx]}
+        if self.load_images:
+            batch["images"] = _fancy_index(self._images, idx)
         return batch

@@ -61,7 +61,7 @@ def iterate(dataset, batch_size: int, *, shuffle: bool = False, seed: int = 0,
     if process_count != 1 or process_index != 0:
         raise NotImplementedError(
             "multi-process input slicing belongs to the multi-device "
-            "trainer, which is not ported (ROADMAP.md queue 1 item 10)")
+            "trainer, which is not ported (ROADMAP.md queue 1 item 7)")
     for chunk, valid in batch_indices(len(dataset), batch_size,
                                       shuffle=shuffle, seed=seed, epoch=epoch,
                                       drop_last=drop_last):

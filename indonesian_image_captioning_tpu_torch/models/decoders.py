@@ -40,6 +40,7 @@ from .layers import dropout, init_linear, linear, uniform
 
 MODEL_TYPES = ("pure_scn", "pure_attention", "attention_scn")
 SCN_BASED_MODELS = frozenset({"pure_scn", "attention_scn"})
+ATT_BASED_MODELS = frozenset({"pure_attention", "attention_scn"})
 ATTENTION_IMPLS = ("auto", "xla", "xla_pk", "pallas", "pallas_mxu")
 ENC_QUANTS = ("none", "int8")
 TRAIN_SCAN_IMPLS = ("auto", "xla", "fused")

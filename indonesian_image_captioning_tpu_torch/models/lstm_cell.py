@@ -35,3 +35,23 @@ def lstm_step(params, x, h, c):
     c_next = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_next = torch.sigmoid(o) * torch.tanh(c_next)
     return h_next, c_next
+
+
+def from_torch_layout(weight_ih, weight_hh, bias_ih, bias_hh):
+    """torch LSTMCell stores weight_ih (4H, In); transpose into (In, 4H),
+    contiguous, where the tensors lie."""
+    return {
+        "w_ih": weight_ih.T.contiguous(),
+        "w_hh": weight_hh.T.contiguous(),
+        "b_ih": bias_ih,
+        "b_hh": bias_hh,
+    }
+
+
+def to_torch_layout(params):
+    return {
+        "weight_ih": params["w_ih"].T.contiguous(),
+        "weight_hh": params["w_hh"].T.contiguous(),
+        "bias_ih": params["b_ih"],
+        "bias_hh": params["b_hh"],
+    }

@@ -153,3 +153,50 @@ def apply_resnet(params, stats, x, *, train=False, arch: str = "resnet152"):
             rest_s.append(s)
         new_stats[f"layer{stage}"] = {"first": first_s, "rest": rest_s}
     return y.permute(0, 2, 3, 1), new_stats
+
+
+# ---------------------------------------------------------------------------
+# torchvision state_dict interop
+# ---------------------------------------------------------------------------
+
+def load_torch_resnet(state_dict, arch: str = "resnet152",
+                      dtype=torch.float32, device=None) -> Tuple[Dict, Dict]:
+    """A torchvision resnet state_dict (tensors or arrays) -> (params,
+    batch_stats).  The tree keeps torchvision's OIHW kernels, so this is a
+    renaming into {"first", "rest": [...]} stages; values are cast to
+    ``dtype`` and moved to ``device`` (None: where they are)."""
+    def arr(name):
+        v = state_dict[name]
+        v = v.detach() if torch.is_tensor(v) else torch.tensor(v)
+        return v.to(device=device, dtype=dtype)
+
+    def bn(name):
+        return ({"scale": arr(name + ".weight"), "bias": arr(name + ".bias")},
+                {"mean": arr(name + ".running_mean"),
+                 "var": arr(name + ".running_var")})
+
+    def block(pre, downsample):
+        bp: Dict[str, Any] = {}
+        bs: Dict[str, Any] = {}
+        for i in (1, 2, 3):
+            bp[f"conv{i}"] = arr(f"{pre}.conv{i}.weight")
+            bp[f"bn{i}"], bs[f"bn{i}"] = bn(f"{pre}.bn{i}")
+        if downsample:
+            bp["downsample_conv"] = arr(f"{pre}.downsample.0.weight")
+            bp["downsample_bn"], bs["downsample_bn"] = bn(
+                f"{pre}.downsample.1")
+        return bp, bs
+
+    params: Dict[str, Any] = {"conv1": arr("conv1.weight")}
+    stats: Dict[str, Any] = {}
+    params["bn1"], stats["bn1"] = bn("bn1")
+    for stage, n in enumerate(BLOCKS[arch], start=1):
+        first_p, first_s = block(
+            f"layer{stage}.0",
+            downsample=f"layer{stage}.0.downsample.0.weight" in state_dict)
+        rest = [block(f"layer{stage}.{b}", False) for b in range(1, n)]
+        params[f"layer{stage}"] = {"first": first_p,
+                                   "rest": [p for p, _ in rest]}
+        stats[f"layer{stage}"] = {"first": first_s,
+                                  "rest": [s for _, s in rest]}
+    return params, stats

@@ -81,3 +81,48 @@ def scn_step(params, x_fac, sem_x, sem_h, h, c):
     c_next = f * c + i * g
     h_next = o * torch.tanh(c_next)
     return h_next, c_next
+
+
+# ---------------------------------------------------------------------------
+# The reference's (torch) layout, for checkpoint interop.
+# ---------------------------------------------------------------------------
+
+def from_torch_layout(weight_ia, weight_ib, weight_ic, weight_ha, weight_hb,
+                      weight_hc, bias_ih, bias_hh):
+    """Reference SCNCell tensors (models/scn_cell.py:29-45 of the
+    reference) -> the layout above: (H, 4F) output projections become
+    (4, F, H), (4H,) biases (4, H); contiguous, where the tensors lie."""
+    def proj(w):  # (H, 4F) -> (4, F, H)
+        return w.reshape(w.shape[0], 4, -1).permute(1, 2, 0).contiguous()
+
+    def bias(b):  # (4H,) -> (4, H)
+        return b.reshape(4, -1).contiguous()
+
+    return {
+        "w_x": weight_ia,
+        "w_xs": weight_ib,
+        "w_xp": proj(weight_ic),
+        "w_h": weight_ha,
+        "w_hs": weight_hb,
+        "w_hp": proj(weight_hc),
+        "b_x": bias(bias_ih),
+        "b_h": bias(bias_hh),
+    }
+
+
+def to_torch_layout(params):
+    """Inverse of :func:`from_torch_layout` (for exporting checkpoints)."""
+    def proj(w):  # (4, F, H) -> (H, 4F)
+        g, f, h = w.shape
+        return w.permute(2, 0, 1).reshape(h, g * f).contiguous()
+
+    return {
+        "weight_ia": params["w_x"],
+        "weight_ib": params["w_xs"],
+        "weight_ic": proj(params["w_xp"]),
+        "weight_ha": params["w_h"],
+        "weight_hb": params["w_hs"],
+        "weight_hc": proj(params["w_hp"]),
+        "bias_ih": params["b_x"].reshape(-1),
+        "bias_hh": params["b_h"].reshape(-1),
+    }

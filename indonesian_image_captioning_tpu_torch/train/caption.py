@@ -16,9 +16,10 @@ checkpoints and resume), so a caller can hand it splits held in memory
 (``CaptionDataset.from_arrays``).  The trainer runs on the card unless
 the caller asks for the CPU.
 
-Not ported yet, and raising ``NotImplementedError``: a device mesh
-(``tcfg.mesh_shape != (1, 1)``), ``fine_tune_encoder=True`` and
-``encoder_init`` (a torchvision state_dict).
+``encoder_init`` starts the frozen encoder from a state_dict in the
+reference's layout (``models/convert.py``).  Not ported yet, and raising
+``NotImplementedError``: a device mesh (``tcfg.mesh_shape != (1, 1)``,
+ROADMAP.md queue 1 item 7) and ``fine_tune_encoder=True`` (item 5).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from ..data import loader as loader_lib
 from ..data import vocab as vocab_lib
 from ..data.datasets import CaptionDataset
 from ..evaluation.metrics import corpus_bleu_nltk_style
-from ..models import decoders, encoders
+from ..models import convert, decoders, encoders
 from . import steps
 from .loop import EpochPrinter, fit
 
@@ -60,17 +61,22 @@ def init_state(key: torch.Generator, cfg: ModelConfig, optimizer, *,
                tagger_checkpoint: Optional[str] = None,
                encoder_init: Optional[str] = None, device="cuda"):
     """Build the full (decoder + frozen encoder/tagger) train state on
-    ``device``; the weights draw from CPU generators derived from key."""
+    ``device``; the weights draw from CPU generators derived from key.
+    encoder_init: a torch file holding the caption encoder's state_dict
+    in the reference's layout (``resnet.<stage>...``), bare or under
+    ``encoder_model_state_dict``, in place of the drawn encoder."""
     dev = torch.device(device)
-    if encoder_init:
-        raise NotImplementedError(
-            "encoder_init: loading a torchvision state_dict into the "
-            "encoder is not ported yet (ROADMAP.md queue 1 item 6)")
     k_dec, k_enc, k_tag = (stream(key, n)
                            for n in ("decoder", "encoder", "tagger"))
     params = decoders.init_decoder(k_dec, cfg, device=dev)
-    enc_params, enc_stats = encoders.init_encoder_caption(
-        k_enc, arch=cfg.encoder_arch, device=dev)
+    if encoder_init:
+        sd = torch.load(encoder_init, map_location="cpu", weights_only=True)
+        enc_params, enc_stats = convert.encoder_caption_from_torch(
+            sd.get("encoder_model_state_dict", sd), arch=cfg.encoder_arch,
+            device=dev)
+    else:
+        enc_params, enc_stats = encoders.init_encoder_caption(
+            k_enc, arch=cfg.encoder_arch, device=dev)
     tag_params, tag_stats = encoders.init_encoder_tagger(
         k_tag, TaggerConfig(semantic_size=cfg.semantic_dim,
                             feature_dim=cfg.encoder_dim,
@@ -200,12 +206,12 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
     if tuple(tcfg.mesh_shape) != (1, 1):
         raise NotImplementedError(
             f"mesh_shape {tuple(tcfg.mesh_shape)}: the multi-device "
-            "trainer is not ported yet (ROADMAP.md queue 1 item 10)")
+            "trainer is not ported yet (ROADMAP.md queue 1 item 7)")
     if tcfg.fine_tune_encoder:
         raise NotImplementedError(
             "fine_tune_encoder: the fine-tune step "
             "(make_caption_finetune_train_step) is not ported yet "
-            "(ROADMAP.md queue 1 item 8)")
+            "(ROADMAP.md queue 1 item 5)")
     if model_cfg is None:
         cfg = ModelConfig(model_type=model_type, vocab_size=len(word_map))
         if (train_ds.tags is not None
