@@ -156,6 +156,34 @@ Phases, each of which exits non-zero on failure:
    cached run's), and a profile of one train step with kernel 14.  It
    prints the epoch seconds, train imgs/s and the feature-cache build
    time.
+9. encoder training: the encoders' training paths at the same widths
+   (ResNet-152s at 256 px, 1000 tags, V=6,763) on 128 TRAIN and 32 VAL
+   seeded noise images held in memory.  The tagger trainer
+   (train.tagger.train, float32, B=32, 2 epochs of 4 steps through the
+   device image store): finite step losses, its checkpoint loaded
+   through cli.common.load_tagger_state bitwise and scored by
+   eval_tagger.evaluate_dataset equal to a plain computation, a resume
+   that runs nothing with Adam's state bitwise.  Its step on one batch
+   at tagger_dtype float32 and bfloat16 (weights with every residual
+   branch damped, bn3 scale x ENC_DAMP): each dtype's loss falls over
+   ENC_DTYPE_STEPS steps, masters and running statistics stay float32,
+   the first losses agree within DTYPE_FIRST_TOL; the step ms, imgs/s,
+   peak memory and the device time by kernel.  One forward and backward
+   at B=REMAT_B under encoder_remat False, "blocks" and "convs": the
+   loss within REMAT_LOSS_TOL and every gradient within REMAT_GRAD_TOL
+   of no remat's, each mode's ms and peak memory.  Then fine-tuning:
+   train.caption.train with fine_tune_encoder=True and
+   embed_grad_impl="pallas", the tagger above as its tagger_checkpoint,
+   2 epochs of 4 steps at B=32, the counters zeroed just before and read
+   just after (kernel 14 once a train step, kernel 8 once a validation
+   step, kernel 9 never; printed on a line of their own, apart from the
+   kernels line): the stem's conv1 and bn1 and all of layer1 bitwise,
+   layer4 and the stem's running mean moved, and a resume that restores
+   the encoder's Adam bitwise.  Each trainer's epoch s and each async
+   save's copy and write seconds; last, f32 tagger steps run beside each
+   part of the fine-tune checkpoint's save in a thread (the copy as the
+   saver made it before, on the default stream; the saver's copy now;
+   torch.save), with the steps' mean ms.
 
 The line before the last lists each kernel as JSON: the thirteen that
 replace a TPU kernel, and the tensor-core GEMM of the decode chain
@@ -229,6 +257,19 @@ TRAINER_IMAGES, TRAINER_CPI, TRAINER_EPOCHS = (96, 32), 5, 2
 # module named by its training-format checkpoints' classes, absent at load
 EVAL_IMAGES, EVAL_CPI, EVAL_BATCH, EVAL_TAG_RATE = 64, 5, 32, 0.01
 REFERENCE_MODULE = "reference_models_not_installed"
+# The encoder-training phase: TRAIN and VAL images (the tagger's and the
+# fine-tune's splits, one caption an image), epochs, the share of tags set,
+# the one-batch steps per tagger_dtype and their LR, the remat step's
+# batch.  The one-batch and remat weights damp every residual branch (each
+# bottleneck's bn3 scale times ENC_DAMP): a random ResNet in train mode is
+# chaotic, so float32 and bfloat16 (or two summation orders) would
+# otherwise give unrelated losses from the first step.  Tolerances: the
+# first-step losses of the two dtypes (relative, absolute; JAX's
+# tests/test_train_smoke.py), the remat modes' loss (relative) and
+# gradients (of each leaf's largest).
+ENC_IMAGES, ENC_EPOCHS, ENC_TAG_RATE = (128, 32), 2, 0.01
+ENC_DTYPE_STEPS, ENC_LR, ENC_DAMP, REMAT_B = 8, 1e-3, 0.2, 8
+DTYPE_FIRST_TOL, REMAT_LOSS_TOL, REMAT_GRAD_TOL = (0.05, 0.05), 1e-5, 1e-3
 # one epoch through the uncached path (the device image store) against the
 # cached run's first epoch: each step's loss within this share of it
 UNCACHED_TOL = 1e-4
@@ -2535,6 +2576,402 @@ def trainer_phase(dev, cfg, image_size):
     return {"embed_grad_scatter": launches["embed_grad_scatter"]}
 
 
+def damp_residuals(params, factor=ENC_DAMP):
+    """Scale every bottleneck's bn3 scale of a ResNet tree in place."""
+    import torch
+
+    with torch.no_grad():
+        for stage in ("layer1", "layer2", "layer3", "layer4"):
+            sp = params["resnet"][stage]
+            for bp in [sp["first"], *sp["rest"]]:
+                bp["bn3"]["scale"].mul_(factor)
+
+
+def timed_steps(step, n):
+    """Run step() n times, each ending in a synchronize; returns the
+    results and the host ms of each."""
+    import torch
+
+    out, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(step())
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, ms
+
+
+def save_parts(timings):
+    """The async saver's parts of each checkpoint, as printed text."""
+    return "; ".join(
+        f"{t['bytes'] / 2**20:.0f} MiB: wait {t['wait']:.3f} s, copy "
+        f"{t['copy']:.3f} s, write {t['write']:.3f} s" for t in timings)
+
+
+def steps_during(step, work):
+    """Train steps run back to back while work runs in another thread, as
+    the trainer's loop runs beside its async saver: (mean host ms of the
+    steps that started while work ran, each ending in a synchronize;
+    their number; work's seconds).  work=None times 4 steps alone."""
+    import threading
+
+    import torch
+
+    took, ms = [], []
+    thread = None
+    if work is not None:
+        def run():
+            t0 = time.perf_counter()
+            work()
+            took.append(time.perf_counter() - t0)
+
+        thread = threading.Thread(target=run)
+        thread.start()
+    while (len(ms) < 4 if thread is None else thread.is_alive()
+           or not ms):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    if thread is not None:
+        thread.join()
+    return statistics.mean(ms), len(ms), took[0] if took else 0.0
+
+
+def encoder_training_phase(dev, cfg, image_size):
+    """The encoders' training paths at cfg's widths (ResNet-152s): the
+    tagger trainer (train.tagger.train, 2 epochs through the device image
+    store, its checkpoint through cli.common.load_tagger_state bitwise and
+    eval_tagger.evaluate_dataset on it, a resume that runs nothing), its
+    step at float32 and bfloat16 on one batch, one step under each remat
+    mode; then encoder fine-tuning (train.caption.train with
+    fine_tune_encoder=True and embed_grad_impl="pallas", the tagger above
+    as its tagger_checkpoint, a resume that restores the encoder's Adam
+    bitwise).  Returns the launches of the fine-tune run."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.cli import common
+    from indonesian_image_captioning_tpu_torch.core.config import (
+        TaggerConfig, TrainConfig, tagger_train_config)
+    from indonesian_image_captioning_tpu_torch.data.datasets import (
+        CaptionDataset, TagDataset)
+    from indonesian_image_captioning_tpu_torch.data.loader import \
+        num_batches
+    from indonesian_image_captioning_tpu_torch.evaluation import eval_tagger
+    from indonesian_image_captioning_tpu_torch.models import encoders
+    from indonesian_image_captioning_tpu_torch.ops import losses
+    from indonesian_image_captioning_tpu_torch.train import (caption, steps,
+                                                             tagger)
+
+    rng = np.random.default_rng(SEED + 13)
+    arch = cfg.encoder_arch
+    n_train, n_val = ENC_IMAGES
+    images = rng.integers(0, 256, size=(n_train + n_val, 3, image_size,
+                                        image_size), dtype=np.uint8)
+    tags = (rng.random((n_train + n_val, cfg.semantic_dim))
+            < ENC_TAG_RATE).astype(np.float32)
+    tag_train = TagDataset.from_arrays(images[:n_train], tags[:n_train],
+                                       split="TRAIN")
+    tag_val = TagDataset.from_arrays(images[n_train:], tags[n_train:],
+                                     split="VAL")
+    tagger_cfg = TaggerConfig(semantic_size=cfg.semantic_dim,
+                              encoder_arch=arch)
+    name = "smoke_corpus"
+    steps_per_epoch = num_batches(n_train, B)
+    workdir = tempfile.mkdtemp(prefix="encoder_training_")
+    try:
+        # ---- the tagger trainer --------------------------------------
+        tcfg = tagger_train_config(epochs=ENC_EPOCHS, batch_size=B,
+                                   print_freq=2, device_images="on",
+                                   checkpoint_dir=workdir)
+        logs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, summary = tagger.train(tag_train, tag_val, tcfg, tagger_cfg,
+                                      data_name=name, log=logs.append,
+                                      device=dev)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        losses_by_epoch = summary["step_losses"]
+        check(sorted(losses_by_epoch) == list(range(ENC_EPOCHS))
+              and all(len(v) == steps_per_epoch and np.isfinite(v).all()
+                      for v in losses_by_epoch.values()),
+              f"tagger step losses {losses_by_epoch}")
+        check(any("device image store [TRAIN]" in x for x in logs),
+              "the tagger trainer did not build the device image store")
+        ckpt_path = Path(workdir) / f"checkpoint_tagger_{name}"
+        check(ckpt_path.is_file(), f"{ckpt_path.name} missing")
+        epoch_s = summary["timings"]["train_epoch"]
+        print(f"encoder training: tagger trainer, {ENC_EPOCHS} epochs of "
+              f"{steps_per_epoch} steps (B={B}, {n_train} TRAIN / {n_val} "
+              f"VAL images at {image_size} px, {arch}, float32), "
+              f"{t_run:.1f} s in all; epoch s (train imgs/s) " + ", ".join(
+                  f"{epoch_s[e]:.3f} ({n_train / epoch_s[e]:.1f})"
+                  for e in sorted(epoch_s))
+              + f"; best accuracy {summary['best_metric']:.3f}; checkpoint "
+              f"{ckpt_path.stat().st_size / 2**20:.0f} MiB; async saves: "
+              + save_parts(summary["timings"].get("save", [])))
+
+        again, s2 = tagger.train(tag_train, tag_val, tcfg, tagger_cfg,
+                                 data_name=name, resume=True,
+                                 log=lambda x: None, device=dev)
+        check(s2["start_epoch"] == ENC_EPOCHS and not s2["step_losses"]
+              and same_moments(adam_moments(again["opt_state"]),
+                               adam_moments(state["opt_state"])),
+              "the tagger's resume ran steps or changed Adam's state")
+        del again
+        # the trainer's image store turned the splits' pixels off
+        tag_train.load_images = tag_val.load_images = True
+        t0 = time.perf_counter()
+        params, stats = common.load_tagger_state(str(ckpt_path), arch,
+                                                 device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        n_leaves = same_tree(params, state["params"], "tagger params")
+        n_leaves += same_tree(stats, state["stats"], "tagger statistics")
+        acc = eval_tagger.evaluate_dataset(params, stats, tag_val,
+                                           batch_size=B, arch=arch,
+                                           log=lambda x: None, device=dev)
+        plain = plain_tagger_accuracy(params, stats, tag_val, B, arch, dev)
+        check(acc == plain, f"trained tagger accuracy {acc} against the "
+              f"plain computation's {plain}")
+        print(f"encoder training: tagger resume ran nothing, Adam bitwise; "
+              f"load_tagger_state {t_load:.2f} s, {n_leaves} leaves "
+              f"bitwise; eval_tagger accuracy {acc:.4f} (plain {plain:.4f})")
+        del state, params, stats
+
+        # ---- one batch at float32 and bfloat16 -----------------------
+        batch = tag_train.gather(np.arange(B))
+        batch["valid"] = np.ones(B, np.float32)
+        first = {}
+        for dtype in ("float32", "bfloat16"):
+            opt = steps.make_optimizer(ENC_LR, 5.0)
+            st = tagger.init_state(torch.Generator().manual_seed(SEED),
+                                   tagger_cfg, opt, device=dev)
+            damp_residuals(st["params"])
+            step = steps.make_tagger_train_step(
+                TrainConfig(batch_size=B, decoder_lr=ENC_LR,
+                            tagger_dtype=dtype), opt, dropout_rate=0.0,
+                arch=arch, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            out, ms = timed_steps(lambda: float(step(st, batch)[1]["loss"]),
+                                  ENC_DTYPE_STEPS)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            first[dtype] = out[0]
+            check(out[-1] < out[0], f"{dtype} tagger loss did not fall: "
+                  f"{out}")
+            check(all(x.dtype == torch.float32 for x in
+                      steps.tree_leaves(st["params"])
+                      + steps.tree_leaves(st["stats"])),
+                  f"{dtype}: a master weight or statistic left float32")
+            med = statistics.median(ms[1:])
+            by_kernel = {}
+            busy = device_ms(lambda: step(st, batch), runs=1,
+                             by_kernel=by_kernel)
+            top = ", ".join(f"{k.split('(')[0][:40]} {v:.1f} ms" for k, v in
+                            sorted(by_kernel.items(), key=lambda kv: -kv[1])
+                            [:4])
+            print(f"encoder training: tagger step {dtype}, B={B}: "
+                  f"{med:.1f} ms (median of steps 2-{ENC_DTYPE_STEPS}), "
+                  f"{1e3 * B / med:.1f} imgs/s, peak "
+                  f"{peak:.2f} GiB; one step's kernels {busy:.1f} ms "
+                  f"({len(by_kernel)} names), top: {top}; losses "
+                  + ", ".join(f"{x:.4f}" for x in out))
+            del st, opt, step
+        rel, ab = DTYPE_FIRST_TOL
+        check(abs(first["bfloat16"] - first["float32"])
+              < rel * abs(first["float32"]) + ab,
+              f"first-step losses {first}")
+
+        # ---- remat: the same step's loss and gradients ----------------
+        x = encoders.prep_images(torch.from_numpy(
+            tag_train.gather_images(np.arange(REMAT_B))).to(dev))
+        tag_rows = torch.from_numpy(tags[:REMAT_B]).to(dev)
+        p0, s0 = encoders.init_encoder_tagger(
+            torch.Generator().manual_seed(SEED), tagger_cfg, arch=arch,
+            device=dev)
+        damp_residuals(p0)
+        steps.set_trainable(p0, steps.tagger_trainable_mask(p0))
+        ref, report = None, []
+        def remat_pass(remat):
+            for p in steps.tree_leaves(p0):
+                p.grad = None
+            probs, _ = encoders.apply_encoder_tagger(
+                p0, s0, x, train=True, arch=arch, remat=remat)
+            loss = losses.bce_loss(probs, tag_rows)
+            loss.backward()
+            return loss.item()
+
+        for remat in (False, "blocks", "convs"):
+            remat_pass(remat)           # cuDNN's first call at these shapes
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            loss = remat_pass(remat)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            got = (loss, [p.grad.clone() for p in steps.tree_leaves(p0)
+                          if p.grad is not None])
+            if ref is None:
+                ref = got
+            else:
+                check(abs(got[0] - ref[0]) <= REMAT_LOSS_TOL * abs(ref[0]),
+                      f"remat {remat}: loss {got[0]} against {ref[0]}")
+                worst = max(float((a - b).abs().max())
+                            / max(float(a.abs().max()), 1e-30)
+                            for a, b in zip(ref[1], got[1], strict=True))
+                check(worst <= REMAT_GRAD_TOL, f"remat {remat}: gradient "
+                      f"error {worst}")
+            report.append(f"{remat}: {ms:.1f} ms, {peak:.2f} GiB")
+        print(f"encoder training: remat at B={REMAT_B} (one forward and "
+              "backward after a first; peak memory above what was held "
+              "before it) " + "; ".join(report)
+              + f"; losses within {REMAT_LOSS_TOL}, gradients within "
+              f"{REMAT_GRAD_TOL}")
+        del p0, s0, ref, got, x
+
+        # ---- encoder fine-tuning --------------------------------------
+        V, L = cfg.vocab_size, cfg.max_caption_len
+        caps, lens = captions(rng, n_train + n_val, V, L)
+        cap_train = CaptionDataset.from_arrays(
+            images[:n_train], caps[:n_train], lens[:n_train], cpi=1,
+            split="TRAIN")
+        cap_val = CaptionDataset.from_arrays(
+            images[n_train:], caps[n_train:], lens[n_train:], cpi=1,
+            split="VAL")
+        kcfg = dataclasses.replace(cfg, embed_grad_impl="pallas")
+        ft_dir = os.path.join(workdir, "finetune")
+        ft_cfg = TrainConfig(epochs=ENC_EPOCHS, batch_size=B, print_freq=2,
+                             fine_tune_encoder=True,
+                             calibrate_encoder_stats=1, device_images="on",
+                             checkpoint_dir=ft_dir)
+        captured = {}
+        init_state, calibrate = caption.init_state, caption._calibrate
+
+        def keep_init(*a, **kw):
+            st = init_state(*a, **kw)
+            captured["encoder"] = steps.map_tree(st["encoder"],
+                                                 torch.clone)
+            return st
+
+        def keep_calibrated(st, *a, **kw):
+            calibrate(st, *a, **kw)
+            captured["stats"] = steps.map_tree(st["encoder_stats"],
+                                               torch.clone)
+
+        caption.init_state, caption._calibrate = keep_init, keep_calibrated
+        try:
+            logs = []
+            torch.cuda.synchronize()
+            zero_counters()
+            t0 = time.perf_counter()
+            ft_state, ft_sum = caption.train(
+                "attention_scn", word_map(V), cap_train, cap_val, ft_cfg,
+                model_cfg=kcfg, tagger_checkpoint=str(ckpt_path),
+                data_name=name, log=logs.append, device=dev)
+            torch.cuda.synchronize()
+            t_ft = time.perf_counter() - t0
+            launches = read_counters()
+        finally:
+            caption.init_state, caption._calibrate = init_state, calibrate
+        n_val_steps = num_batches(n_val, B)
+        check(launches["embed_grad_scatter"] == ENC_EPOCHS * steps_per_epoch
+              and launches["train_fwd"] == ENC_EPOCHS * n_val_steps
+              and launches["train_bwd"] == 0,
+              f"fine-tune launches {launches}: kernel 14 once a train step, "
+              "kernel 8 once a validation step, kernel 9 never")
+        ft_losses = ft_sum["step_losses"]
+        check(all(len(v) == steps_per_epoch and np.isfinite(v).all()
+                  for v in ft_losses.values()) and len(ft_losses)
+              == ENC_EPOCHS, f"fine-tune step losses {ft_losses}")
+        resnet, before = ft_state["encoder"]["resnet"], captured["encoder"]
+        for part in ("conv1", "bn1", "layer1"):
+            same_tree(resnet[part], before["resnet"][part],
+                      f"frozen encoder {part}")
+        check(any(not torch.equal(a, b) for a, b in zip(
+            steps.tree_leaves(resnet["layer4"]),
+            steps.tree_leaves(before["resnet"]["layer4"]))),
+              "fine-tuning left layer4 unchanged")
+        check(not torch.equal(
+            ft_state["encoder_stats"]["resnet"]["bn1"]["mean"],
+            captured["stats"]["resnet"]["bn1"]["mean"]),
+              "the stem's running mean did not move")
+        ft_path = Path(ft_dir) / f"checkpoint_attention_scn_{name}"
+        epoch_s = ft_sum["timings"]["train_epoch"]
+        print(f"encoder training: fine-tune, {ENC_EPOCHS} epochs of "
+              f"{steps_per_epoch} steps (B={B}, embed_grad_impl=pallas, "
+              f"tagger from the tagger trainer), {t_ft:.1f} s in all; "
+              "epoch s (step ms, train imgs/s) " + ", ".join(
+                  f"{epoch_s[e]:.3f} ({1e3 * epoch_s[e] / steps_per_epoch:.1f}"
+                  f", {n_train / epoch_s[e]:.1f})" for e in sorted(epoch_s))
+              + f"; checkpoint {ft_path.stat().st_size / 2**20:.0f} MiB; "
+              "async saves: " + save_parts(ft_sum["timings"].get("save", []))
+              + "; conv1, bn1 and layer1 bitwise, layer4 and the stem's "
+              "running mean moved")
+        print("encoder training: fine-tune launches " + json.dumps(
+            {k: launches[k] for k in ("train_fwd", "train_bwd",
+                                      "embed_grad_scatter")}))
+        again, s3 = caption.train(
+            "attention_scn", word_map(V), cap_train, cap_val, ft_cfg,
+            model_cfg=kcfg, tagger_checkpoint=str(ckpt_path),
+            data_name=name, resume=True, log=lambda x: None, device=dev)
+        check(s3["start_epoch"] == ENC_EPOCHS and not s3["step_losses"]
+              and same_moments(adam_moments(again["enc_opt_state"]),
+                               adam_moments(ft_state["enc_opt_state"])),
+              "the fine-tune resume ran steps or lost the encoder's Adam "
+              "state")
+        print(f"encoder training: fine-tune resume restored the encoder's "
+              f"Adam ({len(adam_moments(again['enc_opt_state']))} tensors, "
+              "step counts included) bitwise")
+        del again
+
+        # ---- what each part of an async save costs the train loop ------
+        # The fine-tune checkpoint's snapshot, its parts each in a thread
+        # beside float32 tagger steps: the copy to the host as the saver
+        # made it before PR 13 (.cpu() on the default stream, pageable),
+        # the saver's copy now (checkpoint._to_host: a side stream,
+        # pinned) and the file write (torch.save).
+        from indonesian_image_captioning_tpu_torch.core import checkpoint
+        snap = checkpoint._snapshot({"state": caption.state_payload(
+            ft_state)})
+        del ft_state
+        opt = steps.make_optimizer(ENC_LR, 5.0)
+        st = tagger.init_state(torch.Generator().manual_seed(SEED),
+                               tagger_cfg, opt, device=dev)
+        step = steps.make_tagger_train_step(TrainConfig(batch_size=B),
+                                            opt, arch=arch, device=dev)
+        host = []
+        parts = {
+            "none": None,
+            "default-stream copy": lambda: checkpoint._map_tensors(
+                snap, lambda t: t.cpu()),
+            "side-stream copy": lambda: host.append(
+                checkpoint._to_host(snap)[0]),
+            "torch.save": lambda: torch.save(
+                host[0], os.path.join(workdir, "save_probe"))}
+        report = []
+        for label, work in parts.items():
+            ms, n, secs = steps_during(lambda: step(st, batch), work)
+            report.append(f"{label} {secs:.3f} s: {n} steps of {ms:.1f} ms")
+        mib = sum(t.numel() * t.element_size() for _, t in tree_items(snap)
+                  if torch.is_tensor(t)) / 2**20
+        print(f"encoder training: tagger steps (float32, B={B}) beside "
+              f"each part of the fine-tune checkpoint's save ({mib:.0f} "
+              "MiB): " + "; ".join(report))
+        return launches
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def adam_moments(opt):
     """Adam's moments and step counts, in parameter order, from a
     torch.optim.Adam or its state_dict."""
@@ -3035,6 +3472,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(trainer_phase(dev, cfg, IMAGE_SIZE))
     print(f"phases: trainer {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    encoder_training_phase(dev, cfg, IMAGE_SIZE)
+    print(f"phases: encoder training {time.perf_counter() - t0:.1f} s")
 
     T = cfg.max_caption_len - 1
     fwd_work, bwd_work = train_work(cfg, B, T)

@@ -1,15 +1,19 @@
 """Train CLI: ``python -m indonesian_image_captioning_tpu_torch.cli.train``.
 
 Counterpart of the JAX package's ``cli/train.py``, with the same flags and
-defaults (reference train.py:5-21 surface: ``--type/-t`` dispatch; any
-other type trains the image tagger, as the reference does).  The three
-caption types go to ``train/caption.main`` and run on the card (JAX's CLI
-takes its backend from the platform and has no device flag; neither does
-this one).  ``--encoder_init`` loads a caption encoder state_dict in the
-reference's layout.  Not ported yet, and raising ``NotImplementedError``
-with the ROADMAP.md queue 1 item that ports it: the tagger trainer (the
-fall-through, item 4), ``--mesh`` (item 7), ``--fine_tune_encoder``
-(item 5) and ``--encoder_remat`` (items 4-5).
+defaults (reference train.py:5-21 surface: ``--type/-t`` dispatch).  The
+three caption types go to ``train/caption.main``; any other type trains
+the image tagger (``train/tagger.main``, the tagger recipe of
+``tagger_train_config``), as the reference does.  Both run on the card
+(JAX's CLI takes its backend from the platform and has no device flag;
+neither does this one; ``main(argv, device=...)`` takes the tests').
+``--encoder_init`` loads an encoder state_dict in the reference's layout;
+``--fine_tune_encoder`` trains the caption encoder's stages 2-4 with the
+decoder; ``--encoder_remat`` rematerialises the ResNet bottlenecks of the
+differentiated encoder passes (the tagger, fine-tuning);
+``--tagger_dtype`` sets the tagger's compute type.  Not ported yet, and
+raising ``NotImplementedError`` with the ROADMAP.md queue 1 item that
+ports it: ``--mesh`` (item 7).
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from ..core.config import DataConfig, TrainConfig
+from ..core.config import (DataConfig, TaggerConfig, TrainConfig,
+                           tagger_train_config)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--fine_tune_encoder", action="store_true",
                    help="jointly fine-tune ResNet stages 2-4 (reference "
-                        "fine_tune_encoder flag; not ported yet)")
+                        "fine_tune_encoder flag)")
     p.add_argument("--decoder_dtype", default=None,
                    choices=("float32", "bfloat16"),
                    help="mixed-precision decoder training: bfloat16 = "
@@ -59,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None, choices=("blocks", "convs"),
                    help="rematerialise ResNet bottlenecks in the "
                         "differentiated encoder passes (tagger training / "
-                        "--fine_tune_encoder; not ported yet)")
+                        "--fine_tune_encoder)")
     p.add_argument("--cache_features", action="store_true",
                    help="precompute the frozen encoder/tagger outputs once "
                         "per unique image and reuse them every epoch "
@@ -100,41 +105,35 @@ def build_parser() -> argparse.ArgumentParser:
 CAPTION_TYPES = ("pure_scn", "attention_scn", "pure_attention")
 
 
-def _not_ported(args) -> None:
-    """Raise for the flags whose paths are not ported yet."""
+def main(argv=None, device="cuda"):
+    args = build_parser().parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
             "--mesh: the multi-device trainer is not ported yet (ROADMAP.md "
             "queue 1 item 7)")
-    if args.fine_tune_encoder:
-        raise NotImplementedError(
-            "--fine_tune_encoder: the fine-tune step is not ported yet "
-            "(ROADMAP.md queue 1 item 5)")
-    if args.encoder_remat:
-        raise NotImplementedError(
-            "--encoder_remat: the differentiated encoder passes are not "
-            "ported yet (ROADMAP.md queue 1 items 4-5)")
-
-
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    if args.type not in CAPTION_TYPES:
-        # the reference falls through to the tagger for any other --type
-        raise NotImplementedError(
-            f"--type {args.type!r} trains the image tagger, which is not "
-            "ported yet (ROADMAP.md queue 1 item 4)")
-    _not_ported(args)
     data_cfg = DataConfig(data_folder=args.data_folder,
                           data_name=args.data_name)
     overrides = _load_model_json(args.model_json)
-    tcfg = TrainConfig(checkpoint_dir=args.checkpoint_dir, seed=args.seed,
-                       fine_tune_encoder=args.fine_tune_encoder)
+    if args.type in CAPTION_TYPES:
+        tcfg = TrainConfig(checkpoint_dir=args.checkpoint_dir,
+                           seed=args.seed,
+                           fine_tune_encoder=args.fine_tune_encoder)
+        tcfg = _override(tcfg, args)
+        from ..train import caption
+        return caption.main(args.type, data_cfg, tcfg,
+                            tagger_checkpoint=args.tagger_checkpoint,
+                            encoder_init=args.encoder_init,
+                            resume=args.resume, model_overrides=overrides,
+                            device=device)
+    # the reference falls through to the tagger for any other --type
+    tcfg = tagger_train_config(checkpoint_dir=args.checkpoint_dir,
+                               seed=args.seed)
     tcfg = _override(tcfg, args)
-    from ..train import caption
-    return caption.main(args.type, data_cfg, tcfg,
-                        tagger_checkpoint=args.tagger_checkpoint,
-                        encoder_init=args.encoder_init,
-                        resume=args.resume, model_overrides=overrides)
+    tagger_cfg = TaggerConfig(**overrides) if overrides else TaggerConfig()
+    from ..train import tagger
+    return tagger.main(data_cfg, tcfg, tagger_cfg,
+                       encoder_init=args.encoder_init, resume=args.resume,
+                       device=device)
 
 
 def _load_model_json(spec):

@@ -23,6 +23,7 @@ import os
 import queue
 import shutil
 import threading
+import time
 from typing import Any, Dict
 
 import torch
@@ -82,6 +83,27 @@ def _snapshot(tree):
     return _map_tensors(tree, lambda t: t.detach().clone())
 
 
+def _to_host(tree):
+    """(tree with every CUDA tensor copied to pinned host memory, bytes
+    copied): the copies run on a stream of each device's own and are
+    waited for."""
+    streams = {}
+    nbytes = [0]
+
+    def copy(t):
+        if t.device.type != "cuda":
+            return t
+        stream = streams.setdefault(t.device, torch.cuda.Stream(t.device))
+        nbytes[0] += t.numel() * t.element_size()
+        with torch.cuda.stream(stream):
+            return t.to("cpu", non_blocking=True)
+
+    host = _map_tensors(tree, copy)
+    for stream in streams.values():
+        stream.synchronize()
+    return host, nbytes[0]
+
+
 def _devices(tree) -> set:
     found = set()
 
@@ -102,17 +124,25 @@ class AsyncSaver:
     device and returns at once; the train step updates the parameters and
     Adam's moments in place, so the next step cannot reach the snapshot.
     An event recorded after the clones orders them before the worker's
-    copies to the host.  One worker thread writes, in submission order,
-    so the last submitted state is what ends up on disk.
+    copies to the host.  The worker copies on a CUDA stream of its own
+    into pinned host memory: a copy on the default stream would wait for
+    the training kernels queued there, and hold up those queued after it.
+    One worker thread writes, in submission order, so the last submitted
+    state is what ends up on disk.
 
     Call ``wait()`` before reading checkpoints back or returning from the
     trainer; a worker's exception re-raises there (and on the next
     submit).  ``close()`` ends the worker.
+
+    ``timings`` lists each written save's host seconds in three parts:
+    "wait" for the snapshot's clones, "copy" the device-to-host copy and
+    "write" the file (``torch.save`` and the BEST copy), with its "bytes".
     """
 
     def __init__(self):
         self._q: queue.Queue = queue.Queue()
         self._err = None
+        self.timings = []
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
@@ -122,10 +152,17 @@ class AsyncSaver:
             try:
                 if item is None:
                     return
-                args, events = item
+                (directory, model, data, snap, is_best), events = item
+                t0 = time.perf_counter()
                 for ev in events:
                     ev.synchronize()
-                save_checkpoint(*args)
+                t1 = time.perf_counter()
+                host, nbytes = _to_host(snap)
+                t2 = time.perf_counter()
+                save_checkpoint(directory, model, data, host, is_best)
+                self.timings.append({
+                    "wait": t1 - t0, "copy": t2 - t1,
+                    "write": time.perf_counter() - t2, "bytes": nbytes})
             except Exception as e:  # surfaced on wait() / the next submit
                 self._err = e
             finally:

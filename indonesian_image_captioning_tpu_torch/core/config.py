@@ -11,8 +11,9 @@ documents each field; the port reads the names of the decode path:
 "steps", ``fused_cell=True`` kernel 12 on "steps"), and of the train
 path: ``train_scan_impl``, ``embed_grad_impl`` (``"pallas"`` runs kernel
 14 in the embedding's backward), :class:`TrainConfig` (``train/steps.py``
-and the trainer, ``train/caption.py``) and :class:`DataConfig` (the
-trainer's artifact locations).
+and the trainers, ``train/caption.py`` and ``train/tagger.py``, whose
+recipe is :func:`tagger_train_config`) and :class:`DataConfig` (the
+trainers' artifact locations).
 
 The port keeps its own copy so that it, and ``chip_smoke.py`` through it,
 imports nothing of the JAX package.
@@ -102,13 +103,13 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training recipe, field for field the JAX package's (whose comments
-    say what each field does).  The port's caption trainer
-    (``train/caption.py``) reads all of it but four fields:
-    ``fine_tune_encoder`` and ``encoder_lr`` (the fine-tune step),
-    ``tagger_dtype`` and ``encoder_remat`` (the tagger and the
-    differentiated encoder passes), which raise or go unread until those
-    are ported; ``mesh_shape`` other than (1, 1) and ``mesh_order`` belong
-    to the multi-device steps, which are not ported either."""
+    say what each field does).  The caption trainer (``train/caption.py``)
+    and the tagger trainer (``train/tagger.py``) read it: ``encoder_lr``,
+    ``fine_tune_encoder`` and ``encoder_remat`` (False, True, "blocks" or
+    "convs") drive the fine-tune step, ``tagger_dtype`` and
+    ``encoder_remat`` the tagger step.  ``mesh_shape`` other than (1, 1)
+    and ``mesh_order`` belong to the multi-device steps, which are not
+    ported and raise."""
 
     epochs: int = 12
     batch_size: int = 32
@@ -139,3 +140,11 @@ class TrainConfig:
     head_impl: str = "auto"
     head_tile: int = 2048
     calibrate_encoder_stats: int = 0
+
+
+def tagger_train_config(**overrides) -> TrainConfig:
+    """The tagger recipe: 10 epochs, Adam 1e-4 (the reference's
+    trains/tagger.py:35-42)."""
+    base = dict(epochs=10, decoder_lr=1e-4, encoder_lr=1e-4, alpha_c=0.0)
+    base.update(overrides)
+    return TrainConfig(**base)

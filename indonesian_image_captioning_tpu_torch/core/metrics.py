@@ -1,4 +1,5 @@
-"""Metrics: a running meter and the top-k accuracy of the train step.
+"""Metrics: a running meter, the top-k accuracy of the train step and the
+tagger's binary accuracy.
 
 Counterpart of the JAX package's ``core/metrics.py``.  :func:`topk_hit`
 keeps its exact tie rule: the target is in the top k when fewer than k
@@ -55,3 +56,12 @@ def topk_accuracy(scores: torch.Tensor, targets: torch.Tensor, k: int,
         return correct.mean() * 100.0
     mask = mask.to(torch.float32)
     return (correct * mask).sum() / mask.sum().clamp(min=1.0) * 100.0
+
+
+def binary_accuracy(scores: torch.Tensor,
+                    targets: torch.Tensor) -> torch.Tensor:
+    """Mean agreement, in percent, of scores and targets, both thresholded
+    at 0.5 (the reference's utils/metric.py:42-47)."""
+    pred = scores >= 0.5
+    true = targets >= 0.5
+    return (pred == true).to(torch.float32).mean() * 100.0

@@ -10,15 +10,23 @@ converts:
 * each stage is {"first": block with downsample, "rest": [blocks]}: a list
   of blocks where JAX stacks them for its ``lax.scan``.
 
-BatchNorm has two of the JAX modes: ``train=False`` uses the running
-statistics; ``"calibrate"`` normalises with the batch statistics and
+BatchNorm has the three JAX modes: ``train=False`` uses the running
+statistics; ``train=True`` normalises with the batch statistics and moves
+the running statistics toward them by torch's momentum 0.1, with the
+unbiased variance; ``"calibrate"`` normalises with the batch statistics and
 returns them (biased) as the new statistics, so an eval pass afterwards
 reproduces this pass exactly.  Batch statistics reduce in float32 whatever
-the compute type.  The training mode (``train=True``, a momentum update of
-the running statistics) comes with the training slice.  A randomly
-initialised ResNet-152 needs calibrating before eval-mode features are
-usable: with running statistics (0, 1) its activations grow block by block
-to about 1e10.
+the compute type, and the new statistics are state, computed without
+gradient.  A randomly initialised ResNet-152 needs calibrating before
+eval-mode features are usable: with running statistics (0, 1) its
+activations grow block by block to about 1e10.
+
+``remat`` rematerialises the bottlenecks under autograd, as JAX's
+``jax.checkpoint`` does (``torch.utils.checkpoint``, non-reentrant):
+``True`` / ``"blocks"`` keeps each block's input and recomputes the block
+in the backward; ``"convs"`` also keeps the convolution outputs and
+recomputes only BatchNorm and ReLU.  Both give the gradients of no
+rematerialisation; the new statistics are the forward's.
 """
 
 from __future__ import annotations
@@ -27,12 +35,15 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),
           "resnet152": (3, 8, 36, 3)}
 WIDTHS = (64, 128, 256, 512)
 EXPANSION = 4
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
+REMAT_MODES = (False, True, "blocks", "convs")
 
 
 def _conv_init(gen, kh, kw, cin, cout, dtype, device):
@@ -92,18 +103,30 @@ def _conv(x, w, stride: int, padding: int):
 
 
 def _bn(x, p, s, train):
-    """NCHW BatchNorm; returns (y, new_stats).  train: False (running
-    statistics) or "calibrate" (see the module docstring)."""
-    if train == "calibrate":
+    """NCHW BatchNorm; returns (y, new_stats).  train: False, True or
+    "calibrate" (see the module docstring)."""
+    if train:
+        # the batch statistics reduce in float32; the clamp keeps a
+        # cancelled variance from going negative
         xf = x.to(torch.float32)
         mean = xf.mean(dim=(0, 2, 3))
         var = torch.clamp_min(xf.var(dim=(0, 2, 3), unbiased=False), 0.0)
-        new_s = {"mean": mean, "var": var}
-    elif train is False:
+        m, v = mean.detach(), var.detach()
+        if train == "calibrate":
+            new_s = {"mean": m, "var": v}
+        elif train is True:
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            unbiased = v * n / max(n - 1, 1)
+            new_s = {
+                "mean": (1 - BN_MOMENTUM) * s["mean"] + BN_MOMENTUM * m,
+                "var": (1 - BN_MOMENTUM) * s["var"] + BN_MOMENTUM * unbiased,
+            }
+        else:
+            raise ValueError(f"BatchNorm mode {train!r}: False, True or "
+                             "'calibrate'")
+    else:
         mean, var = s["mean"], s["var"]
         new_s = s
-    else:
-        raise ValueError(f"BatchNorm mode {train!r}: False or 'calibrate'")
     inv = torch.rsqrt(var + BN_EPS)
 
     def ch(v):
@@ -132,24 +155,53 @@ def _bottleneck(x, bp, bs, stride: int, train):
     return torch.relu(out + identity), new_s
 
 
-def apply_resnet(params, stats, x, *, train=False, arch: str = "resnet152"):
+def _save_convs():
+    """Selective checkpointing that keeps the convolution outputs and
+    recomputes the rest (remat="convs")."""
+    def policy(ctx, op, *args, **kwargs):
+        if op is torch.ops.aten.convolution.default:
+            return ckpt.CheckpointPolicy.MUST_SAVE
+        return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+    return ckpt.create_selective_checkpoint_contexts(policy)
+
+
+def _block_fn(remat):
+    """The bottleneck, rematerialised under autograd per ``remat``."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat {remat!r}: one of {REMAT_MODES}")
+    if not remat:
+        return _bottleneck
+    kw = {"context_fn": _save_convs} if remat == "convs" else {}
+
+    def block(x, bp, bs, stride, train):
+        return ckpt.checkpoint(_bottleneck, x, bp, bs, stride, train,
+                               use_reentrant=False, **kw)
+
+    return block
+
+
+def apply_resnet(params, stats, x, *, train=False, arch: str = "resnet152",
+                 remat=False):
     """x: (B, H, W, 3) NHWC float -> features (B, H/32, W/32, 2048) NHWC.
 
     Returns (features, new_batch_stats).  The classifier head is omitted,
-    as the reference strips it."""
+    as the reference strips it.  remat: False, True / "blocks" or "convs"
+    (see the module docstring)."""
     if len(params["layer3"]["rest"]) != BLOCKS[arch][2] - 1:
         raise ValueError(f"parameter tree does not match {arch}")
+    block = _block_fn(remat)
     new_stats: Dict[str, Any] = {}
     y = _conv(x.permute(0, 3, 1, 2), params["conv1"], 2, 3)
     y, new_stats["bn1"] = _bn(y, params["bn1"], stats["bn1"], train)
     y = F.max_pool2d(torch.relu(y), 3, stride=2, padding=1)
     for stage in range(1, len(BLOCKS[arch]) + 1):
         sp, ss = params[f"layer{stage}"], stats[f"layer{stage}"]
-        y, first_s = _bottleneck(y, sp["first"], ss["first"],
-                                 1 if stage == 1 else 2, train)
+        y, first_s = block(y, sp["first"], ss["first"],
+                           1 if stage == 1 else 2, train)
         rest_s = []
         for bp, bs in zip(sp["rest"], ss["rest"]):
-            y, s = _bottleneck(y, bp, bs, 1, train)
+            y, s = block(y, bp, bs, 1, train)
             rest_s.append(s)
         new_stats[f"layer{stage}"] = {"first": first_s, "rest": rest_s}
     return y.permute(0, 2, 3, 1), new_stats

@@ -16,10 +16,15 @@ checkpoints and resume), so a caller can hand it splits held in memory
 (``CaptionDataset.from_arrays``).  The trainer runs on the card unless
 the caller asks for the CPU.
 
-``encoder_init`` starts the frozen encoder from a state_dict in the
-reference's layout (``models/convert.py``).  Not ported yet, and raising
-``NotImplementedError``: a device mesh (``tcfg.mesh_shape != (1, 1)``,
-ROADMAP.md queue 1 item 7) and ``fine_tune_encoder=True`` (item 5).
+``encoder_init`` starts the encoder from a state_dict in the reference's
+layout (``models/convert.py``).  ``fine_tune_encoder=True`` trains the
+caption encoder's stages 2-4 with the decoder
+(``steps.make_caption_finetune_train_step``, a second Adam at
+``encoder_lr``, the encoder's Adam state in the checkpoint, both LRs
+decayed together as the reference's trains/attention_scn.py:140-142
+does); it needs pixels every step, so it refuses ``cache_features``.  Not
+ported yet, and raising ``NotImplementedError``: a device mesh
+(``tcfg.mesh_shape != (1, 1)``, ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -49,14 +54,6 @@ def load_word_map(data_cfg: DataConfig) -> Dict[str, int]:
         data_cfg.data_folder, data_cfg.data_name))
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
-
-
 def init_state(key: torch.Generator, cfg: ModelConfig, optimizer, *,
                tagger_checkpoint: Optional[str] = None,
                encoder_init: Optional[str] = None, device="cuda"):
@@ -83,9 +80,10 @@ def init_state(key: torch.Generator, cfg: ModelConfig, optimizer, *,
                             encoder_arch=cfg.encoder_arch),
         arch=cfg.encoder_arch, device=dev)
     if tagger_checkpoint:
+        # the tagger trainer's checkpoint (train/tagger.py)
         restored = ckpt_lib.load_pytree(tagger_checkpoint)["state"]
-        tag_params = _map(restored["params"], lambda x: x.to(dev))
-        tag_stats = _map(restored["stats"], lambda x: x.to(dev))
+        tag_params = steps.map_tree(restored["params"], lambda x: x.to(dev))
+        tag_stats = steps.map_tree(restored["stats"], lambda x: x.to(dev))
     return {
         "params": params,
         "opt_state": optimizer.init(params),
@@ -94,26 +92,35 @@ def init_state(key: torch.Generator, cfg: ModelConfig, optimizer, *,
     }
 
 
+OPT_KEYS = ("opt_state", "enc_opt_state")
+
+
 def state_payload(state) -> Dict:
-    """The checkpointed form of a train state: Adam as its state_dict."""
-    return {**state, "opt_state": state["opt_state"].state_dict()}
+    """The checkpointed form of a train state: each Adam (the decoder's,
+    and the encoder's when fine-tuning) as its state_dict."""
+    return {**state, **{k: state[k].state_dict() for k in OPT_KEYS
+                        if k in state}}
 
 
 @torch.no_grad()
 def restore_state(state, saved) -> None:
     """Load a checkpoint's state into ``state`` in place: the decoder's
-    parameters are copied into the tensors the optimizer holds, Adam's
-    moments and step counts loaded, the frozen encoders replaced."""
+    and the encoder's parameters are copied into the tensors the
+    optimizers hold, each Adam's moments and step counts loaded, the
+    statistics and the frozen tagger replaced."""
     dev = state["params"]["embedding"].device
-    for p, s in zip(steps.tree_leaves(state["params"]),
-                    steps.tree_leaves(saved["params"])):
-        if p.shape != s.shape:
-            raise ValueError(f"checkpoint leaf {tuple(s.shape)} does not "
-                             f"match the model's {tuple(p.shape)}")
-        p.copy_(s)
-    state["opt_state"].load_state_dict(saved["opt_state"])
-    for k in ("encoder", "encoder_stats", "tagger", "tagger_stats"):
-        state[k] = _map(saved[k], lambda x: x.to(dev))
+    for k in ("params", "encoder"):
+        for p, s in zip(steps.tree_leaves(state[k]),
+                        steps.tree_leaves(saved[k]), strict=True):
+            if p.shape != s.shape:
+                raise ValueError(f"checkpoint leaf {tuple(s.shape)} does "
+                                 f"not match the model's {tuple(p.shape)}")
+            p.copy_(s)
+    for k in OPT_KEYS:
+        if k in state:
+            state[k].load_state_dict(saved[k])
+    for k in ("encoder_stats", "tagger", "tagger_stats"):
+        state[k] = steps.map_tree(saved[k], lambda x: x.to(dev))
 
 
 def bleu4_from_batches(references, hypotheses) -> float:
@@ -201,17 +208,17 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
     (0, or the epoch after the resumed checkpoint's), step_losses (each
     trained epoch's per-step losses, by epoch) and timings (host seconds:
     "cache_build" when the feature cache is built, "train_epoch" by
-    epoch; each ends when the device has finished)."""
+    epoch, each ending when the device has finished; "save", the async
+    saver's parts of each checkpoint, ``AsyncSaver.timings``)."""
     dev = device if isinstance(device, torch.device) else get_device(device)
     if tuple(tcfg.mesh_shape) != (1, 1):
         raise NotImplementedError(
             f"mesh_shape {tuple(tcfg.mesh_shape)}: the multi-device "
             "trainer is not ported yet (ROADMAP.md queue 1 item 7)")
-    if tcfg.fine_tune_encoder:
-        raise NotImplementedError(
-            "fine_tune_encoder: the fine-tune step "
-            "(make_caption_finetune_train_step) is not ported yet "
-            "(ROADMAP.md queue 1 item 5)")
+    fine_tune = tcfg.fine_tune_encoder
+    if fine_tune and tcfg.cache_features:
+        raise ValueError("cache_features requires a frozen encoder "
+                         "(fine_tune_encoder=False)")
     if model_cfg is None:
         cfg = ModelConfig(model_type=model_type, vocab_size=len(word_map))
         if (train_ds.tags is not None
@@ -236,6 +243,11 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
                        encoder_init=encoder_init, device=dev)
     if tcfg.calibrate_encoder_stats > 0:
         _calibrate(state, cfg, tcfg, train_ds, dev, log)
+    if fine_tune:
+        # the encoder's Adam joins the state before resume, so a resumed
+        # run restores its moments and decayed LR
+        enc_optimizer = steps.make_optimizer(tcfg.encoder_lr, tcfg.grad_clip)
+        state["enc_opt_state"] = enc_optimizer.init(state["encoder"])
 
     start_epoch, stale, best = 0, 0, 0.0
     if resume:
@@ -247,8 +259,12 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
         best = float(restored["metric"])
         log(f"resumed from the checkpoint of epoch {start_epoch}")
 
-    encode_fn, train_step = steps.make_caption_train_step(
-        cfg, tcfg, optimizer, device=dev)
+    if fine_tune:
+        tagger_fn, finetune_step = steps.make_caption_finetune_train_step(
+            cfg, tcfg, optimizer, enc_optimizer, device=dev)
+    else:
+        encode_fn, train_step = steps.make_caption_train_step(
+            cfg, tcfg, optimizer, device=dev)
     eval_encode_fn, eval_step = steps.make_caption_eval_step(cfg, tcfg,
                                                              device=dev)
     drop_key = stream(root_key(tcfg.seed, dev), "caption_dropout")
@@ -281,8 +297,8 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
         return batch["features"].float(), batch["ftags"].float()
 
     # -- device image store: raw pixels resident on the device --------------
-    # Only uncached training consumes pixels every step; with
-    # cache_features the batches carry no pixels at all.
+    # Only uncached training (fine-tuning included) consumes pixels every
+    # step; with cache_features the batches carry no pixels at all.
     train_store = val_store = None
     if not tcfg.cache_features:
         from ..data import device_store
@@ -327,14 +343,20 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
             printer.data_loaded()
             batch = with_pixels(train_store, batch)
             gen = per_step(drop_key, epoch * n_train + i)
-            if train_cache is not None:
-                enc_out, tags = cached_encode(train_cache, batch)
+            if fine_tune:
+                tags = tagger_fn(state, batch)
+                _, m = finetune_step(state, batch["images"], tags,
+                                     batch["captions"], batch["caplens"],
+                                     gen)
             else:
-                enc_out, tags = encode_fn(state, batch)
-            _, m = train_step({"params": state["params"],
-                               "opt_state": state["opt_state"]},
-                              enc_out, tags, batch["captions"],
-                              batch["caplens"], gen)
+                if train_cache is not None:
+                    enc_out, tags = cached_encode(train_cache, batch)
+                else:
+                    enc_out, tags = encode_fn(state, batch)
+                _, m = train_step({"params": state["params"],
+                                   "opt_state": state["opt_state"]},
+                                  enc_out, tags, batch["captions"],
+                                  batch["caplens"], gen)
             pending.append((i, m))
             if i % tcfg.print_freq == 0:
                 flush()
@@ -383,7 +405,10 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
         return bleu4
 
     def decay(factor: float):
-        steps.decay_learning_rate(state["opt_state"], factor)
+        # the reference decays both optimizers (attention_scn.py:140-142)
+        for k in OPT_KEYS:
+            if k in state:
+                steps.decay_learning_rate(state[k], factor)
         log(f"DECAYING learning rate; new LR "
             f"{steps.current_learning_rate(state['opt_state']):.6f}")
 
@@ -406,6 +431,7 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
                       log=log)
         if saver is not None:
             saver.wait()
+            timings["save"] = saver.timings
     finally:
         if saver is not None:
             saver.close()

@@ -1,16 +1,31 @@
-"""The caption model's train and eval steps on cached encoder features.
+"""Train and eval steps of the caption models and the tagger.
 
-Counterpart of the JAX package's ``train/steps.py`` for the frozen-encoder
-caption trainer: the decoder's forward (``decoders.teacher_forcing``), the
-loss, the backward, an elementwise clamp of every gradient to +-grad_clip
-and Adam.  The frozen encoder and tagger run apart, through
-:func:`make_encoders_fn`, so a trainer can cache their outputs.  The
-fine-tune, tagger and multi-device steps are not ported yet.
+Counterpart of the JAX package's ``train/steps.py``: a forward, the loss,
+the backward, an elementwise clamp of every gradient to +-grad_clip and
+Adam.
+
+* The frozen-encoder caption step (:func:`make_caption_train_step`) runs
+  the decoder (``decoders.teacher_forcing``); the frozen encoder and
+  tagger run apart, through :func:`make_encoders_fn`, so a trainer can
+  cache their outputs.
+* The fine-tune step (:func:`make_caption_finetune_train_step`)
+  differentiates through the caption encoder into its stages 2-4, with
+  train-mode BatchNorm and a second Adam at ``encoder_lr``; its scan is
+  the eager one (the fused kernels give the encoder no gradient).
+* The tagger step (:func:`make_tagger_train_step`) trains the linear head
+  and the stages 2-4 of the tagger's ResNet with BCE.
+
+The multi-device steps are not ported yet.
 
 Parameters are trees of tensors and the step updates them in place (the
-JAX step returns new ones).  Under ``decoder_dtype="bfloat16"`` the master
-weights and Adam's moments stay float32: the parameters are cast inside
-the loss, so the gradients come back float32.
+JAX step returns new ones); the running BatchNorm statistics come back in
+a new tree.  Frozen leaves have ``requires_grad`` off, so autograd runs no
+backward into them (JAX's mask zeroes their gradients and XLA drops that
+work); Adam still steps them with a zero gradient, which leaves them
+bitwise as they were.  Under ``decoder_dtype`` / ``tagger_dtype``
+"bfloat16" the master weights, Adam's moments and the running statistics
+stay float32: the parameters are cast inside the loss, so the gradients
+come back float32.
 
 Builders run on the card unless the caller asks for the CPU.
 """
@@ -30,11 +45,41 @@ from ..ops import losses
 HEAD_IMPLS = ("auto", "dense", "chunked")
 
 
-def tree_leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a nested dict, in insertion order."""
+def tree_leaves(tree) -> List:
+    """The leaves of nested dicts and lists, in insertion order."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def set_trainable(params, mask) -> None:
+    """requires_grad on the leaves that ``mask`` (a tree of booleans over
+    params, matched by key) marks, off on the others."""
+    if isinstance(params, dict):
+        for k, v in params.items():
+            set_trainable(v, mask[k])
+    elif isinstance(params, list):
+        for v, m in zip(params, mask, strict=True):
+            set_trainable(v, m)
+    else:
+        params.requires_grad_(bool(mask))
+
+
+def map_tree(tree, fn):
+    """fn applied to every leaf of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def cast_tree(tree, dtype):
+    """Cast the floating leaves of nested dicts and lists."""
+    return map_tree(tree, lambda t: t.to(dtype) if t.is_floating_point()
+                    else t)
 
 
 class ClampAdam:
@@ -46,7 +91,9 @@ class ClampAdam:
     p -= lr * (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)
     (``tests/test_torch_train_step.py`` holds it to optax).  Every leaf
     takes part in every update, a zero gradient where autograd gave none,
-    as every leaf of the JAX tree has a gradient."""
+    as every leaf of the JAX tree has a gradient: a frozen leaf (its
+    gradient masked to zero in JAX) keeps its value bitwise and its step
+    count moves with the others'."""
 
     def __init__(self, lr: float, grad_clip):
         self.lr = lr
@@ -101,6 +148,13 @@ def resolve_head_impl(tcfg: TrainConfig, cfg: ModelConfig, batch: int,
         return "dense"
     n_logits = batch * (cfg.max_caption_len - 1) * cfg.vocab_size
     return "chunked" if n_logits >= (1 << 27) else "dense"
+
+
+def _on(x, dev: torch.device) -> torch.Tensor:
+    """A batch leaf (numpy array or tensor) as a tensor on dev."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    return x.to(dev)
 
 
 def _device(device) -> torch.device:
@@ -236,3 +290,160 @@ def make_caption_eval_step(cfg: ModelConfig, tcfg: TrainConfig,
                 "mask": out["mask"]}
 
     return encode_fn, step
+
+
+def make_caption_finetune_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                                     dec_optimizer: ClampAdam,
+                                     enc_optimizer: ClampAdam,
+                                     fine_tune_embeddings: bool = True,
+                                     device="cuda"):
+    """Joint decoder and encoder fine-tuning (fine_tune_encoder=True):
+    ``(tagger_fn, step)`` with
+
+        tagger_fn(state, batch) -> tags (B, semantic_dim)
+        step(state, images_u8, tags, captions, caplens, gen=None)
+            -> (state, metrics)
+
+    state holds params / opt_state (``dec_optimizer.init``) and encoder /
+    encoder_stats / enc_opt_state (``enc_optimizer.init``), and for
+    tagger_fn tagger / tagger_stats.  The frozen tagger runs in eval mode,
+    float32, without gradient.  The caption encoder runs with train-mode
+    BatchNorm (the reference's ``encoder.train()``: every stage's running
+    statistics move, the frozen stem and layer1's too) and
+    ``tcfg.encoder_remat``; only its stages 2-4 train
+    (:func:`encoders.caption_encoder_trainable_mask`), and the decoder's
+    embedding only with fine_tune_embeddings.  The scan is the eager one
+    (``enc_grad=True``); the loss is the dense head's, as in JAX."""
+    dev = _device(device)
+
+    @torch.no_grad()
+    def tagger_fn(state, batch):
+        x = encoders.prep_images(_on(batch["images"], dev))
+        if not cfg.uses_tags:
+            return torch.zeros((x.shape[0], cfg.semantic_dim), device=dev)
+        return encoders.apply_encoder_tagger(
+            state["tagger"], state["tagger_stats"], x, train=False,
+            arch=cfg.encoder_arch)[0]
+
+    def step(state: Dict, images_u8, tags, captions, caplens, gen=None):
+        params, encoder = state["params"], state["encoder"]
+        set_trainable(params, decoders.trainable_mask(params,
+                                                      fine_tune_embeddings))
+        set_trainable(encoder,
+                      encoders.caption_encoder_trainable_mask(encoder))
+        x = encoders.prep_images(_on(images_u8, dev))
+        tags, captions, caplens = (_on(v, dev)
+                                   for v in (tags, captions, caplens))
+        for opt in (state["opt_state"], state["enc_opt_state"]):
+            opt.zero_grad(set_to_none=True)
+        enc_out, new_stats = encoders.apply_encoder_caption(
+            encoder, state["encoder_stats"], x, train=True,
+            enc_image_size=cfg.enc_image_size, arch=cfg.encoder_arch,
+            remat=tcfg.encoder_remat)
+        out = decoders.teacher_forcing(params, cfg, enc_out, tags, captions,
+                                       caplens, dropout_gen=gen, train=True,
+                                       enc_grad=True)
+        loss, aux = losses.caption_loss(out, captions, tcfg.alpha_c)
+        targets = captions[:, 1:1 + out["predictions"].shape[1]]
+        top5 = losses.masked_topk_accuracy(out["predictions"].detach(),
+                                           targets, out["mask"], 5)
+        loss.backward()
+        dec_optimizer.update(state["opt_state"])
+        enc_optimizer.update(state["enc_opt_state"])
+        state["encoder_stats"] = new_stats
+        metrics = {"loss": loss.detach(), "top5": top5,
+                   "n_tokens": aux["n_tokens"].detach(),
+                   "ce": aux["ce"].detach(),
+                   "alpha_penalty": aux["alpha_penalty"].detach()}
+        return state, metrics
+
+    return tagger_fn, step
+
+
+# ---------------------------------------------------------------------------
+# Tagger
+# ---------------------------------------------------------------------------
+
+def tagger_trainable_mask(params):
+    """A tree of booleans over the tagger's parameters: the linear head
+    and the ResNet stages layer2-layer4 train (the reference's
+    ``EncoderTagger.fine_tune``)."""
+    return {"resnet": encoders.resnet_trainable_mask(params["resnet"]),
+            "linear": {k: True for k in params["linear"]}}
+
+
+def make_tagger_train_step(tcfg: TrainConfig, optimizer: ClampAdam,
+                           dropout_rate: float = 0.15,
+                           arch: str = "resnet152", device="cuda"):
+    """step(state, batch, gen=None) -> (state, {"loss", "acc"}): BCE on
+    the sigmoid scores and the binary accuracy over valid rows.  state
+    holds params, stats and opt_state (``optimizer.init(params)``);
+    batch holds uint8 "images" (B, 3, S, S), "tags" (B, tags) and
+    optionally "valid" (B,).  BatchNorm runs in train mode; gen is the
+    dropout generator (no dropout without one).
+
+    tcfg.tagger_dtype="bfloat16" runs the forward and backward in bf16
+    (the batch statistics still reduce in float32) and casts the
+    probabilities back to float32 before the BCE clip (1 - 1e-7 rounds
+    to 1 in bf16).  tcfg.encoder_remat rematerialises the bottlenecks."""
+    dev = _device(device)
+    cdt = _dtype(tcfg.tagger_dtype)
+    remat = tcfg.encoder_remat
+
+    def step(state: Dict, batch, gen=None):
+        params, opt_state = state["params"], state["opt_state"]
+        set_trainable(params, tagger_trainable_mask(params))
+        x = encoders.prep_images(_on(batch["images"], dev)).to(cdt)
+        tags = _on(batch["tags"], dev).to(torch.float32)
+        valid = batch.get("valid")
+        valid = None if valid is None else _on(valid, dev)
+        opt_state.zero_grad(set_to_none=True)
+        p = params if cdt == torch.float32 else cast_tree(params, cdt)
+        probs, new_stats = encoders.apply_encoder_tagger(
+            p, state["stats"], x, train=True, dropout_gen=gen,
+            dropout_rate=dropout_rate, arch=arch, remat=remat)
+        probs = probs.to(torch.float32)
+        loss = losses.bce_loss(probs, tags, row_valid=valid)
+        loss.backward()
+        optimizer.update(opt_state)
+        state["stats"] = new_stats
+        return state, {"loss": loss.detach(),
+                       "acc": _binary_accuracy(probs.detach(), tags, valid)}
+
+    return step
+
+
+def make_tagger_eval_step(arch: str = "resnet152",
+                          compute_dtype: str = "float32", device="cuda"):
+    """step(params, stats, batch) -> {"loss", "acc"}: the tagger in eval
+    mode in compute_dtype, scored in float32."""
+    dev = _device(device)
+    cdt = _dtype(compute_dtype)
+
+    @torch.no_grad()
+    def step(params, stats, batch):
+        x = encoders.prep_images(_on(batch["images"], dev))
+        if cdt != torch.float32:
+            params, stats, x = (cast_tree(params, cdt),
+                                cast_tree(stats, cdt), x.to(cdt))
+        probs, _ = encoders.apply_encoder_tagger(params, stats, x,
+                                                 train=False, arch=arch)
+        probs = probs.to(torch.float32)
+        tags = _on(batch["tags"], dev).to(torch.float32)
+        valid = batch.get("valid")
+        valid = None if valid is None else _on(valid, dev)
+        return {"loss": losses.bce_loss(probs, tags, row_valid=valid),
+                "acc": _binary_accuracy(probs, tags, valid)}
+
+    return step
+
+
+def _binary_accuracy(probs, targets, row_valid=None):
+    """Mean elementwise binary accuracy (%) over valid rows only: the
+    padding rows of a final partial batch do not count."""
+    correct = ((probs >= 0.5) == (targets >= 0.5)).to(torch.float32)
+    if row_valid is None:
+        return correct.mean() * 100.0
+    w = row_valid.to(torch.float32)
+    denom = (w.sum() * correct.shape[1]).clamp(min=1.0)
+    return (correct * w[:, None]).sum() / denom * 100.0

@@ -399,31 +399,46 @@ def parser_spec(parser):
                   for a in parser._actions if a.dest != "help")
 
 
-def test_cli_parses_the_jax_flags_and_raises_on_unported_paths(tmp_path):
+def test_cli_parses_the_jax_flags_and_raises_on_unported_paths(data_env,
+                                                               tmp_path):
+    """The CLI's flags equal JAX's; --mesh raises, naming its ROADMAP.md
+    queue 1 item; --fine_tune_encoder and a tagger --type (with
+    --encoder_remat and --tagger_dtype) each train one tiny epoch."""
     assert parser_spec(cli.build_parser()) == parser_spec(
         jax_cli.build_parser())
     argv = ["-t", "attention_scn", "--epochs", "3", "-bs", "8",
             "--decoder_lr", "1e-3", "--cache_features", "--cache_dtype",
             "bfloat16", "--device_images", "off", "--head_impl", "chunked",
             "--head_tile", "512", "--decoder_dtype", "bfloat16",
-            "--encoder_dtype", "float32", "--mesh_order", "colmajor"]
+            "--encoder_dtype", "float32", "--mesh_order", "colmajor",
+            "--tagger_dtype", "bfloat16", "--encoder_remat", "convs",
+            "--fine_tune_encoder"]
     ours = cli._override(TrainConfig(), cli.build_parser().parse_args(argv))
     theirs = jax_cli._override(JaxTrainConfig(),
                                jax_cli.build_parser().parse_args(argv))
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     spec = '{"embed_dim": 8}'
     assert cli._load_model_json(spec) == jax_cli._load_model_json(spec)
-    # each message names the ROADMAP.md queue 1 item that ports its path
-    for extra, item in ((["-t", "tagger"], r"item 4\)"),
-                        (["-t", "pure_scn", "--mesh", "2,1"], r"item 7\)"),
-                        (["-t", "pure_scn", "--fine_tune_encoder"],
-                         r"item 5\)"),
-                        (["-t", "pure_scn", "--encoder_remat"],
-                         r"items 4-5\)")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(extra + ["--checkpoint_dir", str(tmp_path)])
+    # the message names the ROADMAP.md queue 1 item that ports its path
+    with pytest.raises(NotImplementedError, match=r"item 7\)"):
+        cli.main(["-t", "pure_scn", "--mesh", "2,1", "--checkpoint_dir",
+                  str(tmp_path)], device="cpu")
     wm = {"<pad>": 0, "a": 1, "<start>": 2}
-    for tcfg, item in ((TrainConfig(mesh_shape=(2, 1)), r"item 7\)"),
-                       (TrainConfig(fine_tune_encoder=True), r"item 5\)")):
-        with pytest.raises(NotImplementedError, match=item):
-            caption.train("pure_scn", wm, None, None, tcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 7\)"):
+        caption.train("pure_scn", wm, None, None,
+                      TrainConfig(mesh_shape=(2, 1)), device="cpu")
+    common = ["-df", data_env, "-dn", NAME, "--epochs", "1", "-bs", "4"]
+    widths = json.dumps(dict(embed_dim=16, decoder_dim=16, factored_dim=12,
+                             enc_image_size=2, max_caption_len=12,
+                             encoder_arch="resnet50"))
+    runs = {"pure_scn": ["-t", "pure_scn", "--fine_tune_encoder",
+                         "--encoder_remat", "convs", "--model_json", widths],
+            "tagger": ["-t", "tagger", "--tagger_dtype", "bfloat16",
+                       "--encoder_remat", "--model_json",
+                       '{"encoder_arch": "resnet50"}']}
+    for name, extra in runs.items():
+        state, summary = cli.main(common + extra + [
+            "--checkpoint_dir", str(tmp_path / name)], device="cpu")
+        assert np.isfinite(summary["train_loss"]), name
+        assert (tmp_path / name / f"checkpoint_{name}_{NAME}").is_file()
+        assert ("enc_opt_state" if name == "pure_scn" else "stats") in state
