@@ -5,6 +5,7 @@
     # CHANGE_DIR: this one; --cases: a subset of CASES
     python3 chip_compare.py --phases     # kernels 1 and 5 phase by phase
     python3 chip_compare.py --faults [REPS [PROCS]]   # card-test repeats
+    python3 chip_compare.py --bf16-grads  # the tagger's bf16 gradients
 
 PARENT_DIR is another checkout of the repository (for example an unpacked
 ``git archive`` of the parent commit in a git-ignored directory).  Both
@@ -40,6 +41,16 @@ poisoning misses kernels (a single CUDA-only one, and chip_smoke.py's
 ``profile_cuda``, which the card tests' launch checks read: kernels 12
 and 13 REPS times each); every case of their two tests after a whole
 card suite in the same process; and three more suites.
+
+--bf16-grads builds no kernel: it takes the tagger's first gradients
+(ResNet-152, 1000 tags, B = 32, 256 px, seeded noise images, every
+residual branch damped as chip_smoke.py damps it, train-mode BatchNorm)
+in float32, again in float32, with TF32 on and in bfloat16 (masters cast
+inside the loss, as the bf16 train step casts them), for sparse tags
+(rate 0.01, chip_smoke.py's) and dense ones (0.5), and prints each
+trainable leaf's cosine to the float32 gradient: the lowest, quantiles,
+the median by stage, and the share of the gradient into the pooled
+features that is common to the whole batch.
 """
 
 from __future__ import annotations
@@ -459,8 +470,95 @@ def fault_counts(reps: int, procs: int) -> int:
     return n
 
 
+def bf16_grads() -> None:
+    """See the module docstring's --bf16-grads."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from indonesian_image_captioning_tpu_torch.core.config import \
+        TaggerConfig
+    from indonesian_image_captioning_tpu_torch.core.runtime import \
+        get_device
+    from indonesian_image_captioning_tpu_torch.models import encoders
+    from indonesian_image_captioning_tpu_torch.ops import losses
+    from indonesian_image_captioning_tpu_torch.train import steps
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
+    dev = get_device("cuda")
+    B, S, T, arch = 32, 256, 1000, "resnet152"
+    params, stats = encoders.init_encoder_tagger(
+        torch.Generator().manual_seed(cs.SEED),
+        TaggerConfig(semantic_size=T, encoder_arch=arch), arch=arch,
+        device=dev)
+    cs.damp_residuals(params)
+    steps.set_trainable(params, steps.tagger_trainable_mask(params))
+    named = [(k, p) for k, p in cs.tree_items(params) if p.requires_grad]
+    rng = np.random.default_rng(0)
+    x = encoders.prep_images(torch.from_numpy(
+        rng.integers(0, 256, (B, 3, S, S), dtype=np.uint8)).to(dev))
+    backends = (torch.backends.cuda.matmul, torch.backends.cudnn)
+
+    def grads(tags, mode):
+        for b in backends:
+            b.allow_tf32 = mode == "tf32"
+        dt = torch.bfloat16 if mode == "bf16" else torch.float32
+        for _, p in named:
+            p.grad = None
+        pc = params if dt == torch.float32 else steps.cast_tree(params, dt)
+        probs, _ = encoders.apply_encoder_tagger(pc, stats, x.to(dt),
+                                                 train=True, arch=arch)
+        loss = losses.bce_loss(probs.float(), tags)
+        loss.backward()
+        for b in backends:
+            b.allow_tf32 = False
+        return loss.item(), [p.grad.double() for _, p in named]
+
+    def cos(a, b):
+        return float((a * b).sum() / (a.norm() * b.norm()).clamp_min(1e-300))
+
+    for rate in (0.01, 0.5):
+        tags = torch.from_numpy(
+            (rng.random((B, T)) < rate).astype(np.float32)).to(dev)
+        loss0, ref = grads(tags, "f32")
+        for mode in ("f32", "tf32", "bf16"):
+            loss, g = grads(tags, mode)
+            c = np.array([cos(a, b) for a, b in zip(ref, g)])
+            q = np.quantile(c, [0.0, 0.01, 0.1, 0.5])
+            print(f"tags {rate} {mode}: loss {loss:.6f} (f32 {loss0:.6f}); "
+                  f"cosine over {len(c)} leaves min {q[0]:.4f} p1 "
+                  f"{q[1]:.4f} p10 {q[2]:.4f} median {q[3]:.4f}")
+            if mode == "f32":
+                continue
+            print("   lowest: " + ", ".join(
+                f"{named[i][0]} {c[i]:.3f}" for i in np.argsort(c)[:8]))
+            by_stage = {}
+            for (k, _), ci in zip(named, c):
+                by_stage.setdefault(k.split("/")[2], []).append(ci)
+            print("   median by stage: " + ", ".join(
+                f"{k} {np.median(v):.4f}" for k, v in by_stage.items()))
+        with torch.no_grad():
+            probs, _ = encoders.apply_encoder_tagger(params, stats, x,
+                                                     train=True, arch=arch)
+            d = (probs - tags) @ params["linear"]["w"].T
+            common = d.mean(0, keepdim=True).expand_as(d)
+        print(f"tags {rate}: the batch-common part of the gradient into the "
+              f"pooled features, {float(common.norm() / d.norm()):.4f} of "
+              "its norm")
+
+
 def main() -> int:
     argv = sys.argv[1:]
+    if argv == ["--bf16-grads"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_compare: no CUDA device", file=sys.stderr)
+            return 2
+        bf16_grads()
+        return 0
     if argv[:1] == ["--faults"]:
         import torch
 

@@ -167,7 +167,10 @@ Phases, each of which exits non-zero on failure:
    at tagger_dtype float32 and bfloat16 (weights with every residual
    branch damped, bn3 scale x ENC_DAMP): each dtype's loss falls over
    ENC_DTYPE_STEPS steps, masters and running statistics stay float32,
-   the first losses agree within DTYPE_FIRST_TOL; the step ms, imgs/s,
+   the first losses agree within DTYPE_FIRST_TOL, and the first
+   gradients in bf16 lie at a cosine of at least DTYPE_HEAD_COS to the
+   float32 ones in the linear head and DTYPE_BACKBONE_COS in the median
+   ResNet leaf; the step ms, imgs/s,
    peak memory and the device time by kernel.  One forward and backward
    at B=REMAT_B under encoder_remat False, "blocks" and "convs": the
    loss within REMAT_LOSS_TOL and every gradient within REMAT_GRAD_TOL
@@ -180,10 +183,7 @@ Phases, each of which exits non-zero on failure:
    kernels line): the stem's conv1 and bn1 and all of layer1 bitwise,
    layer4 and the stem's running mean moved, and a resume that restores
    the encoder's Adam bitwise.  Each trainer's epoch s and each async
-   save's copy and write seconds; last, f32 tagger steps run beside each
-   part of the fine-tune checkpoint's save in a thread (the copy as the
-   saver made it before, on the default stream; the saver's copy now;
-   torch.save), with the steps' mean ms.
+   save's wait, copy and write seconds.
 
 The line before the last lists each kernel as JSON: the thirteen that
 replace a TPU kernel, and the tensor-core GEMM of the decode chain
@@ -270,6 +270,12 @@ REFERENCE_MODULE = "reference_models_not_installed"
 ENC_IMAGES, ENC_EPOCHS, ENC_TAG_RATE = (128, 32), 2, 0.01
 ENC_DTYPE_STEPS, ENC_LR, ENC_DAMP, REMAT_B = 8, 1e-3, 0.2, 8
 DTYPE_FIRST_TOL, REMAT_LOSS_TOL, REMAT_GRAD_TOL = (0.05, 0.05), 1e-5, 1e-3
+# The bf16 step's first gradients against float32's, as cosines: each of
+# the head's two leaves, and the median over the ResNet's trainable leaves.
+# bf16's rounding alone takes a ResNet leaf to 0.42-0.86 here (median 0.59;
+# TF32 gives 0.92-0.99), the head to 0.9997 or more; a step with wrong
+# features misses both (tests/test_torch_tagger_bf16.py's controls).
+DTYPE_HEAD_COS, DTYPE_BACKBONE_COS = 0.99, 0.3
 # one epoch through the uncached path (the device image store) against the
 # cached run's first epoch: each step's loss within this share of it
 UNCACHED_TOL = 1e-4
@@ -2603,41 +2609,20 @@ def timed_steps(step, n):
 
 
 def save_parts(timings):
-    """The async saver's parts of each checkpoint, as printed text."""
-    return "; ".join(
-        f"{t['bytes'] / 2**20:.0f} MiB: wait {t['wait']:.3f} s, copy "
-        f"{t['copy']:.3f} s, write {t['write']:.3f} s" for t in timings)
-
-
-def steps_during(step, work):
-    """Train steps run back to back while work runs in another thread, as
-    the trainer's loop runs beside its async saver: (mean host ms of the
-    steps that started while work ran, each ending in a synchronize;
-    their number; work's seconds).  work=None times 4 steps alone."""
-    import threading
-
+    """The async saver's parts of each checkpoint, and the pinned host
+    memory PyTorch's caching host allocator holds after them (the saver
+    copies into pinned memory and the allocator keeps it), as printed
+    text."""
     import torch
 
-    took, ms = [], []
-    thread = None
-    if work is not None:
-        def run():
-            t0 = time.perf_counter()
-            work()
-            took.append(time.perf_counter() - t0)
-
-        thread = threading.Thread(target=run)
-        thread.start()
-    while (len(ms) < 4 if thread is None else thread.is_alive()
-           or not ms):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - t0))
-    if thread is not None:
-        thread.join()
-    return statistics.mean(ms), len(ms), took[0] if took else 0.0
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    held = None if stats is None else stats().get(
+        "allocated_bytes.current")
+    return "; ".join(
+        f"{t['bytes'] / 2**20:.0f} MiB: wait {t['wait']:.3f} s, copy "
+        f"{t['copy']:.3f} s, write {t['write']:.3f} s" for t in timings) + (
+        "; pinned host memory held: " + ("not measured" if held is None
+                                         else f"{held / 2**20:.0f} MiB"))
 
 
 def encoder_training_phase(dev, cfg, image_size):
@@ -2750,7 +2735,7 @@ def encoder_training_phase(dev, cfg, image_size):
         # ---- one batch at float32 and bfloat16 -----------------------
         batch = tag_train.gather(np.arange(B))
         batch["valid"] = np.ones(B, np.float32)
-        first = {}
+        first, grads = {}, {}
         for dtype in ("float32", "bfloat16"):
             opt = steps.make_optimizer(ENC_LR, 5.0)
             st = tagger.init_state(torch.Generator().manual_seed(SEED),
@@ -2760,9 +2745,15 @@ def encoder_training_phase(dev, cfg, image_size):
                 TrainConfig(batch_size=B, decoder_lr=ENC_LR,
                             tagger_dtype=dtype), opt, dropout_rate=0.0,
                 arch=arch, device=dev)
+            def one_step():
+                loss = float(step(st, batch)[1]["loss"])
+                if dtype not in grads:   # the first step's, clamped
+                    grads[dtype] = {k: p.grad.clone() for k, p in tree_items(
+                        st["params"]) if p.requires_grad}
+                return loss
+
             torch.cuda.reset_peak_memory_stats()
-            out, ms = timed_steps(lambda: float(step(st, batch)[1]["loss"]),
-                                  ENC_DTYPE_STEPS)
+            out, ms = timed_steps(one_step, ENC_DTYPE_STEPS)
             peak = torch.cuda.max_memory_allocated() / 2**30
             first[dtype] = out[0]
             check(out[-1] < out[0], f"{dtype} tagger loss did not fall: "
@@ -2789,6 +2780,23 @@ def encoder_training_phase(dev, cfg, image_size):
         check(abs(first["bfloat16"] - first["float32"])
               < rel * abs(first["float32"]) + ab,
               f"first-step losses {first}")
+        cos = {k: float((a * grads["bfloat16"][k]).sum() / (
+            a.norm() * grads["bfloat16"][k].norm()).clamp_min(1e-30))
+            for k, a in grads["float32"].items()}
+        head = [c for k, c in cos.items() if k.startswith("/linear/")]
+        body = [c for k, c in cos.items() if k.startswith("/resnet/")]
+        check(len(head) == 2 and len(body) > 0
+              and min(head) >= DTYPE_HEAD_COS
+              and statistics.median(body) >= DTYPE_BACKBONE_COS,
+              f"bf16 first gradients against float32's: head cosines {head},"
+              f" median ResNet leaf {statistics.median(body or [0.0])}")
+        print(f"encoder training: tagger first step, bfloat16 against "
+              f"float32: loss {first['bfloat16']:.6f} / "
+              f"{first['float32']:.6f}; gradient cosines: head "
+              f"{min(head):.6f} (limit {DTYPE_HEAD_COS}), {len(body)} ResNet "
+              f"leaves min {min(body):.4f}, median "
+              f"{statistics.median(body):.4f} (limit {DTYPE_BACKBONE_COS})")
+        del grads
 
         # ---- remat: the same step's loss and gradients ----------------
         x = encoders.prep_images(torch.from_numpy(
@@ -2934,39 +2942,6 @@ def encoder_training_phase(dev, cfg, image_size):
               "step counts included) bitwise")
         del again
 
-        # ---- what each part of an async save costs the train loop ------
-        # The fine-tune checkpoint's snapshot, its parts each in a thread
-        # beside float32 tagger steps: the copy to the host as the saver
-        # made it before PR 13 (.cpu() on the default stream, pageable),
-        # the saver's copy now (checkpoint._to_host: a side stream,
-        # pinned) and the file write (torch.save).
-        from indonesian_image_captioning_tpu_torch.core import checkpoint
-        snap = checkpoint._snapshot({"state": caption.state_payload(
-            ft_state)})
-        del ft_state
-        opt = steps.make_optimizer(ENC_LR, 5.0)
-        st = tagger.init_state(torch.Generator().manual_seed(SEED),
-                               tagger_cfg, opt, device=dev)
-        step = steps.make_tagger_train_step(TrainConfig(batch_size=B),
-                                            opt, arch=arch, device=dev)
-        host = []
-        parts = {
-            "none": None,
-            "default-stream copy": lambda: checkpoint._map_tensors(
-                snap, lambda t: t.cpu()),
-            "side-stream copy": lambda: host.append(
-                checkpoint._to_host(snap)[0]),
-            "torch.save": lambda: torch.save(
-                host[0], os.path.join(workdir, "save_probe"))}
-        report = []
-        for label, work in parts.items():
-            ms, n, secs = steps_during(lambda: step(st, batch), work)
-            report.append(f"{label} {secs:.3f} s: {n} steps of {ms:.1f} ms")
-        mib = sum(t.numel() * t.element_size() for _, t in tree_items(snap)
-                  if torch.is_tensor(t)) / 2**20
-        print(f"encoder training: tagger steps (float32, B={B}) beside "
-              f"each part of the fine-tune checkpoint's save ({mib:.0f} "
-              "MiB): " + "; ".join(report))
         return launches
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

@@ -83,37 +83,32 @@ def _snapshot(tree):
     return _map_tensors(tree, lambda t: t.detach().clone())
 
 
-def _to_host(tree):
-    """(tree with every CUDA tensor copied to pinned host memory, bytes
-    copied): the copies run on a stream of each device's own and are
-    waited for."""
-    streams = {}
-    nbytes = [0]
+def _to_host(tree, stream):
+    """(tree with every CUDA tensor copied to pinned host memory on
+    ``stream``, bytes copied); returns once the copies are done."""
+    nbytes = 0
 
     def copy(t):
-        if t.device.type != "cuda":
+        nonlocal nbytes
+        if not t.is_cuda:
             return t
-        stream = streams.setdefault(t.device, torch.cuda.Stream(t.device))
-        nbytes[0] += t.numel() * t.element_size()
+        nbytes += t.numel() * t.element_size()
         with torch.cuda.stream(stream):
             return t.to("cpu", non_blocking=True)
 
     host = _map_tensors(tree, copy)
-    for stream in streams.values():
+    if nbytes:
         stream.synchronize()
-    return host, nbytes[0]
+    return host, nbytes
 
 
-def _devices(tree) -> set:
-    found = set()
-
-    def visit(t):
-        if t.device.type == "cuda":
-            found.add(t.device)
-        return t
-
-    _map_tensors(tree, visit)
-    return found
+def _cuda_device(tree):
+    """The CUDA device of ``tree``'s tensors (a checkpoint lies on one),
+    or None."""
+    found = []
+    _map_tensors(tree, lambda t: found.append(t.device) if t.is_cuda
+                 else None)
+    return found[0] if found else None
 
 
 class AsyncSaver:
@@ -124,11 +119,18 @@ class AsyncSaver:
     device and returns at once; the train step updates the parameters and
     Adam's moments in place, so the next step cannot reach the snapshot.
     An event recorded after the clones orders them before the worker's
-    copies to the host.  The worker copies on a CUDA stream of its own
-    into pinned host memory: a copy on the default stream would wait for
-    the training kernels queued there, and hold up those queued after it.
-    One worker thread writes, in submission order, so the last submitted
-    state is what ends up on disk.
+    copies to the host.  The worker copies on one CUDA stream of the
+    saver's own, made at the first save on a card, into pinned host
+    memory: a copy on the default stream would wait for the training
+    kernels queued there, and hold up those queued after it.  One worker
+    thread writes, in submission order, so the last submitted state is
+    what ends up on disk.  A checkpoint's tensors lie on one device.
+
+    The worker drops each snapshot and its host copy once the file is
+    written.  The pinned memory comes from PyTorch's caching host
+    allocator, which keeps it after the save and reuses it for the next:
+    the process holds one checkpoint's tensor bytes pinned (each save's
+    "bytes" below, rounded up block by block) until it ends.
 
     Call ``wait()`` before reading checkpoints back or returning from the
     trainer; a worker's exception re-raises there (and on the next
@@ -142,6 +144,7 @@ class AsyncSaver:
     def __init__(self):
         self._q: queue.Queue = queue.Queue()
         self._err = None
+        self._stream = None
         self.timings = []
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -152,33 +155,38 @@ class AsyncSaver:
             try:
                 if item is None:
                     return
-                (directory, model, data, snap, is_best), events = item
-                t0 = time.perf_counter()
-                for ev in events:
-                    ev.synchronize()
-                t1 = time.perf_counter()
-                host, nbytes = _to_host(snap)
-                t2 = time.perf_counter()
-                save_checkpoint(directory, model, data, host, is_best)
-                self.timings.append({
-                    "wait": t1 - t0, "copy": t2 - t1,
-                    "write": time.perf_counter() - t2, "bytes": nbytes})
+                self._write(*item)
             except Exception as e:  # surfaced on wait() / the next submit
                 self._err = e
             finally:
+                item = None     # the snapshot goes before the next wait
                 self._q.task_done()
+
+    def _write(self, job, event):
+        directory, model, data, snap, is_best = job
+        t0 = time.perf_counter()
+        if event is not None:
+            event.synchronize()
+        t1 = time.perf_counter()
+        host, nbytes = _to_host(snap, self._stream)
+        t2 = time.perf_counter()
+        save_checkpoint(directory, model, data, host, is_best)
+        self.timings.append({"wait": t1 - t0, "copy": t2 - t1,
+                             "write": time.perf_counter() - t2,
+                             "bytes": nbytes})
 
     def submit(self, directory: str, model_name: str, data_name: str,
                state: Dict[str, Any], is_best: bool) -> None:
         self._raise_pending()
         snap = _snapshot(state)
-        events = []
-        for dev in _devices(snap):
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(dev))
-            events.append(ev)
+        dev, event = _cuda_device(snap), None
+        if dev is not None:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
         self._q.put(((directory, model_name, data_name, snap, is_best),
-                     events))
+                     event))
 
     def wait(self) -> None:
         """Block until every submitted save has been written."""

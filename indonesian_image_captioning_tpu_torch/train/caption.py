@@ -95,34 +95,6 @@ def init_state(key: torch.Generator, cfg: ModelConfig, optimizer, *,
 OPT_KEYS = ("opt_state", "enc_opt_state")
 
 
-def state_payload(state) -> Dict:
-    """The checkpointed form of a train state: each Adam (the decoder's,
-    and the encoder's when fine-tuning) as its state_dict."""
-    return {**state, **{k: state[k].state_dict() for k in OPT_KEYS
-                        if k in state}}
-
-
-@torch.no_grad()
-def restore_state(state, saved) -> None:
-    """Load a checkpoint's state into ``state`` in place: the decoder's
-    and the encoder's parameters are copied into the tensors the
-    optimizers hold, each Adam's moments and step counts loaded, the
-    statistics and the frozen tagger replaced."""
-    dev = state["params"]["embedding"].device
-    for k in ("params", "encoder"):
-        for p, s in zip(steps.tree_leaves(state[k]),
-                        steps.tree_leaves(saved[k]), strict=True):
-            if p.shape != s.shape:
-                raise ValueError(f"checkpoint leaf {tuple(s.shape)} does "
-                                 f"not match the model's {tuple(p.shape)}")
-            p.copy_(s)
-    for k in OPT_KEYS:
-        if k in state:
-            state[k].load_state_dict(saved[k])
-    for k in ("encoder_stats", "tagger", "tagger_stats"):
-        state[k] = steps.map_tree(saved[k], lambda x: x.to(dev))
-
-
 def bleu4_from_batches(references, hypotheses) -> float:
     """Corpus BLEU-4 as the reference validate() computes it (nltk's
     corpus_bleu with default weights, trains/attention_scn.py:377), by the
@@ -253,7 +225,8 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
     if resume:
         restored = ckpt_lib.load_checkpoint(tcfg.checkpoint_dir, model_type,
                                             data_name)
-        restore_state(state, restored["state"])
+        steps.restore_state(state, restored["state"],
+                            params=("params", "encoder"))
         start_epoch = int(restored["epoch"]) + 1
         stale = int(restored["epochs_since_improvement"])
         best = float(restored["metric"])
@@ -415,7 +388,7 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
     saver = ckpt_lib.AsyncSaver() if tcfg.async_checkpoint else None
 
     def save(epoch: int, stale_now: int, metric: float, is_best: bool):
-        payload = {"state": state_payload(state), "epoch": epoch,
+        payload = {"state": steps.state_payload(state), "epoch": epoch,
                    "epochs_since_improvement": stale_now, "metric": metric}
         if saver is not None:
             saver.submit(tcfg.checkpoint_dir, model_type, data_name, payload,

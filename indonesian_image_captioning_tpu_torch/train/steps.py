@@ -76,6 +76,37 @@ def map_tree(tree, fn):
     return fn(tree)
 
 
+def state_payload(state) -> Dict:
+    """The checkpointed form of a train state: each optimizer (a
+    ``torch.optim.Optimizer``, as ``ClampAdam.init`` makes) as its
+    state_dict."""
+    return {k: v.state_dict() if isinstance(v, torch.optim.Optimizer)
+            else v for k, v in state.items()}
+
+
+@torch.no_grad()
+def restore_state(state, saved, params=("params",)) -> None:
+    """Load a checkpoint's state (``state_payload``'s form) into ``state``
+    in place: the parameter trees named in ``params`` copied into the
+    tensors the optimizers hold, each optimizer's moments and step counts
+    loaded, every other entry (running statistics, frozen trees) replaced
+    on the parameters' device."""
+    dev = tree_leaves(state[params[0]])[0].device
+    for k, v in list(state.items()):
+        if k in params:
+            for p, s in zip(tree_leaves(v), tree_leaves(saved[k]),
+                            strict=True):
+                if p.shape != s.shape:
+                    raise ValueError(f"checkpoint leaf {tuple(s.shape)} "
+                                     "does not match the model's "
+                                     f"{tuple(p.shape)}")
+                p.copy_(s)
+        elif isinstance(v, torch.optim.Optimizer):
+            v.load_state_dict(saved[k])
+        else:
+            state[k] = map_tree(saved[k], lambda x: x.to(dev))
+
+
 def cast_tree(tree, dtype):
     """Cast the floating leaves of nested dicts and lists."""
     return map_tree(tree, lambda t: t.to(dtype) if t.is_floating_point()

@@ -63,27 +63,6 @@ def init_state(key: torch.Generator, tagger_cfg: TaggerConfig, optimizer,
             "opt_state": optimizer.init(params)}
 
 
-def state_payload(state):
-    """The checkpointed form of a tagger state: Adam as its state_dict."""
-    return {**state, "opt_state": state["opt_state"].state_dict()}
-
-
-@torch.no_grad()
-def restore_state(state, saved) -> None:
-    """Load a checkpoint's state into ``state`` in place: the parameters
-    copied into the tensors the optimizer holds, Adam's moments and step
-    counts loaded, the running statistics replaced."""
-    dev = state["params"]["linear"]["w"].device
-    for p, s in zip(steps.tree_leaves(state["params"]),
-                    steps.tree_leaves(saved["params"]), strict=True):
-        if p.shape != s.shape:
-            raise ValueError(f"checkpoint leaf {tuple(s.shape)} does not "
-                             f"match the model's {tuple(p.shape)}")
-        p.copy_(s)
-    state["opt_state"].load_state_dict(saved["opt_state"])
-    state["stats"] = steps.map_tree(saved["stats"], lambda x: x.to(dev))
-
-
 def main(data_cfg: DataConfig = DataConfig(),
          tcfg: Optional[TrainConfig] = None,
          tagger_cfg: TaggerConfig = TaggerConfig(),
@@ -130,7 +109,7 @@ def train(train_ds, val_ds, tcfg: Optional[TrainConfig] = None,
     if resume:
         restored = ckpt_lib.load_checkpoint(tcfg.checkpoint_dir, MODEL_NAME,
                                             data_name)
-        restore_state(state, restored["state"])
+        steps.restore_state(state, restored["state"])
         start_epoch = int(restored["epoch"]) + 1
         stale = int(restored["epochs_since_improvement"])
         best = float(restored["metric"])
@@ -217,7 +196,7 @@ def train(train_ds, val_ds, tcfg: Optional[TrainConfig] = None,
     saver = ckpt_lib.AsyncSaver() if tcfg.async_checkpoint else None
 
     def save(epoch: int, stale_now: int, metric: float, is_best: bool):
-        payload = {"state": state_payload(state), "epoch": epoch,
+        payload = {"state": steps.state_payload(state), "epoch": epoch,
                    "epochs_since_improvement": stale_now, "metric": metric}
         if saver is not None:
             saver.submit(tcfg.checkpoint_dir, MODEL_NAME, data_name, payload,

@@ -16,6 +16,7 @@ after ``models/jax_bridge.py``.  Also the port's own checkpoint files,
 import dataclasses
 import sys
 import types
+import weakref
 
 import jax
 import numpy as np
@@ -512,3 +513,29 @@ def test_async_saver_worker_error_raises_on_wait(tmp_path):
     finally:
         saver.close()
     assert int(ckpt.load_checkpoint(str(tmp_path), "m", "d")["epoch"]) == 5
+
+
+def test_async_saver_frees_each_snapshot_after_its_write(tmp_path,
+                                                         monkeypatch):
+    """The worker keeps no reference to a written checkpoint's snapshot
+    (on the card, its device clones and their pinned host copy) while it
+    waits for the next submit."""
+    refs = []
+    snapshot = ckpt._snapshot
+
+    def spy(tree):
+        snap = snapshot(tree)
+        refs.append(weakref.ref(snap["state"]["params"]["w"]))
+        return snap
+
+    monkeypatch.setattr(ckpt, "_snapshot", spy)
+    saver = ckpt.AsyncSaver()
+    try:
+        saver.submit(str(tmp_path), "m", "d", _payload(1), False)
+        saver.wait()
+        assert refs[0]() is None
+    finally:
+        saver.close()
+    assert [sorted(t) for t in saver.timings] == [
+        ["bytes", "copy", "wait", "write"]]
+    assert saver.timings[0]["bytes"] == 0       # nothing on a card

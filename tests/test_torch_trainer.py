@@ -225,7 +225,7 @@ def test_checkpoint_async_save_best_and_resume(tmp_path):
                for s in state["opt_state"].state.values()]
     saver = ckpt.AsyncSaver()
     saver.submit(str(tmp_path), "attention_scn", "d", {
-        "state": caption.state_payload(state), "epoch": 4,
+        "state": steps.state_payload(state), "epoch": 4,
         "epochs_since_improvement": 1, "metric": 0.25}, True)
     with torch.no_grad():     # the next step updates in place
         for p in steps.tree_leaves(state["params"]):
@@ -240,7 +240,8 @@ def test_checkpoint_async_save_best_and_resume(tmp_path):
         assert (payload["epoch"], payload["epochs_since_improvement"],
                 payload["metric"]) == (4, 1, 0.25)
         fresh, _ = small_state(cfg, seed=5)
-        caption.restore_state(fresh, payload["state"])
+        steps.restore_state(fresh, payload["state"],
+                            params=("params", "encoder"))
         for i, p in enumerate(steps.tree_leaves(fresh["params"])):
             assert torch.equal(p, expect[i])
         got = [s["exp_avg"] for s in fresh["opt_state"].state.values()]
