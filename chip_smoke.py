@@ -184,6 +184,29 @@ Phases, each of which exits non-zero on failure:
    layer4 and the stem's running mean moved, and a resume that restores
    the encoder's Adam bitwise.  Each trainer's epoch s and each async
    save's wait, copy and write seconds.
+10. data-parallel training and tools: corpus_score's unigram perplexity
+   over phase 6's TEST hypotheses; two ranks on cuda:0 over NCCL, which
+   refuses a card shared by two ranks (the error is printed); a
+   GloVe-format file for the V=6,763 word map at E=512, loaded by
+   utils/embedding.load_embeddings with its rows bitwise the file's.  Then
+   DP_RANKS ranks spawned on cuda:0 over gloo (the transport; every tensor
+   of the steps on cuda:0), the decoder's embedding from that file: 3
+   steps of parallel/train_step.make_parallel_caption_train_step at a
+   global B=32 (16 rows a rank) at the flagship widths with
+   embed_grad_impl="pallas", each rank's counters zeroed just before and
+   read just after (kernels 8, 9 and 14 once a step), the parameters
+   within DP_PARAM_TOL Adam steps of one rank's on the same global
+   batches, and again on two halves of 816 and 48 tokens; one step inside
+   core.profiling.trace with annotate("train_step"), its Chrome trace
+   holding the annotation and kernels 8 and 9; one epoch of
+   train.caption.train at mesh (2, 1) on 64 + 32 in-memory noise images
+   (kernels 8, 9 and 14 a step a rank), rank 0's checkpoint loaded by
+   cli.common.load_caption_state bitwise each rank's state; and
+   DP_TAGGER_STEPS tagger steps at f32 (global B=16, 256 px, residual
+   branches damped) within DP_TAGGER_TOL of one rank's losses and running
+   statistics.  It prints each rank's step ms, one rank's on the whole
+   batch, the gradient all_reduce's ms, StepTimer.summary() and the
+   phase's wall time beside the card's name and power limit.
 
 The line before the last lists each kernel as JSON: the thirteen that
 replace a TPU kernel, and the tensor-core GEMM of the decode chain
@@ -197,6 +220,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -279,6 +303,21 @@ DTYPE_HEAD_COS, DTYPE_BACKBONE_COS = 0.99, 0.3
 # one epoch through the uncached path (the device image store) against the
 # cached run's first epoch: each step's loss within this share of it
 UNCACHED_TOL = 1e-4
+# The data-parallel phase: ranks on the one card, the global caption batch,
+# the steps held against one rank's, the trainer's TRAIN and VAL images
+# (TRAINER_CPI captions each), the tagger's global batch and steps.
+# Tolerances: each parameter after the caption steps within DP_PARAM_TOL
+# Adam steps' size (decoder_lr) a step of one rank's (Adam moves a weight
+# by about lr a step whatever its gradient's size, so a gradient at
+# rounding level may take the other sign: 2 lr a step, and the rounding of
+# the weight itself on top); the metrics' loss
+# within DP_LOSS_TOL relative; the tagger's losses and each running
+# statistic within DP_TAGGER_TOL relative (of each leaf's largest; its
+# residual branches damped by ENC_DAMP, as in the encoder-training phase).
+DP_RANKS, DP_B, DP_STEPS = 2, 32, 3
+DP_TRAINER_IMAGES, DP_TAGGER_B, DP_TAGGER_STEPS = (64, 32), 16, 2
+DP_PARAM_TOL, DP_LOSS_TOL, DP_TAGGER_TOL = 2.5, 1e-4, 1e-3
+DP_NCCL_TIMEOUT_S, DP_TIMEOUT_S = 120, 600
 # The card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms.
 # "tf32x3": a float32 product as the tensor-core GEMM (csrc/mma.cuh)
 # computes it, three TF32 products at 495 TFLOP/s.
@@ -1472,15 +1511,15 @@ def word_map(V):
             "<unk>": V - 3, "<start>": V - 2, "<end>": V - 1}
 
 
-def captions(rng, n, V, L):
+def captions(rng, n, V, L, lens=None):
     """n seeded captions of the reference's shape: (n, L) ids <start>,
     words, <end>, then <pad>, with caption lengths (<start> and <end>
-    included) uniform in [3, L] and the words drawn Zipf-like (p ~ 1 /
-    rank over the V - 4 word ids), as a corpus's are.  Returns (caps,
-    caplens)."""
+    included) uniform in [3, L] (or the n given lens) and the words drawn
+    Zipf-like (p ~ 1 / rank over the V - 4 word ids), as a corpus's are.
+    Returns (caps, caplens)."""
     import numpy as np
 
-    lens = rng.integers(3, L + 1, n)
+    lens = rng.integers(3, L + 1, n) if lens is None else np.asarray(lens)
     p = 1.0 / np.arange(1, V - 3)
     words = rng.choice(np.arange(1, V - 3), size=(n, L), p=p / p.sum())
     pos = np.arange(L)[None]
@@ -3238,7 +3277,7 @@ def checkpoints_and_evaluation(dev, cfg, image_size, n_images=EVAL_IMAGES,
     tagger's TEST accuracy (eval_tagger.evaluate_dataset) against a plain
     computation; one image through cli.inference.caption_image (kernel 1:
     the alphas recorded), its caption against caption_batch's but at a
-    near-tie."""
+    near-tie.  Returns the TEST hypotheses."""
     import importlib.util
     import tempfile
 
@@ -3385,6 +3424,482 @@ def checkpoints_and_evaluation(dev, cfg, image_size, n_images=EVAL_IMAGES,
           + ", ".join(f"{f} {s:.2f}" for f, s in load_s.items())
           + f"; TEST images/s {n_images / t_eval:.1f}; tagger images/s "
           f"{n_images / t_tag:.1f}")
+    return hyps
+
+
+def dp_batches(dev, cfg, n, lens=None, seed=SEED + 20):
+    """n seeded global caption batches of DP_B rows on dev: float32
+    features (post-ReLU-like, uniform [0, 1)), tags, Zipf captions (lens
+    lengths when given)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    P = cfg.enc_image_size
+    out = []
+    for _ in range(n):
+        caps, caplens = captions(rng, DP_B, cfg.vocab_size,
+                                 cfg.max_caption_len, lens)
+        out.append({
+            "enc": torch.rand((DP_B, P, P, cfg.encoder_dim), device=dev,
+                              generator=gen),
+            "tags": torch.rand((DP_B, cfg.semantic_dim), device=dev,
+                               generator=gen),
+            "caps": torch.from_numpy(caps).long().to(dev),
+            "caplens": torch.from_numpy(caplens).long().to(dev)})
+    return out
+
+
+def leaf_errors(a, b):
+    """(largest, median) absolute difference over the leaves of two
+    parameter trees."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.train.steps import \
+        tree_leaves
+    errs = [float((x.detach() - y.detach()).abs().max())
+            for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True)]
+    return max(errs), float(statistics.median(errs))
+
+
+def dp_rank(rank, port, tmp, glove):
+    """One rank of the data-parallel phase (spawned; rank 0 also runs the
+    one-rank references).  Writes its results to tmp/rank{rank}.pt."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from indonesian_image_captioning_tpu_torch.cli import common
+    from indonesian_image_captioning_tpu_torch.core import meshes, profiling
+    from indonesian_image_captioning_tpu_torch.core.config import (
+        ModelConfig, TaggerConfig, TrainConfig, tagger_train_config)
+    from indonesian_image_captioning_tpu_torch.core.runtime import \
+        get_device
+    from indonesian_image_captioning_tpu_torch.data.datasets import \
+        CaptionDataset
+    from indonesian_image_captioning_tpu_torch.models import (decoders,
+                                                              encoders)
+    from indonesian_image_captioning_tpu_torch.parallel import sharding
+    from indonesian_image_captioning_tpu_torch.parallel import \
+        train_step as ptrain
+    from indonesian_image_captioning_tpu_torch.train import caption, steps
+    from indonesian_image_captioning_tpu_torch.train.steps import \
+        tree_leaves
+    from indonesian_image_captioning_tpu_torch.utils import embedding
+
+    dev = get_device("cuda")
+    meshes.initialize_distributed(
+        init_method=f"tcp://localhost:{port}", world_size=DP_RANKS,
+        rank=rank, backend="gloo", device="cuda", timeout_s=DP_TIMEOUT_S)
+    mesh = meshes.make_mesh((DP_RANKS, 1))
+    res = {"backend": dist.get_backend(), "device": str(dev)}
+    cfg = ModelConfig(model_type="attention_scn", vocab_size=VOCAB,
+                      embed_grad_impl="pallas", dropout=0.0)
+    tcfg = TrainConfig(batch_size=DP_B)
+    lr = tcfg.decoder_lr
+    wm = word_map(VOCAB)
+    t0 = time.perf_counter()
+    emb, _ = embedding.load_embeddings(glove, wm, seed=SEED)
+    res["embedding_load_s"] = time.perf_counter() - t0
+
+    def fresh():
+        params = decoders.init_decoder(
+            torch.Generator().manual_seed(SEED + 20), cfg, device=dev)
+        params = decoders.load_pretrained_embeddings(params, emb)
+        opt = steps.make_optimizer(lr, tcfg.grad_clip)
+        return {"params": params, "opt_state": opt.init(params)}, opt
+
+    def one_rank(batches):
+        """The same global batches through one rank's step (rank 0)."""
+        sub, opt = fresh()
+        _, step = steps.make_caption_train_step(cfg, tcfg, opt, device=dev)
+        it = iter(batches)
+
+        def run():
+            b = next(it)
+            return step(sub, b["enc"], b["tags"], b["caps"], b["caplens"])[1]
+
+        out, ms = timed_steps(run, len(batches))
+        return sub, [float(m["loss"]) for m in out], ms
+
+    # ---- the caption steps: counters zeroed just before, read after ----
+    batches = dp_batches(dev, cfg, DP_STEPS)
+    sub, opt = fresh()
+    sharding.place_state(mesh, sub)
+    step = ptrain.make_parallel_caption_train_step(
+        cfg, tcfg, opt, mesh, device=dev, time_all_reduce=True)
+    local = [sharding.place_batch(mesh, b) for b in batches]
+    on_card = [str(t.device) for t in tree_leaves(sub["params"])
+               + [t for b in local for t in b.values()]]
+    check(set(on_card) == {"cuda:0"}, f"rank {rank}: tensors on "
+          f"{sorted(set(on_card))}")
+    timer = profiling.StepTimer()
+    torch.cuda.synchronize()
+    zero_counters()
+    metrics = []
+    for b in local:
+        timer.start()
+        _, m = step(sub, b["enc"], b["tags"], b["caps"], b["caplens"])
+        timer.stop(m)
+        metrics.append({k: float(v) for k, v in m.items()})
+    ran = read_counters()
+    # ---------------------------------------------------------------------
+    res.update(launches=ran, step_s=list(timer.times),
+               timer=timer.summary(), all_reduce_s=list(step.all_reduce_s),
+               metrics=metrics, rows=int(local[0]["caps"].shape[0]),
+               grad_mb=4 * sum(p.numel() for p in tree_leaves(sub["params"]))
+               / 2**20)
+    check(all(np.isfinite(m["loss"]) for m in metrics),
+          f"rank {rank}: losses {metrics}")
+    if rank == 0:
+        ref, losses, ms = one_rank(batches)
+        res.update(one_rank_ms=ms, one_rank_losses=losses,
+                   param_err=leaf_errors(sub["params"], ref["params"]))
+    meshes.barrier(mesh)
+
+    # ---- two halves whose token counts differ by at least 2x ----
+    lens = [cfg.max_caption_len] * (DP_B // 2) + [4] * (DP_B // 2)
+    uneven = dp_batches(dev, cfg, 1, lens=lens, seed=SEED + 22)
+    sub, opt = fresh()
+    step = ptrain.make_parallel_caption_train_step(cfg, tcfg, opt, mesh,
+                                                   device=dev)
+    b = sharding.place_batch(mesh, uneven[0])
+    _, m = step(sub, b["enc"], b["tags"], b["caps"], b["caplens"])
+    res["uneven"] = {"tokens": int((b["caplens"] - 1).sum()),
+                     "loss": float(m["loss"])}
+    if rank == 0:
+        ref, losses, _ = one_rank(uneven)
+        res["uneven"].update(one_rank_loss=losses[0],
+                             param_err=leaf_errors(sub["params"],
+                                                   ref["params"]))
+    meshes.barrier(mesh)
+
+    # ---- one step inside the profiler, with its annotation ----
+    trace_dir = os.path.join(tmp, "trace")
+    for attempt in range(PROFILE_TRIES):
+        if rank == 0:
+            with profiling.trace(trace_dir):
+                for _ in range(PROFILE_LEAD):
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                with profiling.annotate("train_step"):
+                    _, m = step(sub, b["enc"], b["tags"], b["caps"],
+                                b["caplens"])
+                    torch.cuda.synchronize()
+            with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+                names = {e.get("name", "") for e in
+                         json.load(f)["traceEvents"]}
+            found = {"annotation": "train_step" in names,
+                     "kernel 8": any("train_attend_kernel" in n
+                                     for n in names),
+                     "kernel 9": any("train_att_bwd_kernel" in n
+                                     for n in names)}
+            again = torch.tensor([0 if all(found.values()) else 1])
+        else:
+            _, m = step(sub, b["enc"], b["tags"], b["caps"], b["caplens"])
+            again = torch.tensor([0])
+        dist.broadcast(again, 0)
+        if not int(again):
+            break
+    if rank == 0:
+        res["trace"] = dict(found, takes=attempt + 1)
+        check(all(found.values()), f"the trace of one step holds {found}")
+
+    # ---- the trainer at mesh (2, 1): one epoch, rank 0's checkpoint ----
+    rng = np.random.default_rng(SEED + 23)
+
+    def split(n, name):
+        caps, caplens = captions(rng, n * TRAINER_CPI, VOCAB,
+                                 cfg.max_caption_len)
+        images = rng.integers(0, 256, size=(n, 3, IMAGE_SIZE, IMAGE_SIZE),
+                              dtype=np.uint8)
+        return CaptionDataset.from_arrays(images, caps, caplens,
+                                          cpi=TRAINER_CPI, split=name)
+
+    train_ds, val_ds = (split(n, name) for n, name in
+                        zip(DP_TRAINER_IMAGES, ("TRAIN", "VAL")))
+    ckdir = os.path.join(tmp, "checkpoints")
+    ttcfg = TrainConfig(epochs=1, batch_size=DP_B, print_freq=5,
+                        cache_features=True, calibrate_encoder_stats=1,
+                        checkpoint_dir=ckdir, mesh_shape=(DP_RANKS, 1))
+    kcfg = ModelConfig(model_type="attention_scn", vocab_size=VOCAB,
+                       embed_grad_impl="pallas")
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    state, summary = caption.train("attention_scn", wm, train_ds, val_ds,
+                                   ttcfg, model_cfg=kcfg,
+                                   data_name="dp_corpus",
+                                   log=lambda line: None, device=dev)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    ran = read_counters()
+    n_train = len(train_ds) // DP_B
+    n_val = -(-len(val_ds) // DP_B)
+    check(ran["train_bwd"] == ran["embed_grad_scatter"] == n_train
+          and ran["train_fwd"] == n_train + n_val,
+          f"rank {rank}: the trainer's epoch ran kernels 8, 9 and 14 "
+          f"{ran['train_fwd']}, {ran['train_bwd']} and "
+          f"{ran['embed_grad_scatter']} times in {n_train} train and "
+          f"{n_val} validation steps")
+    check(all(np.isfinite(summary["step_losses"][0])),
+          f"rank {rank}: trainer losses {summary['step_losses']}")
+    meshes.barrier(mesh)
+    t0 = time.perf_counter()
+    loaded = common.load_caption_state(
+        os.path.join(ckdir, "checkpoint_attention_scn_dp_corpus"), kcfg,
+        device=dev)
+    t_load = time.perf_counter() - t0
+    for key in ("params", "encoder", "encoder_stats", "tagger",
+                "tagger_stats"):
+        same = all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(loaded[key]), tree_leaves(state[key]), strict=True))
+        check(same, f"rank {rank}: rank 0's checkpoint differs from this "
+              f"rank's {key}")
+    res["trainer"] = {"s": t_run, "load_s": t_load,
+                      "epoch_s": summary["timings"]["train_epoch"][0],
+                      "cache_s": summary["timings"]["cache_build"],
+                      "train_loss": summary["train_loss"],
+                      "bleu4": summary["best_metric"],
+                      "steps": n_train, "launches": ran}
+    del state, loaded
+    meshes.barrier(mesh)
+
+    # ---- the tagger: DP_TAGGER_STEPS steps at float32 ----
+    rng = np.random.default_rng(SEED + 24)
+    tagger_cfg = TaggerConfig()
+    tbatches = [{
+        "images": torch.from_numpy(rng.integers(
+            0, 256, size=(DP_TAGGER_B, 3, IMAGE_SIZE, IMAGE_SIZE),
+            dtype=np.uint8)).to(dev),
+        "tags": torch.from_numpy((rng.random(
+            (DP_TAGGER_B, tagger_cfg.semantic_size)) < ENC_TAG_RATE
+        ).astype(np.float32)).to(dev)} for _ in range(DP_TAGGER_STEPS)]
+    ttc = tagger_train_config(batch_size=DP_TAGGER_B)
+
+    def tagger_state():
+        params, stats = encoders.init_encoder_tagger(
+            torch.Generator().manual_seed(SEED + 25), tagger_cfg,
+            device=dev)
+        damp_residuals(params)
+        topt = steps.make_optimizer(ttc.decoder_lr, ttc.grad_clip)
+        return {"params": params, "stats": stats,
+                "opt_state": topt.init(params)}, topt
+
+    tstate, topt = tagger_state()
+    sharding.place_state(mesh, tstate)
+    tstep = ptrain.make_parallel_tagger_train_step(ttc, topt, mesh,
+                                                   dropout_rate=0.0,
+                                                   device=dev)
+    it = iter(tbatches)
+    tout, tms = timed_steps(
+        lambda: tstep(tstate, sharding.place_batch(mesh, next(it)))[1],
+        DP_TAGGER_STEPS)
+    res["tagger"] = {"losses": [float(m["loss"]) for m in tout], "ms": tms}
+    if rank == 0:
+        one, topt1 = tagger_state()
+        step1 = steps.make_tagger_train_step(ttc, topt1, dropout_rate=0.0,
+                                             device=dev)
+        ones = [float(step1(one, tb)[1]["loss"]) for tb in tbatches]
+        stat_err = max(
+            float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+            for x, y in zip(tree_leaves(tstate["stats"]),
+                            tree_leaves(one["stats"]), strict=True))
+        res["tagger"].update(one_rank_losses=ones, stat_err=stat_err)
+    meshes.barrier(mesh)
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def nccl_rank(rank, port):
+    """Two ranks on cuda:0 over NCCL: one all_reduce (NCCL refuses a card
+    shared by two ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=DP_RANKS, rank=rank)
+    try:
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, args, timeout_s):
+    """Run fn(rank, *args) on DP_RANKS spawned processes; -> None, or the
+    first failure's text.  Processes still running at timeout_s are
+    killed."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=DP_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + timeout_s
+    try:
+        while not ctx.join(timeout=2):
+            if time.perf_counter() > deadline:
+                return f"still running after {timeout_s} s"
+    except Exception as e:  # a rank raised or died: its text
+        return f"{type(e).__name__}: {e}"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return None
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def data_parallel_phase(dev, cfg, card, hyps):
+    """The data-parallel phase: DP_RANKS ranks on the one card over gloo
+    (the NCCL refusal probed first), caption steps held against one
+    rank's, the trainer at mesh (2, 1), the tagger steps, a profiled step;
+    and corpus_score over the evaluation's TEST hypotheses."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.cli import corpus_score
+    from indonesian_image_captioning_tpu_torch.core.config import \
+        TrainConfig
+    from indonesian_image_captioning_tpu_torch.utils import embedding
+
+    t_phase = time.perf_counter()
+    counts = corpus_score.unigram([[str(w) for w in h] for h in hyps])
+    ppl = corpus_score.perplexity([[str(w) for w in h] for h in hyps],
+                                  counts)
+    check(np.isfinite(ppl) and ppl >= 1.0, f"perplexity {ppl}")
+    print(f"corpus score: the evaluation's {len(hyps)} TEST hypotheses, "
+          f"{sum(counts.values())} tokens, {len(counts)} distinct words, "
+          f"unigram perplexity {ppl:.3f}")
+
+    nccl = spawn(nccl_rank, (free_port(),), DP_NCCL_TIMEOUT_S)
+    first = (nccl or "no error").strip().splitlines()
+    dup = [x for x in first if "uplicate GPU" in x]
+    print("data parallel: NCCL with two ranks on cuda:0: "
+          + (dup[0].strip()[:200] if dup else (first[-1][:200] if first
+                                                else "")))
+
+    rng = np.random.default_rng(SEED + 26)
+    wm = word_map(VOCAB)
+    with tempfile.TemporaryDirectory() as tmp:
+        glove = os.path.join(tmp, "glove.txt")
+        words = [w for w in wm if w.startswith("w")]
+        vecs = (rng.standard_normal((len(words), cfg.embed_dim)) * 0.1
+                ).astype(np.float32)
+        t0 = time.perf_counter()
+        with open(glove, "w") as f:
+            for w, v in zip(words, vecs):
+                f.write(w + " " + " ".join(map(repr, v.tolist())) + "\n")
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        emb, dim = embedding.load_embeddings(glove, wm, seed=SEED)
+        t_load = time.perf_counter() - t0
+        rows = np.asarray([wm[w] for w in words])
+        check(dim == cfg.embed_dim and emb.shape == (VOCAB, cfg.embed_dim)
+              and np.array_equal(emb[rows], vecs),
+              "load_embeddings' rows differ from the file's")
+        print(f"embedding: a GloVe-format file of {len(words)} words x "
+              f"{dim} written in {t_write:.2f} s, loaded by "
+              f"utils/embedding.load_embeddings in {t_load:.2f} s, its "
+              f"rows bitwise the file's, {VOCAB - len(words)} rows drawn")
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        failed = spawn(dp_rank, (free_port(), tmp, glove), DP_TIMEOUT_S)
+        t_ranks = time.perf_counter() - t0
+        if failed:
+            raise SmokeFailure(f"data-parallel ranks: {failed}")
+        r = [torch.load(os.path.join(tmp, f"rank{i}.pt"), weights_only=False)
+             for i in range(DP_RANKS)]
+
+    for i, x in enumerate(r):
+        check(x["backend"] == "gloo" and x["device"] == "cuda",
+              f"rank {i} ran on {x['backend']} / {x['device']}")
+        want = {"train_fwd": DP_STEPS, "train_bwd": DP_STEPS,
+                "embed_grad_scatter": DP_STEPS}
+        got = {k: x["launches"][k] for k in want}
+        check(got == want, f"rank {i} launched {got} in {DP_STEPS} steps")
+        check(x["metrics"] == r[0]["metrics"],
+              f"rank {i}'s metrics differ from rank 0's")
+    lr = TrainConfig().decoder_lr
+    tol = DP_PARAM_TOL * lr * DP_STEPS
+    err, med = r[0]["param_err"]
+    check(err <= tol, f"parameters after {DP_STEPS} data-parallel steps "
+          f"{err} from one rank's (tol {tol})")
+    rel = [abs(a["loss"] - b) / b for a, b in zip(r[0]["metrics"],
+                                                  r[0]["one_rank_losses"])]
+    check(max(rel) <= DP_LOSS_TOL, f"losses {rel} from one rank's")
+    u = [x["uneven"] for x in r]
+    uerr, umed = u[0]["param_err"]
+    urel = abs(u[0]["loss"] - u[0]["one_rank_loss"]) / u[0]["one_rank_loss"]
+    check(u[0]["tokens"] >= 2 * u[1]["tokens"] and uerr <= DP_PARAM_TOL * lr
+          and urel <= DP_LOSS_TOL,
+          f"two halves of {u[0]['tokens']} and {u[1]['tokens']} tokens: "
+          f"parameters {uerr} (tol {DP_PARAM_TOL * lr}), loss {urel} (tol "
+          f"{DP_LOSS_TOL}) from one rank's")
+    tr = [x["trainer"] for x in r]
+    tg = r[0]["tagger"]
+    trel = [abs(a - b) / b for a, b in zip(tg["losses"],
+                                           tg["one_rank_losses"])]
+    check(max(trel) <= DP_TAGGER_TOL and tg["stat_err"] <= DP_TAGGER_TOL
+          and r[1]["tagger"]["losses"] == tg["losses"],
+          f"tagger losses {trel}, running statistics {tg['stat_err']} from "
+          f"one rank's (tol {DP_TAGGER_TOL})")
+
+    def ms(xs):
+        return ", ".join(f"{1e3 * v:.1f}" for v in xs)
+
+    print(f"data parallel: {card}; {DP_RANKS} ranks on cuda:0 over gloo "
+          f"(the transport: NCCL refuses two ranks on one card), every "
+          f"tensor of the steps on cuda:0; embedding loads "
+          + ", ".join(f"{x['embedding_load_s']:.2f}" for x in r) + " s")
+    print(f"data parallel: {DP_STEPS} caption steps at a global B={DP_B} "
+          f"({r[0]['rows']} rows a rank), attention_scn V={VOCAB}, "
+          f"embed_grad_impl=pallas: step ms rank 0 [{ms(r[0]['step_s'])}], "
+          f"rank 1 [{ms(r[1]['step_s'])}]; one rank on the whole batch "
+          f"[{', '.join(f'{v:.1f}' for v in r[0]['one_rank_ms'])}]; gradient "
+          f"all_reduce ({r[0]['grad_mb']:.1f} MiB, host clock between two "
+          f"synchronizes) ms rank 0 [{ms(r[0]['all_reduce_s'])}], rank 1 "
+          f"[{ms(r[1]['all_reduce_s'])}]; launches a rank (8, 9, 14) "
+          f"{DP_STEPS} each; StepTimer.summary() rank 0 {r[0]['timer']}")
+    print(f"data parallel: parameters after {DP_STEPS} steps within "
+          f"{err:.3g} of one rank's (median leaf {med:.3g}; tol {tol:.3g}), "
+          f"losses within {max(rel):.3g} (tol {DP_LOSS_TOL}); two halves of "
+          f"{u[0]['tokens']} and {u[1]['tokens']} tokens: parameters "
+          f"{uerr:.3g} (median {umed:.3g}; tol {DP_PARAM_TOL * lr:.3g}), "
+          f"loss {urel:.3g}")
+    print(f"data parallel: profiled step (rank 0, core.profiling.trace): "
+          f"{r[0]['trace']}")
+    print(f"data parallel: train.caption.train at mesh ({DP_RANKS}, 1), 1 "
+          f"epoch of {tr[0]['steps']} steps, feature cache on the host: "
+          + "; ".join(f"rank {i} {t['s']:.1f} s in all, epoch "
+                      f"{t['epoch_s']:.3f} s, cache {t['cache_s']:.3f} s, "
+                      f"checkpoint load {t['load_s']:.2f} s"
+                      for i, t in enumerate(tr))
+          + f"; train_loss {tr[0]['train_loss']:.4f}, BLEU-4 "
+          f"{tr[0]['bleu4']:.3g}; rank 0's checkpoint bitwise both ranks' "
+          "state")
+    print(f"data parallel: tagger, {DP_TAGGER_STEPS} steps at f32, global "
+          f"B={DP_TAGGER_B}, 256 px: losses {tg['losses']} (one rank "
+          f"{tg['one_rank_losses']}), within {max(trel):.3g}; running "
+          f"statistics within {tg['stat_err']:.3g} (tol {DP_TAGGER_TOL}); "
+          f"step ms rank 0 [{', '.join(f'{v:.1f}' for v in tg['ms'])}]")
+    print(f"data parallel: the ranks {t_ranks:.1f} s; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -3437,7 +3952,7 @@ def main() -> int:
     print(f"phases: kernels {t0 - t_start:.1f} s, serve and inference "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    checkpoints_and_evaluation(dev, cfg, IMAGE_SIZE)
+    hyps = checkpoints_and_evaluation(dev, cfg, IMAGE_SIZE)
     print(f"phases: checkpoints and evaluation "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3450,6 +3965,10 @@ def main() -> int:
     t0 = time.perf_counter()
     encoder_training_phase(dev, cfg, IMAGE_SIZE)
     print(f"phases: encoder training {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    data_parallel_phase(dev, cfg, card, hyps)
+    print(f"phases: data-parallel training and tools "
+          f"{time.perf_counter() - t0:.1f} s")
 
     T = cfg.max_caption_len - 1
     fwd_work, bwd_work = train_work(cfg, B, T)

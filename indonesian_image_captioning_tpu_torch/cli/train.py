@@ -11,9 +11,19 @@ neither does this one; ``main(argv, device=...)`` takes the tests').
 ``--fine_tune_encoder`` trains the caption encoder's stages 2-4 with the
 decoder; ``--encoder_remat`` rematerialises the ResNet bottlenecks of the
 differentiated encoder passes (the tagger, fine-tuning);
-``--tagger_dtype`` sets the tagger's compute type.  Not ported yet, and
-raising ``NotImplementedError`` with the ROADMAP.md queue 1 item that
-ports it: ``--mesh`` (item 7).
+``--tagger_dtype`` sets the tagger's compute type.
+
+``--mesh D`` (or ``D,1``) trains data-parallel, one process per rank::
+
+    torchrun --nproc_per_node D -m indonesian_image_captioning_tpu_torch.cli.train \
+        -t attention_scn --mesh D ...
+
+Each rank joins the process group from torchrun's environment
+(``core/meshes.initialize_distributed``): over NCCL when each rank has a
+card of its own, over gloo when the ranks share cards (two ranks on one
+card).  ``--mesh_order`` lays the ranks out as JAX's does.  ``--mesh D,M``
+with M > 1 raises ``NotImplementedError`` (ROADMAP.md queue 1 item 7's
+model axis).
 """
 
 from __future__ import annotations
@@ -90,8 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--head_tile", type=int, default=None,
                    help="vocab-tile width for the chunked head (2048)")
     p.add_argument("--mesh", default=None, metavar="D,M",
-                   help="device mesh as data,model axis sizes (not ported "
-                        "yet)")
+                   help="device mesh as data,model axis sizes (one "
+                        "process per rank under torchrun; M > 1 is not "
+                        "ported yet)")
     p.add_argument("--mesh_order", default=None,
                    choices=("rowmajor", "colmajor"),
                    help="mesh device enumeration order")
@@ -108,9 +119,10 @@ CAPTION_TYPES = ("pure_scn", "attention_scn", "pure_attention")
 def main(argv=None, device="cuda"):
     args = build_parser().parse_args(argv)
     if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the multi-device trainer is not ported yet (ROADMAP.md "
-            "queue 1 item 7)")
+        from ..core.meshes import initialize_distributed
+        from ..parallel.sharding import check_data_axis_only
+        check_data_axis_only(_mesh_shape(args.mesh))
+        initialize_distributed(device=device)
     data_cfg = DataConfig(data_folder=args.data_folder,
                           data_name=args.data_name)
     overrides = _load_model_json(args.model_json)
@@ -174,16 +186,20 @@ def _override(tcfg: TrainConfig, args) -> TrainConfig:
     if getattr(args, "head_tile", None):
         kw["head_tile"] = args.head_tile
     if getattr(args, "mesh", None):
-        parts = tuple(int(x) for x in args.mesh.split(","))
-        if len(parts) == 1:
-            parts = (parts[0], 1)
-        if len(parts) != 2 or parts[0] < 1 or parts[1] < 1:
-            raise SystemExit(f"--mesh must be D or D,M with positive sizes, "
-                             f"got {args.mesh!r}")
-        kw["mesh_shape"] = parts
+        kw["mesh_shape"] = _mesh_shape(args.mesh)
     if getattr(args, "mesh_order", None):
         kw["mesh_order"] = args.mesh_order
     return dataclasses.replace(tcfg, **kw) if kw else tcfg
+
+
+def _mesh_shape(spec: str):
+    parts = tuple(int(x) for x in spec.split(","))
+    if len(parts) == 1:
+        parts = (parts[0], 1)
+    if len(parts) != 2 or parts[0] < 1 or parts[1] < 1:
+        raise SystemExit(f"--mesh must be D or D,M with positive sizes, "
+                         f"got {spec!r}")
+    return parts
 
 
 if __name__ == "__main__":

@@ -201,3 +201,33 @@ class AsyncSaver:
         if self._err is not None:
             err, self._err = self._err, None
             raise err
+
+
+def trainer_saver(tcfg, mesh, model_name: str, data_name: str, state_fn):
+    """(the async saver or None, save(epoch, stale, metric, is_best)) of a
+    trainer: the checkpoint holds ``state_fn()``, the epoch counters and
+    the metric.  Saves are asynchronous under ``tcfg.async_checkpoint`` in
+    a single process.  Under a multi-rank mesh (``core/meshes.py``) rank
+    0 alone writes, synchronously (JAX saves asynchronously only in a
+    single process), and every rank waits for the write before the next
+    epoch."""
+    from . import meshes
+    multi = mesh is not None and mesh.size > 1
+    saver = AsyncSaver() if tcfg.async_checkpoint and not multi else None
+    writer = not multi or meshes.world()[0] == 0
+
+    def save(epoch: int, stale_now: int, metric: float, is_best: bool):
+        if writer:
+            payload = {"state": state_fn(), "epoch": epoch,
+                       "epochs_since_improvement": stale_now,
+                       "metric": metric}
+            if saver is not None:
+                saver.submit(tcfg.checkpoint_dir, model_name, data_name,
+                             payload, is_best)
+            else:
+                save_checkpoint(tcfg.checkpoint_dir, model_name, data_name,
+                                payload, is_best)
+        if multi:
+            meshes.barrier(mesh)
+
+    return saver, save

@@ -74,17 +74,25 @@ def build(dataset, *, budget_bytes: int, device, log=print,
     return store
 
 
-def build_pair(tcfg, train_ds, val_ds, device, log=print):
+def build_pair(tcfg, train_ds, val_ds, device, log=print,
+               multi_process: bool = False):
     """TRAIN + VAL stores per ``TrainConfig.device_images``
     ("auto" | "on" | "off"), sharing ``device_images_budget_gb``.
 
     Marks each stored dataset ``load_images = False`` so the loader stops
     gathering pixels; callers must then iterate ``with_index=True`` and
-    substitute ``store.lookup(batch["index"], cpi)``."""
+    substitute ``store.lookup(batch["index"], cpi)``.  In a multi-process
+    (data-parallel) run there is no store, as in JAX: each rank's input
+    stays on the sliced loader path ("on" raises there)."""
     mode = tcfg.device_images
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"unknown device_images {mode!r}")
     if mode == "off":
+        return None, None
+    if multi_process:
+        if mode == "on":
+            raise ValueError("device_images='on' is single-process only")
+        log("device image store disabled (multi-process run)")
         return None, None
     budget = int(tcfg.device_images_budget_gb * (1 << 30))
     train_store = build(train_ds, budget_bytes=budget, device=device,

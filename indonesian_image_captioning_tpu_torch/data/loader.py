@@ -16,8 +16,9 @@ stream of its own; the consumer's stream waits on an event recorded after
 each batch's copies.  Images travel as uint8 (4x less host-to-device
 traffic than float32); normalisation runs on the device.
 
-Single process only: the JAX loader's per-process slicing of a global
-batch belongs to the multi-device trainer, which is not ported.
+Under a data-parallel mesh each rank iterates its own block of every
+global batch (``process_index`` / ``process_count``), as JAX's processes
+do.
 """
 
 from __future__ import annotations
@@ -57,24 +58,32 @@ def iterate(dataset, batch_size: int, *, shuffle: bool = False, seed: int = 0,
 
     with_index adds each row's dataset index ("index", int32; padding rows
     repeat index 0 and are masked by valid and caplens downstream), so a
-    device-resident cache or store can gather its rows by lookup."""
-    if process_count != 1 or process_index != 0:
-        raise NotImplementedError(
-            "multi-process input slicing belongs to the multi-device "
-            "trainer, which is not ported (ROADMAP.md queue 1 item 7)")
+    device-resident cache or store can gather its rows by lookup.
+
+    Data-parallel runs: with process_count > 1 each rank gathers only its
+    contiguous 1/process_count block of every GLOBAL batch (rank
+    process_index of the mesh's data axis, ``core/meshes.process_data_slice``).
+    The shuffle order, the padding and the ``valid`` masks are computed
+    globally, the same on every rank, so the ranks' blocks put together
+    are the one-process batch."""
+    if batch_size % process_count:
+        raise ValueError(f"batch_size {batch_size} must be divisible by "
+                         f"process_count {process_count}")
+    local = batch_size // process_count
+    lo, hi = process_index * local, (process_index + 1) * local
     for chunk, valid in batch_indices(len(dataset), batch_size,
                                       shuffle=shuffle, seed=seed, epoch=epoch,
                                       drop_last=drop_last):
-        batch = dataset.gather(chunk)
+        batch = dataset.gather(chunk[lo:hi])
         if with_index:
-            batch["index"] = chunk.astype(np.int32)
+            batch["index"] = chunk[lo:hi].astype(np.int32)
         mask = np.zeros(batch_size, np.float32)
         mask[:valid] = 1.0
-        batch["valid"] = mask
-        if valid < batch_size and "caplens" in batch:
+        batch["valid"] = mask[lo:hi]
+        if valid < hi and "caplens" in batch:
             # zero caplens on padding rows -> zero token mask downstream
             batch["caplens"] = batch["caplens"].copy()
-            batch["caplens"][valid:] = 0
+            batch["caplens"][max(valid - lo, 0):] = 0
         yield batch
 
 

@@ -27,13 +27,19 @@ activations grow block by block to about 1e10.
 in the backward; ``"convs"`` also keeps the convolution outputs and
 recomputes only BatchNorm and ReLU.  Both give the gradients of no
 rematerialisation; the new statistics are the forward's.
+
+Under ``batch_stats_over(group)`` the train-mode statistics span the
+global batch of a data-parallel group (``parallel/train_step.py``), as
+JAX's partitioned step reduces them over the whole batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
@@ -102,20 +108,107 @@ def _conv(x, w, stride: int, padding: int):
     return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding)
 
 
+# The process group whose global batch the train-mode statistics span
+# ("group", None for the world group) while "on": see batch_stats_over.
+_SYNC = {"on": False, "group": None}
+
+
+@contextlib.contextmanager
+def batch_stats_over(group=None):
+    """Train-mode BatchNorm inside the block takes its batch statistics
+    over the global batch of ``group``'s ranks (synchronised BatchNorm;
+    None is the world group), each rank holding an equal share of the rows
+    (:class:`_SyncBatchNorm`).  Run the backward inside the block too: a
+    rematerialised block recomputes its BatchNorm there.  The setting is
+    process-wide (the autograd engine runs a CUDA backward on a thread of
+    its own)."""
+    saved = dict(_SYNC)
+    _SYNC.update(on=True, group=group)
+    try:
+        yield
+    finally:
+        _SYNC.update(saved)
+
+
+def _ch(v):
+    return v.reshape(1, -1, 1, 1)
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of a process group, in
+    float32: (x, scale, bias) -> (y, mean, biased variance).
+
+    Two all_reduces a pass, each taken after the one before it: the sum,
+    then the centred squares in the forward; the cotangent's sum, then
+    its centred product with the normalised input in the backward:
+    dx = scale inv (g - mean(g) - xhat mean((g - mean(g)) xhat)).  Each
+    rank's rows sit away from the global mean, so a rank's sums of
+    uncentred terms are large and cancel only across the ranks; centring
+    first keeps the result as accurate as one device's.  The scale's
+    gradient is each rank's share of sum((g - mean(g)) xhat) (the same
+    total: xhat sums to zero), the bias's its share of sum(g); the step
+    sums both over the ranks with the other gradients."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, group):
+        xf = x.to(torch.float32)
+        n = xf.shape[0] * xf.shape[2] * xf.shape[3] * dist.get_world_size(
+            group)
+        total = xf.sum(dim=(0, 2, 3))
+        dist.all_reduce(total, group=group)
+        mean = total / n
+        centred = xf - _ch(mean)
+        sq = (centred * centred).sum(dim=(0, 2, 3))
+        dist.all_reduce(sq, group=group)
+        var = torch.clamp_min(sq / n, 0.0)
+        inv = torch.rsqrt(var + BN_EPS)
+        xhat = centred * _ch(inv)
+        y = xhat * _ch(scale.to(torch.float32)) + _ch(bias.to(torch.float32))
+        ctx.save_for_backward(xhat, inv, scale)
+        ctx.group, ctx.n, ctx.x_dtype = group, n, x.dtype
+        ctx.bias_dtype = bias.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        xhat, inv, scale = ctx.saved_tensors
+        gy = gy.to(torch.float32)
+        gsum = gy.sum(dim=(0, 2, 3))
+        gmean = gsum.clone()
+        dist.all_reduce(gmean, group=ctx.group)
+        gc = gy - _ch(gmean / ctx.n)
+        dscale = (gc * xhat).sum(dim=(0, 2, 3))
+        dx = None
+        if ctx.needs_input_grad[0]:
+            m2 = dscale.clone()
+            dist.all_reduce(m2, group=ctx.group)
+            dx = ((gc - xhat * _ch(m2 / ctx.n))
+                  * _ch(scale.to(torch.float32) * inv)).to(ctx.x_dtype)
+        return dx, dscale.to(scale.dtype), gsum.to(ctx.bias_dtype), None
+
+
 def _bn(x, p, s, train):
     """NCHW BatchNorm; returns (y, new_stats).  train: False, True or
     "calibrate" (see the module docstring)."""
+    y = None
     if train:
-        # the batch statistics reduce in float32; the clamp keeps a
-        # cancelled variance from going negative
-        xf = x.to(torch.float32)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp_min(xf.var(dim=(0, 2, 3), unbiased=False), 0.0)
-        m, v = mean.detach(), var.detach()
+        if _SYNC["on"]:
+            y, m, v = _SyncBatchNorm.apply(x, p["scale"], p["bias"],
+                                           _SYNC["group"])
+            n = (x.shape[0] * x.shape[2] * x.shape[3]
+                 * dist.get_world_size(_SYNC["group"]))
+        else:
+            # the batch statistics reduce in float32; the clamp keeps a
+            # cancelled variance from going negative
+            xf = x.to(torch.float32)
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min(xf.var(dim=(0, 2, 3), unbiased=False), 0.0)
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            m, v = mean.detach(), var.detach()
         if train == "calibrate":
             new_s = {"mean": m, "var": v}
         elif train is True:
-            n = x.shape[0] * x.shape[2] * x.shape[3]
             unbiased = v * n / max(n - 1, 1)
             new_s = {
                 "mean": (1 - BN_MOMENTUM) * s["mean"] + BN_MOMENTUM * m,
@@ -127,12 +220,9 @@ def _bn(x, p, s, train):
     else:
         mean, var = s["mean"], s["var"]
         new_s = s
-    inv = torch.rsqrt(var + BN_EPS)
-
-    def ch(v):
-        return v.reshape(1, -1, 1, 1)
-
-    y = (x - ch(mean)) * ch(inv * p["scale"]) + ch(p["bias"])
+    if y is None:
+        inv = torch.rsqrt(var + BN_EPS)
+        y = (x - _ch(mean)) * _ch(inv * p["scale"]) + _ch(p["bias"])
     return y.to(x.dtype), new_s
 
 

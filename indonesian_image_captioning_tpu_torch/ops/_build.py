@@ -5,6 +5,8 @@ plain-C shared library under ``build/torch_kernels/`` at the repository
 root, and loaded with ``ctypes``.  All sources build in parallel, one
 ``nvcc`` each.  A library's file name carries a hash of its sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
+Processes that share the checkout build once (a lock file in the build
+folder).
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -12,6 +14,7 @@ There is no fallback: a missing ``nvcc`` or a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -111,14 +114,29 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def _build_missing() -> None:
-    """Compile every library that is not built yet, all at once."""
+def _missing() -> Dict[str, Path]:
     todo = {n: _lib_path(n) for n in SIGNATURES}
-    todo = {n: p for n, p in todo.items() if not p.exists()}
-    if not todo:
+    return {n: p for n, p in todo.items() if not p.exists()}
+
+
+def _build_missing() -> None:
+    """Compile every library that is not built yet, all at once.
+
+    Processes that share the checkout (the ranks of a data-parallel run)
+    build once: the first to take the lock on ``BUILD_DIR/build.lock``
+    builds, the others wait on it and then find the libraries built."""
+    if not _missing():
         return
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        todo = _missing()
+        if todo:
+            _compile(nvcc, todo)
+
+
+def _compile(nvcc: str, todo: Dict[str, Path]) -> None:
     t0 = time.perf_counter()
     procs = {}
     for name, path in todo.items():

@@ -14,24 +14,36 @@ import torch
 from ..core.metrics import topk_hit
 
 
-def masked_cross_entropy(logits, targets, mask):
-    """Mean CE over valid tokens: logits (B, T, V), targets (B, T) int,
+def masked_nll_sum(logits, targets, mask):
+    """Summed CE over valid tokens: logits (B, T, V), targets (B, T) int,
     mask (B, T) in {0, 1}."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets.long().unsqueeze(-1))[..., 0]
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return (nll * mask).sum()
 
 
-def doubly_stochastic_penalty(alphas, mask, alpha_c: float):
-    """alpha_c * mean over valid rows of mean_p (1 - sum_t alpha)^2;
-    alphas (B, T, P), mask (B, T)."""
-    if alphas is None or alpha_c == 0.0:
-        return torch.zeros((), dtype=torch.float32, device=mask.device)
+def masked_cross_entropy(logits, targets, mask):
+    """Mean CE over valid tokens (:func:`masked_nll_sum` over their
+    count)."""
+    return masked_nll_sum(logits, targets, mask) / mask.sum().clamp(min=1.0)
+
+
+def penalty_sum(alphas, mask, alpha_c: float):
+    """(alpha_c * sum over valid rows of mean_p (1 - sum_t alpha)^2, the
+    number of valid rows); alphas (B, T, P), mask (B, T).  The
+    data-parallel step divides the first by the global row count."""
     total = (alphas * mask[..., None]).sum(dim=1)             # (B, P)
     row_valid = (mask.sum(dim=1) > 0).to(total.dtype)         # (B,)
     per_row = ((1.0 - total) ** 2).mean(dim=1)                # (B,)
-    return alpha_c * (per_row * row_valid).sum() / row_valid.sum().clamp(
-        min=1.0)
+    return alpha_c * (per_row * row_valid).sum(), row_valid.sum()
+
+
+def doubly_stochastic_penalty(alphas, mask, alpha_c: float):
+    """alpha_c * mean over valid rows of mean_p (1 - sum_t alpha)^2."""
+    if alphas is None or alpha_c == 0.0:
+        return torch.zeros((), dtype=torch.float32, device=mask.device)
+    pen, rows = penalty_sum(alphas, mask, alpha_c)
+    return pen / rows.clamp(min=1.0)
 
 
 def caption_loss(outputs, caps, alpha_c: float = 0.0):
@@ -63,11 +75,17 @@ def caption_loss_chunked(fc, outputs, caps, alpha_c: float = 0.0,
                       "n_tokens": n_tokens, "topk": topk}
 
 
+def bce_elements(probs, targets, eps: float = 1e-7):
+    """Elementwise binary cross-entropy on probabilities clipped to
+    [eps, 1 - eps]."""
+    p = probs.clamp(eps, 1.0 - eps)
+    return -(targets * torch.log(p) + (1.0 - targets) * torch.log1p(-p))
+
+
 def bce_loss(probs, targets, eps: float = 1e-7, row_valid=None):
     """Binary cross-entropy on probabilities (the tagger's loss); row_valid
     (B,) leaves out the padding rows of a final partial batch."""
-    p = probs.clamp(eps, 1.0 - eps)
-    elem = -(targets * torch.log(p) + (1.0 - targets) * torch.log1p(-p))
+    elem = bce_elements(probs, targets, eps)
     if row_valid is None:
         return elem.mean()
     w = row_valid.to(elem.dtype)

@@ -22,9 +22,16 @@ caption encoder's stages 2-4 with the decoder
 (``steps.make_caption_finetune_train_step``, a second Adam at
 ``encoder_lr``, the encoder's Adam state in the checkpoint, both LRs
 decayed together as the reference's trains/attention_scn.py:140-142
-does); it needs pixels every step, so it refuses ``cache_features``.  Not
-ported yet, and raising ``NotImplementedError``: a device mesh
-(``tcfg.mesh_shape != (1, 1)``, ROADMAP.md queue 1 item 7).
+does); it needs pixels every step, so it refuses ``cache_features``.
+
+``tcfg.mesh_shape`` (D, 1) trains data-parallel, one process per rank
+(``torchrun``, ``core/meshes.py``): each rank takes its block of every
+global batch, the steps of ``parallel/train_step.py`` sum the gradients
+over the ranks, the feature cache stays on the host, the validation
+hypotheses are gathered before BLEU-4, and rank 0 alone writes the
+checkpoints, synchronously (every rank loads them on resume).  A model
+axis (M > 1) raises ``NotImplementedError`` (ROADMAP.md queue 1 item 7's
+model axis).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import Dict, Optional
 import torch
 
 from ..core import checkpoint as ckpt_lib
+from ..core import meshes
 from ..core.config import DataConfig, ModelConfig, TaggerConfig, TrainConfig
 from ..core.prng import per_step, root_key, stream
 from ..core.runtime import get_device
@@ -45,6 +53,7 @@ from ..data import vocab as vocab_lib
 from ..data.datasets import CaptionDataset
 from ..evaluation.metrics import corpus_bleu_nltk_style
 from ..models import convert, decoders, encoders
+from ..parallel import sharding
 from . import steps
 from .loop import EpochPrinter, fit
 
@@ -183,10 +192,7 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
     epoch, each ending when the device has finished; "save", the async
     saver's parts of each checkpoint, ``AsyncSaver.timings``)."""
     dev = device if isinstance(device, torch.device) else get_device(device)
-    if tuple(tcfg.mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh_shape {tuple(tcfg.mesh_shape)}: the multi-device "
-            "trainer is not ported yet (ROADMAP.md queue 1 item 7)")
+    mesh, proc = sharding.trainer_mesh(tcfg)
     fine_tune = tcfg.fine_tune_encoder
     if fine_tune and tcfg.cache_features:
         raise ValueError("cache_features requires a frozen encoder "
@@ -232,7 +238,22 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
         best = float(restored["metric"])
         log(f"resumed from the checkpoint of epoch {start_epoch}")
 
-    if fine_tune:
+    drop_key = stream(root_key(tcfg.seed, dev), "caption_dropout")
+    if mesh is not None:
+        # replicas start equal: every tensor (and Adam's moments after a
+        # resume) broadcast from rank 0; each rank draws its own dropout
+        from ..parallel import train_step as ptrain
+        sharding.place_state(mesh, state)
+        drop_key = stream(drop_key, f"rank{mesh.data_index}")
+        if fine_tune:
+            tagger_fn, finetune_step = \
+                ptrain.make_parallel_caption_finetune_step(
+                    cfg, tcfg, optimizer, enc_optimizer, mesh, device=dev)
+        else:
+            encode_fn = steps.make_encoders_fn(cfg, tcfg.encoder_dtype, dev)
+            train_step = ptrain.make_parallel_caption_train_step(
+                cfg, tcfg, optimizer, mesh, device=dev)
+    elif fine_tune:
         tagger_fn, finetune_step = steps.make_caption_finetune_train_step(
             cfg, tcfg, optimizer, enc_optimizer, device=dev)
     else:
@@ -240,21 +261,25 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
             cfg, tcfg, optimizer, device=dev)
     eval_encode_fn, eval_step = steps.make_caption_eval_step(cfg, tcfg,
                                                              device=dev)
-    drop_key = stream(root_key(tcfg.seed, dev), "caption_dropout")
     n_train = loader_lib.num_batches(len(train_ds), tcfg.batch_size)
     n_val = loader_lib.num_batches(len(val_ds), tcfg.batch_size)
 
     # -- frozen-feature cache: the encoders run once per unique image ------
+    # (under a mesh it stays on the host: the rows join each rank's batch
+    # in the dataset view)
     train_cache = val_cache = None
     train_it_ds, val_it_ds = train_ds, val_ds
     timings = {"train_epoch": {}}
     if tcfg.cache_features:
         from . import feature_cache
         t0 = time.perf_counter()
+        host = mesh is not None
         train_cache = feature_cache.build(state, cfg, tcfg, train_ds,
-                                          device=dev, log=log, split="TRAIN")
+                                          device=dev, log=log, split="TRAIN",
+                                          force_host=host)
         val_cache = feature_cache.build(state, cfg, tcfg, val_ds,
-                                        device=dev, log=log, split="VAL")
+                                        device=dev, log=log, split="VAL",
+                                        force_host=host)
         _sync(dev)
         timings["cache_build"] = time.perf_counter() - t0
         if train_cache.on_device:
@@ -276,7 +301,7 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
     if not tcfg.cache_features:
         from ..data import device_store
         train_store, val_store = device_store.build_pair(
-            tcfg, train_ds, val_ds, dev, log)
+            tcfg, train_ds, val_ds, dev, log, multi_process=mesh is not None)
     cpi = train_ds.cpi
 
     def with_pixels(store, batch):
@@ -292,7 +317,8 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
         it = loader_lib.prefetch_to_device(loader_lib.iterate(
             train_it_ds, tcfg.batch_size, shuffle=True, seed=tcfg.seed,
             epoch=epoch, with_index=(train_cache is not None
-                                     or train_store is not None)), dev)
+                                     or train_store is not None), **proc),
+            dev)
         losses = step_losses.setdefault(epoch, [])
         # metrics stay on the device between print boundaries: a per-step
         # read would wait for every step to finish before queuing the next
@@ -343,8 +369,8 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
         references, hypotheses = [], []
         it = loader_lib.prefetch_to_device(loader_lib.iterate(
             val_it_ds, tcfg.batch_size,
-            with_index=(val_cache is not None or val_store is not None)),
-            dev)
+            with_index=(val_cache is not None or val_store is not None),
+            **proc), dev)
         for i, batch in enumerate(it):
             printer.data_loaded()
             batch = with_pixels(val_store, batch)
@@ -354,13 +380,23 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
                 enc_out, tags = eval_encode_fn(state, batch)
             m = eval_step(state["params"], enc_out, tags, batch["captions"],
                           batch["caplens"])
-            n_tok = int(m["n_tokens"])
+            n_tok, loss, top5 = (float(m["n_tokens"]), float(m["loss"]),
+                                 float(m["top5"]))
+            fetch = {"preds": m["preds"], "caplens": batch["caplens"],
+                     "allcaps": batch["allcaps"], "valid": batch["valid"]}
+            if mesh is not None:
+                # the global batch's metrics and rows on every rank, so
+                # every rank computes the same BLEU-4 gate
+                loss, top5, n_tok = meshes.host_sum(
+                    [loss * n_tok, top5 * n_tok, n_tok], mesh)
+                loss, top5 = loss / max(n_tok, 1.0), top5 / max(n_tok, 1.0)
+            fetch = meshes.host_gather(fetch, mesh)
+            n_tok = int(n_tok)
             printer.update(i, weights={"Loss": n_tok, "Top5": n_tok},
-                           Loss=float(m["loss"]), Top5=float(m["top5"]))
-            preds = m["preds"].cpu().numpy()
-            caplens = batch["caplens"].cpu().numpy()
-            allcaps = batch["allcaps"].cpu().numpy()
-            valid = batch["valid"].cpu().numpy() > 0
+                           Loss=loss, Top5=top5)
+            preds, caplens, allcaps = (fetch["preds"], fetch["caplens"],
+                                       fetch["allcaps"])
+            valid = fetch["valid"] > 0
             for b in range(preds.shape[0]):
                 if not valid[b]:
                     continue
@@ -385,17 +421,9 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
         log(f"DECAYING learning rate; new LR "
             f"{steps.current_learning_rate(state['opt_state']):.6f}")
 
-    saver = ckpt_lib.AsyncSaver() if tcfg.async_checkpoint else None
-
-    def save(epoch: int, stale_now: int, metric: float, is_best: bool):
-        payload = {"state": steps.state_payload(state), "epoch": epoch,
-                   "epochs_since_improvement": stale_now, "metric": metric}
-        if saver is not None:
-            saver.submit(tcfg.checkpoint_dir, model_type, data_name, payload,
-                         is_best)
-        else:
-            ckpt_lib.save_checkpoint(tcfg.checkpoint_dir, model_type,
-                                     data_name, payload, is_best)
+    saver, save = ckpt_lib.trainer_saver(
+        tcfg, mesh, model_type, data_name,
+        lambda: steps.state_payload(state))
 
     try:
         summary = fit(tcfg, train_epoch=train_epoch, validate=validate,

@@ -16,9 +16,11 @@ in memory (``TagDataset.from_arrays``).  The checkpoint is
 "stats", "opt_state"}, "epoch", "epochs_since_improvement", "metric"}``
 (Adam as its state_dict); ``cli/common.load_tagger_state`` and
 ``train/caption.init_state(tagger_checkpoint=...)`` read it.  The
-trainer runs on the card unless the caller asks for the CPU; a device
-mesh (``tcfg.mesh_shape != (1, 1)``) raises ``NotImplementedError``
-(ROADMAP.md queue 1 item 7).
+trainer runs on the card unless the caller asks for the CPU.
+``tcfg.mesh_shape`` (D, 1) trains data-parallel as ``train/caption.py``
+does (one process per rank, ``parallel/train_step.py``'s tagger step with
+BatchNorm statistics over the global batch, rank 0 writing the
+checkpoints synchronously); a model axis raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Optional
 import torch
 
 from ..core import checkpoint as ckpt_lib
+from ..core import meshes
 from ..core.config import DataConfig, TaggerConfig, TrainConfig
 from ..core.config import tagger_train_config
 from ..core.prng import per_step, root_key, stream
@@ -38,6 +41,7 @@ from ..data import device_store
 from ..data import loader as loader_lib
 from ..data.datasets import TagDataset
 from ..models import convert, encoders
+from ..parallel import sharding
 from . import steps
 from .loop import EpochPrinter, fit
 
@@ -92,10 +96,7 @@ def train(train_ds, val_ds, tcfg: Optional[TrainConfig] = None,
     ``AsyncSaver.timings``)."""
     dev = device if isinstance(device, torch.device) else get_device(device)
     tcfg = tcfg or tagger_train_config()
-    if tuple(tcfg.mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh_shape {tuple(tcfg.mesh_shape)}: the multi-device "
-            "trainer is not ported yet (ROADMAP.md queue 1 item 7)")
+    mesh, proc = sharding.trainer_mesh(tcfg)
     if train_ds.tags.shape[1] != tagger_cfg.semantic_size:
         tagger_cfg = dataclasses.replace(
             tagger_cfg, semantic_size=int(train_ds.tags.shape[1]))
@@ -115,20 +116,28 @@ def train(train_ds, val_ds, tcfg: Optional[TrainConfig] = None,
         best = float(restored["metric"])
         log(f"resumed from the checkpoint of epoch {start_epoch}")
 
-    train_step = steps.make_tagger_train_step(
-        tcfg, optimizer, tagger_cfg.dropout, arch=tagger_cfg.encoder_arch,
-        device=dev)
+    drop_key = stream(root_key(tcfg.seed, dev), "tagger_dropout")
+    if mesh is not None:
+        from ..parallel.train_step import make_parallel_tagger_train_step
+        sharding.place_state(mesh, state)
+        drop_key = stream(drop_key, f"rank{mesh.data_index}")
+        train_step = make_parallel_tagger_train_step(
+            tcfg, optimizer, mesh, tagger_cfg.dropout,
+            arch=tagger_cfg.encoder_arch, device=dev)
+    else:
+        train_step = steps.make_tagger_train_step(
+            tcfg, optimizer, tagger_cfg.dropout,
+            arch=tagger_cfg.encoder_arch, device=dev)
     eval_step = steps.make_tagger_eval_step(
         arch=tagger_cfg.encoder_arch, compute_dtype=tcfg.tagger_dtype,
         device=dev)
-    drop_key = stream(root_key(tcfg.seed, dev), "tagger_dropout")
     n_train = loader_lib.num_batches(len(train_ds), tcfg.batch_size)
     n_val = loader_lib.num_batches(len(val_ds), tcfg.batch_size)
 
     # -- device image store: pixels resident on the device, batches carry
     # indices (the tagger consumes raw pixels every step)
-    train_store, val_store = device_store.build_pair(tcfg, train_ds, val_ds,
-                                                     dev, log)
+    train_store, val_store = device_store.build_pair(
+        tcfg, train_ds, val_ds, dev, log, multi_process=mesh is not None)
 
     step_losses = {}
     timings = {"train_epoch": {}}
@@ -144,7 +153,7 @@ def train(train_ds, val_ds, tcfg: Optional[TrainConfig] = None,
         printer = EpochPrinter("Epoch", epoch, n_train, tcfg.print_freq, log)
         it = loader_lib.prefetch_to_device(loader_lib.iterate(
             train_ds, tcfg.batch_size, shuffle=True, seed=tcfg.seed,
-            epoch=epoch, with_index=train_store is not None), dev)
+            epoch=epoch, with_index=train_store is not None, **proc), dev)
         losses = step_losses.setdefault(epoch, [])
         # metrics stay on the device between print boundaries
         pending = []
@@ -177,13 +186,20 @@ def train(train_ds, val_ds, tcfg: Optional[TrainConfig] = None,
         printer = EpochPrinter("Validation", epoch, n_val, tcfg.print_freq,
                                log)
         it = loader_lib.prefetch_to_device(loader_lib.iterate(
-            val_ds, tcfg.batch_size, with_index=val_store is not None), dev)
+            val_ds, tcfg.batch_size, with_index=val_store is not None,
+            **proc), dev)
         for i, batch in enumerate(it):
             printer.data_loaded()
             batch = pixels(val_store, batch)
             m = eval_step(state["params"], state["stats"], batch)
-            printer.update(i, Loss=float(m["loss"]),
-                           Accuracy=float(m["acc"]))
+            loss, acc = float(m["loss"]), float(m["acc"])
+            if mesh is not None:
+                # the global batch's: each rank's means weighted by its
+                # valid rows
+                n = float(batch["valid"].sum())
+                loss, acc, n = meshes.host_sum([loss * n, acc * n, n], mesh)
+                loss, acc = loss / max(n, 1.0), acc / max(n, 1.0)
+            printer.update(i, Loss=loss, Accuracy=acc)
         acc = printer.avg("Accuracy")
         log(f"\n * ACCURACY - {acc:.3f}\n")
         return acc
@@ -193,17 +209,9 @@ def train(train_ds, val_ds, tcfg: Optional[TrainConfig] = None,
         log(f"DECAYING learning rate; new LR "
             f"{steps.current_learning_rate(state['opt_state']):.6f}")
 
-    saver = ckpt_lib.AsyncSaver() if tcfg.async_checkpoint else None
-
-    def save(epoch: int, stale_now: int, metric: float, is_best: bool):
-        payload = {"state": steps.state_payload(state), "epoch": epoch,
-                   "epochs_since_improvement": stale_now, "metric": metric}
-        if saver is not None:
-            saver.submit(tcfg.checkpoint_dir, MODEL_NAME, data_name, payload,
-                         is_best)
-        else:
-            ckpt_lib.save_checkpoint(tcfg.checkpoint_dir, MODEL_NAME,
-                                     data_name, payload, is_best)
+    saver, save = ckpt_lib.trainer_saver(
+        tcfg, mesh, MODEL_NAME, data_name,
+        lambda: steps.state_payload(state))
 
     try:
         summary = fit(tcfg, train_epoch=train_epoch, validate=validate,

@@ -147,8 +147,16 @@ def test_iterate_matches_jax(data_env, shuffle, epoch, drop_last,
                                                          drop_last)
     for a, b in zip(ours, theirs):
         assert_batches_equal(a, b)
-    with pytest.raises(NotImplementedError, match=r"item 7\)"):
-        next(loader.iterate(ds, 4, process_count=2))
+    # a data-parallel rank's block of every global batch is JAX's process
+    # slice
+    for rank in range(2):
+        ours = list(loader.iterate(ds, 4, process_index=rank,
+                                   process_count=2, **kw))
+        theirs = list(jax_loader.iterate(jds, 4, process_index=rank,
+                                         process_count=2, **kw))
+        assert len(ours) == len(theirs)
+        for a, b in zip(ours, theirs):
+            assert_batches_equal(a, b)
 
 
 def test_prefetch_yields_the_batches_and_stops(data_env):
@@ -402,9 +410,10 @@ def parser_spec(parser):
 
 def test_cli_parses_the_jax_flags_and_raises_on_unported_paths(data_env,
                                                                tmp_path):
-    """The CLI's flags equal JAX's; --mesh raises, naming its ROADMAP.md
-    queue 1 item; --fine_tune_encoder and a tagger --type (with
-    --encoder_remat and --tagger_dtype) each train one tiny epoch."""
+    """The CLI's flags equal JAX's; a model axis (--mesh D,M with M > 1)
+    raises, naming its ROADMAP.md queue 1 item; --fine_tune_encoder and a
+    tagger --type (with --encoder_remat and --tagger_dtype) each train one
+    tiny epoch."""
     assert parser_spec(cli.build_parser()) == parser_spec(
         jax_cli.build_parser())
     argv = ["-t", "attention_scn", "--epochs", "3", "-bs", "8",
@@ -421,13 +430,13 @@ def test_cli_parses_the_jax_flags_and_raises_on_unported_paths(data_env,
     spec = '{"embed_dim": 8}'
     assert cli._load_model_json(spec) == jax_cli._load_model_json(spec)
     # the message names the ROADMAP.md queue 1 item that ports its path
-    with pytest.raises(NotImplementedError, match=r"item 7\)"):
-        cli.main(["-t", "pure_scn", "--mesh", "2,1", "--checkpoint_dir",
+    with pytest.raises(NotImplementedError, match=r"item 7's model axis"):
+        cli.main(["-t", "pure_scn", "--mesh", "2,2", "--checkpoint_dir",
                   str(tmp_path)], device="cpu")
     wm = {"<pad>": 0, "a": 1, "<start>": 2}
-    with pytest.raises(NotImplementedError, match=r"item 7\)"):
+    with pytest.raises(NotImplementedError, match=r"item 7's model axis"):
         caption.train("pure_scn", wm, None, None,
-                      TrainConfig(mesh_shape=(2, 1)), device="cpu")
+                      TrainConfig(mesh_shape=(2, 2)), device="cpu")
     common = ["-df", data_env, "-dn", NAME, "--epochs", "1", "-bs", "4"]
     widths = json.dumps(dict(embed_dim=16, decoder_dim=16, factored_dim=12,
                              enc_image_size=2, max_caption_len=12,
