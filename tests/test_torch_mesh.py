@@ -15,7 +15,9 @@ JAX's single-device step on the whole batch:
   of the two halves' own losses (what averaging each rank's mean, DDP's
   default, would give), which it must not be;
 * the fine-tune step (one image a rank: the train-mode BatchNorm's
-  statistics span both ranks) and the tagger step (two images a rank):
+  statistics span both ranks) and the tagger step (two images a rank;
+  again under encoder_remat="blocks", which recomputes each block's
+  synchronised BatchNorm in the backward):
   ``tests/test_torch_finetune.py``'s and ``tests/test_torch_tagger.py``'s
   tolerances (the loss 1e-4 relative, gradients 2e-3 of each leaf's
   largest, weights within 2 lr, statistics 1e-4 relative); the one-rank
@@ -146,12 +148,14 @@ def ranks(tmp_path_factory, jparams, jax_finetune_case,  # noqa: F811
                    caps=torch.tensor(c["caps"]).long(),
                    caplens=torch.tensor(c["caplens"]).long())))
     t = jax_step_case
-    cases.append(dict(
-        case="tagger_step", tcfg=dict(batch_size=4, decoder_lr=LR),
-        arch=ARCH, params=params_from_jax(t["state"]["params"]),
-        stats=params_from_jax(t["state"]["stats"]),
-        batch={k: torch.tensor(np.asarray(v))
-               for k, v in t["batch"].items()}))
+    for remat in (False, "blocks"):
+        cases.append(dict(
+            case="tagger_step",
+            tcfg=dict(batch_size=4, decoder_lr=LR, encoder_remat=remat),
+            arch=ARCH, params=params_from_jax(t["state"]["params"]),
+            stats=params_from_jax(t["state"]["stats"]),
+            batch={k: torch.tensor(np.asarray(v))
+                   for k, v in t["batch"].items()}))
     return launch(tmp_path_factory.mktemp("mesh_steps"), {"cases": cases})
 
 
@@ -317,3 +321,15 @@ def test_tagger_step_synced_batchnorm_matches_jax(ranks,
     alone = by_path(state["stats"])
     assert max(rel_err(alone[k].numpy(), ref[k].numpy()) for k in ref) > \
         1e-2
+
+
+def test_rematerialised_tagger_step_under_sync(ranks):
+    """encoder_remat="blocks" recomputes each block's synchronised
+    BatchNorm inside the backward, its all_reduces in the same order on
+    every rank: the same gradients and statistics as without remat."""
+    plain, remat = ranks[0][3], ranks[0][4]
+    assert_replicas_equal(ranks, 4, ("params", "stats"))
+    assert remat["metrics"] == plain["metrics"]
+    for key in ("grads", "stats"):
+        for k, v in plain[key].items():
+            assert rel_err(remat[key][k].numpy(), v.numpy()) < 1e-5, (key, k)
