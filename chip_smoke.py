@@ -189,24 +189,35 @@ Phases, each of which exits non-zero on failure:
    refuses a card shared by two ranks (the error is printed); a
    GloVe-format file for the V=6,763 word map at E=512, loaded by
    utils/embedding.load_embeddings with its rows bitwise the file's.  Then
-   DP_RANKS ranks spawned on cuda:0 over gloo (the transport; every tensor
-   of the steps on cuda:0), the decoder's embedding from that file: 3
-   steps of parallel/train_step.make_parallel_caption_train_step at a
-   global B=32 (16 rows a rank) at the flagship widths with
-   embed_grad_impl="pallas", each rank's counters zeroed just before and
-   read just after (kernels 8, 9 and 14 once a step), the parameters
-   within DP_PARAM_TOL Adam steps of one rank's on the same global
-   batches, and again on two halves of 816 and 48 tokens; one step inside
-   core.profiling.trace with annotate("train_step"), its Chrome trace
-   holding the annotation and kernels 8 and 9; one epoch of
+   DP_RANKS ranks spawned on cuda:0 over gloo (the transport, named by the
+   phase; every tensor of the steps on cuda:0), the decoder's embedding
+   from that file: 3 steps of parallel/train_step's
+   make_parallel_caption_train_step (train/steps.make_caption_train_step
+   given the mesh) at a global B=32 (16 rows a rank) at the flagship
+   widths with embed_grad_impl="pallas", each rank's counters zeroed just
+   before and read just after (kernels 8, 9 and 14 once a step), both
+   ranks' metrics and parameters bitwise equal; each step held against
+   one rank's step from the same state on the same global batch (the
+   summed, clamped gradients within DP_GRAD_TOL and the update within
+   DP_UPDATE_TOL, both relative in the 2-norm, the loss within
+   DP_LOSS_TOL) and a control, rank 0's rows alone, that must fail those
+   limits; the parameters' movement over the 3 steps within DP_PARAM_TOL
+   of one rank's own run's; the same on two halves of 816 and 48 tokens,
+   with DDP's average of the halves' means as a second control; a bare
+   all_reduce of the gradients' size timed between two synchronizes; one
+   step inside core.profiling.trace with annotate("train_step"), its
+   Chrome trace holding the annotation and kernels 8 and 9; one epoch of
    train.caption.train at mesh (2, 1) on 64 + 32 in-memory noise images
    (kernels 8, 9 and 14 a step a rank), rank 0's checkpoint loaded by
    cli.common.load_caption_state bitwise each rank's state; and
    DP_TAGGER_STEPS tagger steps at f32 (global B=16, 256 px, residual
-   branches damped) within DP_TAGGER_TOL of one rank's losses and running
-   statistics.  It prints each rank's step ms, one rank's on the whole
-   batch, the gradient all_reduce's ms, StepTimer.summary() and the
-   phase's wall time beside the card's name and power limit.
+   branches damped), each held against one rank's from the same state
+   (loss and running statistics within DP_TAGGER_TOL, gradients within
+   DP_TAGGER_GRAD_TOL, the update within DP_TAGGER_UPDATE_TOL) with rank
+   0's rows alone as the control.  It prints each rank's step ms, one
+   rank's on the whole batch, the all_reduce's ms, StepTimer.summary(),
+   every reading beside its limit and the phase's wall time beside the
+   card's name and power limit.
 
 The line before the last lists each kernel as JSON: the thirteen that
 replace a TPU kernel, and the tensor-core GEMM of the decode chain
@@ -306,17 +317,32 @@ UNCACHED_TOL = 1e-4
 # The data-parallel phase: ranks on the one card, the global caption batch,
 # the steps held against one rank's, the trainer's TRAIN and VAL images
 # (TRAINER_CPI captions each), the tagger's global batch and steps.
-# Tolerances: each parameter after the caption steps within DP_PARAM_TOL
-# Adam steps' size (decoder_lr) a step of one rank's (Adam moves a weight
-# by about lr a step whatever its gradient's size, so a gradient at
-# rounding level may take the other sign: 2 lr a step, and the rounding of
-# the weight itself on top); the metrics' loss
-# within DP_LOSS_TOL relative; the tagger's losses and each running
-# statistic within DP_TAGGER_TOL relative (of each leaf's largest; its
-# residual branches damped by ENC_DAMP, as in the encoder-training phase).
+# Each data-parallel step is held against one rank's step from the same
+# state (parameters, Adam's moments, running statistics) on the whole
+# global batch: the summed, clamped gradients and the update, each
+# relative in the 2-norm, within DP_GRAD_TOL and DP_UPDATE_TOL (the
+# tagger's DP_TAGGER_GRAD_TOL and DP_TAGGER_UPDATE_TOL), the loss within
+# DP_LOSS_TOL relative, the tagger's loss and each running statistic
+# within DP_TAGGER_TOL relative (of each leaf's largest; its residual
+# branches damped by ENC_DAMP, as in the encoder-training phase).  A
+# control, rank 0's rows alone (its own mean, nothing summed), and for
+# the unequal halves DDP's average of the two halves' own means, must
+# exceed those limits.  The parameters' movement over DP_STEPS caption
+# steps lies within DP_PARAM_TOL (2-norm, relative) of one rank's own
+# run over the same global batches.  No limit is per weight: Adam moves
+# a weight by about lr whatever its gradient's size, so a near-zero
+# gradient that takes the other sign moves it 2 lr the other way in a
+# sound run.  Each limit lies between the sound reading and the
+# control's, read on an H100: gradients 3.9e-07 against 0.17 (the
+# tagger's 1.3e-03 against 0.19), update 2.0e-05 against 0.78 (the
+# tagger's 0.059 against 1.2), statistics 6.6e-07 against 0.044, the
+# loss 1.1e-07 against DDP's 2.2e-04 (at random weights every token's
+# loss is near log V, so any weighting of the tokens moves the mean
+# little), the movement over 3 steps 3.6e-05.
 DP_RANKS, DP_B, DP_STEPS = 2, 32, 3
 DP_TRAINER_IMAGES, DP_TAGGER_B, DP_TAGGER_STEPS = (64, 32), 16, 2
-DP_PARAM_TOL, DP_LOSS_TOL, DP_TAGGER_TOL = 2.5, 1e-4, 1e-3
+DP_GRAD_TOL, DP_UPDATE_TOL, DP_PARAM_TOL, DP_LOSS_TOL = 1e-4, 5e-3, 5e-3, 1e-5
+DP_TAGGER_TOL, DP_TAGGER_GRAD_TOL, DP_TAGGER_UPDATE_TOL = 1e-4, 0.02, 0.25
 DP_NCCL_TIMEOUT_S, DP_TIMEOUT_S = 120, 600
 # The card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms.
 # "tf32x3": a float32 product as the tensor-core GEMM (csrc/mma.cuh)
@@ -3463,6 +3489,65 @@ def leaf_errors(a, b):
     return max(errs), float(statistics.median(errs))
 
 
+def dp_flat(tensors):
+    """Tensors as one flat float32 vector."""
+    import torch
+
+    return torch.cat([t.detach().reshape(-1).to(torch.float32)
+                      for t in tensors])
+
+
+def dp_flat_grads(opt_state):
+    """The gradients an optimizer's last step applied (clamped; under a
+    mesh summed over the ranks), flat, in its parameters' order."""
+    return dp_flat([p.grad for g in opt_state.param_groups
+                    for p in g["params"]])
+
+
+def rel_err(a, b):
+    """|a - b| / |b| in the 2-norm, in float64."""
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-300))
+
+
+def leaf_rel(a, b):
+    """The largest of each leaf's largest absolute difference over its
+    largest absolute value (two lists of tensors)."""
+    return max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+               for x, y in zip(a, b, strict=True))
+
+
+def dp_snapshot(state, params_key, *other):
+    """A train state before a step: its parameters' values, its
+    optimizer's state_dict and copies of the ``other`` trees."""
+    import copy
+
+    from indonesian_image_captioning_tpu_torch.train.steps import (
+        map_tree, tree_leaves)
+    return ([p.detach().clone() for p in tree_leaves(state[params_key])],
+            copy.deepcopy(state["opt_state"].state_dict()),
+            {k: map_tree(state[k], lambda t: t.clone()) for k in other})
+
+
+def dp_replay(state, params_key, snap, lr, run, *other):
+    """Load a snapshot into a one-rank state and take one step (run());
+    -> (its clamped gradients, its update in units of lr, its loss)."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.train.steps import (
+        map_tree, tree_leaves)
+    leaves = tree_leaves(state[params_key])
+    with torch.no_grad():
+        for p, s in zip(leaves, snap[0], strict=True):
+            p.copy_(s)
+    state["opt_state"].load_state_dict(snap[1])
+    for k in other:
+        state[k] = map_tree(snap[2][k], lambda t: t.clone())
+    loss = float(run()["loss"])
+    return (dp_flat_grads(state["opt_state"]),
+            (dp_flat(leaves) - dp_flat(snap[0])) / lr, loss)
+
+
 def dp_rank(rank, port, tmp, glove):
     """One rank of the data-parallel phase (spawned; rank 0 also runs the
     one-rank references).  Writes its results to tmp/rank{rank}.pt."""
@@ -3524,40 +3609,89 @@ def dp_rank(rank, port, tmp, glove):
         out, ms = timed_steps(run, len(batches))
         return sub, [float(m["loss"]) for m in out], ms
 
+    # one rank's step, replayed from the data-parallel state before a step
+    ref, ref_opt = fresh()
+    _, ref_step = steps.make_caption_train_step(cfg, tcfg, ref_opt,
+                                                device=dev)
+
+    def replay(snap, batch, rows=slice(None)):
+        b = {k: v[rows] for k, v in batch.items()}
+        return dp_replay(ref, "params", snap, lr, lambda: ref_step(
+            ref, b["enc"], b["tags"], b["caps"], b["caplens"])[1])
+
     # ---- the caption steps: counters zeroed just before, read after ----
     batches = dp_batches(dev, cfg, DP_STEPS)
     sub, opt = fresh()
     sharding.place_state(mesh, sub)
-    step = ptrain.make_parallel_caption_train_step(
-        cfg, tcfg, opt, mesh, device=dev, time_all_reduce=True)
+    step = ptrain.make_parallel_caption_train_step(cfg, tcfg, opt, mesh,
+                                                   device=dev)
     local = [sharding.place_batch(mesh, b) for b in batches]
     on_card = [str(t.device) for t in tree_leaves(sub["params"])
                + [t for b in local for t in b.values()]]
     check(set(on_card) == {"cuda:0"}, f"rank {rank}: tensors on "
           f"{sorted(set(on_card))}")
     timer = profiling.StepTimer()
+    snaps, grads = [], []
     torch.cuda.synchronize()
     zero_counters()
     metrics = []
     for b in local:
+        snaps.append(dp_snapshot(sub, "params"))
         timer.start()
         _, m = step(sub, b["enc"], b["tags"], b["caps"], b["caplens"])
         timer.stop(m)
+        grads.append(dp_flat_grads(sub["opt_state"]))
         metrics.append({k: float(v) for k, v in m.items()})
     ran = read_counters()
     # ---------------------------------------------------------------------
+    after = dp_flat(tree_leaves(sub["params"]))
     res.update(launches=ran, step_s=list(timer.times),
-               timer=timer.summary(), all_reduce_s=list(step.all_reduce_s),
-               metrics=metrics, rows=int(local[0]["caps"].shape[0]),
-               grad_mb=4 * sum(p.numel() for p in tree_leaves(sub["params"]))
-               / 2**20)
+               timer=timer.summary(), metrics=metrics,
+               rows=int(local[0]["caps"].shape[0]),
+               digest=[float(after.double().sum()),
+                       float(grads[-1].double().sum())])
     check(all(np.isfinite(m["loss"]) for m in metrics),
           f"rank {rank}: losses {metrics}")
     if rank == 0:
-        ref, losses, ms = one_rank(batches)
-        res.update(one_rank_ms=ms, one_rank_losses=losses,
-                   param_err=leaf_errors(sub["params"], ref["params"]))
+        # each step against one rank's from the same state on the same
+        # global batch: the summed, clamped gradients, the update (in lr)
+        # and the loss; the control is rank 0's rows alone (its own mean,
+        # nothing summed), which must fail the same limits
+        moved = [dp_flat(s[0]) for s in snaps] + [after]
+        cmp = []
+        for i, (snap, b) in enumerate(zip(snaps, batches)):
+            g, u, loss = replay(snap, b)
+            cmp.append({"grad": rel_err(grads[i], g),
+                        "update": rel_err((moved[i + 1] - moved[i]) / lr,
+                                          u),
+                        "loss": abs(metrics[i]["loss"] - loss) / loss})
+            if i == 0:
+                g0, u0 = g, u
+        g, u, _ = replay(snaps[0], batches[0], slice(0, DP_B // DP_RANKS))
+        ref3, losses, ms = one_rank(batches)
+        res.update(cmp=cmp, control={"grad": rel_err(g, g0),
+                                     "update": rel_err(u, u0)},
+                   one_rank_ms=ms, one_rank_losses=losses,
+                   param_rel=rel_err(after - moved[0],
+                                     dp_flat(tree_leaves(ref3["params"]))
+                                     - moved[0]),
+                   param_err=leaf_errors(sub["params"], ref3["params"]))
+        del ref3, moved
+    del snaps, grads
     meshes.barrier(mesh)
+
+    # ---- the gradient all_reduce alone: a flat buffer of its size ----
+    buf = torch.zeros(after.numel() + 4, device=dev)
+    ar = []
+    for _ in range(DP_STEPS):
+        meshes.barrier(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        ar.append(time.perf_counter() - t0)
+    res.update(all_reduce_s=ar, grad_mb=4 * buf.numel() / 2**20)
+    del buf
 
     # ---- two halves whose token counts differ by at least 2x ----
     lens = [cfg.max_caption_len] * (DP_B // 2) + [4] * (DP_B // 2)
@@ -3566,14 +3700,27 @@ def dp_rank(rank, port, tmp, glove):
     step = ptrain.make_parallel_caption_train_step(cfg, tcfg, opt, mesh,
                                                    device=dev)
     b = sharding.place_batch(mesh, uneven[0])
+    snap = dp_snapshot(sub, "params")
     _, m = step(sub, b["enc"], b["tags"], b["caps"], b["caplens"])
     res["uneven"] = {"tokens": int((b["caplens"] - 1).sum()),
                      "loss": float(m["loss"])}
     if rank == 0:
-        ref, losses, _ = one_rank(uneven)
-        res["uneven"].update(one_rank_loss=losses[0],
-                             param_err=leaf_errors(sub["params"],
-                                                   ref["params"]))
+        # against one rank's step on the whole batch; the controls: rank
+        # 0's half alone, and the mean of the two halves' own-mean
+        # gradients (DDP's average), both of which must fail the limit
+        g, u, loss = replay(snap, uneven[0])
+        u_dp = (dp_flat(tree_leaves(sub["params"])) - dp_flat(snap[0])) / lr
+        half = DP_B // DP_RANKS
+        ga, _, la = replay(snap, uneven[0], slice(0, half))
+        gb, _, lb = replay(snap, uneven[0], slice(half, None))
+        res["uneven"].update(
+            one_rank_loss=loss,
+            grad=rel_err(dp_flat_grads(sub["opt_state"]), g),
+            update=rel_err(u_dp, u),
+            own=rel_err(ga, g), ddp=rel_err((ga + gb) / 2, g),
+            ddp_loss=abs((la + lb) / 2 - loss) / loss)
+    del snap
+    del ref, ref_opt
     meshes.barrier(mesh)
 
     # ---- one step inside the profiler, with its annotation ----
@@ -3693,21 +3840,51 @@ def dp_rank(rank, port, tmp, glove):
     tstep = ptrain.make_parallel_tagger_train_step(ttc, topt, mesh,
                                                    dropout_rate=0.0,
                                                    device=dev)
-    it = iter(tbatches)
-    tout, tms = timed_steps(
-        lambda: tstep(tstate, sharding.place_batch(mesh, next(it)))[1],
-        DP_TAGGER_STEPS)
+    tsnaps, tgrads, tstats, tout, tms = [], [], [], [], []
+    for tb in tbatches:
+        tsnaps.append(dp_snapshot(tstate, "params", "stats"))
+        part = sharding.place_batch(mesh, tb)
+        out, ms = timed_steps(lambda: tstep(tstate, part)[1], 1)
+        tout += out
+        tms += ms
+        tgrads.append(dp_flat_grads(tstate["opt_state"]))
+        tstats.append([t.clone() for t in tree_leaves(tstate["stats"])])
     res["tagger"] = {"losses": [float(m["loss"]) for m in tout], "ms": tms}
     if rank == 0:
+        # each step against one rank's from the same state on the whole
+        # batch: the loss, the new running statistics, the gradients and
+        # the update; the control, rank 0's rows alone
         one, topt1 = tagger_state()
         step1 = steps.make_tagger_train_step(ttc, topt1, dropout_rate=0.0,
                                              device=dev)
-        ones = [float(step1(one, tb)[1]["loss"]) for tb in tbatches]
-        stat_err = max(
-            float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
-            for x, y in zip(tree_leaves(tstate["stats"]),
-                            tree_leaves(one["stats"]), strict=True))
-        res["tagger"].update(one_rank_losses=ones, stat_err=stat_err)
+        tlr = ttc.decoder_lr
+
+        def treplay(snap, tb, rows=slice(None)):
+            part = {k: v[rows] for k, v in tb.items()}
+            g, u, loss = dp_replay(one, "params", snap, tlr,
+                                   lambda: step1(one, part)[1], "stats")
+            return g, u, loss, tree_leaves(one["stats"])
+
+        moved = [dp_flat(s[0]) for s in tsnaps] + [
+            dp_flat(tree_leaves(tstate["params"]))]
+        cmp = []
+        for i, (snap, tb) in enumerate(zip(tsnaps, tbatches)):
+            g, u, loss, stats = treplay(snap, tb)
+            cmp.append({
+                "loss": abs(res["tagger"]["losses"][i] - loss) / loss,
+                "stats": leaf_rel(tstats[i], stats),
+                "grad": rel_err(tgrads[i], g),
+                "update": rel_err((moved[i + 1] - moved[i]) / tlr, u)})
+            if i == 0:
+                g0, u0, s0 = g, u, stats
+        g, u, _, stats = treplay(tsnaps[0], tbatches[0],
+                                 slice(0, DP_TAGGER_B // DP_RANKS))
+        res["tagger"].update(
+            cmp=cmp, control={"grad": rel_err(g, g0),
+                              "update": rel_err(u, u0),
+                              "stats": leaf_rel(stats, s0)})
+        del one
+    del tsnaps, tgrads, tstats
     meshes.barrier(mesh)
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -3833,35 +4010,63 @@ def data_parallel_phase(dev, cfg, card, hyps):
                 "embed_grad_scatter": DP_STEPS}
         got = {k: x["launches"][k] for k in want}
         check(got == want, f"rank {i} launched {got} in {DP_STEPS} steps")
-        check(x["metrics"] == r[0]["metrics"],
-              f"rank {i}'s metrics differ from rank 0's")
+        check(x["metrics"] == r[0]["metrics"]
+              and x["digest"] == r[0]["digest"],
+              f"rank {i}'s metrics or parameters differ from rank 0's")
     lr = TrainConfig().decoder_lr
-    tol = DP_PARAM_TOL * lr * DP_STEPS
+    worst = {k: max(c[k] for c in r[0]["cmp"])
+             for k in ("grad", "update", "loss")}
+    ctl = r[0]["control"]
+    check(worst["grad"] <= DP_GRAD_TOL and worst["update"] <= DP_UPDATE_TOL
+          and worst["loss"] <= DP_LOSS_TOL,
+          f"{DP_STEPS} data-parallel steps against one rank's from the same "
+          f"state: {r[0]['cmp']} (limits: gradients {DP_GRAD_TOL}, update "
+          f"{DP_UPDATE_TOL}, loss {DP_LOSS_TOL})")
+    check(ctl["grad"] > DP_GRAD_TOL and ctl["update"] > DP_UPDATE_TOL,
+          f"the control (rank 0's rows alone, nothing summed) passes the "
+          f"limits: {ctl}")
+    prel = r[0]["param_rel"]
     err, med = r[0]["param_err"]
-    check(err <= tol, f"parameters after {DP_STEPS} data-parallel steps "
-          f"{err} from one rank's (tol {tol})")
-    rel = [abs(a["loss"] - b) / b for a, b in zip(r[0]["metrics"],
-                                                  r[0]["one_rank_losses"])]
-    check(max(rel) <= DP_LOSS_TOL, f"losses {rel} from one rank's")
+    check(prel <= DP_PARAM_TOL, f"the parameters' movement over {DP_STEPS} "
+          f"data-parallel steps {prel} from one rank's own run's (limit "
+          f"{DP_PARAM_TOL})")
     u = [x["uneven"] for x in r]
-    uerr, umed = u[0]["param_err"]
     urel = abs(u[0]["loss"] - u[0]["one_rank_loss"]) / u[0]["one_rank_loss"]
-    check(u[0]["tokens"] >= 2 * u[1]["tokens"] and uerr <= DP_PARAM_TOL * lr
-          and urel <= DP_LOSS_TOL,
+    check(u[0]["tokens"] >= 2 * u[1]["tokens"]
+          and u[0]["grad"] <= DP_GRAD_TOL
+          and u[0]["update"] <= DP_UPDATE_TOL and urel <= DP_LOSS_TOL,
           f"two halves of {u[0]['tokens']} and {u[1]['tokens']} tokens: "
-          f"parameters {uerr} (tol {DP_PARAM_TOL * lr}), loss {urel} (tol "
-          f"{DP_LOSS_TOL}) from one rank's")
+          f"gradients {u[0]['grad']} (limit {DP_GRAD_TOL}), update "
+          f"{u[0]['update']} (limit {DP_UPDATE_TOL}), loss {urel} "
+          f"(limit {DP_LOSS_TOL}) from one rank's")
+    check(min(u[0]["own"], u[0]["ddp"]) > DP_GRAD_TOL
+          and u[0]["ddp_loss"] > DP_LOSS_TOL,
+          f"the halves' controls pass the limits: gradients, rank 0's own "
+          f"mean {u[0]['own']}, DDP's average {u[0]['ddp']}; DDP's loss "
+          f"{u[0]['ddp_loss']}")
     tr = [x["trainer"] for x in r]
     tg = r[0]["tagger"]
-    trel = [abs(a - b) / b for a, b in zip(tg["losses"],
-                                           tg["one_rank_losses"])]
-    check(max(trel) <= DP_TAGGER_TOL and tg["stat_err"] <= DP_TAGGER_TOL
-          and r[1]["tagger"]["losses"] == tg["losses"],
-          f"tagger losses {trel}, running statistics {tg['stat_err']} from "
-          f"one rank's (tol {DP_TAGGER_TOL})")
+    tworst = {k: max(c[k] for c in tg["cmp"])
+              for k in ("loss", "stats", "grad", "update")}
+    tctl = tg["control"]
+    check(r[1]["tagger"]["losses"] == tg["losses"]
+          and max(tworst["loss"], tworst["stats"]) <= DP_TAGGER_TOL
+          and tworst["grad"] <= DP_TAGGER_GRAD_TOL
+          and tworst["update"] <= DP_TAGGER_UPDATE_TOL,
+          f"tagger steps against one rank's from the same state: "
+          f"{tg['cmp']} (limits: loss and statistics {DP_TAGGER_TOL}, "
+          f"gradients {DP_TAGGER_GRAD_TOL}, update {DP_TAGGER_UPDATE_TOL})")
+    check(tctl["grad"] > DP_TAGGER_GRAD_TOL
+          and tctl["stats"] > DP_TAGGER_TOL
+          and tctl["update"] > DP_TAGGER_UPDATE_TOL,
+          f"the tagger's control (rank 0's rows alone) passes the limits: "
+          f"{tctl}")
 
     def ms(xs):
         return ", ".join(f"{1e3 * v:.1f}" for v in xs)
+
+    def g(x):
+        return f"{x:.3g}"
 
     print(f"data parallel: {card}; {DP_RANKS} ranks on cuda:0 over gloo "
           f"(the transport: NCCL refuses two ranks on one card), every "
@@ -3872,16 +4077,31 @@ def data_parallel_phase(dev, cfg, card, hyps):
           f"embed_grad_impl=pallas: step ms rank 0 [{ms(r[0]['step_s'])}], "
           f"rank 1 [{ms(r[1]['step_s'])}]; one rank on the whole batch "
           f"[{', '.join(f'{v:.1f}' for v in r[0]['one_rank_ms'])}]; gradient "
-          f"all_reduce ({r[0]['grad_mb']:.1f} MiB, host clock between two "
-          f"synchronizes) ms rank 0 [{ms(r[0]['all_reduce_s'])}], rank 1 "
+          f"all_reduce alone ({r[0]['grad_mb']:.1f} MiB, host clock between "
+          f"two synchronizes) ms rank 0 [{ms(r[0]['all_reduce_s'])}], rank 1 "
           f"[{ms(r[1]['all_reduce_s'])}]; launches a rank (8, 9, 14) "
           f"{DP_STEPS} each; StepTimer.summary() rank 0 {r[0]['timer']}")
-    print(f"data parallel: parameters after {DP_STEPS} steps within "
-          f"{err:.3g} of one rank's (median leaf {med:.3g}; tol {tol:.3g}), "
-          f"losses within {max(rel):.3g} (tol {DP_LOSS_TOL}); two halves of "
-          f"{u[0]['tokens']} and {u[1]['tokens']} tokens: parameters "
-          f"{uerr:.3g} (median {umed:.3g}; tol {DP_PARAM_TOL * lr:.3g}), "
-          f"loss {urel:.3g}")
+    print(f"data parallel: each step against one rank's from the same state "
+          f"on the same global batch, relative in the 2-norm: gradients "
+          f"(summed, clamped) [{', '.join(g(c['grad']) for c in r[0]['cmp'])}]"
+          f" (limit {DP_GRAD_TOL}), update "
+          f"[{', '.join(g(c['update']) for c in r[0]['cmp'])}] (limit "
+          f"{DP_UPDATE_TOL}), loss "
+          f"[{', '.join(g(c['loss']) for c in r[0]['cmp'])}] (limit "
+          f"{DP_LOSS_TOL}); the control, rank 0's rows alone, nothing "
+          f"summed: gradients {g(ctl['grad'])}, update {g(ctl['update'])} "
+          f"(both must exceed the limits); the parameters' movement over "
+          f"{DP_STEPS} steps against one rank's own run {g(prel)} (limit "
+          f"{DP_PARAM_TOL}), the largest weight's difference {g(err / lr)} "
+          f"lr (median leaf {g(med / lr)} lr)")
+    print(f"data parallel: two halves of {u[0]['tokens']} and "
+          f"{u[1]['tokens']} tokens: gradients within {g(u[0]['grad'])} "
+          f"(limit {DP_GRAD_TOL}), update {g(u[0]['update'])} (limit "
+          f"{DP_UPDATE_TOL}), loss {g(urel)} (limit {DP_LOSS_TOL}); "
+          f"controls: gradients, rank 0's own mean {g(u[0]['own'])} and "
+          f"DDP's average of the halves' means {g(u[0]['ddp'])} (both must "
+          f"exceed {DP_GRAD_TOL}), DDP's loss {g(u[0]['ddp_loss'])} (must "
+          f"exceed {DP_LOSS_TOL})")
     print(f"data parallel: profiled step (rank 0, core.profiling.trace): "
           f"{r[0]['trace']}")
     print(f"data parallel: train.caption.train at mesh ({DP_RANKS}, 1), 1 "
@@ -3894,10 +4114,18 @@ def data_parallel_phase(dev, cfg, card, hyps):
           f"{tr[0]['bleu4']:.3g}; rank 0's checkpoint bitwise both ranks' "
           "state")
     print(f"data parallel: tagger, {DP_TAGGER_STEPS} steps at f32, global "
-          f"B={DP_TAGGER_B}, 256 px: losses {tg['losses']} (one rank "
-          f"{tg['one_rank_losses']}), within {max(trel):.3g}; running "
-          f"statistics within {tg['stat_err']:.3g} (tol {DP_TAGGER_TOL}); "
-          f"step ms rank 0 [{', '.join(f'{v:.1f}' for v in tg['ms'])}]")
+          f"B={DP_TAGGER_B}, 256 px, each against one rank's from the same "
+          f"state: loss [{', '.join(g(c['loss']) for c in tg['cmp'])}], "
+          f"running statistics "
+          f"[{', '.join(g(c['stats']) for c in tg['cmp'])}] (limit "
+          f"{DP_TAGGER_TOL}), gradients "
+          f"[{', '.join(g(c['grad']) for c in tg['cmp'])}] (limit "
+          f"{DP_TAGGER_GRAD_TOL}), update "
+          f"[{', '.join(g(c['update']) for c in tg['cmp'])}] (limit "
+          f"{DP_TAGGER_UPDATE_TOL}); the control, rank 0's rows alone: "
+          f"gradients {g(tctl['grad'])}, statistics {g(tctl['stats'])}, update "
+          f"{g(tctl['update'])}; losses {tg['losses']}; step ms rank 0 "
+          f"[{', '.join(f'{v:.1f}' for v in tg['ms'])}]")
     print(f"data parallel: the ranks {t_ranks:.1f} s; the phase "
           f"{time.perf_counter() - t_phase:.1f} s")
 

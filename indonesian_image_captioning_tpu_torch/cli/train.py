@@ -19,9 +19,12 @@ differentiated encoder passes (the tagger, fine-tuning);
         -t attention_scn --mesh D ...
 
 Each rank joins the process group from torchrun's environment
-(``core/meshes.initialize_distributed``): over NCCL when each rank has a
-card of its own, over gloo when the ranks share cards (two ranks on one
-card).  ``--mesh_order`` lays the ranks out as JAX's does.  ``--mesh D,M``
+(``core/meshes.initialize_distributed``), over NCCL, each rank on a card
+of its own; more ranks than cards raise.  ``DIST_BACKEND=gloo`` in the
+environment lets ranks share a card (two ranks on one card, which NCCL
+refuses), with the gradients summed on the host: a check, not a way to
+train fast.  (The flags stay JAX's, so the backend is no flag.)
+``--mesh_order`` lays the ranks out as JAX's does.  ``--mesh D,M``
 with M > 1 raises ``NotImplementedError`` (ROADMAP.md queue 1 item 7's
 model axis).
 """
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 from ..core.config import (DataConfig, TaggerConfig, TrainConfig,
                            tagger_train_config)
@@ -122,7 +126,8 @@ def main(argv=None, device="cuda"):
         from ..core.meshes import initialize_distributed
         from ..parallel.sharding import check_data_axis_only
         check_data_axis_only(_mesh_shape(args.mesh))
-        initialize_distributed(device=device)
+        initialize_distributed(backend=os.environ.get("DIST_BACKEND"),
+                               device=device)
     data_cfg = DataConfig(data_folder=args.data_folder,
                           data_name=args.data_name)
     overrides = _load_model_json(args.model_json)

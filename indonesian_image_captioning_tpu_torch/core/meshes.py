@@ -6,7 +6,7 @@ that sees D x M devices, lays them out as a 2-D ``Mesh`` with axes
 process per rank (started by ``torchrun`` or a test's spawner), each
 holding one device: a card, or the CPU.  A :class:`Mesh` is the layout of
 the D x M ranks with a process group per axis, and the collectives are
-explicit (``parallel/train_step.py``):
+explicit (the train steps of ``train/steps.py`` given a mesh):
 
 * the data axis: a batch's rows are split over its D ranks, the
   parameters are replicated, the gradients summed over ``data_group``;
@@ -32,6 +32,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .runtime import get_device
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 ORDERS = ("rowmajor", "colmajor")
@@ -50,10 +52,12 @@ def initialize_distributed(init_method: Optional[str] = None,
     or come from the arguments, e.g. ``init_method="tcp://localhost:29500"``.
     With a world of one process it does nothing and returns False, as
     JAX's does; it returns True once the group exists.  The backend is
-    gloo for "cpu"; for "cuda" it is NCCL when each rank of the node
-    (``LOCAL_WORLD_SIZE``) has a card of its own, else gloo (NCCL refuses
-    two ranks on one card); a caller may name either.  On CUDA a rank
-    takes the card ``LOCAL_RANK`` modulo the node's cards."""
+    NCCL for "cuda" and gloo for "cpu".  On CUDA a rank takes the card
+    ``LOCAL_RANK``; NCCL needs a card for each rank of the node
+    (``LOCAL_WORLD_SIZE``), so more ranks than cards raise unless the
+    caller names ``backend="gloo"``, which shares the cards (rank modulo
+    cards) and sums the gradients on the host: a test or a one-card check,
+    several times slower than NCCL."""
     if world_size is None:
         world_size = int(os.environ.get("WORLD_SIZE", "1"))
     if world_size <= 1:
@@ -66,11 +70,19 @@ def initialize_distributed(init_method: Optional[str] = None,
     if rank is None:
         rank = int(os.environ["RANK"])
     dev = torch.device(device)
+    if backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo'")
     if dev.type == "cuda":
+        backend = backend or "nccl"
         cards = torch.cuda.device_count()
         local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
-        if backend is None:
-            backend = "nccl" if local_ranks <= cards else "gloo"
+        if local_ranks > cards and backend != "gloo":
+            raise RuntimeError(
+                f"{local_ranks} ranks on a node of {cards} card(s): "
+                f"{backend} needs a card for each rank; start at most "
+                f"{cards} ranks a node, or name backend='gloo' to share "
+                "the cards (the gradients then sum on the host)")
+        get_device(device)                  # raises without a card
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)) % cards)
     elif backend is None:
         backend = "gloo"
@@ -93,9 +105,10 @@ class Mesh:
 
     ``ranks[d, m]`` is the global rank at data row d, model column m;
     ``data_index`` and ``model_index`` are this rank's.  ``data_group``
-    holds the ranks of this rank's model column (they split the batch);
-    ``model_group`` those of its data row; ``host_group`` every rank of
-    the mesh, on gloo.  None stands for the default (world) group."""
+    holds the ranks of this rank's model column (they split the batch;
+    None for a mesh of one rank); ``model_group`` those of its data row;
+    ``host_group`` every rank of the mesh, on gloo.  None stands for the
+    default (world) group in the last two."""
 
     ranks: np.ndarray
     rank: int
@@ -144,7 +157,7 @@ def make_mesh(mesh_shape: Optional[Tuple[int, int]] = None,
     di, mi = int(where[0]), int(where[1])
     if size == 1:
         return Mesh(ranks, rank, di, mi, None, None, None)
-    data_group = model_group = None
+    data_group, model_group = dist.group.WORLD, None
     if m > 1:
         # new_group is collective: every rank creates every group
         for col in range(m):

@@ -35,12 +35,13 @@ def init_encoder_caption(gen: torch.Generator, arch: str = "resnet152",
 
 def apply_encoder_caption(params, stats, images, *, train=False,
                           enc_image_size: int = 14,
-                          arch: str = "resnet152", remat=False):
+                          arch: str = "resnet152", remat=False,
+                          bn_group=None):
     """images (B, H, W, 3) normalized -> (B, S, S, 2048), new_stats.
-    remat: see ``resnet.apply_resnet``."""
+    remat, bn_group: see ``resnet.apply_resnet``."""
     feat, new_stats = resnet.apply_resnet(params["resnet"], stats["resnet"],
                                           images, train=train, arch=arch,
-                                          remat=remat)
+                                          remat=remat, bn_group=bn_group)
     out = adaptive_avg_pool2d(feat, (enc_image_size, enc_image_size))
     return out, {"resnet": new_stats}
 
@@ -60,14 +61,16 @@ def init_encoder_tagger(gen: torch.Generator,
 
 def apply_encoder_tagger(params, stats, images, *, train=False,
                          dropout_gen=None, dropout_rate: float = 0.15,
-                         arch: str = "resnet152", remat=False):
+                         arch: str = "resnet152", remat=False,
+                         bn_group=None):
     """images (B, H, W, 3) -> tag probabilities (B, semantic_size), stats.
 
     When training with a dropout generator (a torch.Generator), dropout
-    acts on the pooled features; its numbers differ from JAX's."""
+    acts on the pooled features; its numbers differ from JAX's.  remat,
+    bn_group: see ``resnet.apply_resnet``."""
     feat, new_stats = resnet.apply_resnet(params["resnet"], stats["resnet"],
                                           images, train=train, arch=arch,
-                                          remat=remat)
+                                          remat=remat, bn_group=bn_group)
     pooled = feat.mean(dim=(1, 2))                      # global avg pool
     if train and dropout_gen is not None:
         pooled = dropout(dropout_gen, pooled, dropout_rate)

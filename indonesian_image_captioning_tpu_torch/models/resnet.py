@@ -28,14 +28,14 @@ in the backward; ``"convs"`` also keeps the convolution outputs and
 recomputes only BatchNorm and ReLU.  Both give the gradients of no
 rematerialisation; the new statistics are the forward's.
 
-Under ``batch_stats_over(group)`` the train-mode statistics span the
-global batch of a data-parallel group (``parallel/train_step.py``), as
-JAX's partitioned step reduces them over the whole batch.
+``bn_group``, a process group, makes the train-mode statistics span the
+global batch of a data-parallel group (synchronised BatchNorm, the
+steps of ``train/steps.py`` under a mesh), as JAX's partitioned step
+reduces them over the whole batch; None keeps them to the local rows.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Dict, Tuple
 
 import torch
@@ -108,28 +108,6 @@ def _conv(x, w, stride: int, padding: int):
     return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding)
 
 
-# The process group whose global batch the train-mode statistics span
-# ("group", None for the world group) while "on": see batch_stats_over.
-_SYNC = {"on": False, "group": None}
-
-
-@contextlib.contextmanager
-def batch_stats_over(group=None):
-    """Train-mode BatchNorm inside the block takes its batch statistics
-    over the global batch of ``group``'s ranks (synchronised BatchNorm;
-    None is the world group), each rank holding an equal share of the rows
-    (:class:`_SyncBatchNorm`).  Run the backward inside the block too: a
-    rematerialised block recomputes its BatchNorm there.  The setting is
-    process-wide (the autograd engine runs a CUDA backward on a thread of
-    its own)."""
-    saved = dict(_SYNC)
-    _SYNC.update(on=True, group=group)
-    try:
-        yield
-    finally:
-        _SYNC.update(saved)
-
-
 def _ch(v):
     return v.reshape(1, -1, 1, 1)
 
@@ -188,16 +166,17 @@ class _SyncBatchNorm(torch.autograd.Function):
         return dx, dscale.to(scale.dtype), gsum.to(ctx.bias_dtype), None
 
 
-def _bn(x, p, s, train):
+def _bn(x, p, s, train, group=None):
     """NCHW BatchNorm; returns (y, new_stats).  train: False, True or
-    "calibrate" (see the module docstring)."""
+    "calibrate" (see the module docstring); group: the process group
+    whose global batch the train-mode statistics span, each rank holding
+    an equal share of the rows (:class:`_SyncBatchNorm`), or None."""
     y = None
     if train:
-        if _SYNC["on"]:
-            y, m, v = _SyncBatchNorm.apply(x, p["scale"], p["bias"],
-                                           _SYNC["group"])
+        if group is not None:
+            y, m, v = _SyncBatchNorm.apply(x, p["scale"], p["bias"], group)
             n = (x.shape[0] * x.shape[2] * x.shape[3]
-                 * dist.get_world_size(_SYNC["group"]))
+                 * dist.get_world_size(group))
         else:
             # the batch statistics reduce in float32; the clamp keeps a
             # cancelled variance from going negative
@@ -226,20 +205,20 @@ def _bn(x, p, s, train):
     return y.to(x.dtype), new_s
 
 
-def _bottleneck(x, bp, bs, stride: int, train):
+def _bottleneck(x, bp, bs, stride: int, train, group):
     new_s: Dict[str, Any] = {}
     out, new_s["bn1"] = _bn(_conv(x, bp["conv1"], 1, 0), bp["bn1"],
-                            bs["bn1"], train)
+                            bs["bn1"], train, group)
     out = torch.relu(out)
     out, new_s["bn2"] = _bn(_conv(out, bp["conv2"], stride, 1), bp["bn2"],
-                            bs["bn2"], train)
+                            bs["bn2"], train, group)
     out = torch.relu(out)
     out, new_s["bn3"] = _bn(_conv(out, bp["conv3"], 1, 0), bp["bn3"],
-                            bs["bn3"], train)
+                            bs["bn3"], train, group)
     if "downsample_conv" in bp:
         identity, new_s["downsample_bn"] = _bn(
             _conv(x, bp["downsample_conv"], stride, 0), bp["downsample_bn"],
-            bs["downsample_bn"], train)
+            bs["downsample_bn"], train, group)
     else:
         identity = x
     return torch.relu(out + identity), new_s
@@ -264,34 +243,36 @@ def _block_fn(remat):
         return _bottleneck
     kw = {"context_fn": _save_convs} if remat == "convs" else {}
 
-    def block(x, bp, bs, stride, train):
-        return ckpt.checkpoint(_bottleneck, x, bp, bs, stride, train,
+    def block(x, bp, bs, stride, train, group):
+        return ckpt.checkpoint(_bottleneck, x, bp, bs, stride, train, group,
                                use_reentrant=False, **kw)
 
     return block
 
 
 def apply_resnet(params, stats, x, *, train=False, arch: str = "resnet152",
-                 remat=False):
+                 remat=False, bn_group=None):
     """x: (B, H, W, 3) NHWC float -> features (B, H/32, W/32, 2048) NHWC.
 
     Returns (features, new_batch_stats).  The classifier head is omitted,
-    as the reference strips it.  remat: False, True / "blocks" or "convs"
+    as the reference strips it.  remat: False, True / "blocks" or "convs";
+    bn_group: the data-parallel group of synchronised BatchNorm, or None
     (see the module docstring)."""
     if len(params["layer3"]["rest"]) != BLOCKS[arch][2] - 1:
         raise ValueError(f"parameter tree does not match {arch}")
     block = _block_fn(remat)
     new_stats: Dict[str, Any] = {}
     y = _conv(x.permute(0, 3, 1, 2), params["conv1"], 2, 3)
-    y, new_stats["bn1"] = _bn(y, params["bn1"], stats["bn1"], train)
+    y, new_stats["bn1"] = _bn(y, params["bn1"], stats["bn1"], train,
+                              bn_group)
     y = F.max_pool2d(torch.relu(y), 3, stride=2, padding=1)
     for stage in range(1, len(BLOCKS[arch]) + 1):
         sp, ss = params[f"layer{stage}"], stats[f"layer{stage}"]
         y, first_s = block(y, sp["first"], ss["first"],
-                           1 if stage == 1 else 2, train)
+                           1 if stage == 1 else 2, train, bn_group)
         rest_s = []
         for bp, bs in zip(sp["rest"], ss["rest"]):
-            y, s = block(y, bp, bs, 1, train)
+            y, s = block(y, bp, bs, 1, train, bn_group)
             rest_s.append(s)
         new_stats[f"layer{stage}"] = {"first": first_s, "rest": rest_s}
     return y.permute(0, 2, 3, 1), new_stats

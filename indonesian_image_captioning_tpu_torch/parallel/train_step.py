@@ -1,186 +1,35 @@
-"""Data-parallel train steps over a rank mesh (D, 1).
+"""Data-parallel train steps over a rank mesh (D, 1): the JAX package's
+names for the steps of ``train/steps.py`` under a mesh.
 
-Counterpart of the JAX package's ``parallel/train_step.py`` for the data
-axis.  JAX partitions one step over D devices and XLA inserts the
-collectives; here each of D processes runs the step on its own rows of the
-global batch, with explicit collectives over the mesh's data group:
-
-* the loss is the global one: each rank divides its summed token CE by the
-  GLOBAL token count (and its summed attention penalty by the global count
-  of valid rows), both taken with an ``all_reduce`` before the backward.
-  Averaging each rank's own mean, as DDP does, differs whenever the ranks'
-  token counts differ, and padding rows (caplens 0) make that the normal
-  case;
-* the gradients are summed with one ``all_reduce`` over a flat buffer
-  (which also carries the metrics' sums) before ``ClampAdam`` clamps and
-  steps, so every rank applies the same update to its replica;
-* ``loss``, ``top5``, ``n_tokens``, ``ce`` and ``alpha_penalty`` come back
-  global, the same on every rank.
-
-The caption step runs the decoder as the one-rank step does: on the card
-the fused scan (kernels 8 and 9) on each rank's rows, and kernel 14 for the
-embedding's gradient under ``embed_grad_impl="pallas"``; this is what
-JAX's ``shard_map`` island does.  The fine-tune and tagger steps run the
-ResNet's train-mode BatchNorm with statistics over the global batch
-(``models/resnet.batch_stats_over``), as JAX's partitioned step does.
-
-Dropout draws from the generator each rank is given: the trainers fold
-the rank into it, so a rank's masks are its own.  The model axis (M > 1,
-``shard_vocab``) raises ``NotImplementedError`` (ROADMAP.md queue 1 item
-7's model axis).
+JAX partitions one step over D devices and XLA inserts the collectives;
+here each of D processes runs the one-rank step's body on its own rows of
+the global batch with explicit collectives over the mesh's data group
+(``steps.make_caption_train_step(..., mesh=mesh)`` and its siblings): the
+loss divided by the global token count, the gradients summed before
+``ClampAdam``, synchronised BatchNorm in the encoders, the metrics global.
+On the card each rank's caption step runs the fused scan (kernels 8 and 9)
+and kernel 14 for the embedding's gradient, as JAX's ``shard_map`` island
+does.  The model axis (M > 1, ``shard_vocab``) raises
+``NotImplementedError`` (ROADMAP.md queue 1 item 7's model axis).
 """
 
 from __future__ import annotations
 
-import time
-from typing import Dict, List
-
-import torch
-import torch.distributed as dist
-
 from ..core.config import ModelConfig, TrainConfig
 from ..core.meshes import Mesh
-from ..core.metrics import topk_hit
-from ..models import decoders, encoders, resnet
-from ..ops import losses
 from ..train import steps
 from . import sharding
-
-
-class _Reducer:
-    """The data group's collectives of one step."""
-
-    def __init__(self, mesh: Mesh, time_all_reduce: bool):
-        self.group = mesh.data_group
-        self.timed = time_all_reduce
-        self.all_reduce_s: List[float] = []
-
-    def sum(self, *xs) -> torch.Tensor:
-        """The global sums of detached scalars, as one float32 vector."""
-        v = torch.stack([x.detach().to(torch.float32) for x in xs])
-        dist.all_reduce(v, group=self.group)
-        return v
-
-    def grads(self, opts, extra) -> torch.Tensor:
-        """Sum every trainable parameter's gradient over the group in
-        place (one without a gradient takes zeros; a frozen leaf keeps
-        none, and ClampAdam steps it with zeros on every rank) and return
-        the global sums of the ``extra`` scalars, all in one all_reduce."""
-        params = [p for opt in opts for g in opt.param_groups
-                  for p in g["params"] if p.requires_grad]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        dev = extra[0].device
-        flat = torch.cat([p.grad.reshape(-1).to(torch.float32)
-                          for p in params]
-                         + [torch.stack([x.detach().to(torch.float32)
-                                         for x in extra]).to(dev)])
-        if self.timed:
-            _sync(dev)
-            t0 = time.perf_counter()
-        dist.all_reduce(flat, group=self.group)
-        if self.timed:
-            _sync(dev)
-            self.all_reduce_s.append(time.perf_counter() - t0)
-        off = 0
-        with torch.no_grad():
-            for p in params:
-                n = p.grad.numel()
-                p.grad.copy_(flat[off:off + n].view_as(p.grad))
-                off += n
-        return flat[off:]
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def _caption_terms(out, captions, alpha_c: float, fc=None, tile=2048):
-    """The summed loss terms of one rank's rows: (ce_sum, pen_sum,
-    top-5 hits, n_tokens, n_rows), from a dense ``teacher_forcing`` output,
-    or from its hidden states through the chunked head when fc is given."""
-    mask = out["mask"]
-    if fc is not None:
-        from ..ops.vocab_head import chunked_nll_topk
-        hidden = out["hidden"]
-        targets = captions[:, 1:1 + hidden.shape[1]]
-        nll, hit = chunked_nll_topk(fc, hidden, targets, k=5, tile=tile)
-        maskf = mask.to(torch.float32)
-        ce_sum, hits = (nll * maskf).sum(), (hit * maskf).sum()
-    else:
-        logits = out["predictions"]
-        targets = captions[:, 1:1 + logits.shape[1]]
-        ce_sum = losses.masked_nll_sum(logits, targets, mask)
-        hits = (topk_hit(logits.detach(), targets, 5).to(torch.float32)
-                * mask).sum()
-    if out["alphas"] is None or alpha_c == 0.0:
-        pen_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
-        rows = (mask.sum(dim=1) > 0).to(torch.float32).sum()
-    else:
-        pen_sum, rows = losses.penalty_sum(out["alphas"], mask, alpha_c)
-    return ce_sum, pen_sum, hits, mask.sum(), rows
-
-
-def _global_caption_step(reducer, opts, optimizers, terms):
-    """Scale one rank's summed terms by the global counts, run the
-    backward, sum the gradients, step every optimizer; -> metrics."""
-    ce_sum, pen_sum, hits, n_tok, rows = terms
-    n_glob, rows_glob = reducer.sum(n_tok, rows).clamp(min=1.0).unbind()
-    ce = ce_sum / n_glob
-    pen = pen_sum / rows_glob
-    loss = ce + pen
-    loss.backward()
-    loss_g, ce_g, pen_g, hits_g = reducer.grads(
-        opts, [loss, ce, pen, hits]).unbind()
-    for opt, optimizer in zip(opts, optimizers):
-        optimizer.update(opt)
-    return {"loss": loss_g, "top5": hits_g / n_glob * 100.0,
-            "n_tokens": n_glob, "ce": ce_g, "alpha_penalty": pen_g}
 
 
 def make_parallel_caption_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                                      optimizer: steps.ClampAdam, mesh: Mesh,
                                      shard_vocab: bool = False,
-                                     device="cuda",
-                                     time_all_reduce: bool = False):
+                                     device="cuda"):
     """step({"params", "opt_state"}, enc_out, tags, captions, caplens,
-    gen=None) -> (substate, metrics) on this rank's rows (the frozen-encoder
-    decoder update, ``steps.make_caption_train_step``'s protocol).  The
-    parameters must start equal on every rank
-    (``parallel/sharding.place_state``).  With time_all_reduce, the host
-    seconds of each gradient all_reduce, between two synchronisations,
-    go to ``step.all_reduce_s``."""
+    gen=None) -> (substate, metrics) on this rank's rows."""
     sharding.check_mesh(mesh, shard_vocab)
-    dev = steps._device(device)
-    reducer = _Reducer(mesh, time_all_reduce)
-    cdt = steps._dtype(tcfg.decoder_dtype)
-
-    def step(substate: Dict, enc_out, tags, captions, caplens, gen=None):
-        params, opt_state = substate["params"], substate["opt_state"]
-        enc_out, tags, captions, caplens = (
-            x.to(dev) for x in (enc_out, tags, captions, caplens))
-        head = steps.resolve_head_impl(tcfg, cfg, enc_out.shape[0], dev)
-        opt_state.zero_grad(set_to_none=True)
-        p = decoders.cast_params(params, cdt) if cdt != torch.float32 \
-            else params
-        out = decoders.teacher_forcing(
-            p, cfg, enc_out.to(cdt), tags.to(cdt), captions, caplens,
-            dropout_gen=gen, train=True, return_hidden=head == "chunked")
-        if out["alphas"] is not None:
-            out["alphas"] = out["alphas"].to(torch.float32)
-        if head != "chunked":
-            out["predictions"] = out["predictions"].to(torch.float32)
-        terms = _caption_terms(out, captions, tcfg.alpha_c,
-                               fc=p["fc"] if head == "chunked" else None,
-                               tile=tcfg.head_tile)
-        metrics = _global_caption_step(reducer, [opt_state], [optimizer],
-                                       terms)
-        return substate, metrics
-
-    step.all_reduce_s = reducer.all_reduce_s
-    return step
+    return steps.make_caption_train_step(cfg, tcfg, optimizer, device=device,
+                                         mesh=mesh)[1]
 
 
 def make_parallel_caption_finetune_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -189,48 +38,12 @@ def make_parallel_caption_finetune_step(cfg: ModelConfig, tcfg: TrainConfig,
                                         mesh: Mesh, shard_vocab: bool = False,
                                         fine_tune_embeddings: bool = True,
                                         device="cuda"):
-    """Joint decoder and encoder fine-tuning on this rank's rows:
-    ``(tagger_fn, step)`` with ``steps.make_caption_finetune_train_step``'s
-    protocol.  The caption encoder's train-mode BatchNorm takes its
-    statistics over the GLOBAL batch (synchronised BatchNorm: the same
-    numerics as the one-rank step on the whole batch, up to the order of
-    the sums), the running statistics move by the global unbiased
-    variance, and the decoder's and the encoder's gradients are summed
-    over the data group in one all_reduce."""
+    """(tagger_fn, step): joint decoder and encoder fine-tuning on this
+    rank's rows, with synchronised BatchNorm."""
     sharding.check_mesh(mesh, shard_vocab)
-    dev = steps._device(device)
-    reducer = _Reducer(mesh, False)
-    tagger_fn, _ = steps.make_caption_finetune_train_step(
+    return steps.make_caption_finetune_train_step(
         cfg, tcfg, dec_optimizer, enc_optimizer, fine_tune_embeddings,
-        device=dev)
-
-    def step(state: Dict, images_u8, tags, captions, caplens, gen=None):
-        params, encoder = state["params"], state["encoder"]
-        steps.set_trainable(params, decoders.trainable_mask(
-            params, fine_tune_embeddings))
-        steps.set_trainable(encoder,
-                            encoders.caption_encoder_trainable_mask(encoder))
-        x = encoders.prep_images(steps._on(images_u8, dev))
-        tags, captions, caplens = (steps._on(v, dev)
-                                   for v in (tags, captions, caplens))
-        opts = [state["opt_state"], state["enc_opt_state"]]
-        for opt in opts:
-            opt.zero_grad(set_to_none=True)
-        with resnet.batch_stats_over(reducer.group):
-            enc_out, new_stats = encoders.apply_encoder_caption(
-                encoder, state["encoder_stats"], x, train=True,
-                enc_image_size=cfg.enc_image_size, arch=cfg.encoder_arch,
-                remat=tcfg.encoder_remat)
-            out = decoders.teacher_forcing(
-                params, cfg, enc_out, tags, captions, caplens,
-                dropout_gen=gen, train=True, enc_grad=True)
-            terms = _caption_terms(out, captions, tcfg.alpha_c)
-            metrics = _global_caption_step(
-                reducer, opts, [dec_optimizer, enc_optimizer], terms)
-        state["encoder_stats"] = new_stats
-        return state, metrics
-
-    return tagger_fn, step
+        device=device, mesh=mesh)
 
 
 def make_parallel_tagger_train_step(tcfg: TrainConfig,
@@ -238,41 +51,6 @@ def make_parallel_tagger_train_step(tcfg: TrainConfig,
                                     dropout_rate: float = 0.15,
                                     arch: str = "resnet152", device="cuda"):
     """step(state, batch, gen=None) -> (state, {"loss", "acc"}) on this
-    rank's rows, ``steps.make_tagger_train_step``'s protocol: the BCE and
-    the binary accuracy over the global batch's valid rows, synchronised
-    BatchNorm over the data group, the gradients summed before the
-    clamp and Adam."""
-    sharding.check_mesh(mesh)
-    dev = steps._device(device)
-    cdt = steps._dtype(tcfg.tagger_dtype)
-    reducer = _Reducer(mesh, False)
-
-    def step(state: Dict, batch, gen=None):
-        params, opt_state = state["params"], state["opt_state"]
-        steps.set_trainable(params, steps.tagger_trainable_mask(params))
-        x = encoders.prep_images(steps._on(batch["images"], dev)).to(cdt)
-        tags = steps._on(batch["tags"], dev).to(torch.float32)
-        valid = batch.get("valid")
-        w = (torch.ones(x.shape[0], device=dev) if valid is None
-             else steps._on(valid, dev).to(torch.float32))
-        opt_state.zero_grad(set_to_none=True)
-        p = params if cdt == torch.float32 else steps.cast_tree(params, cdt)
-        with resnet.batch_stats_over(reducer.group):
-            probs, new_stats = encoders.apply_encoder_tagger(
-                p, state["stats"], x, train=True, dropout_gen=gen,
-                dropout_rate=dropout_rate, arch=arch,
-                remat=tcfg.encoder_remat)
-            probs = probs.to(torch.float32)
-            elem = losses.bce_elements(probs, tags)
-            correct = ((probs.detach() >= 0.5) == (tags >= 0.5)).to(
-                torch.float32)
-            n_elem = reducer.sum(w.sum() * elem.shape[1])[0].clamp(min=1.0)
-            loss = (elem * w[:, None]).sum() / n_elem
-            loss.backward()
-        loss_g, hits_g = reducer.grads(
-            [opt_state], [loss, (correct * w[:, None]).sum()]).unbind()
-        optimizer.update(opt_state)
-        state["stats"] = new_stats
-        return state, {"loss": loss_g, "acc": hits_g / n_elem * 100.0}
-
-    return step
+    rank's rows, with synchronised BatchNorm."""
+    return steps.make_tagger_train_step(tcfg, optimizer, dropout_rate,
+                                        arch=arch, device=device, mesh=mesh)

@@ -26,12 +26,11 @@ does); it needs pixels every step, so it refuses ``cache_features``.
 
 ``tcfg.mesh_shape`` (D, 1) trains data-parallel, one process per rank
 (``torchrun``, ``core/meshes.py``): each rank takes its block of every
-global batch, the steps of ``parallel/train_step.py`` sum the gradients
-over the ranks, the feature cache stays on the host, the validation
-hypotheses are gathered before BLEU-4, and rank 0 alone writes the
-checkpoints, synchronously (every rank loads them on resume).  A model
-axis (M > 1) raises ``NotImplementedError`` (ROADMAP.md queue 1 item 7's
-model axis).
+global batch, the steps (given the mesh) sum the gradients over the
+ranks, the feature cache stays on the host, the validation hypotheses
+are gathered before BLEU-4, and rank 0 alone writes the checkpoints,
+synchronously (every rank loads them on resume).  A model axis (M > 1)
+raises ``NotImplementedError`` (ROADMAP.md queue 1 item 7's model axis).
 """
 
 from __future__ import annotations
@@ -242,23 +241,14 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
     if mesh is not None:
         # replicas start equal: every tensor (and Adam's moments after a
         # resume) broadcast from rank 0; each rank draws its own dropout
-        from ..parallel import train_step as ptrain
         sharding.place_state(mesh, state)
         drop_key = stream(drop_key, f"rank{mesh.data_index}")
-        if fine_tune:
-            tagger_fn, finetune_step = \
-                ptrain.make_parallel_caption_finetune_step(
-                    cfg, tcfg, optimizer, enc_optimizer, mesh, device=dev)
-        else:
-            encode_fn = steps.make_encoders_fn(cfg, tcfg.encoder_dtype, dev)
-            train_step = ptrain.make_parallel_caption_train_step(
-                cfg, tcfg, optimizer, mesh, device=dev)
-    elif fine_tune:
+    if fine_tune:
         tagger_fn, finetune_step = steps.make_caption_finetune_train_step(
-            cfg, tcfg, optimizer, enc_optimizer, device=dev)
+            cfg, tcfg, optimizer, enc_optimizer, device=dev, mesh=mesh)
     else:
         encode_fn, train_step = steps.make_caption_train_step(
-            cfg, tcfg, optimizer, device=dev)
+            cfg, tcfg, optimizer, device=dev, mesh=mesh)
     eval_encode_fn, eval_step = steps.make_caption_eval_step(cfg, tcfg,
                                                              device=dev)
     n_train = loader_lib.num_batches(len(train_ds), tcfg.batch_size)

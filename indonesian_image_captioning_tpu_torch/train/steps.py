@@ -15,7 +15,11 @@ Adam.
 * The tagger step (:func:`make_tagger_train_step`) trains the linear head
   and the stages 2-4 of the tagger's ResNet with BCE.
 
-The multi-device steps are not ported yet.
+Each train step takes an optional ``mesh`` (``core/meshes.make_mesh``,
+the data axis): it then runs on this rank's rows of a global batch, with
+the loss's global normalisation, the gradients summed over the ranks and,
+in the encoders, synchronised BatchNorm.  Without one the collectives are
+the identity.
 
 Parameters are trees of tensors and the step updates them in place (the
 JAX step returns new ones); the running BatchNorm statistics come back in
@@ -36,8 +40,10 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import ModelConfig, TrainConfig
+from ..core.metrics import topk_hit
 from ..core.runtime import get_device
 from ..models import decoders, encoders
 from ..ops import losses
@@ -229,31 +235,99 @@ def make_encoders_fn(cfg: ModelConfig, compute_dtype: str = "float32",
     return encode
 
 
-def _forward_loss(params, cfg, tcfg, head, enc_out, tags, captions, caplens,
-                  gen, train):
-    """(loss, metrics) of one batch, differentiable in params."""
-    cdt = _dtype(tcfg.decoder_dtype)
-    mixed = cdt != torch.float32
-    p = decoders.cast_params(params, cdt) if mixed else params
-    out = decoders.teacher_forcing(
-        p, cfg, enc_out.to(cdt), tags.to(cdt), captions, caplens,
-        dropout_gen=gen, train=train, return_hidden=head == "chunked")
-    if mixed and out["alphas"] is not None:
-        out["alphas"] = out["alphas"].to(torch.float32)
-    if head == "chunked":
-        loss, aux = losses.caption_loss_chunked(
-            p["fc"], out, captions, tcfg.alpha_c, k=5, tile=tcfg.head_tile)
-        return loss, {**aux, "top5": aux["topk"]}
-    out["predictions"] = out["predictions"].to(torch.float32)
-    loss, aux = losses.caption_loss(out, captions, tcfg.alpha_c)
-    targets = captions[:, 1:1 + out["predictions"].shape[1]]
-    top5 = losses.masked_topk_accuracy(out["predictions"], targets,
-                                       out["mask"], 5)
-    return loss, {**aux, "top5": top5}
+class _Reducer:
+    """The collectives of one step over a data-parallel group (the rows of
+    a global batch split over its ranks); without a group (one rank) each
+    is the identity."""
+
+    def __init__(self, mesh=None):
+        if mesh is not None:
+            from ..parallel import sharding
+            sharding.check_mesh(mesh)
+        self.group = None if mesh is None else mesh.data_group
+
+    def sum(self, *xs) -> torch.Tensor:
+        """The global sums of detached scalars, as one float32 vector."""
+        v = torch.stack([x.detach().to(torch.float32) for x in xs])
+        if self.group is not None:
+            dist.all_reduce(v, group=self.group)
+        return v
+
+    def grads(self, opts, extra) -> torch.Tensor:
+        """Sum every trainable parameter's gradient over the group in
+        place (one without a gradient takes zeros; a frozen leaf keeps
+        none, and ClampAdam steps it with zeros on every rank) and return
+        the global sums of the ``extra`` scalars, all in one all_reduce
+        over a flat buffer."""
+        if self.group is None:
+            return self.sum(*extra)
+        params = [p for opt in opts for g in opt.param_groups
+                  for p in g["params"] if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([p.grad.reshape(-1).to(torch.float32)
+                          for p in params]
+                         + [torch.stack([x.detach().to(torch.float32)
+                                         for x in extra]).to(
+                             params[0].device)])
+        dist.all_reduce(flat, group=self.group)
+        off = 0
+        with torch.no_grad():
+            for p in params:
+                n = p.grad.numel()
+                p.grad.copy_(flat[off:off + n].view_as(p.grad))
+                off += n
+        return flat[off:]
+
+
+def _caption_terms(out, captions, alpha_c: float, fc=None, tile=2048):
+    """The summed loss terms of a batch's rows: (ce_sum, pen_sum, top-5
+    hits, n_tokens, n_rows), from a dense ``teacher_forcing`` output, or
+    from its hidden states through the chunked head when fc is given."""
+    mask = out["mask"]
+    if fc is not None:
+        from ..ops.vocab_head import chunked_nll_topk
+        hidden = out["hidden"]
+        targets = captions[:, 1:1 + hidden.shape[1]]
+        nll, hit = chunked_nll_topk(fc, hidden, targets, k=5, tile=tile)
+        maskf = mask.to(torch.float32)
+        ce_sum, hits = (nll * maskf).sum(), (hit * maskf).sum()
+    else:
+        logits = out["predictions"]
+        targets = captions[:, 1:1 + logits.shape[1]]
+        ce_sum = losses.masked_nll_sum(logits, targets, mask)
+        hits = (topk_hit(logits.detach(), targets, 5).to(torch.float32)
+                * mask).sum()
+    if out["alphas"] is None or alpha_c == 0.0:
+        pen_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
+        rows = (mask.sum(dim=1) > 0).to(torch.float32).sum()
+    else:
+        pen_sum, rows = losses.penalty_sum(out["alphas"], mask, alpha_c)
+    return ce_sum, pen_sum, hits, mask.sum(), rows
+
+
+def _caption_update(reducer, opts, optimizers, terms):
+    """Divide the summed terms by the global token and row counts (the
+    global means, whatever each rank's share of the tokens), run the
+    backward, sum the gradients over the ranks, step every optimizer;
+    -> the global metrics."""
+    ce_sum, pen_sum, hits, n_tok, rows = terms
+    n_glob, rows_glob = reducer.sum(n_tok, rows).clamp(min=1.0).unbind()
+    ce = ce_sum / n_glob
+    pen = pen_sum / rows_glob
+    loss = ce + pen
+    loss.backward()
+    loss_g, ce_g, pen_g, hits_g = reducer.grads(
+        opts, [loss, ce, pen, hits]).unbind()
+    for opt, optimizer in zip(opts, optimizers):
+        optimizer.update(opt)
+    return {"loss": loss_g, "top5": hits_g / n_glob * 100.0,
+            "n_tokens": n_glob, "ce": ce_g, "alpha_penalty": pen_g}
 
 
 def make_caption_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                            optimizer: ClampAdam, device="cuda"):
+                            optimizer: ClampAdam, device="cuda", mesh=None):
     """(encode_fn, step) for the decoder update:
 
         step({"params", "opt_state"}, enc_out, tags, captions, caplens,
@@ -262,9 +336,19 @@ def make_caption_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     opt_state is ``optimizer.init(params)``; params are updated in place.
     metrics holds 0-d tensors: loss, top5, n_tokens, ce, alpha_penalty.
     gen is the dropout generator.  The frozen tagger runs in eval mode, as
-    in JAX (not the reference's dropout-at-train-time)."""
+    in JAX (not the reference's dropout-at-train-time).
+
+    With a mesh (``core/meshes.make_mesh``, data axis only) the step runs
+    on this rank's rows of the global batch: each summed loss term is
+    divided by its GLOBAL count (an all_reduce before the backward; each
+    rank's own mean, as DDP takes it, differs whenever the ranks' token
+    counts do), the gradients are summed over the data group before the
+    clamp and Adam, and the metrics come back global.  The parameters
+    must start equal on every rank (``parallel/sharding.place_state``)."""
     dev = _device(device)
     encode_fn = make_encoders_fn(cfg, tcfg.encoder_dtype, dev)
+    reducer = _Reducer(mesh)
+    cdt = _dtype(tcfg.decoder_dtype)
 
     def step(substate: Dict, enc_out, tags, captions, caplens, gen=None):
         params, opt_state = substate["params"], substate["opt_state"]
@@ -272,15 +356,20 @@ def make_caption_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             x.to(dev) for x in (enc_out, tags, captions, caplens))
         head = resolve_head_impl(tcfg, cfg, enc_out.shape[0], dev)
         opt_state.zero_grad(set_to_none=True)
-        loss, aux = _forward_loss(params, cfg, tcfg, head, enc_out, tags,
-                                     captions, caplens, gen, train=True)
-        loss.backward()
-        optimizer.update(opt_state)
-        metrics = {"loss": loss.detach(), "top5": aux["top5"].detach(),
-                   "n_tokens": aux["n_tokens"].detach(),
-                   "ce": aux["ce"].detach(),
-                   "alpha_penalty": aux["alpha_penalty"].detach()}
-        return substate, metrics
+        p = decoders.cast_params(params, cdt) if cdt != torch.float32 \
+            else params
+        out = decoders.teacher_forcing(
+            p, cfg, enc_out.to(cdt), tags.to(cdt), captions, caplens,
+            dropout_gen=gen, train=True, return_hidden=head == "chunked")
+        if out["alphas"] is not None:
+            out["alphas"] = out["alphas"].to(torch.float32)
+        if head != "chunked":
+            out["predictions"] = out["predictions"].to(torch.float32)
+        terms = _caption_terms(out, captions, tcfg.alpha_c,
+                               fc=p["fc"] if head == "chunked" else None,
+                               tile=tcfg.head_tile)
+        return substate, _caption_update(reducer, [opt_state], [optimizer],
+                                         terms)
 
     return encode_fn, step
 
@@ -327,7 +416,7 @@ def make_caption_finetune_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                                      dec_optimizer: ClampAdam,
                                      enc_optimizer: ClampAdam,
                                      fine_tune_embeddings: bool = True,
-                                     device="cuda"):
+                                     device="cuda", mesh=None):
     """Joint decoder and encoder fine-tuning (fine_tune_encoder=True):
     ``(tagger_fn, step)`` with
 
@@ -344,8 +433,15 @@ def make_caption_finetune_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     ``tcfg.encoder_remat``; only its stages 2-4 train
     (:func:`encoders.caption_encoder_trainable_mask`), and the decoder's
     embedding only with fine_tune_embeddings.  The scan is the eager one
-    (``enc_grad=True``); the loss is the dense head's, as in JAX."""
+    (``enc_grad=True``); the loss is the dense head's, as in JAX.
+
+    With a mesh, as :func:`make_caption_train_step`, and the train-mode
+    BatchNorm takes its statistics over the GLOBAL batch (synchronised
+    BatchNorm, ``models/resnet.py``; the running statistics move by the
+    global unbiased variance); the decoder's and the encoder's gradients
+    are summed in one all_reduce."""
     dev = _device(device)
+    reducer = _Reducer(mesh)
 
     @torch.no_grad()
     def tagger_fn(state, batch):
@@ -365,27 +461,20 @@ def make_caption_finetune_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         x = encoders.prep_images(_on(images_u8, dev))
         tags, captions, caplens = (_on(v, dev)
                                    for v in (tags, captions, caplens))
-        for opt in (state["opt_state"], state["enc_opt_state"]):
+        opts = [state["opt_state"], state["enc_opt_state"]]
+        for opt in opts:
             opt.zero_grad(set_to_none=True)
         enc_out, new_stats = encoders.apply_encoder_caption(
             encoder, state["encoder_stats"], x, train=True,
             enc_image_size=cfg.enc_image_size, arch=cfg.encoder_arch,
-            remat=tcfg.encoder_remat)
+            remat=tcfg.encoder_remat, bn_group=reducer.group)
         out = decoders.teacher_forcing(params, cfg, enc_out, tags, captions,
                                        caplens, dropout_gen=gen, train=True,
                                        enc_grad=True)
-        loss, aux = losses.caption_loss(out, captions, tcfg.alpha_c)
-        targets = captions[:, 1:1 + out["predictions"].shape[1]]
-        top5 = losses.masked_topk_accuracy(out["predictions"].detach(),
-                                           targets, out["mask"], 5)
-        loss.backward()
-        dec_optimizer.update(state["opt_state"])
-        enc_optimizer.update(state["enc_opt_state"])
+        metrics = _caption_update(
+            reducer, opts, [dec_optimizer, enc_optimizer],
+            _caption_terms(out, captions, tcfg.alpha_c))
         state["encoder_stats"] = new_stats
-        metrics = {"loss": loss.detach(), "top5": top5,
-                   "n_tokens": aux["n_tokens"].detach(),
-                   "ce": aux["ce"].detach(),
-                   "alpha_penalty": aux["alpha_penalty"].detach()}
         return state, metrics
 
     return tagger_fn, step
@@ -405,7 +494,8 @@ def tagger_trainable_mask(params):
 
 def make_tagger_train_step(tcfg: TrainConfig, optimizer: ClampAdam,
                            dropout_rate: float = 0.15,
-                           arch: str = "resnet152", device="cuda"):
+                           arch: str = "resnet152", device="cuda",
+                           mesh=None):
     """step(state, batch, gen=None) -> (state, {"loss", "acc"}): BCE on
     the sigmoid scores and the binary accuracy over valid rows.  state
     holds params, stats and opt_state (``optimizer.init(params)``);
@@ -416,10 +506,16 @@ def make_tagger_train_step(tcfg: TrainConfig, optimizer: ClampAdam,
     tcfg.tagger_dtype="bfloat16" runs the forward and backward in bf16
     (the batch statistics still reduce in float32) and casts the
     probabilities back to float32 before the BCE clip (1 - 1e-7 rounds
-    to 1 in bf16).  tcfg.encoder_remat rematerialises the bottlenecks."""
+    to 1 in bf16).  tcfg.encoder_remat rematerialises the bottlenecks.
+
+    With a mesh the step runs on this rank's rows: the BCE and the
+    accuracy over the global batch's valid rows, synchronised BatchNorm
+    over the data group, the gradients summed before the clamp and
+    Adam."""
     dev = _device(device)
     cdt = _dtype(tcfg.tagger_dtype)
     remat = tcfg.encoder_remat
+    reducer = _Reducer(mesh)
 
     def step(state: Dict, batch, gen=None):
         params, opt_state = state["params"], state["opt_state"]
@@ -427,19 +523,26 @@ def make_tagger_train_step(tcfg: TrainConfig, optimizer: ClampAdam,
         x = encoders.prep_images(_on(batch["images"], dev)).to(cdt)
         tags = _on(batch["tags"], dev).to(torch.float32)
         valid = batch.get("valid")
-        valid = None if valid is None else _on(valid, dev)
+        w = (torch.ones(x.shape[0], device=dev) if valid is None
+             else _on(valid, dev).to(torch.float32))
         opt_state.zero_grad(set_to_none=True)
         p = params if cdt == torch.float32 else cast_tree(params, cdt)
         probs, new_stats = encoders.apply_encoder_tagger(
             p, state["stats"], x, train=True, dropout_gen=gen,
-            dropout_rate=dropout_rate, arch=arch, remat=remat)
+            dropout_rate=dropout_rate, arch=arch, remat=remat,
+            bn_group=reducer.group)
         probs = probs.to(torch.float32)
-        loss = losses.bce_loss(probs, tags, row_valid=valid)
+        elem = losses.bce_elements(probs, tags)
+        correct = ((probs.detach() >= 0.5) == (tags >= 0.5)).to(
+            torch.float32)
+        n_elem = reducer.sum(w.sum() * elem.shape[1])[0].clamp(min=1.0)
+        loss = (elem * w[:, None]).sum() / n_elem
         loss.backward()
+        loss_g, hits_g = reducer.grads(
+            [opt_state], [loss, (correct * w[:, None]).sum()]).unbind()
         optimizer.update(opt_state)
         state["stats"] = new_stats
-        return state, {"loss": loss.detach(),
-                       "acc": _binary_accuracy(probs.detach(), tags, valid)}
+        return state, {"loss": loss_g, "acc": hits_g / n_elem * 100.0}
 
     return step
 

@@ -18,7 +18,7 @@ in memory (``TagDataset.from_arrays``).  The checkpoint is
 ``train/caption.init_state(tagger_checkpoint=...)`` read it.  The
 trainer runs on the card unless the caller asks for the CPU.
 ``tcfg.mesh_shape`` (D, 1) trains data-parallel as ``train/caption.py``
-does (one process per rank, ``parallel/train_step.py``'s tagger step with
+does (one process per rank, the tagger step given the mesh, with
 BatchNorm statistics over the global batch, rank 0 writing the
 checkpoints synchronously); a model axis raises ``NotImplementedError``.
 """
@@ -118,16 +118,11 @@ def train(train_ds, val_ds, tcfg: Optional[TrainConfig] = None,
 
     drop_key = stream(root_key(tcfg.seed, dev), "tagger_dropout")
     if mesh is not None:
-        from ..parallel.train_step import make_parallel_tagger_train_step
         sharding.place_state(mesh, state)
         drop_key = stream(drop_key, f"rank{mesh.data_index}")
-        train_step = make_parallel_tagger_train_step(
-            tcfg, optimizer, mesh, tagger_cfg.dropout,
-            arch=tagger_cfg.encoder_arch, device=dev)
-    else:
-        train_step = steps.make_tagger_train_step(
-            tcfg, optimizer, tagger_cfg.dropout,
-            arch=tagger_cfg.encoder_arch, device=dev)
+    train_step = steps.make_tagger_train_step(
+        tcfg, optimizer, tagger_cfg.dropout, arch=tagger_cfg.encoder_arch,
+        device=dev, mesh=mesh)
     eval_step = steps.make_tagger_eval_step(
         arch=tagger_cfg.encoder_arch, compute_dtype=tcfg.tagger_dtype,
         device=dev)

@@ -285,6 +285,25 @@ def test_model_axis_raises_naming_it(corpus, tmp_path):
     assert sharding.place_batch(mesh, batch)["caps"].shape == (4, 3)
 
 
+def test_initialize_distributed_refuses_more_ranks_than_cards(monkeypatch):
+    """On CUDA the backend is NCCL, a card for each rank of the node: more
+    ranks than cards raise before any group exists, unless the caller
+    names gloo (which still needs a card); another backend raises."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    kw = dict(init_method="tcp://localhost:1", world_size=2, rank=0,
+              device="cuda")
+    for backend in (None, "nccl"):
+        with pytest.raises(RuntimeError, match="needs a card for each rank"):
+            meshes.initialize_distributed(backend=backend, **kw)
+    with pytest.raises(ValueError, match="'nccl' or 'gloo'"):
+        meshes.initialize_distributed(backend="mpi", **kw)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            meshes.initialize_distributed(backend="gloo", **kw)
+    assert not torch.distributed.is_initialized()
+
+
 def test_parallel_builders_run_on_the_card_unless_asked_for_the_cpu():
     """The data-parallel step builders and the examples resolve "cuda"
     and raise without a card; they never fall back to the CPU."""

@@ -186,8 +186,8 @@ def test_tagger_bf16_limits_reject_wrong_features(jax_bf16_case, monkeypatch,
     else:
         bn = resnet._bn
 
-        def running(x, p, s, train):
-            return bn(x, p, s, False)[0], bn(x, p, s, train)[1]
+        def running(x, p, s, train, group=None):
+            return bn(x, p, s, False)[0], bn(x, p, s, train, group)[1]
 
         monkeypatch.setattr(resnet, "_bn", running)
     state, m, _ = port_bf16_step(jax_bf16_case)
