@@ -344,6 +344,32 @@ DP_TRAINER_IMAGES, DP_TAGGER_B, DP_TAGGER_STEPS = (64, 32), 16, 2
 DP_GRAD_TOL, DP_UPDATE_TOL, DP_PARAM_TOL, DP_LOSS_TOL = 1e-4, 5e-3, 5e-3, 1e-5
 DP_TAGGER_TOL, DP_TAGGER_GRAD_TOL, DP_TAGGER_UPDATE_TOL = 1e-4, 0.02, 0.25
 DP_NCCL_TIMEOUT_S, DP_TIMEOUT_S = 120, 600
+# The model-axis phase: a (data, model) mesh of ranks on the one card over
+# gloo, attention_scn at the reference widths with the COCO-ID vocabulary
+# (V = 38,732 = 4 x 9,683: the model axis must divide V, and the flagship
+# 6,763 is odd), DP_B global rows, MA_STEPS steps a head, the trainer's
+# TRAIN and VAL images and the evaluation's TEST images (TRAINER_CPI
+# captions each).  Each step on every rank is held against one rank's
+# unsharded step from the same state (the blocks gathered over the model
+# group) on the whole global batch: the rank's clamped gradients (its
+# vocabulary block against the matching slice) and its update, each
+# relative in the 2-norm, within MA_GRAD_TOL and MA_UPDATE_TOL, the loss
+# within MA_LOSS_TOL relative, top-5 within one token.  A control, d_h
+# not summed over the model group, must exceed the gradient and update
+# limits.  Each limit lies between the sound reading and the control's,
+# read on an H100: gradients 3.4e-07-8.6e-07 against 0.35 (model rank 0)
+# and 0.92 (rank 1), update 2.6e-06-2.0e-05 against 0.49 and 0.97, the
+# loss up to 8.5e-08 (the control's forward is the same), top-5 equal.
+# The embedding block's gradient alone is held to MA_GRAD_TOL too, so a
+# wrong block is not diluted by the other leaves, and kernel 14 is held
+# to its plain version on each rank's ids shifted into its block (most
+# of them outside it) at EMBED_TOL.  MA_FT_STEPS fine-tune steps of
+# MA_FT_B global images must leave the replicated leaves, their moments
+# and the running statistics bitwise equal on every rank.
+MA_MESH, MA_VOCAB, MA_STEPS = (2, 2), 38732, 3
+MA_TRAINER_IMAGES, MA_TEST_IMAGES, MA_TIMEOUT_S = (64, 32), 32, 600
+MA_FT_B, MA_FT_STEPS = 8, 2
+MA_GRAD_TOL, MA_UPDATE_TOL, MA_LOSS_TOL = 1e-4, 5e-3, 1e-5
 # The card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms.
 # "tf32x3": a float32 product as the tensor-core GEMM (csrc/mma.cuh)
 # computes it, three TF32 products at 495 TFLOP/s.
@@ -932,19 +958,16 @@ def embed_work(N, V, E, isz=4):
     return V * E * 4 + N * E * isz + N * 4, N * E
 
 
-def embed_grad_case(dev, dtype, B, T, V, E, dup=False, label=""):
-    """Kernel 14 against its plain version (index_add_, which adds with
-    atomics on the card, so its order varies): every element within
-    EMBED_TOL of its column's sum of |g|; two kernel calls bitwise equal;
-    median times of the kernel, the plain version, one index_add_ call
-    (the library yardstick) and the one-hot product of "onehot"."""
+def embed_grad_check(ids, g, V, label):
+    """Kernel 14 on (ids, g) against its plain version (index_add_ over
+    the ids in [0, V), which adds with atomics on the card, so its order
+    varies): launched twice, the two calls bitwise equal, every element
+    within EMBED_TOL of its column's sum of |g|.  -> the largest absolute
+    error."""
     import torch
 
     from indonesian_image_captioning_tpu_torch.ops import embed_grad_cuda
 
-    name = str(dtype).replace("torch.", "")
-    ids, g = embed_grad_inputs(dev, dtype, B, T, V, E, SEED + 10 + B, dup)
-    N = ids.shape[0]
     n0 = embed_grad_cuda.embed_grad_scatter.launches
     out = embed_grad_cuda.embed_grad_scatter(ids, g, V)
     again = embed_grad_cuda.embed_grad_scatter(ids, g, V)
@@ -958,7 +981,21 @@ def embed_grad_case(dev, dtype, B, T, V, E, dup=False, label=""):
     check(bool((diff <= tol).all()), f"embed_grad {label}: error "
           f"{float((diff - tol).max())} past {EMBED_TOL} x sum|g| of a "
           "column")
-    err = float(diff.max())
+    return float(diff.max())
+
+
+def embed_grad_case(dev, dtype, B, T, V, E, dup=False, label=""):
+    """Kernel 14 against its plain version (:func:`embed_grad_check`);
+    median times of the kernel, the plain version, one index_add_ call
+    (the library yardstick) and the one-hot product of "onehot"."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import embed_grad_cuda
+
+    name = str(dtype).replace("torch.", "")
+    ids, g = embed_grad_inputs(dev, dtype, B, T, V, E, SEED + 10 + B, dup)
+    N = ids.shape[0]
+    err = embed_grad_check(ids, g, V, label)
     ids64, g32 = ids.long(), g.float()
     table = torch.zeros((V, E), device=dev)
     cols = torch.arange(V, device=dev)
@@ -3907,13 +3944,13 @@ def nccl_rank(rank, port):
         dist.destroy_process_group()
 
 
-def spawn(fn, args, timeout_s):
-    """Run fn(rank, *args) on DP_RANKS spawned processes; -> None, or the
+def spawn(fn, args, timeout_s, nprocs=DP_RANKS):
+    """Run fn(rank, *args) on nprocs spawned processes; -> None, or the
     first failure's text.  Processes still running at timeout_s are
     killed."""
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(fn, args=args, nprocs=DP_RANKS, join=False,
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
                              start_method="spawn")
     deadline = time.perf_counter() + timeout_s
     try:
@@ -4130,6 +4167,540 @@ def data_parallel_phase(dev, cfg, card, hyps):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def digest(tensors):
+    """A hash of tensors' bytes: equal digests, bitwise-equal tensors."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ma_blocks(leaves, dims, mesh):
+    """Whole-vocabulary leaves (tree_leaves order) cut to this rank's
+    vocabulary block where ``dims`` (index: dimension) says so."""
+    from indonesian_image_captioning_tpu_torch.core import meshes
+
+    out = []
+    for i, t in enumerate(leaves):
+        if i in dims:
+            col0, width = meshes.vocab_block(t.shape[dims[i]], mesh)
+            t = t.narrow(dims[i], col0, width)
+        out.append(t)
+    return out
+
+
+def ma_rank(rank, port, tmp):
+    """One rank of the model-axis phase (spawned).  Writes its results to
+    tmp/rank{rank}.pt."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from indonesian_image_captioning_tpu_torch.cli import common
+    from indonesian_image_captioning_tpu_torch.core import meshes
+    from indonesian_image_captioning_tpu_torch.core.config import (
+        BeamConfig, ModelConfig, TrainConfig)
+    from indonesian_image_captioning_tpu_torch.core.runtime import \
+        get_device
+    from indonesian_image_captioning_tpu_torch.data.datasets import \
+        CaptionDataset
+    from indonesian_image_captioning_tpu_torch.evaluation import \
+        eval_caption
+    from indonesian_image_captioning_tpu_torch.models import decoders
+    from indonesian_image_captioning_tpu_torch.parallel import sharding
+    from indonesian_image_captioning_tpu_torch.parallel import \
+        train_step as ptrain
+    from indonesian_image_captioning_tpu_torch.train import caption, steps
+    from indonesian_image_captioning_tpu_torch.train.steps import (
+        map_tree, tree_leaves)
+
+    dev = get_device("cuda")
+    n_ranks = MA_MESH[0] * MA_MESH[1]
+    meshes.initialize_distributed(
+        init_method=f"tcp://localhost:{port}", world_size=n_ranks,
+        rank=rank, backend="gloo", device="cuda", timeout_s=MA_TIMEOUT_S)
+    mesh = meshes.make_mesh(MA_MESH)
+    res = {"backend": dist.get_backend(), "device": str(dev),
+           "coords": (mesh.data_index, mesh.model_index)}
+    cfg = ModelConfig(model_type="attention_scn", vocab_size=MA_VOCAB,
+                      embed_grad_impl="pallas", dropout=0.0)
+    lr = TrainConfig().decoder_lr
+    try:
+        sharding.trainer_mesh(TrainConfig(mesh_shape=MA_MESH), VOCAB)
+        res["refusal"] = None
+    except ValueError as e:
+        res["refusal"] = str(e)
+
+    def fresh():
+        params = decoders.init_decoder(
+            torch.Generator().manual_seed(SEED + 30), cfg, device=dev)
+        opt = steps.make_optimizer(lr, TrainConfig().grad_clip)
+        return {"params": params, "opt_state": opt.init(params)}, opt
+
+    def snapshot(sub):
+        return {"params": map_tree(sub["params"], lambda t: t.detach()
+                                   .clone()),
+                "opt_state": copy.deepcopy(sub["opt_state"].state_dict())}
+
+    def load(sub, snap):
+        with torch.no_grad():
+            for p, q in zip(tree_leaves(sub["params"]),
+                            tree_leaves(snap["params"]), strict=True):
+                p.copy_(q)
+        sub["opt_state"].load_state_dict(snap["opt_state"])
+
+    ref, ref_opt = fresh()              # whole vocabulary: the references
+    dims = sharding.vocab_leaf_dims(ref["params"])
+    batches = dp_batches(dev, cfg, MA_STEPS, seed=SEED + 30)
+    local = [sharding.place_batch(mesh, b) for b in batches]
+    rows = int(local[0]["caps"].shape[0])
+    for head in ("dense", "chunked"):
+        tcfg = TrainConfig(batch_size=DP_B, head_impl=head)
+        sub, opt = fresh()
+        sharding.place_state(mesh, sub)
+        step = ptrain.make_parallel_caption_train_step(cfg, tcfg, opt, mesh,
+                                                       device=dev)
+        _, ref_step = steps.make_caption_train_step(cfg, tcfg, ref_opt,
+                                                    device=dev)
+        snaps, grads, embs, metrics, ms = [], [], [], [], []
+        # ---- the steps: counters zeroed just before, read just after ----
+        torch.cuda.synchronize()
+        zero_counters()
+        for b in local:
+            snaps.append(snapshot(sub))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(sub, b["enc"], b["tags"], b["caps"], b["caplens"])
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            grads.append(dp_flat_grads(sub["opt_state"]))
+            embs.append(sub["params"]["embedding"].grad.detach().clone())
+            metrics.append({k: float(v) for k, v in m.items()})
+        ran = read_counters()
+        # -----------------------------------------------------------------
+        snaps.append(snapshot(sub))
+        leaves = tree_leaves(sub["params"])
+        out = {"launches": ran, "ms": ms, "metrics": metrics,
+               "blocks": digest([leaves[i] for i in sorted(dims)]),
+               "replicated": digest([t for i, t in enumerate(leaves)
+                                     if i not in dims]),
+               "shapes": [tuple(leaves[i].shape) for i in sorted(dims)]}
+        # each step against one rank's unsharded step from the same state
+        # (gathered over the model group) on the whole global batch
+        cmp, refs = [], []
+        for i, b in enumerate(batches):
+            steps.restore_state(ref, sharding.gather_payload(mesh,
+                                                             snaps[i]))
+            _, mr = ref_step(ref, b["enc"], b["tags"], b["caps"],
+                             b["caplens"])
+            g = dp_flat(ma_blocks([p.grad for p in tree_leaves(
+                ref["params"])], dims, mesh))
+            before = dp_flat(tree_leaves(snaps[i]["params"]))
+            u = (dp_flat(ma_blocks(tree_leaves(ref["params"]), dims, mesh))
+                 - before) / lr
+            mine = (dp_flat(tree_leaves(snaps[i + 1]["params"])) - before) \
+                / lr
+            refs.append((g, u))
+            emb = ma_blocks([ref["params"]["embedding"].grad], {0: 0},
+                            mesh)[0]
+            cmp.append({"grad": rel_err(grads[i], g),
+                        "embed": rel_err(embs[i], emb),
+                        "update": rel_err(mine, u),
+                        "loss": abs(metrics[i]["loss"] - float(mr["loss"]))
+                        / float(mr["loss"]),
+                        "top5": abs(metrics[i]["top5"] - float(mr["top5"])),
+                        "one_token": 100.0 / float(mr["n_tokens"])})
+        out["cmp"] = cmp
+        # the control: step 0 again with d_h not summed over the model
+        # group (each rank's replicated weights see only its block's part)
+        load(sub, snaps[0])
+        summed = meshes.enter_vocab_region
+        meshes.enter_vocab_region = lambda x, mesh: x
+        try:
+            b = local[0]
+            step(sub, b["enc"], b["tags"], b["caps"], b["caplens"])
+        finally:
+            meshes.enter_vocab_region = summed
+        before = dp_flat(tree_leaves(snaps[0]["params"]))
+        out["control"] = {
+            "grad": rel_err(dp_flat_grads(sub["opt_state"]), refs[0][0]),
+            "update": rel_err((dp_flat(tree_leaves(sub["params"])) - before)
+                              / lr, refs[0][1])}
+        # one rank's step on the whole batch, the others waiting
+        meshes.barrier(mesh)
+        if rank == 0:
+            b = batches[0]
+            _, one_ms = timed_steps(lambda: ref_step(
+                ref, b["enc"], b["tags"], b["caps"], b["caplens"]), MA_STEPS)
+            out["one_rank_ms"] = one_ms
+        meshes.barrier(mesh)
+        res[head] = out
+        del sub, opt, snaps, grads, embs
+
+    # ---- kernel 14 on this rank's ids shifted into its block, as the
+    # step's lookup gives them (the other blocks' ids fall outside) ----
+    col0, width = meshes.vocab_block(MA_VOCAB, mesh)
+    ids = (local[0]["caps"][:, :cfg.max_caption_len - 1].reshape(-1)
+           - col0).to(torch.int32).contiguous()
+    gen = torch.Generator().manual_seed(SEED + 32 + rank)
+    res["embed_block"] = {
+        "N": ids.shape[0], "V": width, "E": cfg.embed_dim,
+        "outside": int(((ids < 0) | (ids >= width)).sum()),
+        "err": {str(dt).replace("torch.", ""): embed_grad_check(
+            ids, torch.randn((ids.shape[0], cfg.embed_dim),
+                             generator=gen).to(dev, dt).contiguous(),
+            width, f"rank {rank}'s block ids")
+            for dt in (torch.float32, torch.bfloat16)}}
+
+    # ---- fine-tune steps at the mesh: the replicated leaves, moments
+    # and statistics bitwise equal on every rank; each broadcast's input
+    # digested, to see whether the model ranks' own copies agreed ----
+    fcfg = ModelConfig(model_type="attention_scn", vocab_size=MA_VOCAB,
+                       embed_grad_impl="pallas")
+    ftcfg = TrainConfig(batch_size=MA_FT_B, fine_tune_encoder=True)
+    dec_opt = steps.make_optimizer(ftcfg.decoder_lr, ftcfg.grad_clip)
+    enc_opt = steps.make_optimizer(ftcfg.encoder_lr, ftcfg.grad_clip)
+    ft = caption.init_state(torch.Generator().manual_seed(SEED + 33), fcfg,
+                            dec_opt, device=dev)
+    ft["enc_opt_state"] = enc_opt.init(ft["encoder"])
+    sharding.place_state(mesh, ft)
+    tagger_fn, ft_step = ptrain.make_parallel_caption_finetune_step(
+        fcfg, ftcfg, dec_opt, enc_opt, mesh, device=dev)
+    frng = np.random.default_rng(SEED + 33)
+    fcaps, flens = captions(frng, MA_FT_B, MA_VOCAB, fcfg.max_caption_len)
+    fb = sharding.place_batch(mesh, {
+        "images": frng.integers(0, 256, (MA_FT_B, 3, IMAGE_SIZE,
+                                         IMAGE_SIZE), dtype=np.uint8),
+        "caps": fcaps.astype(np.int64), "caplens": flens.astype(np.int64)})
+    ftags = tagger_fn(ft, fb)
+    drop = torch.Generator(device=dev).manual_seed(SEED + 34
+                                                   + mesh.data_index)
+    pre, ft_ms, ft_loss = [], [], []
+    bcast = meshes.replicate_over_model
+
+    def recorded(t, m):
+        pre.append(digest([t]))
+        return bcast(t, m)
+
+    meshes.replicate_over_model = recorded
+    try:
+        for _ in range(MA_FT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = ft_step(ft, fb["images"], ftags, fb["caps"],
+                           fb["caplens"], gen=drop)
+            torch.cuda.synchronize()
+            ft_ms.append(1e3 * (time.perf_counter() - t0))
+            ft_loss.append(float(m["loss"]))
+    finally:
+        meshes.replicate_over_model = bcast
+    fdims = sharding.vocab_leaf_dims(ft["params"])
+    dec = tree_leaves(ft["params"])
+
+    def moments(opt, ps):
+        return [opt.state[p][k] for p in ps for k in ("exp_avg",
+                                                     "exp_avg_sq")]
+
+    rep_dec = [p for i, p in enumerate(dec) if i not in fdims]
+    blk_dec = [dec[i] for i in sorted(fdims)]
+    enc = tree_leaves(ft["encoder"])
+    res["finetune"] = {
+        "replicated": digest(rep_dec + moments(ft["opt_state"], rep_dec)
+                             + enc + moments(ft["enc_opt_state"], enc)
+                             + tree_leaves(ft["encoder_stats"])),
+        "blocks": digest(blk_dec + moments(ft["opt_state"], blk_dec)),
+        "pre": pre, "ms": ft_ms, "loss": ft_loss,
+        "arch": fcfg.encoder_arch}
+    del ft, dec_opt, enc_opt, rep_dec, blk_dec, enc, dec
+    torch.cuda.empty_cache()
+
+    # ---- a bare model-group all_reduce of the embedded inputs' size ----
+    buf = torch.zeros((rows, cfg.max_caption_len - 1, cfg.embed_dim),
+                      device=dev)
+    ar = []
+    for _ in range(MA_STEPS):
+        meshes.barrier(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meshes.model_all_reduce(buf, mesh)
+        torch.cuda.synchronize()
+        ar.append(1e3 * (time.perf_counter() - t0))
+    res.update(all_reduce_ms=ar, all_reduce_mb=4 * buf.numel() / 2**20,
+               rows=rows)
+    del buf, ref, ref_opt
+
+    # ---- the trainer at the mesh: one epoch, its checkpoint, a resume,
+    # the evaluation over the mesh ----
+    rng = np.random.default_rng(SEED + 31)
+    wm = word_map(MA_VOCAB)
+
+    def split(n, name):
+        caps, caplens = captions(rng, n * TRAINER_CPI, MA_VOCAB,
+                                 cfg.max_caption_len)
+        images = rng.integers(0, 256, size=(n, 3, IMAGE_SIZE, IMAGE_SIZE),
+                              dtype=np.uint8)
+        return CaptionDataset.from_arrays(images, caps, caplens,
+                                          cpi=TRAINER_CPI, split=name)
+
+    train_ds, val_ds = (split(n, name) for n, name in
+                        zip(MA_TRAINER_IMAGES, ("TRAIN", "VAL")))
+    ckdir = os.path.join(tmp, "checkpoints")
+    ttcfg = TrainConfig(epochs=1, batch_size=DP_B, print_freq=5,
+                        cache_features=True, calibrate_encoder_stats=1,
+                        checkpoint_dir=ckdir, mesh_shape=MA_MESH)
+    kcfg = ModelConfig(model_type="attention_scn", vocab_size=MA_VOCAB,
+                       embed_grad_impl="pallas")
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    state, summary = caption.train("attention_scn", wm, train_ds, val_ds,
+                                   ttcfg, model_cfg=kcfg,
+                                   data_name="ma_corpus",
+                                   log=lambda line: None, device=dev)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    ran = read_counters()
+    n_train = len(train_ds) // DP_B
+    n_val = -(-len(val_ds) // DP_B)
+    check(ran["train_bwd"] == ran["embed_grad_scatter"] == n_train
+          and ran["train_fwd"] == n_train + n_val,
+          f"rank {rank}: the trainer's epoch at mesh {MA_MESH} ran kernels "
+          f"8, 9 and 14 {ran['train_fwd']}, {ran['train_bwd']} and "
+          f"{ran['embed_grad_scatter']} times in {n_train} train and "
+          f"{n_val} validation steps")
+    check(all(np.isfinite(summary["step_losses"][0])),
+          f"rank {rank}: trainer losses {summary['step_losses']}")
+    meshes.barrier(mesh)
+    path = os.path.join(ckdir, "checkpoint_attention_scn_ma_corpus")
+    t0 = time.perf_counter()
+    loaded = common.load_caption_state(path, kcfg, device=dev)
+    t_load = time.perf_counter() - t0
+    whole = sharding.gather_payload(mesh, steps.state_payload(state))
+    for key in ("params", "encoder", "encoder_stats", "tagger",
+                "tagger_stats"):
+        same = all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(loaded[key]), tree_leaves(whole[key]), strict=True))
+        check(same, f"rank {rank}: rank 0's checkpoint, loaded at one rank,"
+              f" differs from the {key} gathered over the model group")
+    # a resume of the finished run trains nothing: the restored state
+    opt = state["opt_state"]
+    moments = [t for p in tree_leaves(state["params"])
+               for t in (opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"])]
+    again, _ = caption.train("attention_scn", wm, train_ds, val_ds, ttcfg,
+                             model_cfg=kcfg, data_name="ma_corpus",
+                             resume=True, log=lambda line: None, device=dev)
+    opt2 = again["opt_state"]
+    restored = [t for p in tree_leaves(again["params"])
+                for t in (opt2.state[p]["exp_avg"],
+                          opt2.state[p]["exp_avg_sq"])]
+    check(all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(again["params"]), tree_leaves(state["params"]),
+        strict=True)) and all(torch.equal(x, y) for x, y in zip(
+            restored, moments, strict=True)),
+          f"rank {rank}: the resume did not restore this rank's blocks and "
+          "moments bitwise")
+    del again, loaded
+    # the TEST split over the mesh against one rank's decode of the same
+    # blocks of rows (kernel 7 on each data row)
+    test_ds = split(MA_TEST_IMAGES, "TEST")
+    beam = BeamConfig(beam_size=5)
+    t0 = time.perf_counter()
+    _, hyps = eval_caption.decode_dataset(
+        state, kcfg, test_ds, wm, beam_cfg=beam, batch_size=DP_B,
+        log=lambda line: None, device=dev, mesh=meshes.make_mesh(MA_MESH))
+    t_eval = time.perf_counter() - t0
+    res["trainer"] = {"s": t_run, "load_s": t_load, "eval_s": t_eval,
+                      "epoch_s": summary["timings"]["train_epoch"][0],
+                      "train_loss": summary["train_loss"],
+                      "bleu4": summary["best_metric"], "steps": n_train,
+                      "launches": ran, "hyps": hyps}
+    if rank == 0:
+        one = {**state, "params": whole["params"]}
+        _, one_hyps = eval_caption.decode_dataset(
+            one, kcfg, test_ds, wm, beam_cfg=beam,
+            batch_size=DP_B // MA_MESH[0], log=lambda line: None,
+            device=dev)
+        res["trainer"]["one_rank_hyps"] = one_hyps
+    del state, whole
+    meshes.barrier(mesh)
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def model_axis_phase(card):
+    """The model-axis phase: MA_MESH ranks on the one card over gloo,
+    vocab-sharded caption steps (dense and chunked heads) held against
+    one rank's unsharded step, with a control that must fail; the
+    refusal of an odd vocabulary; kernel 14 on each rank's block ids;
+    fine-tune steps whose replicas must stay bitwise equal; the trainer
+    at the mesh with its checkpoint, a resume and the evaluation over the
+    mesh."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    n_ranks = MA_MESH[0] * MA_MESH[1]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        failed = spawn(ma_rank, (free_port(), tmp), MA_TIMEOUT_S,
+                       nprocs=n_ranks)
+        t_ranks = time.perf_counter() - t0
+        if failed:
+            raise SmokeFailure(f"model-axis ranks: {failed}")
+        r = [torch.load(os.path.join(tmp, f"rank{i}.pt"), weights_only=False)
+             for i in range(n_ranks)]
+
+    def g(x):
+        return f"{x:.3g}"
+
+    def ms(xs):
+        return ", ".join(f"{v:.1f}" for v in xs)
+
+    for i, x in enumerate(r):
+        check(x["backend"] == "gloo" and x["device"] == "cuda",
+              f"rank {i} ran on {x['backend']} / {x['device']}")
+        check(x["refusal"] is not None and f"vocab_size {VOCAB}" in
+              x["refusal"] and f"model axis {MA_MESH[1]}" in x["refusal"],
+              f"rank {i}: V={VOCAB} at M={MA_MESH[1]} gave {x['refusal']}")
+    width = MA_VOCAB // MA_MESH[1]
+    for head in ("dense", "chunked"):
+        want = {"train_fwd": MA_STEPS, "train_bwd": MA_STEPS,
+                "embed_grad_scatter": MA_STEPS}
+        for i, x in enumerate(r):
+            h = x[head]
+            got = {k: h["launches"][k] for k in want}
+            check(got == want, f"{head}: rank {i} launched {got} in "
+                  f"{MA_STEPS} steps")
+            check(h["metrics"] == r[0][head]["metrics"]
+                  and h["replicated"] == r[0][head]["replicated"],
+                  f"{head}: rank {i}'s metrics or replicated weights differ "
+                  "from rank 0's")
+            peer = [y for y in r if y["coords"][1] == x["coords"][1]]
+            check(all(y[head]["blocks"] == h["blocks"] for y in peer)
+                  and all(s[-1] == width or s[0] == width
+                          for s in h["shapes"]),
+                  f"{head}: rank {i}'s vocabulary blocks {h['shapes']} "
+                  "differ from its model column's")
+            worst = {k: max(c[k] for c in h["cmp"])
+                     for k in ("grad", "update", "loss")}
+            check(worst["grad"] <= MA_GRAD_TOL
+                  and worst["update"] <= MA_UPDATE_TOL
+                  and worst["loss"] <= MA_LOSS_TOL
+                  and all(c["top5"] <= c["one_token"] for c in h["cmp"]),
+                  f"{head}: rank {i}'s {MA_STEPS} steps against one rank's "
+                  f"from the same state: {h['cmp']} (limits: gradients "
+                  f"{MA_GRAD_TOL}, update {MA_UPDATE_TOL}, loss "
+                  f"{MA_LOSS_TOL}, top-5 one token)")
+            check(h["control"]["grad"] > MA_GRAD_TOL
+                  and h["control"]["update"] > MA_UPDATE_TOL,
+                  f"{head}: rank {i}'s control (d_h not summed over the "
+                  f"model group) passes the limits: {h['control']}")
+            check(max(c["embed"] for c in h["cmp"]) <= MA_GRAD_TOL,
+                  f"{head}: rank {i}'s embedding block's gradient against "
+                  f"the matching slice of one rank's: "
+                  f"{[c['embed'] for c in h['cmp']]} (limit {MA_GRAD_TOL})")
+    for i, x in enumerate(r):
+        e = x["embed_block"]
+        check(e["V"] == width and e["outside"] > 0,
+              f"rank {i}: kernel 14's block check took V={e['V']} with "
+              f"{e['outside']} ids outside the block")
+        f = x["finetune"]
+        check(f["replicated"] == r[0]["finetune"]["replicated"]
+              and all(np.isfinite(f["loss"])),
+              f"rank {i}: after {MA_FT_STEPS} fine-tune steps the replicated "
+              "leaves, moments or statistics differ from rank 0's, or the "
+              f"loss {f['loss']} is not finite")
+        check(all(y["finetune"]["blocks"] == f["blocks"] for y in r
+                  if y["coords"][1] == x["coords"][1]),
+              f"rank {i}: the fine-tune steps' vocabulary blocks differ "
+              "from its model column's")
+    tr = [x["trainer"] for x in r]
+    check(all(t["hyps"] == tr[0]["hyps"] for t in tr)
+          and tr[0]["hyps"] == tr[0]["one_rank_hyps"],
+          "the TEST split's hypotheses over the mesh differ between ranks "
+          "or from one rank's decode of the gathered state")
+
+    print(f"model axis: {card}; {n_ranks} ranks at mesh {MA_MESH} (data, "
+          f"model) on cuda:0 over gloo, attention_scn V={MA_VOCAB} ({width} "
+          f"columns a rank), global B={DP_B} ({r[0]['rows']} rows a data "
+          f"row), embed_grad_impl=pallas; V={VOCAB} at M={MA_MESH[1]} "
+          f"refused: {r[0]['refusal']}")
+    for head in ("dense", "chunked"):
+        h0 = r[0][head]
+        print(f"model axis, {head} head: step ms "
+              + "; ".join(f"rank {i} [{ms(x[head]['ms'])}]"
+                          for i, x in enumerate(r))
+              + f"; one rank on the whole batch [{ms(h0['one_rank_ms'])}]; "
+              f"launches a rank (8, 9, 14) {MA_STEPS} each")
+        for i, x in enumerate(r):
+            c = x[head]["cmp"]
+            print(f"model axis, {head} head, rank {i} {x['coords']}: "
+                  f"against one rank's step, relative in the 2-norm: "
+                  f"gradients [{', '.join(g(v['grad']) for v in c)}], the "
+                  f"embedding block's alone "
+                  f"[{', '.join(g(v['embed']) for v in c)}] (limit "
+                  f"{MA_GRAD_TOL}), update "
+                  f"[{', '.join(g(v['update']) for v in c)}] (limit "
+                  f"{MA_UPDATE_TOL}), loss "
+                  f"[{', '.join(g(v['loss']) for v in c)}] (limit "
+                  f"{MA_LOSS_TOL}), top-5 "
+                  f"[{', '.join(g(v['top5']) for v in c)}] (limit one token, "
+                  f"{g(c[0]['one_token'])}); the control, d_h not summed: "
+                  f"gradients {g(x[head]['control']['grad'])}, update "
+                  f"{g(x[head]['control']['update'])} (both must exceed the "
+                  "limits)")
+    e0 = r[0]["embed_block"]
+    print(f"model axis: kernel 14 on each rank's caption ids shifted into "
+          f"its block (N={e0['N']}, V={e0['V']}, E={e0['E']}) against its "
+          f"plain version, max abs err "
+          + "; ".join(f"rank {i} " + ", ".join(
+              f"{k} {g(v)}" for k, v in x["embed_block"]["err"].items())
+              + f" ({x['embed_block']['outside']} ids outside the block)"
+              for i, x in enumerate(r))
+          + f" (limit {EMBED_TOL} x a column's sum|g|; two calls bitwise "
+          "equal)")
+    agree = [all(x["finetune"]["pre"][j] == y["finetune"]["pre"][j]
+                 for x in r for y in r if x["coords"][0] == y["coords"][0])
+             for j in range(len(r[0]["finetune"]["pre"]))]
+    ft0 = r[0]["finetune"]
+    print(f"model axis: {MA_FT_STEPS} fine-tune steps ({ft0['arch']} stages "
+          f"2-4 and the decoder, {MA_FT_B} global images, dropout keyed by "
+          f"data row): loss {r[0]['finetune']['loss']}; step ms "
+          + "; ".join(f"rank {i} [{ms(x['finetune']['ms'])}]"
+                      for i, x in enumerate(r))
+          + "; replicated leaves, moments and statistics bitwise equal on "
+          f"every rank; before each of the {len(agree)} broadcasts from "
+          f"model rank 0 the model ranks' own copies were bitwise equal: "
+          f"{agree}")
+    print(f"model axis: a bare model-group all_reduce of the embedded "
+          f"inputs ({r[0]['all_reduce_mb']:.2f} MiB, host clock between two "
+          f"synchronizes) ms "
+          + "; ".join(f"rank {i} [{ms(x['all_reduce_ms'])}]"
+                      for i, x in enumerate(r)))
+    print(f"model axis: train.caption.train at mesh {MA_MESH}, 1 epoch of "
+          f"{tr[0]['steps']} steps, feature cache on the host: "
+          + "; ".join(f"rank {i} {t['s']:.1f} s in all, epoch "
+                      f"{t['epoch_s']:.3f} s, checkpoint load "
+                      f"{t['load_s']:.2f} s, TEST decode {t['eval_s']:.2f} s"
+                      for i, t in enumerate(tr))
+          + f"; train_loss {tr[0]['train_loss']:.4f}, BLEU-4 "
+          f"{tr[0]['bleu4']:.3g}; rank 0's checkpoint bitwise the gathered "
+          f"blocks at one rank, the resume bitwise every rank's blocks and "
+          f"moments, the {MA_TEST_IMAGES} TEST hypotheses over the mesh "
+          "equal to one rank's")
+    print(f"model axis: the ranks {t_ranks:.1f} s; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4197,6 +4768,9 @@ def main() -> int:
     data_parallel_phase(dev, cfg, card, hyps)
     print(f"phases: data-parallel training and tools "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    model_axis_phase(card)
+    print(f"phases: model axis {time.perf_counter() - t0:.1f} s")
 
     T = cfg.max_caption_len - 1
     fwd_work, bwd_work = train_work(cfg, B, T)

@@ -5,15 +5,19 @@ Counterpart of the JAX package's ``cli/eval_caption.py``, with the same
 flags and defaults (reference eval_caption.py:168-190, minus its
 NameError and format-string bugs).  It runs on the card (no device
 flag, as in JAX) and reads the TEST split from the artifact files, which
-needs ``h5py``; the scores include METEOR, which needs nltk.  ``--mesh``
-raises ``NotImplementedError``: evaluation under a device mesh is
-ROADMAP.md queue 1 item 7.
+needs ``h5py``; the scores include METEOR, which needs nltk.  ``--mesh
+D,M`` evaluates over D x M ranks, one process per rank, as the train CLI
+trains (``torchrun --nproc_per_node D*M``; ``DIST_BACKEND=gloo`` lets
+ranks share a card): each data row decodes its block of every batch and
+every rank scores the whole split.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
+from ..core import meshes
 from ..core.config import BeamConfig, DataConfig, ModelConfig
 from ..data import vocab as vocab_lib
 from ..evaluation import eval_caption as eval_lib
@@ -39,8 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="images decoded per device batch")
     p.add_argument("--output_root", default="evaluation")
     p.add_argument("--mesh", default=None, metavar="D,M",
-                   help="shard eval batches over a (data, model) device "
-                        "mesh (not ported yet)")
+                   help="shard eval batches over a (data, model) mesh of "
+                        "ranks (one process per rank under torchrun)")
     return p
 
 
@@ -50,10 +54,10 @@ def main(argv=None, device="cuda"):
     if args.mesh:
         parts = tuple(int(x) for x in args.mesh.split(","))
         mesh_shape = parts if len(parts) == 2 else (parts[0], 1)
-        if mesh_shape != (1, 1):
-            raise NotImplementedError(
-                "--mesh: evaluation under a device mesh is not ported yet "
-                "(ROADMAP.md queue 1 item 7)")
+        meshes.initialize_distributed(
+            backend=os.environ.get("DIST_BACKEND"), device=device)
+        # the process group must hold the mesh before anything is loaded
+        meshes.check_mesh_shape(mesh_shape)
     data_cfg = DataConfig(data_folder=args.data_folder,
                           data_name=args.data_name)
     wm_path = args.word_map or vocab_lib.wordmap_path(args.data_folder,

@@ -18,15 +18,17 @@ differentiated encoder passes (the tagger, fine-tuning);
     torchrun --nproc_per_node D -m indonesian_image_captioning_tpu_torch.cli.train \
         -t attention_scn --mesh D ...
 
+and ``--mesh D,M`` over D x M ranks (``--nproc_per_node`` D x M), fc, the
+embedding and their Adam moments sharded over the vocabulary on the model
+axis (M must divide the word map's size; a ``ValueError`` names both).
+
 Each rank joins the process group from torchrun's environment
 (``core/meshes.initialize_distributed``), over NCCL, each rank on a card
 of its own; more ranks than cards raise.  ``DIST_BACKEND=gloo`` in the
 environment lets ranks share a card (two ranks on one card, which NCCL
 refuses), with the gradients summed on the host: a check, not a way to
 train fast.  (The flags stay JAX's, so the backend is no flag.)
-``--mesh_order`` lays the ranks out as JAX's does.  ``--mesh D,M``
-with M > 1 raises ``NotImplementedError`` (ROADMAP.md queue 1 item 7's
-model axis).
+``--mesh_order`` lays the ranks out as JAX's does.
 """
 
 from __future__ import annotations
@@ -105,8 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="vocab-tile width for the chunked head (2048)")
     p.add_argument("--mesh", default=None, metavar="D,M",
                    help="device mesh as data,model axis sizes (one "
-                        "process per rank under torchrun; M > 1 is not "
-                        "ported yet)")
+                        "process per rank under torchrun; M > 1 shards "
+                        "the vocabulary)")
     p.add_argument("--mesh_order", default=None,
                    choices=("rowmajor", "colmajor"),
                    help="mesh device enumeration order")
@@ -124,8 +126,6 @@ def main(argv=None, device="cuda"):
     args = build_parser().parse_args(argv)
     if args.mesh:
         from ..core.meshes import initialize_distributed
-        from ..parallel.sharding import check_data_axis_only
-        check_data_axis_only(_mesh_shape(args.mesh))
         initialize_distributed(backend=os.environ.get("DIST_BACKEND"),
                                device=device)
     data_cfg = DataConfig(data_folder=args.data_folder,

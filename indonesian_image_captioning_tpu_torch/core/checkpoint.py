@@ -210,15 +210,24 @@ def trainer_saver(tcfg, mesh, model_name: str, data_name: str, state_fn):
     a single process.  Under a multi-rank mesh (``core/meshes.py``) rank
     0 alone writes, synchronously (JAX saves asynchronously only in a
     single process), and every rank waits for the write before the next
-    epoch."""
+    epoch.  On a model axis the ranks of rank 0's data row first gather
+    the vocabulary blocks over their model group
+    (``parallel/sharding.gather_payload``), so the file is the one-rank
+    format."""
     from . import meshes
     multi = mesh is not None and mesh.size > 1
     saver = AsyncSaver() if tcfg.async_checkpoint and not multi else None
     writer = not multi or meshes.world()[0] == 0
+    gathers = multi and meshes.model_size(mesh) > 1 and mesh.data_index == 0
 
     def save(epoch: int, stale_now: int, metric: float, is_best: bool):
+        state = None
+        if gathers:
+            from ..parallel.sharding import gather_payload
+            state = gather_payload(mesh, state_fn())
         if writer:
-            payload = {"state": state_fn(), "epoch": epoch,
+            payload = {"state": state_fn() if state is None else state,
+                       "epoch": epoch,
                        "epochs_since_improvement": stale_now,
                        "metric": metric}
             if saver is not None:

@@ -10,15 +10,29 @@ explicit (the train steps of ``train/steps.py`` given a mesh):
 
 * the data axis: a batch's rows are split over its D ranks, the
   parameters are replicated, the gradients summed over ``data_group``;
-* the model axis (vocab-sharded fc, embedding and Adam moments) is not
-  ported yet: ``parallel/sharding.py`` raises for M > 1 (ROADMAP.md queue
-  1 item 7's model axis).
+* the model axis: the M ranks of a data row see the same rows and each
+  holds 1/M of the vocabulary, the columns ``[m V/M, (m+1) V/M)`` of fc
+  and the same rows of the embedding (``parallel/sharding.py``), in the
+  style of a Megatron vocab-parallel layer.  Two autograd functions carry
+  the activations across ``model_group``: :func:`sum_over_model` (the
+  embedding lookup: each rank's rows of its shard, zeros elsewhere,
+  summed; the backward is the identity, since the cotangent that comes
+  back is already the same on every rank) and :func:`enter_vocab_region`
+  (the hidden states entering the vocabulary head: the identity, whose
+  backward sums ``d_h`` over the shards).  ``torch.distributed.nn``'s
+  ``all_reduce`` is not used for the first: its backward sums the
+  replicated cotangent again, which scales every embedding gradient by M.
+  The M ranks of a data row compute the replicated leaves' gradients
+  each on its own; :func:`replicate_over_model` then gives every rank the
+  first model rank's copy, so the replicas stay bitwise equal whether or
+  not the backward is deterministic (cuDNN's is not promised to be).
 
 Every collective on tensors is an ``all_reduce`` or a ``broadcast``, which
 NCCL and gloo both run on CUDA tensors; gloo also on CPU tensors (the
-tests) and for two ranks on one card, which NCCL refuses.  The host
-gathers of validation rows (:func:`host_gather`) run on a gloo group of
-their own, whatever the backend of the tensors.
+tests) and for several ranks on one card, which NCCL refuses.  The
+shards are gathered by broadcasts (:func:`gather_model`), bitwise.  The
+host gathers of validation rows (:func:`host_gather`) run on a gloo group
+of their own, whatever the backend of the tensors.
 """
 
 from __future__ import annotations
@@ -127,6 +141,109 @@ class Mesh:
         return int(self.ranks.size)
 
 
+def model_size(mesh: Optional[Mesh]) -> int:
+    """M, the model axis' size (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape[MODEL_AXIS]
+
+
+def check_vocab(vocab: int, model: int) -> None:
+    """Raise ValueError when the model axis does not divide the
+    vocabulary (the JAX package's ``jax.device_put`` refuses an uneven
+    split too)."""
+    if vocab % model:
+        raise ValueError(
+            f"vocab_size {vocab} is not divisible by the model axis "
+            f"{model}: the vocabulary is sharded in equal blocks of "
+            f"vocab_size / {model} columns")
+
+
+def vocab_block(vocab: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """(col0, width): this rank's block of the vocabulary, the columns
+    [col0, col0 + width) of fc and the same rows of the embedding."""
+    m = model_size(mesh)
+    check_vocab(vocab, m)
+    width = vocab // m
+    return (0 if mesh is None else mesh.model_index) * width, width
+
+
+def model_all_reduce(t: torch.Tensor, mesh: Mesh,
+                     op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """all_reduce ``t`` in place over the model group; returns it."""
+    if model_size(mesh) > 1:
+        dist.all_reduce(t, op=op, group=mesh.model_group)
+    return t
+
+
+@torch.no_grad()
+def replicate_over_model(t: torch.Tensor, mesh: Optional[Mesh]
+                         ) -> torch.Tensor:
+    """Overwrite ``t`` in place with the copy of this data row's first
+    model rank (a broadcast over the model group); returns it.  ``t``
+    must be contiguous; without a model axis it is left as it is."""
+    if model_size(mesh) > 1:
+        dist.broadcast(t, int(mesh.ranks[mesh.data_index, 0]),
+                       group=mesh.model_group)
+    return t
+
+
+class _SumOverModel(torch.autograd.Function):
+    """Forward: the sum over the model group.  Backward: the identity
+    (the cotangent is the same on every rank of the group)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return model_all_reduce(x.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _EnterVocabRegion(torch.autograd.Function):
+    """Forward: the identity.  Backward: the sum over the model group
+    (each shard's columns give a part of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_all_reduce(g.clone(), ctx.mesh), None
+
+
+def sum_over_model(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """x summed over the model group, differentiable, the backward the
+    identity; x itself without a model axis."""
+    return _SumOverModel.apply(x, mesh) if model_size(mesh) > 1 else x
+
+
+def enter_vocab_region(x: torch.Tensor,
+                       mesh: Optional[Mesh]) -> torch.Tensor:
+    """x, whose gradient is summed over the model group; x itself without
+    a model axis."""
+    return _EnterVocabRegion.apply(x, mesh) if model_size(mesh) > 1 else x
+
+
+@torch.no_grad()
+def gather_model(t: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The whole tensor from each model rank's block of it along ``dim``
+    (every rank of the data row gets it), by one broadcast a block, so
+    the result is bitwise the blocks."""
+    m = model_size(mesh)
+    if m == 1:
+        return t
+    parts = []
+    for j in range(m):
+        part = t.contiguous() if j == mesh.model_index \
+            else torch.empty_like(t, memory_format=torch.contiguous_format)
+        dist.broadcast(part, int(mesh.ranks[mesh.data_index, j]),
+                       group=mesh.model_group)
+        parts.append(part)
+    return torch.cat(parts, dim=dim)
+
+
 def _layout(d: int, m: int, order: str) -> np.ndarray:
     if order == "colmajor":
         # the model axis strides: rank (d, m) = m * D + d
@@ -135,6 +252,18 @@ def _layout(d: int, m: int, order: str) -> np.ndarray:
         # the model axis is contiguous: rank (d, m) = d * M + m
         return np.arange(d * m).reshape(d, m)
     raise ValueError(f"unknown mesh order {order!r}: one of {ORDERS}")
+
+
+def check_mesh_shape(mesh_shape: Optional[Tuple[int, int]]
+                     ) -> Tuple[int, int]:
+    """(D, M) of mesh_shape (None: every rank on the data axis); raises
+    ValueError unless D x M is the process group's size."""
+    size = world()[1]
+    d, m = mesh_shape if mesh_shape is not None else (size, 1)
+    if d < 1 or m < 1 or d * m != size:
+        raise ValueError(f"mesh_shape {(d, m)} needs {d * m} ranks; the "
+                         f"process group has {size}")
+    return int(d), int(m)
 
 
 def make_mesh(mesh_shape: Optional[Tuple[int, int]] = None,
@@ -148,10 +277,7 @@ def make_mesh(mesh_shape: Optional[Tuple[int, int]] = None,
     other group creations (``torch.distributed.new_group`` is
     collective)."""
     rank, size = world()
-    d, m = mesh_shape if mesh_shape is not None else (size, 1)
-    if d < 1 or m < 1 or d * m != size:
-        raise ValueError(f"mesh_shape {(d, m)} needs {d * m} ranks; the "
-                         f"process group has {size}")
+    d, m = check_mesh_shape(mesh_shape)
     ranks = _layout(d, m, order)
     where = np.argwhere(ranks == rank)[0]
     di, mi = int(where[0]), int(where[1])

@@ -17,6 +17,15 @@ a caller holding the split in memory needs no ``h5py``.  On the card
 ``decode_impl="auto"`` resolves to "fused_span" (kernel 7) for the
 attention models (``decode/api.py``).  ``compute_metrics`` includes
 METEOR by default, which needs nltk.
+
+Under a mesh (``mesh_shape`` (D, M), one process per rank in a process
+group of D x M ranks, JAX's ``shard_map`` over the data axis): the state
+is replicated, a vocabulary sharded by a trainer's model axis gathered
+once (:func:`replicate_state`); each data row beam-decodes its block of
+every batch through the usual ladder (the M ranks of a row the same
+block, as JAX's decode runs on every model shard), and the hypotheses are
+gathered on every rank (``core/meshes.host_gather``), so every rank
+scores the whole split alike.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import meshes
 from ..core.config import BeamConfig, DataConfig, ModelConfig
 from ..core.runtime import get_device
 from ..core.tokens import END_TOKEN, PAD_ID, START_TOKEN
@@ -50,34 +60,59 @@ def evaluate(state: Dict, cfg: ModelConfig, data_cfg: DataConfig,
     """state: {"params", "encoder", "encoder_stats", "tagger",
     "tagger_stats"} on ``device`` (the tagger entries are unused by
     pure_attention).  Returns the scores; dumps them beside the references
-    and hypotheses under ``output_root`` (None: no dumps)."""
+    and hypotheses under ``output_root`` (None: no dumps; rank 0 alone
+    writes them under a mesh).  mesh_shape
+    (D, M) decodes over the ranks of the process group (D x M of them; a
+    ValueError otherwise), batch_size divisible by D."""
+    mesh = None
     if mesh_shape is not None and tuple(mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh_shape {tuple(mesh_shape)}: evaluation under a device "
-            "mesh is not ported yet (ROADMAP.md queue 1 item 7)")
+        mesh = meshes.make_mesh(tuple(mesh_shape))
     ds = CaptionDataset(data_cfg.data_folder, data_cfg.data_name, "TEST")
     references, hypotheses = decode_dataset(
         state, cfg, ds, word_map, beam_cfg=beam_cfg, batch_size=batch_size,
-        log=log, device=device)
+        log=log, device=device, mesh=mesh)
     scores = metrics_lib.compute_metrics(references, hypotheses,
                                          include_cider=include_cider)
     log(str(scores))
-    if output_root:
+    if output_root and (mesh is None or mesh.rank == 0):
         write_dumps(output_root, cfg.model_type, beam_cfg.beam_size, ds.cpi,
                     references, hypotheses, scores)
     return scores
 
 
+def replicate_state(state: Dict, cfg: ModelConfig, mesh) -> Dict:
+    """``state`` with whole vocabulary leaves: fc and the embedding
+    gathered over the model group where a trainer's model axis left this
+    rank a block of them (``parallel/sharding.place_state``); the state
+    itself when they are whole."""
+    from ..parallel.sharding import gather_payload
+    if state["params"]["fc"]["w"].shape[1] == cfg.vocab_size:
+        return state
+    return {**state, "params": gather_payload(
+        mesh, {"params": state["params"]})["params"]}
+
+
 def decode_dataset(state: Dict, cfg: ModelConfig, ds,
                    word_map: Dict[str, int],
                    beam_cfg: BeamConfig = BeamConfig(),
-                   batch_size: int = 16, log=print, device="cuda"
+                   batch_size: int = 16, log=print, device="cuda",
+                   mesh=None
                    ) -> Tuple[List[List[List[str]]], List[List[str]]]:
     """Beam-decode every image of ``ds`` with ``state`` on ``device`` ->
     (references: per image its ``ds.cpi`` captions as word lists,
     hypotheses: per image its beam's words), special tokens stripped from
-    both."""
+    both.  With a mesh (``core/meshes.make_mesh``) each data row decodes
+    its block of every batch and every rank returns the whole split's."""
     dev = device if isinstance(device, torch.device) else get_device(device)
+    rows = slice(None)
+    if mesh is not None:
+        d = mesh.shape[meshes.DATA_AXIS]
+        if batch_size % d:
+            raise ValueError(f"batch_size {batch_size} must be divisible "
+                             f"by the data axis {d}")
+        state = replicate_state(state, cfg, mesh)
+        rows = slice(mesh.data_index * (batch_size // d),
+                     (mesh.data_index + 1) * (batch_size // d))
     rev_word_map = vocab_lib.invert(word_map)
     start_id, end_id = word_map[START_TOKEN], word_map[END_TOKEN]
     skip = {start_id, end_id, PAD_ID}
@@ -90,7 +125,7 @@ def decode_dataset(state: Dict, cfg: ModelConfig, ds,
             else idx
         with torch.inference_mode():
             x = encoders.prep_images(
-                torch.from_numpy(ds.gather_images(img_idx)).to(dev))
+                torch.from_numpy(ds.gather_images(img_idx[rows])).to(dev))
             enc = encoders.apply_encoder_caption(
                 state["encoder"], state["encoder_stats"], x, train=False,
                 enc_image_size=cfg.enc_image_size, arch=cfg.encoder_arch)[0]
@@ -104,8 +139,9 @@ def decode_dataset(state: Dict, cfg: ModelConfig, ds,
             out = caption_beam_search(state["params"], cfg, enc, tags,
                                       start_id=start_id, end_id=end_id,
                                       beam_cfg=beam_cfg)
-        seqs = out["sequences"].cpu().numpy()
-        lens = out["lengths"].cpu().numpy()
+        got = meshes.host_gather({"seqs": out["sequences"],
+                                  "lens": out["lengths"]}, mesh)
+        seqs, lens = got["seqs"], got["lens"]
         for row, i in enumerate(idx):
             seq = seqs[row][:int(lens[row])]
             hypotheses.append([rev_word_map[int(w)] for w in seq

@@ -33,6 +33,7 @@ import torch
 
 from typing import Optional
 
+from ..core import meshes
 from ..core.config import ModelConfig
 from . import attention as attn
 from . import lstm_cell, scn_cell
@@ -53,13 +54,24 @@ class _EmbedLookup(torch.autograd.Function):
     the cotangent, dtable = one_hot(ids)^T @ g, in float32 (the JAX
     package's custom VJP): a deterministic product instead of a scatter of
     duplicate-heavy caption ids.  Past 2^30 one-hot elements it runs in
-    vocabulary tiles of 2048, each tile one product."""
+    vocabulary tiles of 2048, each tile one product.
+
+    With ``col0`` (a block of a vocabulary sharded over a model axis,
+    global rows [col0, col0 + len(table))) the ids are shifted by col0;
+    ids outside the block gather zeros and their one-hot row is zero, so
+    their gradient goes to no row of this block."""
 
     @staticmethod
-    def forward(ctx, table, ids):
-        ctx.save_for_backward(ids)
+    def forward(ctx, table, ids, col0=None):
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
-        return table[ids]
+        if col0 is None:
+            ctx.save_for_backward(ids)
+            return table[ids]
+        local = ids - col0
+        ctx.save_for_backward(local)
+        mine = (local >= 0) & (local < table.shape[0])
+        rows = table[local.clamp(0, table.shape[0] - 1)]
+        return torch.where(mine[..., None], rows, torch.zeros_like(rows))
 
     @staticmethod
     def backward(ctx, g):
@@ -73,12 +85,14 @@ class _EmbedLookup(torch.autograd.Function):
             cols = torch.arange(v0, min(V, v0 + step), device=ids.device)
             oh = (ids[:, None] == cols[None, :]).to(gf.dtype)
             tiles.append(oh.to(torch.float32).T @ gf.to(torch.float32))
-        return torch.cat(tiles).to(ctx.table_dtype), None
+        return torch.cat(tiles).to(ctx.table_dtype), None, None
 
 
-def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """table[ids], with the one-hot product as its backward."""
-    return _EmbedLookup.apply(table, ids.long())
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
+                 col0=None) -> torch.Tensor:
+    """table[ids], with the one-hot product as its backward; with col0,
+    the lookup in a vocabulary block (zeros for ids outside it)."""
+    return _EmbedLookup.apply(table, ids.long(), col0)
 
 
 class _ScatterLookup(_EmbedLookup):
@@ -86,7 +100,9 @@ class _ScatterLookup(_EmbedLookup):
     (``ops/embed_grad_cuda.py``, the JAX package's ``_scatter_lookup``):
     one pass over the cotangent rows into the (V, E) float32 table, no
     (N, V) one-hot.  On CPU tensors the kernel's plain version,
-    ``index_add_``, runs instead."""
+    ``index_add_`` over the ids inside the table, runs instead.  With
+    col0 the kernel takes the shifted ids and drops those outside the
+    block."""
 
     @staticmethod
     def backward(ctx, g):
@@ -97,22 +113,23 @@ class _ScatterLookup(_EmbedLookup):
             gf = gf.to(torch.float32)
         d = embed_grad_scatter(ids.reshape(-1).to(torch.int32).contiguous(),
                                gf.contiguous(), ctx.table_shape[0])
-        return d.to(ctx.table_dtype), None
+        return d.to(ctx.table_dtype), None, None
 
 
-def embed_lookup_kernel(table: torch.Tensor,
-                        ids: torch.Tensor) -> torch.Tensor:
+def embed_lookup_kernel(table: torch.Tensor, ids: torch.Tensor,
+                        col0=None) -> torch.Tensor:
     """table[ids], with kernel 14 (``embed_grad_scatter``) as its
-    backward."""
-    return _ScatterLookup.apply(table, ids.long())
+    backward; col0 as in :func:`embed_lookup`."""
+    return _ScatterLookup.apply(table, ids.long(), col0)
 
 
 def resolve_embed_grad_impl(cfg: ModelConfig) -> str:
     """cfg.embed_grad_impl -> "onehot" or "pallas", as in JAX: "auto" is
     "onehot" (the JAX package measured no gain from the kernel in its
-    step); "pallas" is kernel 14 in the embedding's backward.  The JAX
-    package's mesh override (a sharded table keeps "onehot") has no
-    counterpart until the multi-device steps are ported."""
+    step); "pallas" is kernel 14 in the embedding's backward, on a
+    vocabulary block too (the JAX package keeps "onehot" for a sharded
+    table, whose kernel has no partitioning rules; here each rank calls
+    the kernel on its block)."""
     impl = cfg.embed_grad_impl
     if impl not in EMBED_GRAD_IMPLS:
         raise ValueError(f"unknown embed_grad_impl {impl!r}")
@@ -214,7 +231,7 @@ def _gate_factor(y):
 def teacher_forcing(params, cfg: ModelConfig, enc, tags, caps, caplens, *,
                     dropout_gen: Optional[torch.Generator] = None,
                     train: bool = False, enc_grad: bool = False,
-                    return_hidden: bool = False):
+                    return_hidden: bool = False, mesh=None):
     """Teacher-forced forward over the whole caption batch.
 
     enc (B, H, W, E) or (B, P, E); tags (B, S) (ignored by pure_attention);
@@ -226,14 +243,25 @@ def teacher_forcing(params, cfg: ModelConfig, enc, tags, caps, caplens, *,
     "hidden" instead of predictions, the input of the chunked head.
 
     Dropout (train=True) draws from dropout_gen, a torch.Generator; its
-    numbers differ from JAX's, so the tests compare with dropout off."""
+    numbers differ from JAX's, so the tests compare with dropout off.
+
+    With a mesh whose model axis is past 1 (``core/meshes.py``), fc and
+    the embedding are this rank's vocabulary block: the lookup gathers
+    the block's rows and sums them over the model group, the scan runs on
+    this rank's rows with the replicated weights, and the hidden states
+    enter the head through ``enter_vocab_region``; "predictions" are the
+    block's (B, T, V/M) logits."""
     cell = params["decode_step"]
     is_scn = cfg.model_type in SCN_BASED_MODELS
     T = cfg.max_caption_len - 1
     enc_flat = flatten_encoding(enc, cfg.encoder_dim)
     lookup = (embed_lookup_kernel if resolve_embed_grad_impl(cfg) == "pallas"
               else embed_lookup)
-    emb = lookup(params["embedding"], caps[:, :T])            # (B, T, Emb)
+    table = params["embedding"]
+    col0 = (mesh.model_index * table.shape[0]
+            if meshes.model_size(mesh) > 1 else None)
+    emb = meshes.sum_over_model(lookup(table, caps[:, :T], col0),
+                                mesh)                       # (B, T, Emb)
     impl = resolve_train_scan_impl(cfg, enc_flat.device, enc_flat.dtype,
                                    enc_grad)
     if impl == "fused":
@@ -241,7 +269,7 @@ def teacher_forcing(params, cfg: ModelConfig, enc, tags, caps, caplens, *,
         h_all, alphas = fused_teacher_forcing_scan(params, cfg, enc_flat,
                                                    tags, emb)
         return _head_and_mask(params, cfg, h_all, alphas, caplens,
-                              dropout_gen, train, return_hidden)
+                              dropout_gen, train, return_hidden, mesh)
 
     h, c = init_hidden_state(params, enc_flat)
     if is_scn:
@@ -273,15 +301,17 @@ def teacher_forcing(params, cfg: ModelConfig, enc, tags, caps, caplens, *,
     h_all = torch.stack(hs, dim=1)                          # (B, T, D)
     alphas = torch.stack(alphas, dim=1) if alphas else None
     return _head_and_mask(params, cfg, h_all, alphas, caplens, dropout_gen,
-                          train, return_hidden)
+                          train, return_hidden, mesh)
 
 
 def _head_and_mask(params, cfg: ModelConfig, h_all, alphas, caplens,
-                   dropout_gen, train: bool, return_hidden: bool = False):
+                   dropout_gen, train: bool, return_hidden: bool = False,
+                   mesh=None):
     """Dropout, the validity mask and the vocab head, outside the scan (one
-    (B*T, D) x (D, V) product)."""
+    (B*T, D) x (D, V) product; V/M columns on a model axis)."""
     T = h_all.shape[1]
-    h_drop = dropout(dropout_gen, h_all, cfg.dropout if train else 0.0)
+    h_drop = meshes.enter_vocab_region(
+        dropout(dropout_gen, h_all, cfg.dropout if train else 0.0), mesh)
     ts = torch.arange(T, device=h_all.device)
     mask = ts[None, :] < (caplens.to(h_all.device)[:, None] - 1)
     if return_hidden:

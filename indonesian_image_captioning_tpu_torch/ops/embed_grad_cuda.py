@@ -35,10 +35,15 @@ def _segment(N: int) -> int:
 
 def embed_grad_plain(ids: torch.Tensor, g: torch.Tensor,
                      vocab: int) -> torch.Tensor:
-    """The same function in plain PyTorch: a (vocab, E) float32 table."""
+    """The same function in plain PyTorch: a (vocab, E) float32 table.
+    Ids outside [0, vocab) add nothing, as in the kernel and in the JAX
+    package's one-hot (a block of a sharded vocabulary gets the ids of
+    the other blocks, shifted out of its range)."""
     out = torch.zeros((vocab, g.shape[1]), dtype=torch.float32,
                       device=g.device)
-    return out.index_add_(0, ids.long(), g.to(torch.float32))
+    ids = ids.long()
+    mine = (ids >= 0) & (ids < vocab)
+    return out.index_add_(0, ids[mine], g[mine].to(torch.float32))
 
 
 def _check(ids: torch.Tensor, g: torch.Tensor, vocab: int) -> None:
@@ -64,9 +69,10 @@ def embed_grad_scatter(ids: torch.Tensor, g: torch.Tensor,
                        vocab: int) -> torch.Tensor:
     """Segment-sum ``d_table[ids[n]] += g[n]`` -> (vocab, E) float32.
 
-    ids (N,) int32 in [0, vocab); g (N, E) float32 or bfloat16.  Kernel 14
-    on CUDA tensors (each table element summed in a fixed order, bitwise
-    the same from run to run); :func:`embed_grad_plain` on CPU tensors."""
+    ids (N,) int32 (ids outside [0, vocab) add nothing); g (N, E)
+    float32 or bfloat16.  Kernel 14 on CUDA tensors (each table element
+    summed in a fixed order, bitwise the same from run to run);
+    :func:`embed_grad_plain` on CPU tensors."""
     _check(ids, g, vocab)
     if g.device.type == "cpu":
         return embed_grad_plain(ids, g, vocab)

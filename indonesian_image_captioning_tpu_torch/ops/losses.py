@@ -11,15 +11,22 @@ from __future__ import annotations
 
 import torch
 
-from ..core.metrics import topk_hit
+from .vocab_head import dense_nll_topk
+
+
+def _nll_hit(logits, targets, k: int = 5):
+    """(nll, hit), each (B, T), of logits (B, T, V): the train steps'
+    one-rank head (``vocab_head.dense_nll_topk``)."""
+    B, T, V = logits.shape
+    nll, hit = dense_nll_topk(logits.reshape(B * T, V),
+                              targets.reshape(-1).long(), k=k)
+    return nll.reshape(B, T), hit.reshape(B, T)
 
 
 def masked_nll_sum(logits, targets, mask):
     """Summed CE over valid tokens: logits (B, T, V), targets (B, T) int,
     mask (B, T) in {0, 1}."""
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets.long().unsqueeze(-1))[..., 0]
-    return (nll * mask).sum()
+    return (_nll_hit(logits, targets)[0] * mask).sum()
 
 
 def masked_cross_entropy(logits, targets, mask):
@@ -58,23 +65,6 @@ def caption_loss(outputs, caps, alpha_c: float = 0.0):
                       "n_tokens": mask.sum()}
 
 
-def caption_loss_chunked(fc, outputs, caps, alpha_c: float = 0.0,
-                         k: int = 5, tile: int = 2048):
-    """:func:`caption_loss` plus top-k from a ``teacher_forcing(...,
-    return_hidden=True)`` output, through the chunked vocab head
-    (``ops/vocab_head.py``); the (B, T, V) logits never exist.  Returns
-    (loss, {ce, alpha_penalty, n_tokens, topk})."""
-    from .vocab_head import chunked_ce_topk
-    hidden = outputs["hidden"]
-    mask = outputs["mask"]
-    targets = caps[:, 1:1 + hidden.shape[1]]
-    ce, topk, n_tokens = chunked_ce_topk(fc, hidden, targets, mask, k=k,
-                                         tile=tile)
-    pen = doubly_stochastic_penalty(outputs["alphas"], mask, alpha_c)
-    return ce + pen, {"ce": ce, "alpha_penalty": pen,
-                      "n_tokens": n_tokens, "topk": topk}
-
-
 def bce_elements(probs, targets, eps: float = 1e-7):
     """Elementwise binary cross-entropy on probabilities clipped to
     [eps, 1 - eps]."""
@@ -95,5 +85,5 @@ def bce_loss(probs, targets, eps: float = 1e-7, row_valid=None):
 
 def masked_topk_accuracy(logits, targets, mask, k: int = 5):
     """Top-k accuracy (%) over valid tokens, by rank (no sort)."""
-    correct = topk_hit(logits, targets, k).to(torch.float32)
+    correct = _nll_hit(logits.detach(), targets, k)[1]
     return (correct * mask).sum() / mask.sum().clamp(min=1.0) * 100.0

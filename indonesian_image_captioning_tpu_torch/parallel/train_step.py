@@ -1,16 +1,20 @@
-"""Data-parallel train steps over a rank mesh (D, 1): the JAX package's
-names for the steps of ``train/steps.py`` under a mesh.
+"""Train steps over a rank mesh (D, M): the JAX package's names for the
+steps of ``train/steps.py`` under a mesh.
 
-JAX partitions one step over D devices and XLA inserts the collectives;
-here each of D processes runs the one-rank step's body on its own rows of
-the global batch with explicit collectives over the mesh's data group
+JAX partitions one step over D x M devices and XLA inserts the
+collectives; here each of D x M processes runs the one-rank step's body on
+its data row's block of the global batch with explicit collectives
 (``steps.make_caption_train_step(..., mesh=mesh)`` and its siblings): the
-loss divided by the global token count, the gradients summed before
-``ClampAdam``, synchronised BatchNorm in the encoders, the metrics global.
-On the card each rank's caption step runs the fused scan (kernels 8 and 9)
-and kernel 14 for the embedding's gradient, as JAX's ``shard_map`` island
-does.  The model axis (M > 1, ``shard_vocab``) raises
-``NotImplementedError`` (ROADMAP.md queue 1 item 7's model axis).
+loss divided by the global token count, the gradients summed over the
+data group before ``ClampAdam``, synchronised BatchNorm in the encoders
+over the data group, the metrics global.  On a model axis past 1 the
+state holds this rank's vocabulary block of fc, the embedding and their
+Adam moments (``sharding.place_state``; JAX's ``shard_vocab=True``, the
+only placement here) and the decoder's lookup and head are
+vocab-parallel over the model group.  On the card each rank's caption
+step runs the fused scan (kernels 8 and 9) and kernel 14 for the
+embedding's gradient, on its block's ids, where JAX falls back to its
+XLA scan and one-hot product under a model axis.
 """
 
 from __future__ import annotations
@@ -18,16 +22,13 @@ from __future__ import annotations
 from ..core.config import ModelConfig, TrainConfig
 from ..core.meshes import Mesh
 from ..train import steps
-from . import sharding
 
 
 def make_parallel_caption_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                                      optimizer: steps.ClampAdam, mesh: Mesh,
-                                     shard_vocab: bool = False,
                                      device="cuda"):
     """step({"params", "opt_state"}, enc_out, tags, captions, caplens,
     gen=None) -> (substate, metrics) on this rank's rows."""
-    sharding.check_mesh(mesh, shard_vocab)
     return steps.make_caption_train_step(cfg, tcfg, optimizer, device=device,
                                          mesh=mesh)[1]
 
@@ -35,12 +36,11 @@ def make_parallel_caption_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 def make_parallel_caption_finetune_step(cfg: ModelConfig, tcfg: TrainConfig,
                                         dec_optimizer: steps.ClampAdam,
                                         enc_optimizer: steps.ClampAdam,
-                                        mesh: Mesh, shard_vocab: bool = False,
+                                        mesh: Mesh,
                                         fine_tune_embeddings: bool = True,
                                         device="cuda"):
     """(tagger_fn, step): joint decoder and encoder fine-tuning on this
     rank's rows, with synchronised BatchNorm."""
-    sharding.check_mesh(mesh, shard_vocab)
     return steps.make_caption_finetune_train_step(
         cfg, tcfg, dec_optimizer, enc_optimizer, fine_tune_embeddings,
         device=device, mesh=mesh)

@@ -24,13 +24,16 @@ caption encoder's stages 2-4 with the decoder
 decayed together as the reference's trains/attention_scn.py:140-142
 does); it needs pixels every step, so it refuses ``cache_features``.
 
-``tcfg.mesh_shape`` (D, 1) trains data-parallel, one process per rank
-(``torchrun``, ``core/meshes.py``): each rank takes its block of every
-global batch, the steps (given the mesh) sum the gradients over the
-ranks, the feature cache stays on the host, the validation hypotheses
+``tcfg.mesh_shape`` (D, M) trains over D x M ranks, one process per rank
+(``torchrun``, ``core/meshes.py``): each data row takes its block of
+every global batch, the steps (given the mesh) sum the gradients over the
+data axis, the feature cache stays on the host, the validation hypotheses
 are gathered before BLEU-4, and rank 0 alone writes the checkpoints,
 synchronously (every rank loads them on resume).  A model axis (M > 1)
-raises ``NotImplementedError`` (ROADMAP.md queue 1 item 7's model axis).
+shards fc, the embedding and their Adam moments over the vocabulary
+(``parallel/sharding.py``; M must divide V): the M ranks of a data row
+draw the same dropout masks, the checkpoint gathers the blocks first
+(the one-rank format), and a resume cuts them out again.
 """
 
 from __future__ import annotations
@@ -191,7 +194,7 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
     epoch, each ending when the device has finished; "save", the async
     saver's parts of each checkpoint, ``AsyncSaver.timings``)."""
     dev = device if isinstance(device, torch.device) else get_device(device)
-    mesh, proc = sharding.trainer_mesh(tcfg)
+    mesh, proc = sharding.trainer_mesh(tcfg, len(word_map))
     fine_tune = tcfg.fine_tune_encoder
     if fine_tune and tcfg.cache_features:
         raise ValueError("cache_features requires a frozen encoder "
@@ -240,7 +243,9 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
     drop_key = stream(root_key(tcfg.seed, dev), "caption_dropout")
     if mesh is not None:
         # replicas start equal: every tensor (and Adam's moments after a
-        # resume) broadcast from rank 0; each rank draws its own dropout
+        # resume) broadcast from rank 0, then each rank keeps its
+        # vocabulary block; each data row draws its own dropout, the same
+        # on the model ranks that share its rows
         sharding.place_state(mesh, state)
         drop_key = stream(drop_key, f"rank{mesh.data_index}")
     if fine_tune:
@@ -249,8 +254,8 @@ def train(model_type: str, word_map: Dict[str, int], train_ds, val_ds,
     else:
         encode_fn, train_step = steps.make_caption_train_step(
             cfg, tcfg, optimizer, device=dev, mesh=mesh)
-    eval_encode_fn, eval_step = steps.make_caption_eval_step(cfg, tcfg,
-                                                             device=dev)
+    eval_encode_fn, eval_step = steps.make_caption_eval_step(
+        cfg, tcfg, device=dev, mesh=mesh)
     n_train = loader_lib.num_batches(len(train_ds), tcfg.batch_size)
     n_val = loader_lib.num_batches(len(val_ds), tcfg.batch_size)
 

@@ -15,11 +15,18 @@ Adam.
 * The tagger step (:func:`make_tagger_train_step`) trains the linear head
   and the stages 2-4 of the tagger's ResNet with BCE.
 
-Each train step takes an optional ``mesh`` (``core/meshes.make_mesh``,
-the data axis): it then runs on this rank's rows of a global batch, with
-the loss's global normalisation, the gradients summed over the ranks and,
-in the encoders, synchronised BatchNorm.  Without one the collectives are
-the identity.
+Each step takes an optional ``mesh`` (``core/meshes.make_mesh``, a (D, M)
+layout of ranks): it then runs on this rank's rows of a global batch, with
+the loss's global normalisation, the gradients summed over the data axis
+and, in the encoders, synchronised BatchNorm over the data axis.  With a
+model axis (M > 1) fc and the embedding are this rank's vocabulary block
+(``parallel/sharding.place_state``): the decoder's lookup and head are
+vocab-parallel (``models/decoders.teacher_forcing``,
+``ops/vocab_head.py``): the embedding's forward and ``d_h`` cross the
+model group, and the replicated leaves' gradients, the metrics and the
+running statistics are then made the first model rank's, so the M
+replicas stay bitwise equal.  Without a mesh the collectives are the
+identity.
 
 Parameters are trees of tensors and the step updates them in place (the
 JAX step returns new ones); the running BatchNorm statistics come back in
@@ -42,11 +49,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core import meshes
 from ..core.config import ModelConfig, TrainConfig
-from ..core.metrics import topk_hit
 from ..core.runtime import get_device
 from ..models import decoders, encoders
-from ..ops import losses
+from ..ops import losses, vocab_head
 
 HEAD_IMPLS = ("auto", "dense", "chunked")
 
@@ -175,7 +182,9 @@ def resolve_head_impl(tcfg: TrainConfig, cfg: ModelConfig, batch: int,
                       device: torch.device) -> str:
     """tcfg.head_impl -> "dense" or "chunked".  "auto" is "chunked" on
     CUDA when the (B, T, V) logits would hold at least 2^27 elements, else
-    "dense" (always "dense" on the CPU)."""
+    "dense" (always "dense" on the CPU).  ``batch`` is the GLOBAL batch's
+    rows (a rank's rows times the data axis under a mesh), as JAX's
+    partitioned step sees it, so every rank of a run resolves alike."""
     impl = tcfg.head_impl
     if impl not in HEAD_IMPLS:
         raise ValueError(f"unknown head_impl {impl!r}")
@@ -196,6 +205,36 @@ def _on(x, dev: torch.device) -> torch.Tensor:
 
 def _device(device) -> torch.device:
     return device if isinstance(device, torch.device) else get_device(device)
+
+
+def _global_rows(rows: int, mesh) -> int:
+    return rows * (1 if mesh is None else mesh.shape[meshes.DATA_AXIS])
+
+
+def _col0(mesh, width: int) -> int:
+    """The global column of this rank's first vocabulary column."""
+    return 0 if mesh is None else mesh.model_index * width
+
+
+def _vocab_mesh(mesh):
+    """The mesh when it has a model axis (the vocabulary leaves are then
+    this rank's block), else None."""
+    return mesh if meshes.model_size(mesh) > 1 else None
+
+
+def _vocab_leaves(params, cfg: ModelConfig, vmesh) -> tuple:
+    """fc's and the embedding's tensors, this rank's vocabulary block of
+    vmesh (() without one).  Raises ValueError when fc is not V/M wide:
+    a state that ``parallel/sharding.place_state`` did not place."""
+    if vmesh is None:
+        return ()
+    m, width = meshes.model_size(vmesh), params["fc"]["w"].shape[1]
+    if width * m != cfg.vocab_size:
+        raise ValueError(
+            f"fc holds {width} of vocab_size {cfg.vocab_size} columns on a "
+            f"model axis of {m}: place the state with "
+            "parallel/sharding.place_state")
+    return params["fc"]["w"], params["fc"]["b"], params["embedding"]
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -236,15 +275,18 @@ def make_encoders_fn(cfg: ModelConfig, compute_dtype: str = "float32",
 
 
 class _Reducer:
-    """The collectives of one step over a data-parallel group (the rows of
-    a global batch split over its ranks); without a group (one rank) each
-    is the identity."""
+    """The collectives of one step.  Every gradient, a vocabulary block's
+    too, sums over the data group (the ranks that hold the same rows'
+    share of the same leaves).  On a model axis the M ranks of a data row
+    compute the replicated leaves' gradients each on its own; those, the
+    metrics and the running statistics then become the first model
+    rank's (``core/meshes.replicate_over_model``), so the replicas stay
+    bitwise equal by construction.  Without a group (one rank) each
+    collective is the identity."""
 
     def __init__(self, mesh=None):
-        if mesh is not None:
-            from ..parallel import sharding
-            sharding.check_mesh(mesh)
         self.group = None if mesh is None else mesh.data_group
+        self.mesh = _vocab_mesh(mesh)
 
     def sum(self, *xs) -> torch.Tensor:
         """The global sums of detached scalars, as one float32 vector."""
@@ -253,52 +295,87 @@ class _Reducer:
             dist.all_reduce(v, group=self.group)
         return v
 
-    def grads(self, opts, extra) -> torch.Tensor:
-        """Sum every trainable parameter's gradient over the group in
+    def grads(self, opts, extra, blocks=()) -> torch.Tensor:
+        """Sum every trainable parameter's gradient over the data group in
         place (one without a gradient takes zeros; a frozen leaf keeps
         none, and ClampAdam steps it with zeros on every rank) and return
         the global sums of the ``extra`` scalars, all in one all_reduce
-        over a flat buffer."""
+        over a flat buffer; then the replicated part (every parameter but
+        the vocabulary ``blocks``, and the scalars) from the first model
+        rank."""
         if self.group is None:
             return self.sum(*extra)
+        sharded = {id(t) for t in blocks}
         params = [p for opt in opts for g in opt.param_groups
                   for p in g["params"] if p.requires_grad]
+        params.sort(key=lambda p: id(p) in sharded)   # replicated first
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        flat = torch.cat([p.grad.reshape(-1).to(torch.float32)
-                          for p in params]
-                         + [torch.stack([x.detach().to(torch.float32)
-                                         for x in extra]).to(
-                             params[0].device)])
+        n_rep = sum(p.numel() for p in params if id(p) not in sharded)
+        k = sum(id(p) not in sharded for p in params)
+        grads = [p.grad.reshape(-1).to(torch.float32) for p in params]
+        scalars = torch.stack([x.detach().to(torch.float32)
+                               for x in extra]).to(params[0].device)
+        flat = torch.cat(grads[:k] + [scalars] + grads[k:])
         dist.all_reduce(flat, group=self.group)
+        meshes.replicate_over_model(flat[:n_rep + len(extra)], self.mesh)
         off = 0
         with torch.no_grad():
             for p in params:
+                if off == n_rep:
+                    off += len(extra)
                 n = p.grad.numel()
                 p.grad.copy_(flat[off:off + n].view_as(p.grad))
                 off += n
-        return flat[off:]
+        return flat[n_rep:n_rep + len(extra)]
+
+    @torch.no_grad()
+    def replicate(self, tree):
+        """A tree of tensors (running statistics) made the first model
+        rank's, in place; returns it."""
+        if self.mesh is None:
+            return tree
+        leaves = tree_leaves(tree)
+        flat = meshes.replicate_over_model(
+            torch.cat([t.reshape(-1).to(torch.float32) for t in leaves]),
+            self.mesh)
+        off = 0
+        for t in leaves:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+        return tree
 
 
-def _caption_terms(out, captions, alpha_c: float, fc=None, tile=2048):
+def _dense_head(logits, targets, mesh):
+    """(nll, hit), each (B, T), of (B, T, V) logits (a rank's V/M columns
+    on a model axis)."""
+    B, T, V = logits.shape
+    nll, hit = vocab_head.dense_nll_topk(
+        logits.reshape(B * T, V), targets.reshape(-1).long(), k=5,
+        col0=_col0(mesh, V), mesh=mesh)
+    return nll.reshape(B, T), hit.reshape(B, T)
+
+
+def _caption_terms(out, captions, alpha_c: float, fc=None, tile=2048,
+                   mesh=None):
     """The summed loss terms of a batch's rows: (ce_sum, pen_sum, top-5
     hits, n_tokens, n_rows), from a dense ``teacher_forcing`` output, or
-    from its hidden states through the chunked head when fc is given."""
+    from its hidden states through the chunked head when fc is given;
+    vocab-parallel on a model axis."""
     mask = out["mask"]
     if fc is not None:
-        from ..ops.vocab_head import chunked_nll_topk
         hidden = out["hidden"]
         targets = captions[:, 1:1 + hidden.shape[1]]
-        nll, hit = chunked_nll_topk(fc, hidden, targets, k=5, tile=tile)
-        maskf = mask.to(torch.float32)
-        ce_sum, hits = (nll * maskf).sum(), (hit * maskf).sum()
+        nll, hit = vocab_head.chunked_nll_topk(
+            fc, hidden, targets, k=5, tile=tile,
+            col0=_col0(mesh, fc["w"].shape[1]), mesh=mesh)
     else:
         logits = out["predictions"]
-        targets = captions[:, 1:1 + logits.shape[1]]
-        ce_sum = losses.masked_nll_sum(logits, targets, mask)
-        hits = (topk_hit(logits.detach(), targets, 5).to(torch.float32)
-                * mask).sum()
+        nll, hit = _dense_head(logits, captions[:, 1:1 + logits.shape[1]],
+                               mesh)
+    maskf = mask.to(torch.float32)
+    ce_sum, hits = (nll * maskf).sum(), (hit * maskf).sum()
     if out["alphas"] is None or alpha_c == 0.0:
         pen_sum = torch.zeros((), dtype=torch.float32, device=mask.device)
         rows = (mask.sum(dim=1) > 0).to(torch.float32).sum()
@@ -307,10 +384,11 @@ def _caption_terms(out, captions, alpha_c: float, fc=None, tile=2048):
     return ce_sum, pen_sum, hits, mask.sum(), rows
 
 
-def _caption_update(reducer, opts, optimizers, terms):
+def _caption_update(reducer, opts, optimizers, terms, blocks=()):
     """Divide the summed terms by the global token and row counts (the
     global means, whatever each rank's share of the tokens), run the
-    backward, sum the gradients over the ranks, step every optimizer;
+    backward, sum the gradients over the ranks (``blocks``: the
+    vocabulary leaves this rank holds a block of), step every optimizer;
     -> the global metrics."""
     ce_sum, pen_sum, hits, n_tok, rows = terms
     n_glob, rows_glob = reducer.sum(n_tok, rows).clamp(min=1.0).unbind()
@@ -319,7 +397,7 @@ def _caption_update(reducer, opts, optimizers, terms):
     loss = ce + pen
     loss.backward()
     loss_g, ce_g, pen_g, hits_g = reducer.grads(
-        opts, [loss, ce, pen, hits]).unbind()
+        opts, [loss, ce, pen, hits], blocks).unbind()
     for opt, optimizer in zip(opts, optimizers):
         optimizer.update(opt)
     return {"loss": loss_g, "top5": hits_g / n_glob * 100.0,
@@ -338,76 +416,95 @@ def make_caption_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     gen is the dropout generator.  The frozen tagger runs in eval mode, as
     in JAX (not the reference's dropout-at-train-time).
 
-    With a mesh (``core/meshes.make_mesh``, data axis only) the step runs
-    on this rank's rows of the global batch: each summed loss term is
-    divided by its GLOBAL count (an all_reduce before the backward; each
-    rank's own mean, as DDP takes it, differs whenever the ranks' token
-    counts do), the gradients are summed over the data group before the
-    clamp and Adam, and the metrics come back global.  The parameters
-    must start equal on every rank (``parallel/sharding.place_state``)."""
+    With a mesh (``core/meshes.make_mesh``) the step runs on this rank's
+    rows of the global batch: each summed loss term is divided by its
+    GLOBAL count (an all_reduce before the backward; each rank's own mean,
+    as DDP takes it, differs whenever the ranks' token counts do), the
+    gradients are summed over the data group before the clamp and Adam,
+    and the metrics come back global.  On a model axis the vocabulary
+    leaves are this rank's block and the head is vocab-parallel (dense or
+    chunked), the same kernels 8, 9 and 14 running on every rank.  The
+    parameters must be placed by ``parallel/sharding.place_state`` (a
+    ValueError otherwise); the replicated leaves' gradients and the
+    metrics are the first model rank's on every rank of a data row."""
     dev = _device(device)
     encode_fn = make_encoders_fn(cfg, tcfg.encoder_dtype, dev)
     reducer = _Reducer(mesh)
+    vmesh = _vocab_mesh(mesh)
     cdt = _dtype(tcfg.decoder_dtype)
 
     def step(substate: Dict, enc_out, tags, captions, caplens, gen=None):
         params, opt_state = substate["params"], substate["opt_state"]
+        blocks = _vocab_leaves(params, cfg, vmesh)
         enc_out, tags, captions, caplens = (
             x.to(dev) for x in (enc_out, tags, captions, caplens))
-        head = resolve_head_impl(tcfg, cfg, enc_out.shape[0], dev)
+        head = resolve_head_impl(tcfg, cfg,
+                                 _global_rows(enc_out.shape[0], mesh), dev)
         opt_state.zero_grad(set_to_none=True)
         p = decoders.cast_params(params, cdt) if cdt != torch.float32 \
             else params
         out = decoders.teacher_forcing(
             p, cfg, enc_out.to(cdt), tags.to(cdt), captions, caplens,
-            dropout_gen=gen, train=True, return_hidden=head == "chunked")
+            dropout_gen=gen, train=True, return_hidden=head == "chunked",
+            mesh=vmesh)
         if out["alphas"] is not None:
             out["alphas"] = out["alphas"].to(torch.float32)
         if head != "chunked":
             out["predictions"] = out["predictions"].to(torch.float32)
         terms = _caption_terms(out, captions, tcfg.alpha_c,
                                fc=p["fc"] if head == "chunked" else None,
-                               tile=tcfg.head_tile)
+                               tile=tcfg.head_tile, mesh=vmesh)
         return substate, _caption_update(reducer, [opt_state], [optimizer],
-                                         terms)
+                                         terms, blocks)
 
     return encode_fn, step
 
 
 def make_caption_eval_step(cfg: ModelConfig, tcfg: TrainConfig,
-                           device="cuda"):
+                           device="cuda", mesh=None):
     """(encode_fn, step): step(params, enc_out, tags, captions, caplens) ->
-    {loss, top5, n_tokens, preds (B, T) teacher-forced argmax, mask}."""
+    {loss, top5, n_tokens, preds (B, T) teacher-forced argmax, mask}.
+
+    With a mesh, the metrics of this rank's rows (the caller sums them
+    over the data axis); on a model axis the head is vocab-parallel and
+    the argmax is the lowest global column among the maximal values, the
+    tie rule of the one-rank argmax."""
     dev = _device(device)
     encode_fn = make_encoders_fn(cfg, tcfg.encoder_dtype, dev)
+    vmesh = _vocab_mesh(mesh)
 
     @torch.no_grad()
     def step(params, enc_out, tags, captions, caplens):
+        _vocab_leaves(params, cfg, vmesh)
         enc_out, tags, captions, caplens = (
             x.to(dev) for x in (enc_out, tags, captions, caplens))
-        head = resolve_head_impl(tcfg, cfg, enc_out.shape[0], dev)
-        if head == "chunked":
-            from ..ops.vocab_head import chunked_eval_head
-            out = decoders.teacher_forcing(params, cfg, enc_out, tags,
-                                           captions, caplens,
-                                           return_hidden=True)
-            targets = captions[:, 1:1 + out["hidden"].shape[1]]
-            ce, top5, n_tokens, preds = chunked_eval_head(
-                params["fc"], out["hidden"], targets, out["mask"], k=5,
-                tile=tcfg.head_tile)
-            pen = losses.doubly_stochastic_penalty(out["alphas"],
-                                                   out["mask"], tcfg.alpha_c)
-            return {"loss": ce + pen, "top5": top5, "n_tokens": n_tokens,
-                    "preds": preds, "mask": out["mask"]}
+        head = resolve_head_impl(tcfg, cfg,
+                                 _global_rows(enc_out.shape[0], mesh), dev)
         out = decoders.teacher_forcing(params, cfg, enc_out, tags, captions,
-                                       caplens)
-        loss, aux = losses.caption_loss(out, captions, tcfg.alpha_c)
-        targets = captions[:, 1:1 + out["predictions"].shape[1]]
-        top5 = losses.masked_topk_accuracy(out["predictions"], targets,
-                                           out["mask"], 5)
-        return {"loss": loss, "top5": top5, "n_tokens": aux["n_tokens"],
-                "preds": out["predictions"].argmax(dim=-1),
-                "mask": out["mask"]}
+                                       caplens,
+                                       return_hidden=head == "chunked",
+                                       mesh=vmesh)
+        mask = out["mask"]
+        pen = losses.doubly_stochastic_penalty(out["alphas"], mask,
+                                               tcfg.alpha_c)
+        if head == "chunked":
+            fc = params["fc"]
+            targets = captions[:, 1:1 + out["hidden"].shape[1]]
+            ce, top5, n_tokens, preds = vocab_head.chunked_eval_head(
+                fc, out["hidden"], targets, mask, k=5, tile=tcfg.head_tile,
+                col0=_col0(vmesh, fc["w"].shape[1]), mesh=vmesh)
+            return {"loss": ce + pen, "top5": top5, "n_tokens": n_tokens,
+                    "preds": preds, "mask": mask}
+        logits = out["predictions"]
+        B, T, V = logits.shape
+        nll, hit = _dense_head(logits, captions[:, 1:1 + T], vmesh)
+        denom = mask.sum().clamp(min=1.0)
+        preds = vocab_head.dense_argmax(logits.reshape(B * T, V),
+                                        col0=_col0(vmesh, V), mesh=vmesh)
+        return {"loss": (nll * mask).sum() / denom + pen,
+                "top5": (hit * mask).sum() / denom * 100.0,
+                "n_tokens": mask.sum(), "preds": preds.reshape(B, T),
+                "mask": mask}
 
     return encode_fn, step
 
@@ -435,13 +532,16 @@ def make_caption_finetune_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     embedding only with fine_tune_embeddings.  The scan is the eager one
     (``enc_grad=True``); the loss is the dense head's, as in JAX.
 
-    With a mesh, as :func:`make_caption_train_step`, and the train-mode
-    BatchNorm takes its statistics over the GLOBAL batch (synchronised
-    BatchNorm, ``models/resnet.py``; the running statistics move by the
-    global unbiased variance); the decoder's and the encoder's gradients
-    are summed in one all_reduce."""
+    With a mesh, as :func:`make_caption_train_step` (its dense head
+    vocab-parallel on a model axis), and the train-mode BatchNorm takes
+    its statistics over the GLOBAL batch (synchronised BatchNorm over the
+    data group, ``models/resnet.py``: a reduction over every rank would
+    count each row M times; the running statistics move by the global
+    unbiased variance); the decoder's and the encoder's gradients are
+    summed in one all_reduce."""
     dev = _device(device)
     reducer = _Reducer(mesh)
+    vmesh = _vocab_mesh(mesh)
 
     @torch.no_grad()
     def tagger_fn(state, batch):
@@ -454,6 +554,7 @@ def make_caption_finetune_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     def step(state: Dict, images_u8, tags, captions, caplens, gen=None):
         params, encoder = state["params"], state["encoder"]
+        blocks = _vocab_leaves(params, cfg, vmesh)
         set_trainable(params, decoders.trainable_mask(params,
                                                       fine_tune_embeddings))
         set_trainable(encoder,
@@ -470,11 +571,11 @@ def make_caption_finetune_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             remat=tcfg.encoder_remat, bn_group=reducer.group)
         out = decoders.teacher_forcing(params, cfg, enc_out, tags, captions,
                                        caplens, dropout_gen=gen, train=True,
-                                       enc_grad=True)
+                                       enc_grad=True, mesh=vmesh)
         metrics = _caption_update(
             reducer, opts, [dec_optimizer, enc_optimizer],
-            _caption_terms(out, captions, tcfg.alpha_c))
-        state["encoder_stats"] = new_stats
+            _caption_terms(out, captions, tcfg.alpha_c, mesh=vmesh), blocks)
+        state["encoder_stats"] = reducer.replicate(new_stats)
         return state, metrics
 
     return tagger_fn, step
@@ -510,8 +611,9 @@ def make_tagger_train_step(tcfg: TrainConfig, optimizer: ClampAdam,
 
     With a mesh the step runs on this rank's rows: the BCE and the
     accuracy over the global batch's valid rows, synchronised BatchNorm
-    over the data group, the gradients summed before the clamp and
-    Adam."""
+    over the data group, the gradients summed over it before the clamp and
+    Adam (the M ranks of a data row repeat the same work, and take the
+    first one's gradients and statistics)."""
     dev = _device(device)
     cdt = _dtype(tcfg.tagger_dtype)
     remat = tcfg.encoder_remat
@@ -541,7 +643,7 @@ def make_tagger_train_step(tcfg: TrainConfig, optimizer: ClampAdam,
         loss_g, hits_g = reducer.grads(
             [opt_state], [loss, (correct * w[:, None]).sum()]).unbind()
         optimizer.update(opt_state)
-        state["stats"] = new_stats
+        state["stats"] = reducer.replicate(new_stats)
         return state, {"loss": loss_g, "acc": hits_g / n_elem * 100.0}
 
     return step

@@ -17,10 +17,12 @@ in memory (``TagDataset.from_arrays``).  The checkpoint is
 (Adam as its state_dict); ``cli/common.load_tagger_state`` and
 ``train/caption.init_state(tagger_checkpoint=...)`` read it.  The
 trainer runs on the card unless the caller asks for the CPU.
-``tcfg.mesh_shape`` (D, 1) trains data-parallel as ``train/caption.py``
-does (one process per rank, the tagger step given the mesh, with
-BatchNorm statistics over the global batch, rank 0 writing the
-checkpoints synchronously); a model axis raises ``NotImplementedError``.
+``tcfg.mesh_shape`` (D, M) trains as ``train/caption.py`` does (one
+process per rank, the tagger step given the mesh, with BatchNorm
+statistics over the global batch, rank 0 writing the checkpoints
+synchronously).  The tagger has no vocabulary: on a model axis every
+leaf stays replicated and the M ranks of a data row repeat its work, as
+JAX's replicated tagger state does.
 """
 
 from __future__ import annotations

@@ -9,6 +9,7 @@ import sys
 import textwrap
 
 from indonesian_image_captioning_tpu_torch.ops import _build
+from _torch_tmp import tmp_path  # noqa: F401 (fixtures)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

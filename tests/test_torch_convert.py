@@ -49,6 +49,7 @@ from indonesian_image_captioning_tpu_torch.models import (convert, decoders,
 from indonesian_image_captioning_tpu_torch.models.jax_bridge import \
     params_from_jax
 from indonesian_image_captioning_tpu_torch.train import caption, steps
+from _torch_tmp import tmp_path, tmp_path_factory  # noqa: F401 (fixtures)
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")

@@ -58,6 +58,7 @@ from indonesian_image_captioning_tpu_torch.ops import (attention_cuda,
                                                        span_cuda, step_cuda,
                                                        topk, train_cuda)
 from indonesian_image_captioning_tpu_torch.train import steps
+from _torch_tmp import tmp_path  # noqa: F401 (fixtures)
 
 pytestmark = pytest.mark.cuda
 
@@ -1520,6 +1521,34 @@ def test_embed_grad_kernel_one_id(dev, dtype, N, E):
     tol = g[keep].double().abs().sum(0) * 1e-6
     assert bool(((out[123].cpu().double() - exact).abs() <= tol).all())
     assert not out[:123].any() and not out[124:].any()
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("N, V, E, blocks", [(1632, 6763, 512, 1),
+                                              (1632, 19366, 512, 2),
+                                              (20000, 9683, 64, 4)])
+def test_embed_grad_kernel_block_ids_match_plain(dev, dtype, N, V, E, blocks):
+    """A vocabulary block of a model axis: the ids of the whole vocabulary
+    (blocks x V) shifted by each block's first row, so the other blocks'
+    ids fall below 0 or at V and add nothing, in the kernel as in the
+    plain version; the blocks' tables put together are the whole
+    vocabulary's (within the same limit: a block's segments differ)."""
+    gen = torch.Generator().manual_seed(N + V)
+    ids = torch.randint(0, blocks * V, (N,), generator=gen,
+                        dtype=torch.int32)
+    g = randn(gen, N, E).to(dtype)
+    whole = embed_grad_cuda.embed_grad_scatter(ids.to(dev), g.to(dev),
+                                               blocks * V)
+    parts = []
+    for b in range(blocks):
+        local = (ids - b * V).contiguous()
+        out = embed_grad_cuda.embed_grad_scatter(local.to(dev), g.to(dev), V)
+        ref = embed_grad_cuda.embed_grad_plain(local.to(dev), g.to(dev), V)
+        assert bool(((out - ref).abs() <= _col_tol(g).to(dev)[None]).all())
+        parts.append(out)
+    torch.cuda.synchronize()
+    assert bool(((torch.cat(parts) - whole).abs()
+                 <= _col_tol(g).to(dev)[None]).all())
 
 
 def test_embed_grad_wrapper_rejects_what_the_kernel_does_not_take(dev):

@@ -76,6 +76,26 @@ def test_duplicate_heavy_ids_match_the_pallas_kernel(dtype):
     assert not ours[[1, 2, 3, 4, 5, 6, 8, 9]].any()
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_out_of_range_ids_add_nothing_as_the_pallas_kernel(dtype):
+    """Ids below 0 or at least V (the other blocks' ids, shifted, in a
+    vocabulary block of the model axis) add nothing: the plain version
+    equals JAX's kernel, whose one-hot of such an id is zero, and the
+    table of the ids in range alone."""
+    rng = np.random.default_rng(2)
+    n, v, e = 96, 20, 8
+    ids = rng.integers(-v, 2 * v, (n,)).astype(np.int32)
+    assert (ids < 0).any() and (ids >= v).any()
+    g = rng.standard_normal((n, e)).astype(np.float32)
+    tdtype, jdtype = DTYPES[dtype]
+    ours = port_table(ids, g, v, tdtype)
+    np.testing.assert_allclose(ours, jax_table(ids, g, v, jdtype, 32),
+                               rtol=1e-5, atol=1e-5)
+    mine = (ids >= 0) & (ids < v)
+    np.testing.assert_array_equal(ours, port_table(ids[mine], g[mine], v,
+                                                   tdtype))
+
+
 def test_wrapper_checks_and_counts_no_cpu_launch():
     ids = torch.zeros(6, dtype=torch.int32)
     g = torch.ones(6, 4)

@@ -10,8 +10,12 @@ BatchNorm statistics calibrated on the corpus by the port and carried back
 equal token for token but where their first divergence is a near-tie
 (prefix scores within 1e-4), the scores within 1e-6, the dump file names
 and the transposed references equal.  Also the evaluation CLIs' flags,
-``TagDataset``, and a CPU rehearsal of ``chip_smoke.py``'s checkpoints and
-evaluation phase.
+``TagDataset``, a CPU rehearsal of ``chip_smoke.py``'s checkpoints and
+evaluation phase, ``cli.eval_caption --mesh 2,2`` on four gloo ranks
+(``tests/_torch_mesh_worker.py``) against JAX's ``evaluate(mesh_shape=(2,
+2))`` (``tests/test_mesh_training.py:173``'s counterpart) and the port's
+one-rank evaluation, and the multi-rank dry run
+(``parallel/dryrun.run(4, 2)``).
 """
 
 import functools
@@ -54,6 +58,7 @@ from indonesian_image_captioning_tpu_torch.evaluation import (eval_caption,
 from indonesian_image_captioning_tpu_torch.models import encoders
 from indonesian_image_captioning_tpu_torch.models.jax_bridge import (
     params_from_jax, params_to_jax)
+from _torch_tmp import tmp_path, tmp_path_factory  # noqa: F401 (fixtures)
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
@@ -220,19 +225,20 @@ def parser_spec(parser):
 def test_clis_parse_the_jax_flags_and_run(corpus, tmp_path, monkeypatch):
     """eval_caption, eval_tagger and inference take JAX's flags and
     defaults; the evaluation CLIs run on the port's own checkpoint files;
-    --mesh raises before any loading, naming its queue item."""
+    --mesh without a process group of its size raises before any
+    loading, and so does evaluate's mesh_shape."""
     for ours, theirs in ((cli_cap, jax_cli_cap), (cli_tag, jax_cli_tag),
                          (cli_inf, jax_cli_inf)):
         assert parser_spec(ours.build_parser()) == \
             parser_spec(theirs.build_parser())
-    with pytest.raises(NotImplementedError, match=r"item 7\)"):
+    with pytest.raises(ValueError, match="process group has 1"):
         cli_cap.main(["-t", "attention_scn", "-mc", "missing.pth",
                       "--mesh", "2,1"], device="cpu")
     folder, wm, state, _ = corpus
     cfg = ModelConfig(vocab_size=len(wm), **CFG)
     data_cfg = DataConfig(data_folder=folder, data_name=NAME)
-    with pytest.raises(NotImplementedError, match=r"item 7\)"):
-        eval_caption.evaluate(state, cfg, data_cfg, wm, mesh_shape=(2, 1),
+    with pytest.raises(ValueError, match="process group has 1"):
+        eval_caption.evaluate(state, cfg, data_cfg, wm, mesh_shape=(2, 2),
                               device="cpu")
 
     caption_file = ckpt.save_checkpoint(
@@ -296,3 +302,67 @@ def test_chip_smoke_checkpoints_and_evaluation_phase_on_cpu():
     cfg = ModelConfig(vocab_size=40, **{**CFG, "semantic_dim": 24})
     cs.checkpoints_and_evaluation(torch.device("cpu"), cfg, 64, n_images=5,
                                   batch=2)
+
+
+def test_eval_cli_on_mesh_matches_jax_and_one_rank(corpus, tmp_path):
+    """cli.eval_caption --mesh 2,2 on four ranks (one image of every batch
+    of two a data row, the model ranks repeating it): its hypotheses equal
+    the port's one-rank evaluation's at one image a batch, token for
+    token, and JAX's evaluate(mesh_shape=(2, 2))'s but where their first
+    divergence is a near-tie (prefix scores within 1e-4); rank 0 alone
+    writes the dumps, and the scores are the dump's on every rank."""
+    from test_torch_mesh import launch
+    folder, wm, state, jstate = corpus
+    cfg = ModelConfig(vocab_size=len(wm), **CFG)
+    caption_file = ckpt.save_checkpoint(
+        str(tmp_path), "attention_scn", NAME,
+        {"state": state, "epoch": 0, "epochs_since_improvement": 0,
+         "metric": 0.0}, is_best=False)
+    out_root = tmp_path / "mesh_out"
+    argv = ["-t", "attention_scn", "-mc", caption_file, "-df", folder, "-dn",
+            NAME, "-bs", "3", "--batch_size", "2", "--output_root",
+            str(out_root), "--mesh", "2,2"]
+    ranks = launch(tmp_path, {"cases": [dict(case="eval_cli", cfg=CFG,
+                                             argv=argv)],
+                              "mesh": (2, 2)}, n=4)
+    (run,) = out_root.iterdir()
+    hyps = json.loads((run / "attention_scn_beam_3_hypotheses.json")
+                      .read_text())
+    scores = json.loads((run / "attention_scn_beam_3_scores.json")
+                        .read_text())
+    assert all(r[0]["scores"] == scores for r in ranks)
+
+    one_root = tmp_path / "one_out"
+    eval_caption.evaluate(state, cfg, DataConfig(data_folder=folder,
+                                                 data_name=NAME), wm,
+                          beam_cfg=BeamConfig(beam_size=3), batch_size=1,
+                          output_root=str(one_root), log=lambda s: None,
+                          device="cpu")
+    (one,) = one_root.iterdir()
+    assert hyps == json.loads((one / "attention_scn_beam_3_hypotheses.json")
+                              .read_text())
+
+    jroot = tmp_path / "jax_out"
+    jax_eval_caption.evaluate(
+        jstate, JaxModelConfig(vocab_size=len(wm), **CFG),
+        JaxDataConfig(data_folder=folder, data_name=NAME), wm,
+        beam_cfg=JaxBeamConfig(beam_size=3), batch_size=2,
+        output_root=str(jroot), mesh_shape=(2, 2), log=lambda s: None)
+    (theirs,) = jroot.iterdir()
+    jhyps = json.loads((theirs / "attention_scn_beam_3_hypotheses.json")
+                       .read_text())
+    assert len(hyps) == len(jhyps) == 5
+    ds = CaptionDataset(folder, NAME, "TEST")
+    for i, (a, b) in enumerate(zip(hyps, jhyps)):
+        if a != b:
+            gap = prefix_gap(state, cfg, ds, i, a.split(), b.split(), wm)
+            assert gap <= 1e-4, (i, a, b, gap)
+
+
+def test_dryrun_on_four_ranks():
+    """parallel/dryrun.run(4, 2): one epoch of vocab-sharded training at
+    (2, 2) from the artifact files, the mesh evaluation and a serve smoke
+    on the gathered state, on four gloo ranks on the CPU."""
+    from indonesian_image_captioning_tpu_torch.parallel import dryrun
+    loss = dryrun.run(4, 2, device="cpu")
+    assert np.isfinite(loss) and loss > 0

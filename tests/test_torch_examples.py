@@ -22,6 +22,7 @@ from indonesian_image_captioning_tpu_torch.data.preprocess import read_image
 from indonesian_image_captioning_tpu_torch.examples import (
     caption_and_visualize, tagger_topk)
 from indonesian_image_captioning_tpu_torch.models import decoders, encoders
+from _torch_tmp import tmp_path, tmp_path_factory  # noqa: F401 (fixtures)
 
 torch.set_num_threads(1)
 

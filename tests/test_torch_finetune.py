@@ -54,6 +54,7 @@ from indonesian_image_captioning_tpu_torch.train import (caption,
                                                          steps)
 from test_torch_tagger import data_env  # noqa: F401  (the shared corpus)
 from test_torch_tagger import by_path, damp_residuals, rel_err
+from _torch_tmp import tmp_path, tmp_path_factory  # noqa: F401 (fixtures)
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")

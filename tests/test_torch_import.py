@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from indonesian_image_captioning_tpu.models import torch_import
+from _torch_tmp import tmp_path  # noqa: F401 (fixtures)
 
 FAKE_MOD = "fake_reference_models_pkg"
 

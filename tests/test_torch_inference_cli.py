@@ -28,6 +28,7 @@ from indonesian_image_captioning_tpu_torch.data.preprocess import read_image
 from indonesian_image_captioning_tpu_torch.models import (convert, decoders,
                                                           encoders)
 from indonesian_image_captioning_tpu_torch.utils import url
+from _torch_tmp import tmp_path_factory  # noqa: F401 (fixtures)
 
 torch.set_num_threads(1)
 # The tag probabilities of the two packages' ResNet-152 taggers: the

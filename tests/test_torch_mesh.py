@@ -57,6 +57,7 @@ from test_torch_tagger import ARCH, LR, by_path, jax_tree, rel_err
 from test_torch_tagger import data_env  # noqa: F401 (fixture)
 from test_torch_tagger import jax_step_case  # noqa: F401 (fixture)
 from test_torch_tagger import port_state
+from _torch_tmp import tmp_path, tmp_path_factory  # noqa: F401 (fixtures)
 
 torch.set_num_threads(1)
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),

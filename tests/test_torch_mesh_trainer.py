@@ -19,9 +19,20 @@ run, in one launch:
   does under any change of summation order), and rank 0's checkpoint
   loading bitwise equal to both ranks' final state.
 
+Four gloo ranks run, in a second launch, ``cli.train -t pure_scn --mesh
+2,2`` (fc, the embedding and their Adam moments sharded over the
+vocabulary on the model axis) for one epoch, from JAX's initial state:
+its fc within rtol 2e-4 and atol 2e-5 of JAX's ``cli.train.main`` at
+``--mesh 2,2`` (``tests/test_mesh_training.py:33``'s run) and the train
+loss within 1e-4; rank 0's checkpoint, loaded at (1, 1) by
+``cli.common.load_caption_state``, bitwise the ranks' blocks put
+together; a resume at (2, 2) restoring every rank's blocks and moments
+bitwise from it, and a resumed epoch at (2, 2) within the same limits of
+a (1, 1) run resumed from the same file.
+
 Then, in this process: ``loader.iterate``'s per-rank slices against JAX's
 (``tests/test_data.py:217,248``), ``make_mesh``'s layouts against JAX's,
-and the model axis raising ``NotImplementedError``.
+and a vocabulary the model axis does not divide raising ``ValueError``.
 """
 
 import dataclasses
@@ -40,6 +51,7 @@ from indonesian_image_captioning_tpu.core.config import \
     TrainConfig as JaxTrainConfig
 from indonesian_image_captioning_tpu.core.meshes import \
     make_mesh as jax_make_mesh
+from indonesian_image_captioning_tpu.cli import train as jax_cli
 from indonesian_image_captioning_tpu.core.prng import root_key, stream
 from indonesian_image_captioning_tpu.data import loader as jax_loader
 from indonesian_image_captioning_tpu.train import caption as jax_caption
@@ -57,6 +69,7 @@ from indonesian_image_captioning_tpu_torch.parallel import sharding
 from indonesian_image_captioning_tpu_torch.train import caption, steps
 from indonesian_image_captioning_tpu_torch.train import tagger
 from test_torch_mesh import launch
+from _torch_tmp import tmp_path, tmp_path_factory  # noqa: F401 (fixtures)
 
 torch.set_num_threads(1)
 TINY = {"embed_dim": 16, "attention_dim": 16, "decoder_dim": 16,
@@ -72,9 +85,9 @@ def corpus(tmp_path_factory):
                                  n_images=16, n_train=10, image_size=32)
 
 
-def caption_argv(corpus, ckpt, mesh=None):
+def caption_argv(corpus, ckpt, mesh=None, epochs=1):
     argv = ["-t", "pure_scn", "-df", corpus.data_folder,
-            "-dn", corpus.data_name, "--epochs", "1", "-bs", "8",
+            "-dn", corpus.data_name, "--epochs", str(epochs), "-bs", "8",
             "--encoder_dtype", "float32", "--checkpoint_dir", str(ckpt),
             "--model_json", json.dumps(TINY)]
     return argv + (["--mesh", mesh] if mesh else [])
@@ -253,25 +266,31 @@ def test_mesh_layout_matches_jax(order):
 
 
 def test_model_axis_raises_naming_it(corpus, tmp_path):
-    """--mesh D,M with M > 1, a (2, 2) TrainConfig and shard_vocab raise
-    NotImplementedError naming ROADMAP.md queue 1 item 7's model axis; a
-    data axis without its process group raises ValueError."""
-    match = r"item 7's model axis"
-    with pytest.raises(NotImplementedError, match=match):
+    """A model axis that does not divide the vocabulary raises ValueError
+    naming both, before any group is made (--mesh D,M through the CLI, a
+    (2, 2) TrainConfig); a mesh without its process group raises
+    ValueError; the one-rank mesh's placement is the identity."""
+    wm = vocab.load_json(vocab.wordmap_path(corpus.data_folder,
+                                            corpus.data_name))
+    with pytest.raises(ValueError, match="process group has 1"):
         cli.main(caption_argv(corpus, tmp_path, mesh="2,2"), device="cpu")
-    wm = {"<pad>": 0, "a": 1, "<start>": 2}
-    for run in (lambda t: caption.train("pure_scn", wm, None, None, t,
-                                        device="cpu"),
+    with pytest.raises(ValueError, match=f"vocab_size {len(wm)} is not "
+                       "divisible by the model axis 3"):
+        cli.main(caption_argv(corpus, tmp_path, mesh="1,3"), device="cpu")
+    odd = {"<pad>": 0, "a": 1, "<start>": 2}
+    with pytest.raises(ValueError, match="vocab_size 3 is not divisible by "
+                       "the model axis 2"):
+        caption.train("pure_scn", odd, None, None,
+                      TrainConfig(mesh_shape=(2, 2)), device="cpu")
+    for run in (lambda t: caption.train("pure_scn", {**odd, "b": 3}, None,
+                                        None, t, device="cpu"),
                 lambda t: tagger.train(None, None, t, device="cpu")):
-        with pytest.raises(NotImplementedError, match=match):
-            run(TrainConfig(mesh_shape=(2, 2)))
-        with pytest.raises(ValueError, match="process group has 1"):
-            run(TrainConfig(mesh_shape=(2, 1)))
+        for shape in ((2, 2), (2, 1)):
+            with pytest.raises(ValueError, match="process group has 1"):
+                run(TrainConfig(mesh_shape=shape))
     mesh = meshes.make_mesh()
     assert (mesh.shape, mesh.size, meshes.process_data_slice(mesh)) == (
         {"data": 1, "model": 1}, 1, (0, 1))
-    with pytest.raises(NotImplementedError, match=match):
-        sharding.place_state(mesh, {}, shard_vocab=True)
     assert not meshes.initialize_distributed(world_size=1)
     # one rank: every leaf replicated, the state and batch as they were
     params = {"w": torch.ones(2), "b": [torch.zeros(1)]}
@@ -283,6 +302,131 @@ def test_model_axis_raises_naming_it(corpus, tmp_path):
     assert sharding.place_state(mesh, state) is state
     batch = {"caps": np.zeros((4, 3)), "n": 7}
     assert sharding.place_batch(mesh, batch)["caps"].shape == (4, 3)
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_epoch(corpus, tmp_path_factory):
+    """JAX's cli.train.main at --mesh 2,2 (vocab-sharded), one pure_scn
+    epoch: its fc weights and train loss."""
+    state, summary = jax_cli.main(caption_argv(
+        corpus, tmp_path_factory.mktemp("j22"), mesh="2,2"))
+    return np.asarray(state["params"]["fc"]["w"]), summary["train_loss"]
+
+
+@pytest.fixture(scope="module")
+def model_axis(corpus, jax_epoch, tmp_path_factory):
+    """Four ranks at (2, 2): an epoch (its checkpoint copied aside), a
+    resume that trains nothing (the restored state) and a resumed
+    epoch."""
+    ckpt = tmp_path_factory.mktemp("ckpt22")
+    first = tmp_path_factory.mktemp("ckpt22_first") / "epoch0"
+    argv = caption_argv(corpus, ckpt, mesh="2,2")
+    cases = [dict(case="cli_train", init=jax_epoch[2], argv=argv,
+                  snapshot=str(first)),
+             dict(case="cli_train", init=jax_epoch[2],
+                  argv=argv + ["--resume"]),
+             dict(case="cli_train", init=jax_epoch[2],
+                  argv=caption_argv(corpus, ckpt, mesh="2,2", epochs=2)
+                  + ["--resume"])]
+    out = launch(tmp_path_factory.mktemp("mesh22"),
+                 {"cases": cases, "mesh": (2, 2)}, n=4)
+    return out, first
+
+
+def whole(out, i, key):
+    """The blocks of a (2, 2) run put together: each leaf from the ranks
+    of data row 0, in model order."""
+    row = sorted((r for r in out if r[i]["coords"]["data"] == 0),
+                 key=lambda r: r[i]["coords"]["model"])
+    dims = {"fc/w": 1, "fc/b": 0, "embedding": 0}
+    return {k: torch.cat([r[i][key][k] for r in row], dims[k])
+            if k in dims else row[0][i][key][k] for k in row[0][i][key]}
+
+
+def test_cli_model_axis_epoch_matches_jax(model_axis, corpus, jax_mesh_epoch,
+                                          jax_epoch):
+    """cli.train --mesh 2,2: the blocks put together within rtol 2e-4 /
+    atol 2e-5 of JAX's vocab-sharded epoch (and of JAX's one-device
+    epoch), the train loss within 1e-4; every rank holds V/2 columns and
+    the same replicated leaves; the vocabulary's moments are blocks."""
+    out, _ = model_axis
+    jfc, jloss = jax_mesh_epoch
+    params = whole(out, 0, "params")
+    fc = params["fc/w"].numpy()
+    assert out[0][0]["params"]["fc/w"].shape[1] * 2 == fc.shape[1]
+    np.testing.assert_allclose(fc, jfc, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(fc, jax_epoch[0], rtol=2e-4, atol=2e-5)
+    for r in out:
+        assert r[0]["train_loss"] == pytest.approx(jloss, rel=1e-4)
+        for k, v in r[0]["params"].items():
+            if k not in ("fc/w", "fc/b", "embedding"):
+                assert torch.equal(v, out[0][0]["params"][k]), k
+    width = fc.shape[1] // 2
+    moments = [m for m in out[0][0]["moments"] if m]
+    assert {tuple(m["exp_avg"].shape) for m in moments} >= {
+        (fc.shape[0], width), (width,)}
+
+
+def test_model_axis_checkpoint_loads_at_one_rank_and_resumes(
+        model_axis, corpus, jax_epoch, tmp_path, monkeypatch):
+    """Rank 0's checkpoint is the one-rank format: loaded at (1, 1) it is
+    bitwise the (2, 2) blocks put together, Adam's moments too; a resume
+    at (2, 2) restores every rank's blocks and moments bitwise; a resumed
+    epoch at (2, 2) matches a (1, 1) run resumed from the same file."""
+    import shutil
+
+    out, first = model_axis
+    from indonesian_image_captioning_tpu_torch.core import checkpoint
+    from indonesian_image_captioning_tpu_torch.core.config import \
+        ModelConfig
+    name = f"checkpoint_pure_scn_{corpus.data_name}"
+    wm = vocab.load_json(vocab.wordmap_path(corpus.data_folder,
+                                            corpus.data_name))
+    cfg = ModelConfig(model_type="pure_scn", vocab_size=len(wm),
+                      semantic_dim=2, **TINY)
+    loaded = common.load_caption_state(str(first / name), cfg,
+                                       device="cpu")
+    from test_torch_mesh import by_path
+    got, want = by_path(loaded["params"]), whole(out, 0, "params")
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in got)
+    saved = checkpoint.load_pytree(str(first / name))
+    assert saved["epoch"] == 0
+    moments = saved["state"]["opt_state"]["state"]
+    order = list(want)
+    for r in out:
+        res, mi = r[0], r[0]["coords"]["model"]
+        restored = r[1]
+        assert restored["start_epoch"] == 1
+        for j, k in enumerate(order):
+            blk = want[k]
+            if k in ("fc/w", "fc/b", "embedding"):
+                dim = 1 if k == "fc/w" else 0
+                w = blk.shape[dim] // 2
+                blk = blk.narrow(dim, mi * w, w)
+            assert torch.equal(restored["params"][k], blk), k
+            for mk in ("exp_avg", "exp_avg_sq"):
+                full = moments[j][mk]
+                if k in ("fc/w", "fc/b", "embedding"):
+                    full = full.narrow(dim, mi * w, w)
+                assert torch.equal(restored["moments"][j][mk], full), (k, mk)
+                assert torch.equal(res["moments"][j][mk],
+                                   restored["moments"][j][mk]), (k, mk)
+
+    # a (1, 1) run resumed from the same file trains the second epoch
+    ckpt = tmp_path / "one"
+    shutil.copytree(first, ckpt)
+    monkeypatch.setattr(caption, "init_state", bridged_init(jax_epoch[2]))
+    state, summary = cli.main(caption_argv(corpus, ckpt, epochs=2)
+                              + ["--resume"], device="cpu")
+    assert summary["start_epoch"] == 1
+    resumed = whole(out, 2, "params")
+    assert out[0][2]["start_epoch"] == 1
+    np.testing.assert_allclose(resumed["fc/w"].numpy(),
+                               state["params"]["fc"]["w"].detach().numpy(),
+                               rtol=2e-4, atol=2e-5)
+    assert out[0][2]["train_loss"] == pytest.approx(summary["train_loss"],
+                                                    rel=1e-4)
 
 
 def test_initialize_distributed_refuses_more_ranks_than_cards(monkeypatch):

@@ -33,6 +33,7 @@ from indonesian_image_captioning_tpu_torch.cli import corpus_score as cs
 from indonesian_image_captioning_tpu_torch.cli import create_input_files
 from indonesian_image_captioning_tpu_torch.data import preprocess, synthetic
 from indonesian_image_captioning_tpu_torch.utils import embedding
+from _torch_tmp import tmp_path, tmp_path_factory  # noqa: F401 (fixtures)
 
 WORDS = ["anjing", "kucing", "bermain", "di", "taman", "bola", "anak",
          "laki", "perempuan", "rumput"]

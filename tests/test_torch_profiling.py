@@ -11,6 +11,7 @@ import torch
 
 from indonesian_image_captioning_tpu.core import profiling as jax_profiling
 from indonesian_image_captioning_tpu_torch.core import profiling
+from _torch_tmp import tmp_path  # noqa: F401 (fixtures)
 
 torch.set_num_threads(1)
 

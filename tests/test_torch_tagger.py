@@ -68,6 +68,7 @@ from indonesian_image_captioning_tpu_torch.models.jax_bridge import \
 from indonesian_image_captioning_tpu_torch.ops import losses
 from indonesian_image_captioning_tpu_torch.train import caption, steps
 from indonesian_image_captioning_tpu_torch.train import tagger
+from _torch_tmp import tmp_path, tmp_path_factory  # noqa: F401 (fixtures)
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")

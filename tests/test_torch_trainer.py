@@ -45,6 +45,7 @@ from indonesian_image_captioning_tpu_torch.models.jax_bridge import \
 from indonesian_image_captioning_tpu_torch.train import (caption,
                                                          feature_cache,
                                                          steps)
+from _torch_tmp import tmp_path, tmp_path_factory  # noqa: F401 (fixtures)
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -411,9 +412,10 @@ def parser_spec(parser):
 def test_cli_parses_the_jax_flags_and_raises_on_unported_paths(data_env,
                                                                tmp_path):
     """The CLI's flags equal JAX's; a model axis (--mesh D,M with M > 1)
-    raises, naming its ROADMAP.md queue 1 item; --fine_tune_encoder and a
-    tagger --type (with --encoder_remat and --tagger_dtype) each train one
-    tiny epoch."""
+    raises ValueError without its process group, and on a vocabulary it
+    does not divide, naming both; --fine_tune_encoder and a tagger --type
+    (with --encoder_remat and --tagger_dtype) each train one tiny
+    epoch."""
     assert parser_spec(cli.build_parser()) == parser_spec(
         jax_cli.build_parser())
     argv = ["-t", "attention_scn", "--epochs", "3", "-bs", "8",
@@ -429,12 +431,14 @@ def test_cli_parses_the_jax_flags_and_raises_on_unported_paths(data_env,
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     spec = '{"embed_dim": 8}'
     assert cli._load_model_json(spec) == jax_cli._load_model_json(spec)
-    # the message names the ROADMAP.md queue 1 item that ports its path
-    with pytest.raises(NotImplementedError, match=r"item 7's model axis"):
-        cli.main(["-t", "pure_scn", "--mesh", "2,2", "--checkpoint_dir",
-                  str(tmp_path)], device="cpu")
-    wm = {"<pad>": 0, "a": 1, "<start>": 2}
-    with pytest.raises(NotImplementedError, match=r"item 7's model axis"):
+    # a model axis trains over a process group of D x M ranks, on a
+    # vocabulary that M divides
+    with pytest.raises(ValueError, match="vocab_size 11 is not divisible "
+                       "by the model axis 2"):
+        cli.main(["-t", "pure_scn", "--mesh", "2,2", "-df", data_env, "-dn",
+                  NAME, "--checkpoint_dir", str(tmp_path)], device="cpu")
+    wm = {"<pad>": 0, "a": 1, "<start>": 2, "b": 3}
+    with pytest.raises(ValueError, match="process group has 1"):
         caption.train("pure_scn", wm, None, None,
                       TrainConfig(mesh_shape=(2, 2)), device="cpu")
     common = ["-df", data_env, "-dn", NAME, "--epochs", "1", "-bs", "4"]
