@@ -218,6 +218,38 @@ Phases, each of which exits non-zero on failure:
    rank's on the whole batch, the all_reduce's ms, StepTimer.summary(),
    every reading beside its limit and the phase's wall time beside the
    card's name and power limit.
+11. the model axis: MA_MESH ranks spawned on cuda:0 over gloo, the
+   vocabulary (MA_VOCAB) cut over the model axis, each step held against
+   one rank's unsharded step (see the MA_* constants).
+12. benchmark widths: the configurations of the JAX package's bench.py
+   (see the BW_* constants).  The decode at B=2,048 bf16 through "auto"
+   (resolved to "fused_span", kernel 7 ceil(51 / 4) = 13 times, row 0
+   the full 52-token window; the rows that ran it counted) and through
+   "fused" (kernel 13, one graph launch after its capture), both held
+   against their plain versions on 64-image slices (first, last, and
+   past 2^31 / (P x E) images where the batch reaches it): the kernel's
+   records replayed step by step through the plain step on the kernel's
+   own picks, every step of every image within BW_REC_TOL; captions/s.
+   The train step at B=1,024, decoder bf16, kernel 14 on: the head
+   resolved to "chunked", a step from the fresh state held against the
+   same step on the eager scan with the one-hot embedding gradient, in
+   row chunks (each leaf's gradient within TRAIN_BWD_TOL of its norm, the
+   loss within TRAIN_TOL, bf16; the update's first-order change of the
+   loss within BW_UPDATE_TOL), the main path's step launching kernels 8
+   and 9 (4 launches a step each way, csrc/train.cu's counter) and 14,
+   three more timed, a profiled step by kernel group; kernels 8, 9 and
+   14 at these widths against their plain versions.  End to end: a
+   CaptionEngine with every floating leaf of the state bf16, buckets (1,
+   8, 32, 128, 256): caption_batch of 256 256-px images through kernel
+   7, its first 8 captions equal to a batch of those 8 but at near-ties
+   (prefix scores within BW_E2E_NEAR), images/s; one image's latency; an
+   open loop as bench.py's load_main at 200 requests/s for 12 s (buckets
+   (1, 8, 32, 128), two batches in flight), every future resolved, the
+   batch histogram and latency percentiles.  Each kernel's events and
+   device ms, launches, largest error against its tolerance and bound at
+   these widths, each part's peak memory and the phase's wall time beside
+   the card's name and power limit; the kernels line carries them under
+   "benchmark_widths".
 
 The line before the last lists each kernel as JSON: the thirteen that
 replace a TPU kernel, and the tensor-core GEMM of the decode chain
@@ -370,6 +402,47 @@ MA_MESH, MA_VOCAB, MA_STEPS = (2, 2), 38732, 3
 MA_TRAINER_IMAGES, MA_TEST_IMAGES, MA_TIMEOUT_S = (64, 32), 32, 600
 MA_FT_B, MA_FT_STEPS = 8, 2
 MA_GRAD_TOL, MA_UPDATE_TOL, MA_LOSS_TOL = 1e-4, 5e-3, 1e-5
+# The benchmark-widths phase: the configurations of the JAX package's
+# bench.py at attention_scn's reference widths, V = VOCAB, beam K.  The
+# decode at BW_DECODE_B images (bf16 parameters, features x 0.1 and tags);
+# the train step at BW_TRAIN_B rows (decoder bf16, float32 cached features
+# x 0.1, ids in [1, V), caplens BW_CAPLEN), BW_TIMED_STEPS more timed; end
+# to end at BW_E2E_B 256-px images with every floating leaf of the state
+# in bf16, buckets BW_BUCKETS; one image's latency (median of BW_B1_RUNS);
+# an open loop at BW_LOAD_RATE requests/s for BW_LOAD_S s on buckets
+# BW_LOAD_BUCKETS with two batches in flight (one of bench.py load_main's
+# rates, at its duration and its ServeConfig).  Both decode rungs are held
+# against their plain versions on BW_SLICE-image slices (beams are per
+# image, so the plain versions run on those images alone): the first, the
+# last, and one past 2^31 / (P x E) images where the batch reaches it.
+# The train step is held against the same step on the eager scan (and the
+# one-hot embedding gradient), run in BW_TRAIN_CHUNK-row chunks whose
+# summed terms are divided by the whole batch's counts (the weight
+# gradients add over rows), dropout off in both.
+BW_DECODE_B, BW_TRAIN_B, BW_E2E_B = 2048, 1024, 256
+BW_CAPLEN, BW_SLICE, BW_TRAIN_CHUNK, BW_TIMED_STEPS = 30, 64, 256, 3
+BW_BUCKETS, BW_LOAD_BUCKETS = (1, 8, 32, 128, 256), (1, 8, 32, 128)
+BW_LOAD_RATE, BW_LOAD_S, BW_LOAD_WAIT_MS, BW_B1_RUNS = 200.0, 12.0, 3.0, 5
+# Kernels 7 and 13 at B=2,048 bf16, their records replayed through the
+# plain step on the kernel's own picks and scores (replay_records): "vals",
+# each pick's score against its parent's plus the plain version's
+# log-probability of its word; "near", how far a candidate so scored and
+# left out may lie above the worst pick.  A bf16 head puts many candidates
+# within a rounding of each other, wide or narrow, so a kernel and its
+# plain version part at a near-tie in most images over 51 steps; the picks
+# are held step by step on one trajectory instead of on two that part.
+# Read on the H100: vals 0.000519, a candidate left out 0.000977 above the
+# worst pick (one bf16 step of a logit in [0.25, 0.5)).
+BW_REC_TOL = {"vals": 2e-3, "near": 4e-3}
+# The e2e batch's first 8 captions against a batch of those 8: the float32
+# prefix scores where two beams part within this.  The encoders round
+# differently at two batch sizes, so the two decodes see other bf16
+# encodings and part wider than a kernel and its plain version: read up
+# to 0.0469 on the H100.
+BW_E2E_NEAR = 0.1
+# The B=1,024 step against the eager scan: the update's first-order change
+# of the loss (read 5.7e-06 on the H100).
+BW_UPDATE_TOL = 1e-4
 # The card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms.
 # "tf32x3": a float32 product as the tensor-core GEMM (csrc/mma.cuh)
 # computes it, three TF32 products at 495 TFLOP/s.
@@ -416,7 +489,7 @@ def median_ms(fns, runs=20):
 PROFILE_TRIES = 10
 PROFILE_RETRIES = [0]   # profiles taken again: they missed kernels
 # launches that open every profile (profile_cuda) and are not counted
-PROFILE_LEAD = 8
+PROFILE_LEAD = 64
 # the CUDA calls that launch one kernel each, as torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
@@ -437,10 +510,12 @@ def profile_cuda(fn, runs=1):
     DeviceTime a name, from torch.profiler's CPU and CUDA activity.
 
     In a process that has run for a while, a profile on the card loses
-    the kernel records of its first one or two launches (their launch
-    calls are recorded; the later launches' kernels are not lost).  So
-    every profile opens with PROFILE_LEAD launches of a spin kernel and a
-    synchronize, which are not counted, and is complete only if every
+    the kernel records of its first launches (their launch calls are
+    recorded; the later launches' kernels are not lost): one or two at
+    first, twenty in a process seven minutes old (12 missing past a lead
+    of 8, in ten takes running).  So every profile opens with
+    PROFILE_LEAD launches of a spin kernel and a synchronize, which are
+    not counted, and is complete only if every
     launch call of fn's (cudaLaunchKernel and kin) has its kernel record,
     matched by CUPTI correlation id.  An incomplete profile is taken
     again, up to PROFILE_TRIES times (PROFILE_RETRIES counts them), and
@@ -472,8 +547,9 @@ def profile_cuda(fn, runs=1):
         device = [e for e in raw if e.device_type() == DeviceType.CUDA
                   and e.correlation_id() not in lead]
         seen = {e.correlation_id() for e in device}
-        missing = sum(e.correlation_id() not in seen
-                      for e in calls[PROFILE_LEAD:])
+        lost = [i for i, e in enumerate(calls[PROFILE_LEAD:])
+                if e.correlation_id() not in seen]
+        missing = len(lost)
         if device and not missing:
             PROFILE_RETRIES[0] += attempt
             got = {}
@@ -484,8 +560,8 @@ def profile_cuda(fn, runs=1):
             return list(got.values())
     raise SmokeFailure(f"{PROFILE_TRIES} profiles of {fn} missed kernels: "
                        f"{missing} of {len(calls) - PROFILE_LEAD} launch "
-                       f"calls without a record in the last, {len(device)} "
-                       "device records")
+                       f"calls without a record in the last (at {lost[:16]}"
+                       f" of fn's), {len(device)} device records")
 
 
 def device_ms(fn, runs=20, by_kernel=None):
@@ -2264,7 +2340,7 @@ def train_inputs(dev, dtype, cfg, B, gen):
                   h0.to(dtype).contiguous(), c0.to(dtype).contiguous())
 
 
-def train_kernel_case(dev, dtype, cfg, B):
+def train_kernel_case(dev, dtype, cfg, B, runs=20):
     """Kernels 8 and 9 against their plain versions for cfg's cell: every
     output and stream within TRAIN_TOL of its scale (forward) or
     TRAIN_BWD_TOL of its norm (backward), and both times.  The backward
@@ -2327,7 +2403,7 @@ def train_kernel_case(dev, dtype, cfg, B):
         lambda: train_cuda.train_fwd_plain(*args, cell=cell),
         lambda: train_cuda.train_fwd(*args, cell=cell),
         lambda: train_cuda.train_bwd_plain(*bargs, cell=cell),
-        lambda: train_cuda.train_bwd(*bargs, cell=cell)])
+        lambda: train_cuda.train_bwd(*bargs, cell=cell)], runs)
     T = cfg.max_caption_len - 1
     fwd_work, bwd_work = train_work(cfg, B, T, dtype.itemsize)
     calls = {"train_fwd": lambda: train_cuda.train_fwd(*args, cell=cell),
@@ -2355,7 +2431,7 @@ def train_kernel_case(dev, dtype, cfg, B):
             ("train_bwd", calls["train_bwd"], b_ms, b_plain, e_bwd,
              bwd_work)):
         parts = {}
-        dev_ms = device_ms(fn, runs=5, by_kernel=parts)
+        dev_ms = device_ms(fn, runs=min(runs, 5), by_kernel=parts)
         counts = kernel_counts(fn)
         bound_ms, bound_by, ffma_ms = chain_bound(work, name)
         top = sorted(parts.items(), key=lambda kv: -kv[1])[:6]
@@ -2368,7 +2444,8 @@ def train_kernel_case(dev, dtype, cfg, B):
             f"{k.split('(')[0][:56]} x{counts.get(k, 0)} {v:.4f} ms"
             for k, v in top))
         res[what] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                         device_ms=dev_ms, launches_per_step=steps[what])
+                         device_ms=dev_ms, launches_per_step=steps[what],
+                         bound_ms=bound_ms)
     return res
 
 
@@ -3541,6 +3618,19 @@ def dp_flat_grads(opt_state):
                     for p in g["params"]])
 
 
+def leaf_names(tree, prefix=""):
+    """The paths of a tree's leaves (nested dicts and lists), in
+    steps.tree_leaves' order."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = []
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            out += leaf_names(v, f"{prefix}{k}/")
+        else:
+            out.append(f"{prefix}{k}")
+    return out
+
+
 def rel_err(a, b):
     """|a - b| / |b| in the 2-norm, in float64."""
     return float((a.double() - b.double()).norm()
@@ -4701,6 +4791,711 @@ def model_axis_phase(card):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def peak_gib():
+    """The device's peak allocated memory since the last reset, GiB."""
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def inert_masked(rec):
+    """Records [words, parents, vals] with the words and parents of inert
+    entries (vals NEG: a dead lane, an ended image, a step past the early
+    exit) set to 0, so that two decodes that stop at other steps compare
+    only on what replay reads."""
+    import torch
+
+    words, parents, vals = rec
+    live = vals > NEG
+    return [torch.where(live, words, 0), torch.where(live, parents, 0),
+            vals]
+
+
+def replay_records(rec, ins, cell, start_id, end_id, freeze, tol, label):
+    """A kernel's records [words, parents, vals] (B, T, K), inert entries
+    masked, replayed through the plain step (step_cuda.step_logits_plain
+    and its float32 log-softmax) from the decode's state ins, the plain
+    version taking the kernel's picks and scores at every step (the
+    bookkeeping is span_cuda.advance_plain's, freeze as kernel 13's), so
+    that each step is held on its own and errors do not add up over the
+    steps: at every step of every image, the picks live exactly where the
+    plain version has candidates, distinct, in falling order, each within
+    tol["vals"] of its parent's score plus the plain version's
+    log-probability of its word, and no candidate so scored left out above
+    the worst pick by more than tol["near"] (a top K up to near-ties).
+    Returns (the largest vals error, the largest such margin, image-steps
+    held, image-steps whose picks differ from the plain version's own top
+    K)."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import span_cuda, step_cuda
+
+    words, parents, vals = rec
+    B, T, K = vals.shape
+    V = ins["emb_tab"].shape[0]
+    dev = vals.device
+    h, c = ins["h"], ins["c"]
+    sc, pw, alive = span_cuda.initial_carry(B, K, start_id, dev)
+    err = margin = 0.0
+    held = swapped = 0
+    for t in range(T):
+        if not bool((alive > 0).any()):
+            check(not bool((vals[:, t:] > NEG).any()), f"{label}: live "
+                  f"records after step {t}, where every image has ended")
+            break
+        lg, h_new, c_new = step_cuda.step_logits_plain(
+            ins["weights"], ins["enc"], ins["ea"],
+            ins["emb_tab"][pw.reshape(-1).long()], h, c, ins["semx"],
+            ins["semh"], cell=cell)
+        shifted = lg - lg.max(dim=1, keepdim=True).values
+        lp = shifted - torch.log(torch.exp(shifted).sum(1, keepdim=True))
+        cand = torch.clamp_min(sc + lp, NEG)
+        cand = torch.where(sc <= NEG, torch.full_like(cand, NEG),
+                           cand).reshape(B, K * V)
+        live = vals[:, t] > NEG
+        has = cand.amax(1) > NEG
+        check(torch.equal(live, has[:, None].expand(B, K)), f"{label} step "
+              f"{t}: live picks where the plain version has no candidate, "
+              "or the reverse")
+        flat = parents[:, t].long() * V + words[:, t].long()
+        uniq = torch.where(live, flat, -1 - torch.arange(K, device=dev))
+        uniq = uniq.sort(1).values
+        drop = vals[:, t, :-1] - vals[:, t, 1:]
+        check(bool((uniq[:, 1:] != uniq[:, :-1]).all())
+              and bool(((drop >= 0) | ~live[:, 1:]).all()),
+              f"{label} step {t}: a candidate picked twice, or the picks "
+              "out of order")
+        ref = torch.gather(cand, 1, flat)
+        err = max(err, float(torch.where(live, (vals[:, t] - ref).abs(),
+                                         0.0).amax()))
+        worst_pick = torch.where(live, ref, float("inf")).amin(1)
+        left_out = cand.scatter(1, flat, NEG).amax(1)
+        over = torch.where(has, left_out - worst_pick, 0.0)
+        margin = max(margin, float(over.amax()))
+        held += int(has.sum())
+        swapped += int((over > 0).sum())
+        sc, pw, alive, src = span_cuda.advance_plain(
+            words[:, t], parents[:, t], vals[:, t], sc, pw, alive,
+            end_id=end_id, freeze=freeze)
+        h, c = h_new[src], c_new[src]
+    check(err <= tol["vals"] and margin <= tol["near"], f"{label}: vals "
+          f"error {err} (limit {tol['vals']}) or a candidate left out "
+          f"{margin} above the worst pick (limit {tol['near']})")
+    return err, margin, held, swapped
+
+
+def bw_parting_gaps(params, cfg, enc, tags, ref, out, label):
+    """Sequences and lengths out against ref, image by image: where two
+    differ, the float32 scores of both prefixes up to the first token that
+    differs (step_cuda.step_logits_plain, the plain step of kernel 7, and
+    its float32 log-softmax, on enc and tags) must lie within BW_E2E_NEAR.
+    Returns those gaps."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import span_cuda, step_cuda
+
+    gaps = []
+    for r in range(ref[0].shape[0]):
+        s, f = ref[0][r], out[0][r]
+        if torch.equal(s, f) and int(ref[1][r]) == int(out[1][r]):
+            continue
+        t = int((s != f).nonzero()[0]) if bool((s != f).any()) else \
+            int(min(ref[1][r], out[1][r]))
+        seqs = torch.stack([s, f])
+        ins = span_cuda.decode_inputs(params, cfg, enc[r:r + 1],
+                                      tags[r:r + 1], 2)
+        h, c = ins["h"], ins["c"]
+        total = torch.zeros(2, device=enc.device)
+        for pos in range(1, t + 1):
+            lg, h, c = step_cuda.step_logits_plain(
+                ins["weights"], ins["enc"], ins["ea"],
+                ins["emb_tab"][seqs[:, pos - 1].long()], h, c, ins["semx"],
+                ins["semh"], cell="scn")
+            total += torch.log_softmax(lg, dim=1)[
+                torch.arange(2), seqs[:, pos].long()]
+        gap = abs(float(total[0] - total[1]))
+        check(gap <= BW_E2E_NEAR, f"{label} row {r}: beams part at step {t} "
+              f"with prefix scores {total.tolist()} (gap {gap}, limit "
+              f"{BW_E2E_NEAR})")
+        gaps.append(gap)
+    return gaps
+
+
+def bw_slices(n_images, P, E):
+    """(label, first image) of the BW_SLICE-image slices the decode is held
+    on, and the first image whose encoder window starts past 2^31 elements
+    (None when the batch does not reach it)."""
+    past = (1 << 31) // (P * E) + 1
+    slices = [("first", 0), ("last", n_images - BW_SLICE)]
+    if past + BW_SLICE <= n_images:
+        slices.append(("past 2^31", past))
+    return slices, past
+
+
+def bw_decode(dev, card):
+    """The decode of bench.py --mode decode at BW_DECODE_B images, bf16:
+    "auto" (kernel 7, ceil(T / S) calls, row 0 the full window) and
+    "fused" (kernel 13, one graph launch after its capture), each held
+    against its plain version on slices of the batch.  Returns the kernel
+    results for the kernels line."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.core.config import (
+        BeamConfig, ModelConfig)
+    from indonesian_image_captioning_tpu_torch.decode.api import \
+        caption_beam_search
+    from indonesian_image_captioning_tpu_torch.models import decoders
+    from indonesian_image_captioning_tpu_torch.ops import (decode_cuda,
+                                                           span_cuda)
+
+    bf = torch.bfloat16
+    cfg = ModelConfig(model_type="attention_scn", vocab_size=VOCAB,
+                      dtype="bfloat16")
+    nb, V, E, P = BW_DECODE_B, VOCAB, cfg.encoder_dim, cfg.num_pixels
+    S = cfg.enc_image_size
+    torch.cuda.reset_peak_memory_stats()
+    t_part = time.perf_counter()
+    params = decoders.cast_params(decoders.init_decoder(
+        torch.Generator().manual_seed(SEED + 40), cfg, device=dev), bf)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    enc = (torch.randn((nb, S, S, E), generator=gen, device=dev)
+           * 0.1).to(bf)
+    tags = torch.rand((nb, cfg.semantic_dim), generator=gen,
+                      device=dev).to(bf)
+    beam = BeamConfig(beam_size=K)
+    T = beam.max_steps
+    kw = dict(start_id=V - 2, end_id=V - 1, beam_cfg=beam)
+    rkw = dict(beam_size=K, start_id=V - 2, end_id=V - 1, max_steps=T)
+    n_spans = -(-T // cfg.decode_span)
+    fcfg = dataclasses.replace(cfg, decode_impl="fused")
+
+    def decode(c):
+        out = caption_beam_search(params, c, enc, tags, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    def timed(c, n):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            decode(c)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    with torch.inference_mode():
+        decode(cfg)                       # the first call's allocations
+        # ---- "auto": counters zeroed just before, read just after ----
+        zero_counters()
+        out = decode(cfg)
+        ran = read_counters()
+        # ---------------------------------------------------------------
+        lens = out["lengths"]
+        full = int((lens == T + 1).sum())
+        check(out["decode_impl"] == "fused_span",
+              f"auto at B={nb} bf16 resolved to {out['decode_impl']}")
+        check(ran["fused_decode_span"] == out["decode_calls"] == n_spans,
+              f"kernel 7 ran {ran['fused_decode_span']} times in "
+              f"{out['decode_calls']} calls, not {n_spans}")
+        check(ran["fused_decode_step"] == ran["beam_decode_records"]
+              == ran["attend_fused"] == 0 and ran["gemm_tc"] > 0,
+              f"the span rung launched other decode kernels: {ran}")
+        check(int(lens[0]) == T + 1, f"row 0 ran {int(lens[0])} tokens, "
+              f"not the full window of {T + 1} (bench.py:445)")
+        check(out["sequences"].shape == (nb, T + 1)
+              and bool(out["scores"].isfinite().all()),
+              "the decode's sequences or scores are misshapen or not finite")
+        auto_s = timed(cfg, 2)
+        # ---- "fused": the capture, then one graph launch a decode ----
+        g0 = decode_cuda.graph_counts()
+        zero_counters()
+        out_f = decode(fcfg)
+        ran_f = read_counters()
+        g1 = decode_cuda.graph_counts()
+        capture_ms = decode_cuda.beam_decode_records.last_graph.capture_ms
+        fused_s = timed(fcfg, 2)
+        g2 = decode_cuda.graph_counts()
+        check(out_f["decode_impl"] == "fused"
+              and ran_f["beam_decode_records"] == 1
+              and g1["captures"] - g0["captures"] == 1
+              and g1["graph_launches"] - g0["graph_launches"] == 1
+              and g2["captures"] == g1["captures"]
+              and g2["graph_launches"] - g1["graph_launches"] == 2,
+              f"fused at B={nb}: launches {ran_f['beam_decode_records']}, "
+              f"graph counts {g0} -> {g1} -> {g2}")
+        check(decode_cuda.step_launches() == 7,
+              f"kernel 13: {decode_cuda.step_launches()} launches a step")
+        full_f = int((out_f["lengths"] == T + 1).sum())
+
+        # ---- both rungs against their plain versions, image slices:
+        # the records replayed through the plain step on the kernel's
+        # picks; each plain decode timed on the first slice ----
+        flat = decoders.flatten_encoding(enc, E)
+        recs = {"fused_decode_span": span_cuda.beam_decode_span_records(
+                    params, cfg, flat, tags, span=cfg.decode_span, **rkw),
+                "beam_decode_records": decode_cuda.beam_decode_records(
+                    params, cfg, flat, tags, **rkw)}
+        plains = {"fused_decode_span":
+                  lambda x, t: span_cuda.beam_decode_span_records_plain(
+                      params, cfg, x, t, span=cfg.decode_span, **rkw),
+                  "beam_decode_records":
+                  lambda x, t: decode_cuda.beam_decode_records_plain(
+                      params, cfg, x, t, **rkw)}
+        slices, past = bw_slices(nb, P, E)
+        keys = ("words", "parents", "vals")
+        errs, plain_s = {}, {}
+        for name, rec in recs.items():
+            errs[name] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plains[name](flat[:BW_SLICE], tags[:BW_SLICE])
+            torch.cuda.synchronize()
+            plain_s[name] = time.perf_counter() - t0
+            for where, lo in slices:
+                sl = slice(lo, lo + BW_SLICE)
+                label = f"{name} B={nb} bf16, images {lo}-{lo + BW_SLICE}"
+                err, margin, held, swapped = replay_records(
+                    inert_masked([rec[k][sl] for k in keys]),
+                    span_cuda.decode_inputs(params, cfg, flat[sl], tags[sl],
+                                            K),
+                    "scn", V - 2, V - 1, name == "beam_decode_records",
+                    BW_REC_TOL, label)
+                errs[name] = max(errs[name], err)
+                print(f"benchmark widths: {label} ({where}), its records "
+                      f"replayed through the plain step on its own picks: "
+                      f"{held} image-steps held, vals error {err:.3g} (limit "
+                      f"{BW_REC_TOL['vals']}), a candidate left out up to "
+                      f"{margin:.3g} above the worst pick (limit "
+                      f"{BW_REC_TOL['near']}; {swapped} image-steps picked "
+                      f"otherwise than the plain version's own top {K})")
+        if len(slices) == 2:
+            print(f"benchmark widths: no image starts past 2^31 / (P x E) "
+                  f"= {past - 1} images: the batch's largest element "
+                  f"offset is {nb * P * E:,} ({100 * nb * P * E / 2 ** 31:.1f}"
+                  f" % of 2^31), its bf16 bytes {2 * nb * P * E:,}")
+
+        # ---- times: events and device ms a call, bounds.  Kernel 7 is
+        # timed on one call from <start> (the decode loop reads the alive
+        # counts between calls, and a profile in an aged process loses
+        # the record of the first launch after each such read) ----
+        ins = span_cuda.decode_inputs(params, cfg, flat, tags, K)
+        span_args = (ins["weights"], ins["emb_tab"], ins["enc"], ins["ea"],
+                     ins["semx"], ins["semh"], ins["h"], ins["c"],
+                     *span_cuda.initial_carry(nb, K, V - 2, dev))
+
+        def one_span():
+            return span_cuda.fused_decode_span(
+                *span_args, span=cfg.decode_span, end_id=V - 1)
+
+        span_ms = median_ms([one_span], 4)[0]
+        span_dev = device_ms(one_span, runs=3)
+        mega_ms = median_ms([lambda: decode_cuda.beam_decode_records(
+            params, cfg, flat, tags, **rkw)], 2)[0]
+        mega_dev = device_ms(lambda: decode_cuda.beam_decode_records(
+            params, cfg, flat, tags, **rkw), runs=1)
+        calls = recs["fused_decode_span"]["calls"]
+        steps_ran = int((recs["beam_decode_records"]["vals"] > NEG)
+                        .any(2).any(0).sum())
+    b7 = chain_bound(record_work(cfg, nb, SPAN, 2), "bfloat16")[0]
+    b13 = chain_bound(record_work(cfg, nb, steps_ran, 2), "bfloat16")[0]
+    res = {"fused_decode_span": dict(
+               B=nb, dtype="bfloat16", ms=span_ms,
+               device_ms=span_dev, launches=ran["fused_decode_span"],
+               max_abs_err=errs["fused_decode_span"],
+               tol=BW_REC_TOL["vals"], tol_of="absolute", bound_ms=b7,
+               plain_ms=1e3 * plain_s["fused_decode_span"] / calls,
+               plain_images=BW_SLICE),
+           "beam_decode_records": dict(
+               B=nb, dtype="bfloat16", ms=mega_ms, device_ms=mega_dev,
+               launches=ran_f["beam_decode_records"],
+               max_abs_err=errs["beam_decode_records"],
+               tol=BW_REC_TOL["vals"], tol_of="absolute", bound_ms=b13,
+               plain_ms=1e3 * plain_s["beam_decode_records"],
+               plain_images=BW_SLICE, steps=steps_ran)}
+    for name, r in res.items():
+        print(f"benchmark widths: kernel {name} at B={nb} bf16: ms "
+              f"{r['ms']:.4f} device_ms {r['device_ms']:.4f} a call "
+              f"(events; profiler), bound_ms {r['bound_ms']:.4f} "
+              f"({r['device_ms'] / r['bound_ms']:.1f} x bound), plain_ms "
+              f"{r['plain_ms']:.4f} on {BW_SLICE} images; launches "
+              f"{r['launches']}; max_abs_err {r['max_abs_err']:.3g} (tol "
+              f"{r['tol']}, {r['tol_of']})")
+    print(f"benchmark widths: decode B={nb} bf16 beam {K} V={V}: auto "
+          f"(fused_span, {n_spans} kernel 7 calls) {1e3 * auto_s:.1f} ms, "
+          f"{nb / auto_s:.1f} captions/s, {full} of {nb} rows ran the full "
+          f"{T + 1}-token window; fused (kernel 13, one graph launch, "
+          f"capture {capture_ms:.1f} ms host) {1e3 * fused_s:.1f} ms, "
+          f"{nb / fused_s:.1f} captions/s, {full_f} full rows; peak "
+          f"{peak_gib():.2f} GiB; the part {time.perf_counter() - t_part:.1f}"
+          f" s; {card}")
+    for g in decode_cuda._graphs.values():      # the 2 GB workspace
+        g.release()
+    decode_cuda._graphs.clear()
+    return res
+
+
+def bw_train(dev, card):
+    """bench.py's train mode at BW_TRAIN_B rows, bf16 decoder: a step from
+    the fresh state held against the same step on the eager scan; then
+    the main path's step (the chunked head, kernels 8 and 9 at 4 launches
+    a step each way, kernel 14) and BW_TIMED_STEPS more, timed.  Returns
+    the kernel results for the kernels line."""
+    import numpy as np
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.core.config import (
+        ModelConfig, TrainConfig)
+    from indonesian_image_captioning_tpu_torch.models import decoders
+    from indonesian_image_captioning_tpu_torch.ops import train_cuda
+    from indonesian_image_captioning_tpu_torch.train import steps
+
+    bf = torch.bfloat16
+    cfg = ModelConfig(model_type="attention_scn", vocab_size=VOCAB,
+                      embed_grad_impl="pallas")
+    tcfg = TrainConfig(batch_size=BW_TRAIN_B, decoder_dtype="bfloat16")
+    nb, V, E, S = BW_TRAIN_B, VOCAB, cfg.encoder_dim, cfg.enc_image_size
+    T = cfg.max_caption_len - 1
+    torch.cuda.reset_peak_memory_stats()
+    t_part = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    enc = torch.randn((nb, S, S, E), generator=gen, device=dev) * 0.1
+    tags = torch.rand((nb, cfg.semantic_dim), generator=gen, device=dev)
+    caps = torch.randint(1, V, (nb, cfg.max_caption_len), generator=gen,
+                         device=dev)
+    caplens = torch.full((nb,), BW_CAPLEN, device=dev)
+    batch = (enc, tags, caps, caplens)
+    head = steps.resolve_head_impl(tcfg, cfg, nb, dev)
+    check(head == "chunked", f"the head at B={nb} resolved to {head}")
+    params = decoders.init_decoder(torch.Generator().manual_seed(SEED + 41),
+                                   cfg, device=dev)
+    opt = steps.make_optimizer(tcfg.decoder_lr, tcfg.grad_clip)
+    state = {"params": params, "opt_state": opt.init(params)}
+    _, step = steps.make_caption_train_step(cfg, tcfg, opt, device=dev)
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 42)
+
+    # ---- a step from the fresh state, fused against the eager scan,
+    # dropout off ----
+    ccfg = dataclasses.replace(cfg, dropout=0.0)
+    _, cstep = steps.make_caption_train_step(ccfg, tcfg, opt, device=dev)
+    xcfg = dataclasses.replace(ccfg, train_scan_impl="xla",
+                               embed_grad_impl="onehot")
+    lr = tcfg.decoder_lr
+    snap = dp_snapshot(state, "params")
+
+    def eager():
+        """The step on the eager scan, BW_TRAIN_CHUNK rows at a time, the
+        summed terms over the whole batch's counts; clamp and Adam."""
+        opt_state = state["opt_state"]
+        opt_state.zero_grad(set_to_none=True)
+        mask = (torch.arange(T, device=dev)[None] < caplens[:, None] - 1)
+        n_tok = mask.sum().float()
+        rows = (mask.sum(1) > 0).sum().float()
+        total = 0.0
+        for lo in range(0, nb, BW_TRAIN_CHUNK):
+            sl = slice(lo, lo + BW_TRAIN_CHUNK)
+            p = decoders.cast_params(params, bf)
+            out = decoders.teacher_forcing(
+                p, xcfg, enc[sl].to(bf), tags[sl].to(bf), caps[sl],
+                caplens[sl], train=True, return_hidden=True)
+            out["alphas"] = out["alphas"].to(torch.float32)
+            ce, pen, *_ = steps._caption_terms(out, caps[sl], tcfg.alpha_c,
+                                               fc=p["fc"],
+                                               tile=tcfg.head_tile)
+            loss = ce / n_tok + pen / rows
+            loss.backward()
+            total += float(loss.detach())
+        opt.update(opt_state)
+        return {"loss": total}
+
+    g_f, u_f, l_f = dp_replay(state, "params", snap, lr,
+                              lambda: cstep(state, *batch)[1])
+    torch.cuda.synchronize()
+    g_x, u_x, l_x = dp_replay(state, "params", snap, lr, eager)
+    torch.cuda.synchronize()
+    # Each leaf's gradient is held by its own norm (fc's, the same code on
+    # both sides, would dilute the others'), but full_att's bias, zero in
+    # exact arithmetic (the softmax over pixels drops it).  Adam's first
+    # update moves a weight by about lr times its gradient's sign, so a
+    # gradient within the two scans' bf16 noise of 0 may move its weight
+    # either way (the update's 2-norm differs by far more than the
+    # gradients').  The update is held by the first-order change of the
+    # loss it makes, g . u with the eager gradient g, which such a weight
+    # moves by only 2 lr |g|.
+    names = leaf_names(params)
+    sizes = [p.numel() for p in steps.tree_leaves(params)]
+    leaf_err = {n: rel_err(a, b) for n, a, b in zip(
+        names, g_f.split(sizes), g_x.split(sizes), strict=True)
+        if not ("full_att" in n and n.endswith("/b"))}
+    worst = max(leaf_err, key=leaf_err.get)
+    g64 = g_x.double()
+    d_f, d_x = float(g64 @ u_f.double()), float(g64 @ u_x.double())
+    e_upd = abs(d_f - d_x) / max(abs(d_x), 1e-300)
+    e_loss = abs(l_f - l_x) / abs(l_x)
+    check(leaf_err[worst] <= TRAIN_BWD_TOL["bfloat16"], f"gradients at "
+          f"B={nb}: {worst}'s {leaf_err[worst]} of its norm > "
+          f"{TRAIN_BWD_TOL['bfloat16']}")
+    check(e_upd <= BW_UPDATE_TOL, f"update {e_upd} past {BW_UPDATE_TOL}")
+    check(e_loss <= TRAIN_TOL["bfloat16"],
+          f"loss {e_loss} past {TRAIN_TOL['bfloat16']}")
+    print(f"benchmark widths: train step B={nb} bf16 decoder, fused "
+          f"(kernels 8, 9, 14; chunked head) against the eager scan and the "
+          f"one-hot embedding gradient in {BW_TRAIN_CHUNK}-row chunks, "
+          f"dropout off: each leaf's gradient of its norm, worst {worst} "
+          f"{leaf_err[worst]:.3g} (tol {TRAIN_BWD_TOL['bfloat16']}; "
+          + ", ".join(f"{n} {e:.2g}" for n, e in leaf_err.items())
+          + f"), update {e_upd:.3g} in g . u, the loss's first-order change"
+          f" (limit {BW_UPDATE_TOL}; {d_f:.6g} vs {d_x:.6g} lr), loss "
+          f"{l_f:.6f} vs {l_x:.6f} ({e_loss:.2g}, tol "
+          f"{TRAIN_TOL['bfloat16']})")
+    del g_f, g_x, u_f, u_x, snap
+
+    # ---- the main path's step: counters zeroed just before ----
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    _, m = step(state, *batch, dgen)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    ran = read_counters()
+    per = train_cuda.last_launches()
+    # ------------------------------------------------------------------
+    check(np.isfinite(float(m["loss"])), f"loss {float(m['loss'])}")
+    check(ran["train_fwd"] == ran["train_bwd"] == 1
+          and ran["embed_grad_scatter"] >= 1,
+          f"a step at B={nb} launched {ran}")
+    check(per["fwd"] == 4 * T and per["bwd_loop"] == 4 * T,
+          f"kernels 8 and 9 made {per['fwd'] / T:.2f} and "
+          f"{per['bwd_loop'] / T:.2f} launches a step, not 4 and 4")
+
+
+    # ---- BW_TIMED_STEPS more steps of the main path, timed ----
+    times, losses = [], []
+    for _ in range(BW_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, *batch, dgen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    step_s = statistics.median(times)
+    print(f"benchmark widths: train B={nb} bf16: first step "
+          f"{1e3 * first_s:.1f} ms, then " + ", ".join(
+              f"{1e3 * x:.1f}" for x in times) + f" ms (median "
+          f"{1e3 * step_s:.1f} ms, {nb / step_s:.1f} images/s); losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + f"; launches of the "
+          f"first step {ran}; peak "
+          f"{peak_gib():.2f} GiB; {card}")
+    train_breakdown(step, state, batch, dgen, nb)
+
+    # ---- kernels 8, 9 and 14 at these widths against their plain
+    # versions, with their times and bounds ----
+    with torch.no_grad():
+        kres = train_kernel_case(dev, bf, cfg, nb, runs=4)
+    eres = embed_grad_case(dev, bf, nb, T - 1, V, cfg.embed_dim,
+                           label=f"B={nb} T={T - 1}")
+    res = {}
+    for name, r, tol, tol_of in (
+            ("train_fwd", kres["train_fwd"], TRAIN_TOL["bfloat16"],
+             "each output's largest magnitude"),
+            ("train_bwd", kres["train_bwd"], TRAIN_BWD_TOL["bfloat16"],
+             "each output's norm"),
+            ("embed_grad_scatter", eres, EMBED_TOL,
+             "its column's sum of |g|")):
+        b = r["bound_ms"]
+        res[name] = dict(B=nb, dtype="bfloat16", ms=r["ms"],
+                         device_ms=r["device_ms"], bound_ms=b,
+                         plain_ms=r["plain_ms"],
+                         max_abs_err=r["max_abs_err"], tol=tol,
+                         tol_of=tol_of, launches=ran[name])
+        print(f"benchmark widths: kernel {name} at B={nb} bf16: ms "
+              f"{r['ms']:.4f} device_ms {r['device_ms']:.4f} bound_ms "
+              f"{b:.4f} ({r['device_ms'] / b:.1f} x bound) plain_ms "
+              f"{r['plain_ms']:.4f}; launches in the step {ran[name]}; "
+              f"max_abs_err {r['max_abs_err']:.3g} (tol {tol} of {tol_of})")
+    print(f"benchmark widths: the train part "
+          f"{time.perf_counter() - t_part:.1f} s, peak {peak_gib():.2f} GiB")
+    return res
+
+
+def bw_e2e(dev, card):
+    """bench.py's end-to-end, latency and open-loop modes: a bf16
+    CaptionEngine (every floating leaf of the state bf16, ResNet-152s with
+    calibrated statistics, 256-px images): caption_batch of BW_E2E_B
+    images through kernel 7, its first 8 captions against a batch of those
+    8 alone, one image's latency, an open loop."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.core.config import \
+        ModelConfig
+    from indonesian_image_captioning_tpu_torch.models import encoders
+    from indonesian_image_captioning_tpu_torch.serve import (CaptionEngine,
+                                                             ServeConfig)
+    from indonesian_image_captioning_tpu_torch.train import steps
+
+    bf = torch.bfloat16
+    cfg = ModelConfig(model_type="attention_scn", vocab_size=VOCAB,
+                      dtype="bfloat16")
+    nb, V = BW_E2E_B, VOCAB
+    torch.cuda.reset_peak_memory_stats()
+    t_part = time.perf_counter()
+    rng = np.random.default_rng(SEED + 43)
+    images = rng.integers(0, 256, size=(nb, 3, IMAGE_SIZE, IMAGE_SIZE),
+                          dtype=np.uint8)
+    state = steps.cast_tree(make_state(dev, cfg, images[:B]), bf)
+    leaves = steps.tree_leaves(state)
+    check(all(t.dtype == bf for t in leaves if t.is_floating_point()),
+          "a floating leaf of the e2e state is not bf16")
+    wm = word_map(V)
+    engine = CaptionEngine(state, cfg, wm,
+                           ServeConfig(batch_buckets=BW_BUCKETS), device=dev)
+    t0 = time.perf_counter()
+    engine.warmup(IMAGE_SIZE)
+    warm_s = time.perf_counter() - t0
+
+    # ---- the main path: counters zeroed just before, read just after ----
+    zero_counters()
+    t0 = time.perf_counter()
+    caps = engine.caption_batch(images)
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    ran = read_counters()
+    # ------------------------------------------------------------------
+    stats = engine.stats
+    check(len(caps) == nb and all(isinstance(c, str) for c in caps),
+          f"caption_batch({nb}) did not return {nb} strings")
+    check(stats.decode_impls == ["fused_span"] and stats.batches == [nb]
+          and ran["fused_decode_span"] == sum(stats.decode_calls) > 0,
+          f"the e2e batch: rungs {stats.decode_impls}, batches "
+          f"{stats.batches}, kernel 7 {ran['fused_decode_span']} in "
+          f"{stats.decode_calls} calls")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        engine.caption_batch(images)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    e2e_s = statistics.median(times)
+
+    # ---- its first 8 captions against a batch of those 8 alone ----
+    caps8 = engine.caption_batch(images[:8])
+    same = sum(a == b for a, b in zip(caps[:8], caps8))
+    gaps = []
+    if same < 8:
+        with torch.inference_mode():
+            seq8, len8 = engine._pipeline(images[:8])
+            seqn, lenn = engine._pipeline(images)
+            x = encoders.prep_images(
+                torch.from_numpy(images[:8]).to(dev)).to(bf)
+            tags8 = encoders.apply_encoder_tagger(
+                state["tagger"], state["tagger_stats"], x,
+                arch=cfg.encoder_arch)[0]
+            enc8 = encoders.apply_encoder_caption(
+                state["encoder"], state["encoder_stats"], x,
+                enc_image_size=cfg.enc_image_size, arch=cfg.encoder_arch)[0]
+            gaps = bw_parting_gaps(
+                engine.state["params"], cfg,
+                enc8.reshape(8, -1, cfg.encoder_dim), tags8.to(bf),
+                (seq8, len8), (seqn[:8], lenn[:8]),
+                f"e2e caption_batch({nb}) rows 0-7 against a batch of 8")
+    print(f"benchmark widths: e2e caption_batch({nb}) bf16 "
+          + ", ".join(f"{1e3 * x:.1f}" for x in times) + f" ms (median "
+          f"{1e3 * e2e_s:.1f} ms, {nb / e2e_s:.1f} images/s); kernel 7 "
+          f"calls {stats.decode_calls[:1]}; its first 8 captions: {same} "
+          f"equal to a batch of 8, {len(gaps)} parting at near-ties, prefix "
+          f"scores " + ", ".join(f"{g:.3g}" for g in gaps) + f" apart "
+          f"(limit {BW_E2E_NEAR}); warmup of buckets {BW_BUCKETS} "
+          f"{warm_s:.1f} s")
+
+    # ---- one image's latency ----
+    engine.stats.clear()
+    zero_counters()
+    one = []
+    for i in range(BW_B1_RUNS):
+        t0 = time.perf_counter()
+        engine.caption_batch(images[i:i + 1])
+        torch.cuda.synchronize()
+        one.append(time.perf_counter() - t0)
+    ran1 = read_counters()
+    check(set(engine.stats.decode_impls) == {"fused_span"}
+          and ran1["fused_decode_span"] == sum(engine.stats.decode_calls),
+          f"B = 1: rungs {engine.stats.decode_impls}, kernel 7 "
+          f"{ran1['fused_decode_span']}")
+    b1_s = statistics.median(one)
+    print(f"benchmark widths: B=1 caption_batch bf16 " + ", ".join(
+        f"{1e3 * x:.1f}" for x in one) + f" ms (median {1e3 * b1_s:.1f} "
+        f"ms); kernel 7 calls {engine.stats.decode_calls}")
+
+    # ---- an open loop as bench.py's load_main: Poisson arrivals at
+    # BW_LOAD_RATE for BW_LOAD_S s, 32 images in turn ----
+    load = CaptionEngine(engine.state, cfg, wm,
+                         ServeConfig(batch_buckets=BW_LOAD_BUCKETS,
+                                     max_wait_ms=BW_LOAD_WAIT_MS,
+                                     max_inflight=2),
+                         device=dev)
+    load.warmup(IMAGE_SIZE)
+    pool = [np.random.default_rng(i).integers(0, 256, (3, IMAGE_SIZE,
+                                                       IMAGE_SIZE), np.uint8)
+            for i in range(32)]
+    lats, lock, futs = [], threading.Lock(), []
+    arrivals = np.random.default_rng(7)
+    load.start()
+    try:
+        t_start = time.monotonic()
+        i = 0
+        while time.monotonic() - t_start < BW_LOAD_S:
+            t_sub = time.monotonic()
+            fut = load.submit(pool[i % len(pool)])
+
+            def done(_f, t_sub=t_sub):
+                with lock:
+                    lats.append(1e3 * (time.monotonic() - t_sub))
+
+            fut.add_done_callback(done)
+            futs.append(fut)
+            i += 1
+            time.sleep(arrivals.exponential(1.0 / BW_LOAD_RATE))
+        got = [f.result(timeout=300) for f in futs]
+        t_total = time.monotonic() - t_start
+    finally:
+        load.stop()
+    check(len(got) == len(futs) and all(isinstance(c, str) for c in got),
+          "an open-loop future did not resolve to a caption")
+    lats.sort()
+    hist = {}
+    for b in load.stats.batches:
+        hist[b] = hist.get(b, 0) + 1
+    n = len(lats)
+    print(f"benchmark widths: open loop {BW_LOAD_RATE:.0f} req/s offered "
+          f"for {BW_LOAD_S:.0f} s, buckets {BW_LOAD_BUCKETS}, max_wait_ms "
+          f"{BW_LOAD_WAIT_MS}, max_inflight 2: {n} requests, "
+          f"{n / t_total:.1f} req/s achieved, p50 {lats[n // 2]:.1f} ms, p90 "
+          f"{lats[int(n * 0.9)]:.1f} ms, p99 "
+          f"{lats[min(int(n * 0.99), n - 1)]:.1f} ms; batch histogram "
+          f"{dict(sorted(hist.items()))}; rungs "
+          f"{sorted(set(load.stats.decode_impls))}")
+    print(f"benchmark widths: the e2e part "
+          f"{time.perf_counter() - t_part:.1f} s, peak {peak_gib():.2f} GiB;"
+          f" {card}")
+    del engine, load, state
+    torch.cuda.empty_cache()
+
+
+def benchmark_widths_phase(dev, card):
+    """Phase 12: the JAX benchmark's configurations on the card (see the
+    BW_* constants): the decode at B=2,048, the train step at B=1,024, end
+    to end at 256, one image, an open loop.  Returns each kernel's
+    results at these widths, by name."""
+    t_phase = time.perf_counter()
+    res = bw_decode(dev, card)
+    res.update(bw_train(dev, card))
+    bw_e2e(dev, card)
+    print(f"benchmark widths: the phase {time.perf_counter() - t_phase:.1f}"
+          f" s; {card}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4771,6 +5566,9 @@ def main() -> int:
     t0 = time.perf_counter()
     model_axis_phase(card)
     print(f"phases: model axis {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    widths = benchmark_widths_phase(dev, card)
+    print(f"phases: benchmark widths {time.perf_counter() - t0:.1f} s")
 
     T = cfg.max_caption_len - 1
     fwd_work, bwd_work = train_work(cfg, B, T)
@@ -4835,7 +5633,8 @@ def main() -> int:
             "ffma_bound_ms": r32.get("ffma_bound_ms"),
             "bf16_max_abs_err": r16 and r16["max_abs_err"],
             "bf16_ms": r16 and r16["ms"],
-            "bf16_plain_ms": r16 and r16["plain_ms"]})
+            "bf16_plain_ms": r16 and r16["plain_ms"],
+            "benchmark_widths": widths.get(name)})
     print(f"phases: all {time.perf_counter() - t_start:.1f} s after the "
           f"build; profiles taken again (they missed kernels): "
           f"{PROFILE_RETRIES[0]}")

@@ -108,8 +108,10 @@ class TrainConfig:
     ``fine_tune_encoder`` and ``encoder_remat`` (False, True, "blocks" or
     "convs") drive the fine-tune step, ``tagger_dtype`` and
     ``encoder_remat`` the tagger step.  ``mesh_shape`` other than (1, 1)
-    and ``mesh_order`` belong to the multi-device steps, which are not
-    ported and raise."""
+    and ``mesh_order`` lay the ranks out on a (data, model) mesh
+    (``core/meshes.py``) for the multi-device steps, whose JAX names are
+    in ``parallel/train_step.py``: the data axis splits the rows, the
+    model axis the vocabulary."""
 
     epochs: int = 12
     batch_size: int = 32

@@ -455,9 +455,23 @@ def make_beam_step(params, cfg: ModelConfig, enc, tags, *,
         if cfg.sparse_head:
             # Per-lane top-K of the log-softmax: at most K flat winners come
             # from one lane, so the beam's merge of K*K candidates is exact.
+            # Below float32 the ranking is the float32 log-softmax's and
+            # the values the working type's, as JAX's program runs: XLA
+            # keeps float32 inside the fused log-softmax and top-K (excess
+            # precision), so candidates whose bf16 log-probabilities round
+            # equal keep their logits' order instead of the lowest id's.
+            # The values are torch's bf16 log-softmax, which equals XLA's
+            # bitwise; the float32 one rounded once differs from it by an
+            # ulp in about a fifth of the entries.
             _, K, V = logits.shape
-            flat = torch.log_softmax(logits.reshape(B * K, V), dim=-1)
-            topv, topi = row_topk(flat, K, cfg.topk_backend)
+            lg = logits.reshape(B * K, V)
+            flat = torch.log_softmax(lg, dim=-1)
+            if flat.dtype == torch.float32:
+                topv, topi = row_topk(flat, K, cfg.topk_backend)
+            else:
+                _, topi = row_topk(torch.log_softmax(lg.float(), dim=-1), K,
+                                   cfg.topk_backend)
+                topv = torch.gather(flat, 1, topi.long())
             return ((topv.reshape(B, K, K), topi.reshape(B, K, K)),
                     {"h": h, "c": c}, emit)
         return torch.log_softmax(logits, dim=-1), {"h": h, "c": c}, emit

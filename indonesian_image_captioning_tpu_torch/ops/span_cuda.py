@@ -63,7 +63,18 @@ def select_plain(topv, topi, lse, sc, pw, alive, *, end_id: int,
     vals, flat = row_topk_iterative(cand.reshape(B, K * K), K)
     words = torch.gather(topi.reshape(B, K * K), 1, flat).to(torch.int32)
     parents = (flat // K).to(torch.int32)
-    lane = torch.arange(K, device=topi.device)
+    return (words, parents, vals) + advance_plain(
+        words, parents, vals, sc, pw, alive, end_id=end_id, freeze=freeze)
+
+
+def advance_plain(words, parents, vals, sc, pw, alive, *, end_id: int,
+                  freeze: bool = False):
+    """One step's bookkeeping from its selection: words, parents and vals
+    (B, K) from :func:`select_plain`, or from a kernel's records when a
+    check replays them.  Returns (sc', pw', alive', src)."""
+    B, K = words.shape
+    R = B * K
+    lane = torch.arange(K, device=words.device)
     active = alive > 0 if freeze else torch.ones_like(alive, dtype=torch.bool)
     valid = (lane[None, :] < alive) & (vals > NEG) & active
     is_end = valid & (words == end_id)
@@ -71,14 +82,14 @@ def select_plain(topv, topi, lse, sc, pw, alive, *, end_id: int,
     new_alive = alive - is_end.sum(dim=1, keepdim=True).to(torch.int32)
     new_sc = torch.where(cont, vals, torch.full_like(vals, NEG)).reshape(R, 1)
     new_pw = words.reshape(R, 1)
-    rows = torch.arange(R, device=topi.device)
+    rows = torch.arange(R, device=words.device)
     src = (rows // K) * K + parents.reshape(R).long()
     if freeze:
         act_r = active.repeat_interleave(K, dim=0)          # (R, 1)
         new_sc = torch.where(act_r, new_sc, sc)
         new_pw = torch.where(act_r, new_pw, pw)
         src = torch.where(act_r[:, 0], src, rows)
-    return words, parents, vals, new_sc, new_pw, new_alive, src
+    return new_sc, new_pw, new_alive, src
 
 
 def fused_decode_span_plain(weights, emb_tab, enc, ea, semx, semh, h, c, sc,
@@ -330,6 +341,29 @@ def beam_decode_span_records(params, cfg, enc_flat, tags, *, beam_size: int,
     float32} for ``decode/replay.py`` -- records past the early exit stay
     inert (vals NEG) -- and "calls", the number of kernel calls made.  The
     host reads the alive counts once per call."""
+    return _drive_spans(fused_decode_span, params, cfg, enc_flat, tags,
+                        beam_size=beam_size, start_id=start_id,
+                        end_id=end_id, max_steps=max_steps, span=span)
+
+
+def beam_decode_span_records_plain(params, cfg, enc_flat, tags, *,
+                                   beam_size: int, start_id: int,
+                                   end_id: int, max_steps: int = 51,
+                                   span: int = 4) -> Dict[str, torch.Tensor]:
+    """:func:`beam_decode_span_records`'s result through
+    :func:`fused_decode_span_plain` on any device (the kernel's plain
+    version, for holding a whole decode against it on the card)."""
+    def plain(*args, **kw):
+        check_inputs(*args, kw["cell"])
+        return fused_decode_span_plain(*args, **kw)
+
+    return _drive_spans(plain, params, cfg, enc_flat, tags,
+                        beam_size=beam_size, start_id=start_id,
+                        end_id=end_id, max_steps=max_steps, span=span)
+
+
+def _drive_spans(span_fn, params, cfg, enc_flat, tags, *, beam_size: int,
+                 start_id: int, end_id: int, max_steps: int, span: int):
     if cfg.model_type not in ("attention_scn", "pure_attention"):
         raise NotImplementedError(
             "fused_span needs an attention stage to amortise "
@@ -351,7 +385,7 @@ def beam_decode_span_records(params, cfg, enc_flat, tags, *, beam_size: int,
     for i in range(n_spans):
         if i > 0 and not bool((alive > 0).any()):
             break
-        w, p, v, h, c, sc, pw, alive = fused_decode_span(
+        w, p, v, h, c, sc, pw, alive = span_fn(
             ins["weights"], ins["emb_tab"], ins["enc"], ins["ea"],
             ins["semx"], ins["semh"], h, c, sc, pw, alive, span=S,
             end_id=end_id, cell=cell)

@@ -1737,3 +1737,121 @@ def test_wide_tile_kernels_under_poisoned_memory(dev, kernel, dtype):
     for a in first:
         if a.is_floating_point():
             assert bool(torch.isfinite(a).all())
+
+
+def _inert_masked(rec):
+    """Records with the words and parents of inert entries (vals NEG: a
+    dead lane, an ended image, a step past the early exit) set to 0, as
+    replay reads them."""
+    live = rec["vals"] > NEG
+    return [torch.where(live, rec["words"], 0),
+            torch.where(live, rec["parents"], 0), rec["vals"]]
+
+
+@pytest.mark.parametrize("rung", ["fused_span", "fused"])
+def test_record_kernels_past_2_31_elements_match_the_images_alone(dev, rung):
+    """Kernels 7 ("fused_span") and 13 ("fused") at bfloat16 on a batch
+    whose last images' encoder windows start past 2^31 elements: 5,400
+    images of 196 x 2,048 (the last at 2,167 M; the benchmark's 2,048
+    images reach 822 M), V = 6,763, beam 5, T = 8.  The last 16 images'
+    records equal, but at near-ties, those of the same 16 images decoded
+    alone by the kernel on a batch of 16, and they hold the plain step at
+    every step on their own picks (chip_smoke.py's replay_records within
+    its BW_REC_TOL)."""
+    cfg = ModelConfig(model_type="attention_scn", vocab_size=6763,
+                      dtype="bfloat16")
+    P, E, V = cfg.num_pixels, cfg.encoder_dim, cfg.vocab_size
+    nb, tail = (1 << 31) // (P * E) + 51, 16
+    assert (nb - tail) * P * E >= 1 << 31
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = decoders.cast_params(decoders.init_decoder(
+        torch.Generator().manual_seed(5), cfg, device=dev), BF16)
+    kw = dict(beam_size=5, start_id=V - 2, end_id=V - 1, max_steps=8)
+    if rung == "fused_span":
+        run = span_cuda.beam_decode_span_records
+        kw["span"] = cfg.decode_span
+    else:
+        run = decode_cuda.beam_decode_records
+    with torch.inference_mode():
+        enc = (torch.randn((nb, P, E), generator=gen, device=dev)
+               * 0.1).to(BF16)
+        tags = torch.rand((nb, cfg.semantic_dim), generator=gen,
+                          device=dev).to(BF16)
+        big = run(params, cfg, enc, tags, **kw)
+        alone = run(params, cfg, enc[-tail:].clone(), tags[-tail:].clone(),
+                    **kw)
+        ins = span_cuda.decode_inputs(params, cfg, enc[-tail:].clone(),
+                                      tags[-tail:].clone(), kw["beam_size"])
+        torch.cuda.synchronize()
+        del enc
+        last = _inert_masked({k: v[-tail:] for k, v in big.items()
+                              if k != "calls"})
+        _match_records(last, _inert_masked(alone), BF16)
+        smoke = _smoke()
+        smoke.replay_records(last, ins, "scn", V - 2, V - 1,
+                             rung == "fused", smoke.BW_REC_TOL,
+                             f"{rung}, the last {tail} of {nb} images")
+    assert bool((big["vals"][-tail:] > NEG).any())
+    for g in decode_cuda._graphs.values():       # its 5 GB workspace
+        g.release()
+    decode_cuda._graphs.clear()
+
+
+TRAIN_BWD_BF16 = 5e-2
+
+
+def test_train_kernels_at_1024_rows_match_the_eager_scan(dev):
+    """Kernels 8 and 9 as the benchmark trains (a bfloat16 decoder on
+    float32 masters, 1,024 rows, attention_scn at the reference widths,
+    V = 6,763), T = 11, dropout off: the caption loss through the fused
+    scan within 1e-2 of the eager autograd scan's, and every parameter's
+    gradient within TRAIN_BWD_BF16 of its norm (the norm's error of
+    chip_smoke.py's TRAIN_BWD_TOL at bfloat16; full_att's bias, zero in
+    exact arithmetic, is left out)."""
+    cfg = ModelConfig(model_type="attention_scn", vocab_size=6763,
+                      max_caption_len=12, dropout=0.0)
+    nb, T, S = 1024, 11, cfg.enc_image_size
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = decoders.init_decoder(torch.Generator().manual_seed(7), cfg,
+                                   device=dev)
+    enc = torch.randn((nb, S, S, cfg.encoder_dim), generator=gen,
+                      device=dev) * 0.1
+    tags = torch.rand((nb, cfg.semantic_dim), generator=gen, device=dev)
+    caps = torch.randint(1, cfg.vocab_size, (nb, T + 1), generator=gen,
+                         device=dev)
+    caplens = torch.randint(2, T + 2, (nb,), generator=gen, device=dev)
+    leaves = steps.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    res = {}
+    for impl in ("fused", "xla"):
+        c = dataclasses.replace(cfg, train_scan_impl=impl)
+        n0 = train_cuda.train_bwd.launches
+        p16 = decoders.cast_params(params, BF16)
+        out = decoders.teacher_forcing(p16, c, enc.to(BF16), tags.to(BF16),
+                                       caps, caplens, train=True)
+        out = {**out, "predictions": out["predictions"].float(),
+               "alphas": out["alphas"].float()}
+        loss, _ = losses.caption_loss(out, caps, alpha_c=1.0)
+        res[impl] = (loss.item(), torch.autograd.grad(loss, leaves,
+                                                      allow_unused=True))
+        assert train_cuda.train_bwd.launches == n0 + (impl == "fused")
+        del out, loss
+    assert abs(res["fused"][0] - res["xla"][0]) <= 1e-2 * abs(res["xla"][0])
+    names = [k for k, _ in _tree_paths(params)]
+    for name, gf, gx in zip(names, res["fused"][1], res["xla"][1]):
+        if "full_att" in name and name.endswith("b"):
+            continue
+        assert gf is not None and gx is not None, name
+        assert rel_norm(gf, gx) <= TRAIN_BWD_BF16, (name, rel_norm(gf, gx))
+
+
+def _tree_paths(tree, prefix=""):
+    """(path, leaf) of nested dicts in steps.tree_leaves' order."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += _tree_paths(v, f"{prefix}{k}/")
+        else:
+            out.append((prefix + k, v))
+    return out
