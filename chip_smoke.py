@@ -544,8 +544,13 @@ def profile_cuda(fn, runs=1):
                         and e.name() in LAUNCH_CALLS),
                        key=lambda e: e.start_ns())
         lead = {e.correlation_id() for e in calls[:PROFILE_LEAD]}
+        # a region (record_function, the port's iic.* annotate) comes
+        # back as a device event too, spanning every kernel launched in
+        # it, under the name of its host event: not device work
+        labels = {e.name() for e in raw if e.device_type() == DeviceType.CPU}
         device = [e for e in raw if e.device_type() == DeviceType.CUDA
-                  and e.correlation_id() not in lead]
+                  and e.correlation_id() not in lead
+                  and e.name() not in labels]
         seen = {e.correlation_id() for e in device}
         lost = [i for i, e in enumerate(calls[PROFILE_LEAD:])
                 if e.correlation_id() not in seen]
@@ -562,6 +567,22 @@ def profile_cuda(fn, runs=1):
                        f"{missing} of {len(calls) - PROFILE_LEAD} launch "
                        f"calls without a record in the last (at {lost[:16]}"
                        f" of fn's), {len(device)} device records")
+
+
+def kernel_times(prof):
+    """[(device microseconds, name)] of each name's device activity
+    (kernels, copies) in a finished torch.profiler profile, from its
+    key_averages.  The regions the profile saw (record_function, the
+    port's iic.* annotate) also come back as device events, each spanning
+    every kernel launched inside it, under the names of their host
+    events: those are left out, as torch's own device totals leave them
+    out, else nested regions would count a kernel several times."""
+    from torch.autograd import DeviceType
+
+    avgs = prof.key_averages()
+    host = {e.key for e in avgs if e.device_type == DeviceType.CPU}
+    return [(e.self_device_time_total, e.key) for e in avgs
+            if e.device_type == DeviceType.CUDA and e.key not in host]
 
 
 def device_ms(fn, runs=20, by_kernel=None):
@@ -2107,7 +2128,6 @@ def breakdown(engine, cfg, x, enc, tags, kw):
     each ending in a synchronise) with captions/s, and the decode's device
     busy share and top kernels from torch.profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from indonesian_image_captioning_tpu_torch.decode.api import \
@@ -2155,10 +2175,7 @@ def breakdown(engine, cfg, x, enc, tags, kw):
                 run_decode()
                 torch.cuda.synchronize()
                 t_prof = time.perf_counter() - t0
-            kernels = sorted(((e.self_device_time_total, e.key)
-                              for e in prof.key_averages()
-                              if e.device_type == DeviceType.CUDA),
-                             reverse=True)
+            kernels = sorted(kernel_times(prof), reverse=True)
             busy = sum(t for t, _ in kernels) / 1e6
             top = ", ".join(f"{k.split('(')[0][:40]} {t / 1e3:.1f} ms"
                             for t, k in kernels[:3])
@@ -3145,7 +3162,6 @@ def train_breakdown(step, sub, batch, gen, B):
     """Where one train step's time goes: the host clock, the device busy
     share and the device time by kernel group from torch.profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3157,9 +3173,7 @@ def train_breakdown(step, sub, batch, gen, B):
                              ProfilerActivity.CUDA]) as prof:
         step(sub, *batch, gen)
         torch.cuda.synchronize()
-    kernels = [(e.self_device_time_total, e.key)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = kernel_times(prof)
     busy = sum(t for t, _ in kernels) / 1e3
     groups = {"train scan (iic)": 0.0, "embed grad (iic)": 0.0,
               "cuBLAS/cuBLASLt GEMM": 0.0, "other PyTorch": 0.0}

@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``core/profiling.py``, with the same names:
   CUDA activity when a card is present) and exports a Chrome trace
   (chrome://tracing, Perfetto) into ``log_dir``;
 * :func:`annotate` names a region of that trace
-  (``torch.profiler.record_function``);
+  (``torch.profiler.record_function``), and costs one check of whether a
+  profiler runs when none does;
 * :class:`StepTimer` times steps on the host clock and, like JAX's, waits
   for the device before it reads the clock: ``stop(result)`` synchronises
   each CUDA device that holds a tensor of ``result``.
@@ -48,11 +49,28 @@ def trace(log_dir: Optional[str] = None):
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named region that shows up in the trace's timeline."""
-    with torch.profiler.record_function(name):
-        yield
+    """A named region that shows up in the trace's timeline: a context
+    manager, ``torch.profiler.record_function(name)`` while a
+    ``torch.profiler`` profile runs in the process, and else a shared
+    no-op that enters nothing.  A profile records the regions of the
+    threads it profiles: the one that started it and its autograd
+    backward's, or every thread under ``profile_all_threads``.  The
+    port's own regions are named ``iic.<layer>.<part>``.
+
+    Whether a profile runs is torch's flag
+    ``torch.autograd.profiler._is_profiler_enabled``, which only the
+    Python-side profilers set (``torch.profiler.profile``,
+    ``torch.autograd.profiler.profile``, ``emit_nvtx``, ``emit_itt``).
+    A trace that starts elsewhere -- Kineto's on-demand trace from its
+    daemon, or ``torch._C._enable_profiler`` called directly -- records
+    no region of the port's, and nothing warns of it."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def _cuda_devices(result) -> set:

@@ -35,6 +35,12 @@ shared memory holds), the head top-K of kernels 2, 6b and 6c and the
 beam selection of kernels 7 and 13 by rounds that look past the last
 winner, kernel 10 in passes of 32 slots.
 So no beam width moves a rung.
+
+Under a profiler a decode is the region ``iic.decode``
+(``core/profiling.annotate``); on "fused_span" it holds
+``iic.decode.prepare``, an ``iic.decode.span`` a kernel call and an
+``iic.decode.sync`` a read of the live lanes (``ops/span_cuda.py``), and
+the record rungs' ``iic.decode.replay``.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from typing import Dict
 import torch
 
 from ..core.config import BeamConfig, ModelConfig
+from ..core.profiling import annotate
 from ..models import decoders
 from .beam import beam_search
 
@@ -93,53 +100,56 @@ def caption_beam_search(params, cfg: ModelConfig, enc, tags, *,
     (B, L, P).  Parameters are cast to the encoding's type when they
     differ.
     """
-    enc_flat = decoders.flatten_encoding(enc, cfg.encoder_dim)
-    impl = resolve_decode_impl(cfg, record_alphas=record_alphas,
-                               device=enc_flat.device)
-    if params["embedding"].dtype != enc_flat.dtype:
-        params = decoders.cast_params(params, enc_flat.dtype)
-    tags = tags.to(enc_flat.dtype)
-    K, T = beam_cfg.beam_size, beam_cfg.max_steps
-    if impl in ("fused_span", "fused"):
-        from .replay import replay_beam_records
-        kw = dict(beam_size=K, start_id=start_id, end_id=end_id,
-                  max_steps=T)
-        if impl == "fused_span":
-            from ..ops.span_cuda import beam_decode_span_records
-            records = beam_decode_span_records(params, cfg, enc_flat, tags,
-                                               span=cfg.decode_span, **kw)
-            calls = records["calls"]
-        else:
-            from ..ops.decode_cuda import beam_decode_records
-            records = beam_decode_records(params, cfg, enc_flat, tags, **kw)
-            calls = 1
-        out = replay_beam_records(records, start_id=start_id, end_id=end_id,
-                                  seq_len=T + 1,
-                                  length_penalty=beam_cfg.length_penalty)
-        out.update(decode_impl=impl, decode_calls=calls)
+    with annotate("iic.decode"):
+        enc_flat = decoders.flatten_encoding(enc, cfg.encoder_dim)
+        impl = resolve_decode_impl(cfg, record_alphas=record_alphas,
+                                   device=enc_flat.device)
+        if params["embedding"].dtype != enc_flat.dtype:
+            params = decoders.cast_params(params, enc_flat.dtype)
+        tags = tags.to(enc_flat.dtype)
+        K, T = beam_cfg.beam_size, beam_cfg.max_steps
+        if impl in ("fused_span", "fused"):
+            from .replay import replay_beam_records
+            kw = dict(beam_size=K, start_id=start_id, end_id=end_id,
+                      max_steps=T)
+            if impl == "fused_span":
+                from ..ops.span_cuda import beam_decode_span_records
+                records = beam_decode_span_records(
+                    params, cfg, enc_flat, tags, span=cfg.decode_span, **kw)
+                calls = records["calls"]
+            else:
+                from ..ops.decode_cuda import beam_decode_records
+                records = beam_decode_records(params, cfg, enc_flat, tags,
+                                              **kw)
+                calls = 1
+            with annotate("iic.decode.replay"):
+                out = replay_beam_records(
+                    records, start_id=start_id, end_id=end_id, seq_len=T + 1,
+                    length_penalty=beam_cfg.length_penalty)
+            out.update(decode_impl=impl, decode_calls=calls)
+            return out
+        init_state_fn, step_fn = decoders.make_beam_step(
+            params, cfg, enc_flat, tags, fused_step=impl == "fused_step")
+        emit_specs = {}
+        if record_alphas and cfg.uses_attention:
+            emit_specs["alpha"] = (enc_flat.shape[1],)
+        out = beam_search(
+            step_fn,
+            init_state_fn(K),
+            batch_size=enc_flat.shape[0],
+            beam_size=K,
+            vocab_size=cfg.vocab_size,
+            start_id=start_id,
+            end_id=end_id,
+            max_steps=T,
+            seq_len=T + 1,
+            emit_specs=emit_specs,
+            length_penalty=beam_cfg.length_penalty,
+            topk_backend=cfg.topk_backend,
+            device=enc_flat.device,
+        )
+        out.update(decode_impl=impl, decode_calls=out["steps"])
         return out
-    init_state_fn, step_fn = decoders.make_beam_step(
-        params, cfg, enc_flat, tags, fused_step=impl == "fused_step")
-    emit_specs = {}
-    if record_alphas and cfg.uses_attention:
-        emit_specs["alpha"] = (enc_flat.shape[1],)
-    out = beam_search(
-        step_fn,
-        init_state_fn(K),
-        batch_size=enc_flat.shape[0],
-        beam_size=K,
-        vocab_size=cfg.vocab_size,
-        start_id=start_id,
-        end_id=end_id,
-        max_steps=T,
-        seq_len=T + 1,
-        emit_specs=emit_specs,
-        length_penalty=beam_cfg.length_penalty,
-        topk_backend=cfg.topk_backend,
-        device=enc_flat.device,
-    )
-    out.update(decode_impl=impl, decode_calls=out["steps"])
-    return out
 
 
 def sequences_to_tokens(sequences, lengths, rev_word_map,

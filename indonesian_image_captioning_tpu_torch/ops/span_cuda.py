@@ -33,6 +33,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..core.profiling import annotate
 from . import _build
 from .attention_cuda import AttendPlan, attend_plan
 from .step_cuda import (TC_WEIGHTS, fused_decode_step_plain, gemm,
@@ -340,7 +341,10 @@ def beam_decode_span_records(params, cfg, enc_flat, tags, *, beam_size: int,
     Returns {"words"/"parents": (B, T, K) int32, "vals": (B, T, K)
     float32} for ``decode/replay.py`` -- records past the early exit stay
     inert (vals NEG) -- and "calls", the number of kernel calls made.  The
-    host reads the alive counts once per call."""
+    host reads the alive counts once per call.  Under a profiler the
+    weights' packing and the initial state are the region
+    ``iic.decode.prepare``, each call ``iic.decode.span`` and each read of
+    the alive counts ``iic.decode.sync``."""
     return _drive_spans(fused_decode_span, params, cfg, enc_flat, tags,
                         beam_size=beam_size, start_id=start_id,
                         end_id=end_id, max_steps=max_steps, span=span)
@@ -373,7 +377,8 @@ def _drive_spans(span_fn, params, cfg, enc_flat, tags, *, beam_size: int,
     B = enc_flat.shape[0]
     dev = enc_flat.device
     n_spans = -(-T // S)
-    ins = decode_inputs(params, cfg, enc_flat, tags, K)
+    with annotate("iic.decode.prepare"):
+        ins = decode_inputs(params, cfg, enc_flat, tags, K)
     h, c = ins["h"], ins["c"]
     sc, pw, alive = initial_carry(B, K, start_id, dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -383,12 +388,16 @@ def _drive_spans(span_fn, params, cfg, enc_flat, tags, *, beam_size: int,
                       device=dev)
     calls = 0
     for i in range(n_spans):
-        if i > 0 and not bool((alive > 0).any()):
-            break
-        w, p, v, h, c, sc, pw, alive = span_fn(
-            ins["weights"], ins["emb_tab"], ins["enc"], ins["ea"],
-            ins["semx"], ins["semh"], h, c, sc, pw, alive, span=S,
-            end_id=end_id, cell=cell)
+        if i > 0:
+            with annotate("iic.decode.sync"):
+                done = not bool((alive > 0).any())
+            if done:
+                break
+        with annotate("iic.decode.span"):
+            w, p, v, h, c, sc, pw, alive = span_fn(
+                ins["weights"], ins["emb_tab"], ins["enc"], ins["ea"],
+                ins["semx"], ins["semh"], h, c, sc, pw, alive, span=S,
+                end_id=end_id, cell=cell)
         words[:, i * S:(i + 1) * S] = w
         parents[:, i * S:(i + 1) * S] = p
         vals[:, i * S:(i + 1) * S] = v

@@ -43,6 +43,7 @@ from typing import Dict
 
 import torch
 
+from ..core.profiling import annotate
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -656,8 +657,9 @@ class _TrainScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cell, enc, ea, emb_fac, semx, semh, h0, c0, *weights):
         kw = dict(zip(WEIGHT_NAMES[cell], weights))
-        h_all, c_all, alphas, awe_raw = train_fwd(
-            kw, enc, ea, emb_fac, semx, semh, h0, c0, cell=cell)
+        with annotate("iic.train.scan"):
+            h_all, c_all, alphas, awe_raw = train_fwd(
+                kw, enc, ea, emb_fac, semx, semh, h0, c0, cell=cell)
         ctx.cell = cell
         ctx.save_for_backward(enc, ea, emb_fac, semx, semh, h0, c0, h_all,
                               c_all, alphas, awe_raw, *weights)
@@ -665,25 +667,26 @@ class _TrainScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_hall, d_alphas):
-        (enc, ea, emb_fac, semx, semh, h0, c0, h_all, c_all, alphas,
-         awe_raw, *weights) = ctx.saved_tensors
-        cell = ctx.cell
-        kw = dict(zip(WEIGHT_NAMES[cell], weights))
-        d_hall = (torch.zeros_like(h_all) if d_hall is None
-                  else d_hall.to(h_all.dtype).contiguous())
-        d_alphas = (torch.zeros_like(alphas) if d_alphas is None
-                    else d_alphas.to(torch.float32).contiguous())
-        g = train_bwd(kw, enc, ea, emb_fac, semx, semh, h0, c0, h_all, c_all,
-                      alphas, awe_raw, d_hall, d_alphas, cell=cell)
-        wg = stream_weight_grads(g, _prev(h0, h_all), cell=cell)
-        wg["wf"] = g["d_wf"]
-        d_sem = ((g["d_semx"].to(semx.dtype), g["d_semh"].to(semh.dtype))
-                 if cell == "scn" else (None, None))
-        return (None, None, g["d_ea"].to(ea.dtype),
-                g["d_emb"].to(emb_fac.dtype), *d_sem, g["dh0"].to(h0.dtype),
-                g["dc0"].to(c0.dtype),
-                *(wg[n].to(w.dtype) for n, w in zip(WEIGHT_NAMES[cell],
-                                                   weights)))
+        with annotate("iic.train.scan"):
+            (enc, ea, emb_fac, semx, semh, h0, c0, h_all, c_all, alphas,
+             awe_raw, *weights) = ctx.saved_tensors
+            cell = ctx.cell
+            kw = dict(zip(WEIGHT_NAMES[cell], weights))
+            d_hall = (torch.zeros_like(h_all) if d_hall is None
+                      else d_hall.to(h_all.dtype).contiguous())
+            d_alphas = (torch.zeros_like(alphas) if d_alphas is None
+                        else d_alphas.to(torch.float32).contiguous())
+            g = train_bwd(kw, enc, ea, emb_fac, semx, semh, h0, c0, h_all,
+                          c_all, alphas, awe_raw, d_hall, d_alphas, cell=cell)
+            wg = stream_weight_grads(g, _prev(h0, h_all), cell=cell)
+            wg["wf"] = g["d_wf"]
+            d_sem = ((g["d_semx"].to(semx.dtype), g["d_semh"].to(semh.dtype))
+                     if cell == "scn" else (None, None))
+            return (None, None, g["d_ea"].to(ea.dtype),
+                    g["d_emb"].to(emb_fac.dtype), *d_sem,
+                    g["dh0"].to(h0.dtype), g["dc0"].to(c0.dtype),
+                    *(wg[n].to(w.dtype)
+                      for n, w in zip(WEIGHT_NAMES[cell], weights)))
 
 
 def fused_teacher_forcing_scan(params, cfg, enc_flat, tags, emb):

@@ -38,6 +38,7 @@ import torch.distributed as dist
 
 from ..core import meshes
 from ..core.metrics import topk_hit
+from ..core.profiling import annotate
 
 NEG_INF = -1e30
 
@@ -147,8 +148,9 @@ class _NllHead(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_nll, _d_hit):
         w, b, h2, tgt, lse = ctx.saved_tensors
-        d_w, d_b, d_h = nll_bwd(w, b, h2, tgt, lse, d_nll, tile=ctx.tile,
-                                col0=ctx.col0)
+        with annotate("iic.train.head"):
+            d_w, d_b, d_h = nll_bwd(w, b, h2, tgt, lse, d_nll,
+                                    tile=ctx.tile, col0=ctx.col0)
         return d_w, d_b, d_h, None, None, None, None, None
 
 

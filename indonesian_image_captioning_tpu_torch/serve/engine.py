@@ -17,6 +17,13 @@ reads the beam's alive counts on the host (once per span on the CUDA
 rung, "fused_span"), so a dispatched batch has mostly finished when its
 call returns; the option is kept with the same meaning (batches
 dispatched before the oldest one's results are fetched).
+
+Under a profiler the engine names its parts (``core/profiling.annotate``):
+``iic.serve.batch`` around a batch's pipeline, and inside it
+``iic.serve.prep``, ``iic.serve.tagger``, ``iic.serve.encoder`` and the
+decode's ``iic.decode``; then ``iic.serve.fetch`` (the results' copy home)
+and ``iic.serve.detokenize``; on the async front ``iic.serve.coalesce``,
+from the first request taken to the batch formed.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from ..core.config import BeamConfig, ModelConfig
+from ..core.profiling import annotate
 from ..core.runtime import get_device
 from ..decode.api import caption_beam_search
 from ..models import encoders
@@ -122,21 +130,25 @@ class CaptionEngine:
     def _pipeline(self, images_u8: np.ndarray):
         """(B, 3, H, W) uint8 -> (sequences, lengths) on the device."""
         cfg, st = self.cfg, self.state
-        with torch.inference_mode():
-            x = encoders.prep_images(
-                torch.from_numpy(images_u8).to(self.device))
-            if cfg.dtype == "bfloat16":
-                x = x.to(torch.bfloat16)
+        with annotate("iic.serve.batch"), torch.inference_mode():
+            with annotate("iic.serve.prep"):
+                x = encoders.prep_images(
+                    torch.from_numpy(images_u8).to(self.device))
+                if cfg.dtype == "bfloat16":
+                    x = x.to(torch.bfloat16)
             if cfg.uses_tags:
-                tags = encoders.apply_encoder_tagger(
-                    st["tagger"], st["tagger_stats"], x, train=False,
-                    arch=cfg.encoder_arch)[0]
+                with annotate("iic.serve.tagger"):
+                    tags = encoders.apply_encoder_tagger(
+                        st["tagger"], st["tagger_stats"], x, train=False,
+                        arch=cfg.encoder_arch)[0]
             else:
                 tags = torch.zeros((x.shape[0], cfg.semantic_dim),
                                    dtype=x.dtype, device=x.device)
-            enc = encoders.apply_encoder_caption(
-                st["encoder"], st["encoder_stats"], x, train=False,
-                enc_image_size=cfg.enc_image_size, arch=cfg.encoder_arch)[0]
+            with annotate("iic.serve.encoder"):
+                enc = encoders.apply_encoder_caption(
+                    st["encoder"], st["encoder_stats"], x, train=False,
+                    enc_image_size=cfg.enc_image_size,
+                    arch=cfg.encoder_arch)[0]
             out = caption_beam_search(
                 st["params"], cfg, enc.to(x.dtype), tags.to(x.dtype),
                 start_id=self.start_id, end_id=self.end_id,
@@ -164,6 +176,17 @@ class CaptionEngine:
                        images.dtype)
         return np.concatenate([images, pad], 0)
 
+    @staticmethod
+    def _fetch(seqs, lens):
+        """The batch's sequences and lengths, copied home as arrays."""
+        with annotate("iic.serve.fetch"):
+            return seqs.cpu().numpy(), lens.cpu().numpy()
+
+    def _detokenize_rows(self, seqs, lens, n: int) -> List[str]:
+        """The first n rows' caption strings."""
+        with annotate("iic.serve.detokenize"):
+            return [self._detokenize(seqs[i][:lens[i]]) for i in range(n)]
+
     def _detokenize(self, seq: Sequence[int]) -> str:
         skip = (self.start_id, self.end_id, PAD_ID)
         return " ".join(self.rev_word_map[int(w)] for w in seq
@@ -178,11 +201,10 @@ class CaptionEngine:
         max_b = self.serve_cfg.batch_buckets[-1]
         for lo in range(0, images_u8.shape[0], max_b):
             chunk = images_u8[lo:lo + max_b]
-            seqs, lens = self._pipeline(self._pad(chunk))
-            seqs, lens = seqs.cpu().numpy(), lens.cpu().numpy()
-            self.stats.record(int(chunk.shape[0]))
-            for i in range(chunk.shape[0]):
-                captions.append(self._detokenize(seqs[i][:lens[i]]))
+            n = int(chunk.shape[0])
+            seqs, lens = self._fetch(*self._pipeline(self._pad(chunk)))
+            self.stats.record(n)
+            captions += self._detokenize_rows(seqs, lens, n)
         return captions
 
     def warmup(self, image_size: int = 256) -> None:
@@ -239,13 +261,14 @@ class CaptionEngine:
         def resolve_oldest():
             live, seqs, lens = inflight.popleft()
             try:
-                seqs, lens = seqs.cpu().numpy(), lens.cpu().numpy()
+                seqs, lens = self._fetch(seqs, lens)
             except Exception as e:       # a device fault fails its batch
                 for _, fut in live:
                     fut.set_exception(e)
                 return
-            for i, (_, fut) in enumerate(live):
-                fut.set_result(self._detokenize(seqs[i][:lens[i]]))
+            texts = self._detokenize_rows(seqs, lens, len(live))
+            for (_, fut), text in zip(live, texts):
+                fut.set_result(text)
 
         while not self._stop.is_set():
             try:
@@ -254,20 +277,21 @@ class CaptionEngine:
                 if inflight:
                     resolve_oldest()
                 continue
-            batch = [first]
-            deadline = time.monotonic() + wait_s
-            while len(batch) < max_b:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    try:            # drain anything already queued
-                        batch.append(self._queue.get_nowait())
-                        continue
+            with annotate("iic.serve.coalesce"):
+                batch = [first]
+                deadline = time.monotonic() + wait_s
+                while len(batch) < max_b:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        try:            # drain anything already queued
+                            batch.append(self._queue.get_nowait())
+                            continue
+                        except queue.Empty:
+                            break
+                    try:
+                        batch.append(self._queue.get(timeout=remaining))
                     except queue.Empty:
                         break
-                try:
-                    batch.append(self._queue.get(timeout=remaining))
-                except queue.Empty:
-                    break
             # Skip requests cancelled while queued.
             live = [(img, fut) for img, fut in batch
                     if fut.set_running_or_notify_cancel()]

@@ -39,6 +39,14 @@ stay float32: the parameters are cast inside the loss, so the gradients
 come back float32.
 
 Builders run on the card unless the caller asks for the CPU.
+
+Under a profiler the caption step names its parts
+(``core/profiling.annotate``): ``iic.train.step`` around the whole step,
+and inside it ``iic.train.cast`` (the bf16 copy of the parameters),
+``iic.train.scan`` (kernels 8 and 9, ``ops/train_cuda.py``),
+``iic.train.head`` (the head's forward, and the chunked head's backward),
+``iic.train.backward`` and ``iic.train.optimizer`` (the gradients' reset,
+the clamp and Adam).
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import torch.distributed as dist
 
 from ..core import meshes
 from ..core.config import ModelConfig, TrainConfig
+from ..core.profiling import annotate
 from ..core.runtime import get_device
 from ..models import decoders, encoders
 from ..ops import losses, vocab_head
@@ -152,13 +161,14 @@ class ClampAdam:
 
     @torch.no_grad()
     def update(self, opt_state: torch.optim.Adam) -> None:
-        for group in opt_state.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-                elif self.grad_clip is not None:
-                    p.grad.clamp_(-self.grad_clip, self.grad_clip)
-        opt_state.step()
+        with annotate("iic.train.optimizer"):
+            for group in opt_state.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                    elif self.grad_clip is not None:
+                        p.grad.clamp_(-self.grad_clip, self.grad_clip)
+            opt_state.step()
 
 
 def make_optimizer(lr: float, grad_clip) -> ClampAdam:
@@ -364,16 +374,17 @@ def _caption_terms(out, captions, alpha_c: float, fc=None, tile=2048,
     from its hidden states through the chunked head when fc is given;
     vocab-parallel on a model axis."""
     mask = out["mask"]
-    if fc is not None:
-        hidden = out["hidden"]
-        targets = captions[:, 1:1 + hidden.shape[1]]
-        nll, hit = vocab_head.chunked_nll_topk(
-            fc, hidden, targets, k=5, tile=tile,
-            col0=_col0(mesh, fc["w"].shape[1]), mesh=mesh)
-    else:
-        logits = out["predictions"]
-        nll, hit = _dense_head(logits, captions[:, 1:1 + logits.shape[1]],
-                               mesh)
+    with annotate("iic.train.head"):
+        if fc is not None:
+            hidden = out["hidden"]
+            targets = captions[:, 1:1 + hidden.shape[1]]
+            nll, hit = vocab_head.chunked_nll_topk(
+                fc, hidden, targets, k=5, tile=tile,
+                col0=_col0(mesh, fc["w"].shape[1]), mesh=mesh)
+        else:
+            logits = out["predictions"]
+            nll, hit = _dense_head(
+                logits, captions[:, 1:1 + logits.shape[1]], mesh)
     maskf = mask.to(torch.float32)
     ce_sum, hits = (nll * maskf).sum(), (hit * maskf).sum()
     if out["alphas"] is None or alpha_c == 0.0:
@@ -395,7 +406,8 @@ def _caption_update(reducer, opts, optimizers, terms, blocks=()):
     ce = ce_sum / n_glob
     pen = pen_sum / rows_glob
     loss = ce + pen
-    loss.backward()
+    with annotate("iic.train.backward"):
+        loss.backward()
     loss_g, ce_g, pen_g, hits_g = reducer.grads(
         opts, [loss, ce, pen, hits], blocks).unbind()
     for opt, optimizer in zip(opts, optimizers):
@@ -434,28 +446,32 @@ def make_caption_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     cdt = _dtype(tcfg.decoder_dtype)
 
     def step(substate: Dict, enc_out, tags, captions, caplens, gen=None):
-        params, opt_state = substate["params"], substate["opt_state"]
-        blocks = _vocab_leaves(params, cfg, vmesh)
-        enc_out, tags, captions, caplens = (
-            x.to(dev) for x in (enc_out, tags, captions, caplens))
-        head = resolve_head_impl(tcfg, cfg,
-                                 _global_rows(enc_out.shape[0], mesh), dev)
-        opt_state.zero_grad(set_to_none=True)
-        p = decoders.cast_params(params, cdt) if cdt != torch.float32 \
-            else params
-        out = decoders.teacher_forcing(
-            p, cfg, enc_out.to(cdt), tags.to(cdt), captions, caplens,
-            dropout_gen=gen, train=True, return_hidden=head == "chunked",
-            mesh=vmesh)
-        if out["alphas"] is not None:
-            out["alphas"] = out["alphas"].to(torch.float32)
-        if head != "chunked":
-            out["predictions"] = out["predictions"].to(torch.float32)
-        terms = _caption_terms(out, captions, tcfg.alpha_c,
-                               fc=p["fc"] if head == "chunked" else None,
-                               tile=tcfg.head_tile, mesh=vmesh)
-        return substate, _caption_update(reducer, [opt_state], [optimizer],
-                                         terms, blocks)
+        with annotate("iic.train.step"):
+            params, opt_state = substate["params"], substate["opt_state"]
+            blocks = _vocab_leaves(params, cfg, vmesh)
+            enc_out, tags, captions, caplens = (
+                x.to(dev) for x in (enc_out, tags, captions, caplens))
+            head = resolve_head_impl(
+                tcfg, cfg, _global_rows(enc_out.shape[0], mesh), dev)
+            with annotate("iic.train.optimizer"):
+                opt_state.zero_grad(set_to_none=True)
+            p = params
+            if cdt != torch.float32:
+                with annotate("iic.train.cast"):
+                    p = decoders.cast_params(params, cdt)
+            out = decoders.teacher_forcing(
+                p, cfg, enc_out.to(cdt), tags.to(cdt), captions, caplens,
+                dropout_gen=gen, train=True, return_hidden=head == "chunked",
+                mesh=vmesh)
+            if out["alphas"] is not None:
+                out["alphas"] = out["alphas"].to(torch.float32)
+            if head != "chunked":
+                out["predictions"] = out["predictions"].to(torch.float32)
+            terms = _caption_terms(out, captions, tcfg.alpha_c,
+                                   fc=p["fc"] if head == "chunked" else None,
+                                   tile=tcfg.head_tile, mesh=vmesh)
+            return substate, _caption_update(reducer, [opt_state],
+                                             [optimizer], terms, blocks)
 
     return encode_fn, step
 

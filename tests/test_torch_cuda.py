@@ -36,6 +36,7 @@ scan within 5e-3 of each leaf's largest value (the JAX contract).
 
 import dataclasses
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -920,6 +921,76 @@ def _library_gemm(name):
     """csrc/mma.cuh's tensor-core GEMM, gemm.cuh's FFMA GEMM or its split-K
     reduce (not mma_small.cuh's small_gemm_kernel)."""
     return _smoke().library_gemm(name)
+
+
+@pytest.mark.parametrize("path", ["decode", "train"])
+def test_profiles_count_no_region_as_device_time(dev, path, capsys):
+    """The port's iic.* regions come back from a CUDA profile as device
+    events too, each spanning every kernel launched inside it.
+    chip_smoke's readers leave them out: neither profile_cuda's names nor
+    kernel_times' (which the breakdowns sum) hold an iic.* name, and one
+    call's kernel time stays within its wall time, as it would not with
+    the regions' spans (nested up to three deep) counted over their
+    kernels.  The span decode (kernel 7) and a bf16-decoder train step
+    (kernels 8, 9, the chunked head), as the benchmark runs them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cs = _smoke()
+    cfg = small_cfg(max_caption_len=10, dropout=0.0)
+    gen = torch.Generator().manual_seed(53)
+    params = decoders.init_decoder(gen, cfg, device=dev)
+    V = cfg.vocab_size
+    if path == "decode":
+        enc = torch.relu(randn(gen, 6, 3, 3, cfg.encoder_dim, scale=0.5))
+        tags = torch.rand((6, cfg.semantic_dim), generator=gen)
+        enc, tags = enc.to(dev), tags.to(dev)
+
+        def call():
+            out = caption_beam_search(
+                params, cfg, enc, tags, start_id=V - 2, end_id=V - 1,
+                beam_cfg=BeamConfig(beam_size=5, max_steps=12))
+            assert out["decode_impl"] == "fused_span"
+    else:
+        B, T = 5, 9
+        batch = (torch.relu(randn(gen, B, 3, 3, cfg.encoder_dim, scale=0.5)),
+                 torch.rand((B, cfg.semantic_dim), generator=gen),
+                 torch.randint(1, V, (B, T + 1), generator=gen),
+                 torch.randint(2, T + 2, (B,), generator=gen))
+        tcfg = TrainConfig(head_impl="chunked", head_tile=64,
+                           decoder_dtype="bfloat16")
+        opt = steps.make_optimizer(tcfg.decoder_lr, tcfg.grad_clip)
+        _, step = steps.make_caption_train_step(cfg, tcfg, opt, device=dev)
+        sub = {"params": params, "opt_state": opt.init(params)}
+
+        def call():
+            n0 = train_cuda.train_fwd.launches
+            step(sub, *batch)
+            assert train_cuda.train_fwd.launches > n0
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = {e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.key.startswith("iic.")}
+    assert ("iic.decode" if path == "decode" else "iic.train.step") in spans
+    kernels = cs.kernel_times(prof)
+    assert kernels
+    assert not [k for _, k in kernels if k.startswith("iic.")], kernels
+    assert sum(t for t, _ in kernels) <= wall_us
+    names = [e.key for e in cs.profile_cuda(call)]
+    assert names and not [k for k in names if k.startswith("iic.")], names
+    if path == "train":
+        capsys.readouterr()
+        cs.train_breakdown(step, sub, batch, None, B)
+        line = capsys.readouterr().out
+        busy = float(line.split(" % busy")[0].rsplit("(", 1)[1])
+        assert 0 < busy <= 100, line
 
 
 def _mega_inputs(dev, dtype, B, K, end_bias, gen, T=7):
