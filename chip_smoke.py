@@ -56,7 +56,10 @@ Phases, each of which exits non-zero on failure:
    2,048 and D 512 -> V 6,763), float32
    (3xTF32) and bfloat16: within GEMM_TOL of sum |a||w| of a float64
    product, as gemm.cuh's FFMA GEMM is, with the medians of both and of
-   torch.matmul (the library yardstick).  The bounds of the kernels whose
+   torch.matmul (the library yardstick); and each of the chain's products
+   at the benchmark's decode batch (R = 10,240, bf16) on its persistent
+   kernel and on its 64 x 64 kernel, equal bit for bit, with their times
+   beside torch.matmul's (many_rows_case).  The bounds of the kernels whose
    products run on the tensor cores (2, 6b, 6c, 7, 8, 9, 12, 13) are
    taken at float32 against the 3xTF32 peak
    (495 TFLOP/s for three products), the FFMA peak's printed beside.
@@ -1006,12 +1009,168 @@ def wide_gemm_case(dev, dtype, M, K_in, N, label):
           f"{work[0] / dev_ms / 1e6:.0f} GB/s of its bytes")
 
 
+def chain_products(cfg):
+    """The span chain's products (kernel 7), name -> (N, source widths,
+    z-slices, gemm_problem keywords): the SCN step's six -- dec, the gate,
+    xfac over [emb | gawe], hfac, the four gates over (xfac, hfac) and the
+    head -- and the LSTM's input product [emb | gawe | h] @ [wih ; wh],
+    whose first two weights are column blocks of one (wih)."""
+    from indonesian_image_captioning_tpu_torch.ops import step_cuda as sc
+
+    D, A, E = cfg.decoder_dim, cfg.attention_dim, cfg.encoder_dim
+    F, Emb, V = cfg.factored_dim, cfg.embed_dim, cfg.vocab_size
+    return {"dec": (A, (D,), 1, dict(epi=sc.EPI_BIAS, biases=1)),
+            "gate": (E, (D,), 1, dict(epi=sc.EPI_SIGMOID_MUL, biases=1,
+                                      aux=True)),
+            "xfac": (4 * F, (Emb, E), 1, dict(epi=sc.EPI_MUL, aux=True)),
+            "hfac": (4 * F, (D,), 1, dict(epi=sc.EPI_MUL, aux=True)),
+            "gates": (D, (F, F), 4, dict(epi=sc.EPI_PRE, biases=2,
+                                         c_f32=True)),
+            "head": (V, (D,), 1, dict(epi=sc.EPI_BIAS, biases=1,
+                                      c_f32=True)),
+            "lstm": (4 * D, (Emb, E, D), 1, dict(epi=sc.EPI_PRE, biases=2,
+                                                 c_f32=True, shared=2))}
+
+
+def gemm_problem(dev, dtype, M, N, widths, nz=1, *, epi, seed, c_f32=False,
+                 biases=0, aux=False, aux2_div=0, c2=False, shared=0):
+    """One product as launch_gemm_tc takes it, on seeded inputs: sources
+    (M, nz k) for each width k, weights packed (nz N, k) -- the first
+    ``shared`` of them column blocks of one (nz N, sum k) tensor -- and at
+    float32 split into TF32 hi and lo parts; z-slice z reads columns z k
+    of each source and rows z N of each weight, and writes columns z N.
+    Returns (kw, sums, scale): step_cuda.gemm_args' keywords but path and
+    c (with ``c_dtype`` and ``width``, the output's), the float64 sums of
+    the sources' products (M, nz N) before the epilogue and sum |a||w|."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import step_cuda
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    if shared and dtype == torch.float32:
+        raise ValueError("shared weights are built at bfloat16 only")
+    wscale = sum(widths) ** -0.5
+    cat = randn(nz * N, sum(widths[:shared]), scale=wscale).to(dev, dtype)
+    srcs, sums, scale, off = [], 0.0, 0.0, 0
+    for s, k in enumerate(widths):
+        a = randn(M, nz * k).to(dev, dtype)
+        lo = None
+        if s < shared:
+            w = cat[:, off:off + k]
+            off += k
+        else:
+            w = randn(nz * N, k, scale=wscale).to(dev, dtype)
+        parts = [(a[:, z * k:(z + 1) * k].double(),
+                  w[z * N:(z + 1) * N].double().t()) for z in range(nz)]
+        sums = sums + torch.cat([x @ y for x, y in parts], 1)
+        scale = scale + torch.cat([x.abs() @ y.abs() for x, y in parts], 1)
+        if dtype == torch.float32:      # the 3xTF32 operands
+            hi = step_cuda.tf32_round(w)
+            w, lo = hi, step_cuda.tf32_round(w - hi)
+        srcs.append((a, w, lo, k))
+    kw = dict(epi=epi, M=M, N=N, srcs=srcs, nz=nz, c_dtype=(
+        torch.float32 if c_f32 else dtype), width=nz * N)
+    if nz > 1:
+        kw.update(za=widths[0], zw=widths[0] * N, zc=N, zb=N)
+    for i in range(biases):
+        kw[f"bias{i + 1}"] = randn(nz * N).to(dev, dtype)
+    if aux:
+        kw["aux"] = randn(M, nz * N).to(dev, dtype)
+    if aux2_div:
+        kw["aux2"] = randn(-(-M // aux2_div), nz * N).to(dev, dtype)
+        kw["aux2_div"] = aux2_div
+    if c2:
+        kw["c2"] = torch.empty(M, nz * N, device=dev, dtype=dtype)
+    return kw, sums, scale
+
+
+def run_problem(lib, kw, path, c=None):
+    """step_cuda.gemm_args on gemm_problem's keywords by path; returns c,
+    a new output unless given."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import step_cuda
+
+    kw = dict(kw)
+    dt, width = kw.pop("c_dtype"), kw.pop("width")
+    if c is None:
+        c = torch.empty(kw["M"], width, device=kw["srcs"][0][0].device,
+                        dtype=dt)
+    step_cuda.gemm_args(lib, torch.cuda.current_stream().cuda_stream,
+                        path=path, c=c, **kw)
+    return c
+
+
+def many_rows_case(dev, cfg, name, R):
+    """One of the chain's products (chain_products) at R rows, bf16, on
+    launch_gemm_tc's rule (the persistent kernel at R = 10,240) and on the
+    64 x 64 kernel: one launch of the persistent kernel; its sums within
+    GEMM_TOL of sum |a||w| of the float64 product and equal bit for bit to
+    the 64 x 64 kernel's (the same K tiles in the same order, the same
+    per-tile promotion), and so its epilogue's output; each one's median
+    ms and device ms, the bound, and torch.matmul's (library_ms, the
+    yardstick only: the port never calls it)."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.ops import _build, step_cuda
+
+    bf = torch.bfloat16
+    N, widths, nz, extra = chain_products(cfg)[name]
+    kw, sums, scale = gemm_problem(dev, bf, R, N, widths, nz,
+                                   seed=SEED + R + N, **extra)
+    lib = _build.load("step")
+    raw = {k: v for k, v in kw.items() if not k.startswith(("bias", "aux"))}
+    raw.update(epi=step_cuda.EPI_PRE, c_dtype=torch.float32)
+    p0 = step_cuda.gemm.persistent_launches
+    got = {p: run_problem(lib, raw, p) for p in ("auto", "tiles")}
+    outs = {p: run_problem(lib, kw, p) for p in ("auto", "tiles")}
+    torch.cuda.synchronize()
+    check(step_cuda.gemm.persistent_launches - p0 == 2,
+          f"gemm {name} at R={R}: the persistent kernel ran "
+          f"{step_cuda.gemm.persistent_launches - p0} times of 2")
+    err = float(((got["auto"].double() - sums).abs() / scale).max())
+    check(err <= GEMM_TOL, f"gemm {name} at R={R}: error {err:.3g} of "
+          f"sum|a||w| > {GEMM_TOL}")
+    same = (torch.equal(got["auto"], got["tiles"]),
+            torch.equal(outs["auto"], outs["tiles"]))
+    check(all(same), f"gemm {name} at R={R}: the persistent kernel's sums "
+          f"or outputs differ from the 64 x 64 kernel's: {same}")
+    fns = {p: (lambda p=p: run_problem(lib, kw, p, outs[p])) for p in outs}
+    mats = [(a[:, z * k:(z + 1) * k], w[z * N:(z + 1) * N].t())
+            for a, w, _, k in kw["srcs"] for z in range(nz)]
+    fns["matmul"] = lambda: [x @ y for x, y in mats]
+    ms = dict(zip(fns, median_ms(list(fns.values()), 10)))
+    dev_ms = {p: device_ms(f, runs=5) for p, f in fns.items()}
+    out_b = (4 if kw["c_dtype"] == torch.float32 else 2) * R * nz * N
+    in_b = 2 * (R * nz * sum(widths) + nz * N * sum(widths)
+                + (R * nz * N if "aux" in kw else 0))
+    work = (in_b + out_b, 2 * R * nz * N * sum(widths))
+    bound_ms, bound_by = bound(*work, "bfloat16")
+    tflops = {p: work[1] / v / 1e9 for p, v in dev_ms.items()}
+    print(f"kernel gemm_tc[{name} bf16, {R} x {'+'.join(map(str, widths))}"
+          f" -> {nz} x {N}]: error vs float64 {err:.3g} of sum|a||w| (tol "
+          f"{GEMM_TOL}); sums and epilogue equal to the 64 x 64 kernel's; "
+          + "; ".join(f"{p} ms {ms[p]:.4f} device_ms {dev_ms[p]:.4f} "
+                      f"({tflops[p]:.0f} TFLOP/s)" for p in fns)
+          + f"; bound_ms {bound_ms:.4f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms["auto"], device_ms=dev_ms["auto"],
+                tiles_ms=ms["tiles"], tiles_device_ms=dev_ms["tiles"],
+                library_ms=ms["matmul"], library_device_ms=dev_ms["matmul"],
+                bound_ms=bound_ms, bound_by=bound_by, work=work)
+
+
 def gemm_phase(dev, cfg):
     """The tensor-core GEMM of the span chain at two of its products at R =
     B*K = 160 rows: the SCN input factor ([emb | gawe], In = 2,560 -> 4F =
     2,048) and the head (D = 512 -> V = 6,763), in float32 and bfloat16;
-    and the fused step's wide GEMM at its products of h (512 -> 4,608),
-    gawe (2,048 -> 2,048) and the head."""
+    the fused step's wide GEMM at its products of h (512 -> 4,608), gawe
+    (2,048 -> 2,048) and the head; and every product of the chain at the
+    benchmark's decode batch (R = 10,240) on both of csrc/mma.cuh's
+    kernels (many_rows_case)."""
     import torch
 
     R, In = B * K, cfg.embed_dim + cfg.encoder_dim
@@ -1027,6 +1186,17 @@ def gemm_phase(dev, cfg):
                                ("xfac", E, F4),
                                ("head", cfg.decoder_dim, VOCAB)):
             wide_gemm_case(dev, dt, R, k_in, n, label)
+    rows = BW_DECODE_B * K
+    res["many_rows"] = {name: many_rows_case(dev, cfg, name, rows)
+                        for name in chain_products(cfg)}
+    scn = [n for n in res["many_rows"] if n != "lstm"]
+    total = {k: sum(res["many_rows"][n][k] for n in scn)
+             for k in ("device_ms", "tiles_device_ms", "library_device_ms",
+                       "bound_ms")}
+    print(f"kernel gemm_tc: an SCN step's six products at R={rows} bf16: "
+          f"device ms persistent {total['device_ms']:.4f}, 64 x 64 "
+          f"{total['tiles_device_ms']:.4f}, torch.matmul "
+          f"{total['library_device_ms']:.4f}, bound {total['bound_ms']:.4f}")
     return res
 
 
@@ -1724,6 +1894,7 @@ def counters():
 def zero_counters():
     for fn in counters().values():
         fn.launches = 0
+    counters()["gemm_tc"].persistent_launches = 0
 
 
 def read_counters():
@@ -1794,6 +1965,10 @@ def serve_and_inference(dev, cfg, B, image_size):
     check(launches["fused_decode_step"] == 0 and launches["attend_fused"]
           == 0, f"the span rung launched other decode kernels: {launches}")
     check(launches["gemm_tc"] > 0, "kernel 7's chain ran no tensor-core GEMM")
+    persistent = counters()["gemm_tc"].persistent_launches
+    check(persistent == 0, f"at R = {B * K} rows {persistent} of kernel 7's "
+          f"{launches['gemm_tc']} products took csrc/mma.cuh's persistent "
+          "kernel, which launch_gemm_tc keeps for many rows")
     # rows may round differently at another batch size (cuDNN and cuBLAS
     # pick kernels by shape), so equal captions are counted, not required
     n_same = sum(a == b for a, b in zip(got, caps))
@@ -5002,6 +5177,7 @@ def bw_decode(dev, card):
         zero_counters()
         out = decode(cfg)
         ran = read_counters()
+        persistent = counters()["gemm_tc"].persistent_launches
         # ---------------------------------------------------------------
         lens = out["lengths"]
         full = int((lens == T + 1).sum())
@@ -5015,6 +5191,10 @@ def bw_decode(dev, card):
               f"the span rung launched other decode kernels: {ran}")
         check(int(lens[0]) == T + 1, f"row 0 ran {int(lens[0])} tokens, "
               f"not the full window of {T + 1} (bench.py:445)")
+        check(persistent == ran["gemm_tc"],
+              f"at R = {nb * K} rows {persistent} of kernel 7's "
+              f"{ran['gemm_tc']} products took csrc/mma.cuh's persistent "
+              "kernel, not all")
         check(out["sequences"].shape == (nb, T + 1)
               and bool(out["scores"].isfinite().all()),
               "the decode's sequences or scores are misshapen or not finite")
@@ -5134,7 +5314,9 @@ def bw_decode(dev, card):
               f"{r['launches']}; max_abs_err {r['max_abs_err']:.3g} (tol "
               f"{r['tol']}, {r['tol_of']})")
     print(f"benchmark widths: decode B={nb} bf16 beam {K} V={V}: auto "
-          f"(fused_span, {n_spans} kernel 7 calls) {1e3 * auto_s:.1f} ms, "
+          f"(fused_span, {n_spans} kernel 7 calls, {persistent} of "
+          f"{ran['gemm_tc']} products on the persistent GEMM) "
+          f"{1e3 * auto_s:.1f} ms, "
           f"{nb / auto_s:.1f} captions/s, {full} of {nb} rows ran the full "
           f"{T + 1}-token window; fused (kernel 13, one graph launch, "
           f"capture {capture_ms:.1f} ms host) {1e3 * fused_s:.1f} ms, "
@@ -5649,6 +5831,8 @@ def main() -> int:
             "bf16_ms": r16 and r16["ms"],
             "bf16_plain_ms": r16 and r16["plain_ms"],
             "benchmark_widths": widths.get(name)})
+        if name == "gemm_tc":   # the persistent kernel at R = 10,240, bf16
+            kernels[-1]["many_rows"] = gemm_res["many_rows"]
     print(f"phases: all {time.perf_counter() - t_start:.1f} s after the "
           f"build; profiles taken again (they missed kernels): "
           f"{PROFILE_RETRIES[0]}")

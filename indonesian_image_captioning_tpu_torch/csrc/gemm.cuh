@@ -89,71 +89,171 @@ struct GemmArgs {
 
 constexpr int kSms = 132;
 
+// What the epilogue reads for one output (gm, gn) of slice z besides its
+// sum -- bias1[gn], bias2[gn], aux[gm, gn] and aux2[gm / aux2_div, col],
+// each where epilogue e reads it, else 0 -- by read-only loads
+// (ld.global.nc), which the compiler may move past the epilogue's
+// stores, so that a batch of them is in flight at once.
+struct GemmIn {
+  float b1, b2, aux, aux2;
+};
+
+// Whether epilogue e reads bias1 (bias2: kEpiPre alone) and aux.
+__device__ __forceinline__ bool epi_reads_bias1(int e) {
+  return e == kEpiBias || e == kEpiPre || e == kEpiSigmoidMul ||
+         e == kEpiGate;
+}
+__device__ __forceinline__ bool epi_reads_aux(int e) {
+  return e != kEpiBias && e != kEpiRawMul;
+}
+
+template <typename T>
+__device__ __forceinline__ GemmIn gemm_load(const GemmArgs& g, int e, int z,
+                                            int gm, int gn) {
+  GemmIn in = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (g.bias1 && epi_reads_bias1(e))
+    in.b1 = to_f(__ldg((const T*)g.bias1 + z * g.zb + gn));
+  if (g.bias2 && e == kEpiPre)
+    in.b2 = to_f(__ldg((const T*)g.bias2 + z * g.zb + gn));
+  if (g.aux && epi_reads_aux(e))
+    in.aux = to_f(__ldg((const T*)g.aux + z * g.zc + gm * g.ldaux + gn));
+  if (g.aux2 != nullptr) {
+    const long long ai = (gm / g.aux2_div) * g.ldaux2 + z * g.zc + gn;
+    in.aux2 = g.aux2_f32 ? __ldg((const float*)g.aux2 + ai)
+                         : to_f(__ldg((const T*)g.aux2 + ai));
+  }
+  return in;
+}
+
+// Epilogue E's value of one output (gm, gn) of slice z from its float32
+// sum v and what it reads (gemm_load), and its second output v2 where the
+// epilogue has one (kEpiFacBwd adds into acc here).
+template <typename T, int E>
+__device__ __forceinline__ float epi_apply(const GemmArgs& g, int z, int gm,
+                                           int gn, float v, const GemmIn& in,
+                                           float& v2) {
+  const float aux2v = in.aux2;
+  v2 = 0.0f;    // the second output, where the epilogue has one
+  if constexpr (E == kEpiBias) {
+    v = rt<T>(v);
+    if (g.bias1) v = rt<T>(v + in.b1);
+  } else if constexpr (E == kEpiPre) {
+    if (g.bias1) v += in.b1;
+    if (g.bias2) v += in.b2;
+    if (g.aux) v += in.aux;
+  } else if constexpr (E == kEpiSigmoidMul) {
+    float x = rt<T>(v);
+    if (g.bias1) x = rt<T>(x + in.b1);
+    const float gate = rt<T>(sigmoidf_(x));
+    v = rt<T>(gate * in.aux);
+  } else if constexpr (E == kEpiMul) {
+    v = rt<T>(rt<T>(v) * in.aux);
+  } else if constexpr (E == kEpiAddMul) {
+    v = rt<T>(rt<T>(v) + in.aux);
+    v2 = v * aux2v;
+  } else if constexpr (E == kEpiGate) {
+    v = sigmoidf_(v + (g.bias1 ? in.b1 : 0.0f));
+    v2 = rt<T>(v) * in.aux;
+  } else if constexpr (E == kEpiRawMul) {
+    v2 = v * aux2v;
+  } else if constexpr (E == kEpiFacBwd) {
+    g.acc[gm * g.ldacc + z * g.zc + gn] += v * aux2v;
+    v = v * in.aux;
+  } else if constexpr (E == kEpiGateBwd) {
+    const float d_gate = v * in.aux;
+    v2 = v * aux2v;
+    v = d_gate * aux2v * (1.0f - aux2v);
+  } else if constexpr (E == kEpiF32Mul) {
+    v = v * in.aux;
+  }
+  return v;
+}
+
+// The runtime epilogue code e as epi_apply's compile-time one.
+template <typename T>
+__device__ __forceinline__ float epi_value(const GemmArgs& g, int z, int gm,
+                                           int gn, float v, const GemmIn& in,
+                                           float& v2) {
+  switch (g.epi) {
+    case kEpiBias: return epi_apply<T, kEpiBias>(g, z, gm, gn, v, in, v2);
+    case kEpiPre: return epi_apply<T, kEpiPre>(g, z, gm, gn, v, in, v2);
+    case kEpiSigmoidMul:
+      return epi_apply<T, kEpiSigmoidMul>(g, z, gm, gn, v, in, v2);
+    case kEpiMul: return epi_apply<T, kEpiMul>(g, z, gm, gn, v, in, v2);
+    case kEpiAddMul: return epi_apply<T, kEpiAddMul>(g, z, gm, gn, v, in, v2);
+    case kEpiGate: return epi_apply<T, kEpiGate>(g, z, gm, gn, v, in, v2);
+    case kEpiRawMul: return epi_apply<T, kEpiRawMul>(g, z, gm, gn, v, in, v2);
+    case kEpiFacBwd: return epi_apply<T, kEpiFacBwd>(g, z, gm, gn, v, in, v2);
+    case kEpiGateBwd:
+      return epi_apply<T, kEpiGateBwd>(g, z, gm, gn, v, in, v2);
+    default: return epi_apply<T, kEpiF32Mul>(g, z, gm, gn, v, in, v2);
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ void epilogue(const GemmArgs& g, int z, int gm,
                                          int gn, float v) {
-  const T* b1 = g.bias1 ? (const T*)g.bias1 + z * g.zb : nullptr;
-  const T* b2 = g.bias2 ? (const T*)g.bias2 + z * g.zb : nullptr;
-  const T* aux = g.aux ? (const T*)g.aux + z * g.zc : nullptr;
-  const int col = z * g.zc + gn;
-  float aux2v = 0.0f;
-  if (g.aux2 != nullptr) {
-    const long long ai = (gm / g.aux2_div) * g.ldaux2 + col;
-    aux2v = g.aux2_f32 ? ((const float*)g.aux2)[ai]
-                       : to_f(((const T*)g.aux2)[ai]);
-  }
-  float v2 = 0.0f;    // the second output, where the epilogue has one
-  switch (g.epi) {
-    case kEpiBias:
-      v = rt<T>(v);
-      if (b1) v = rt<T>(v + to_f(b1[gn]));
-      break;
-    case kEpiPre:
-      if (b1) v += to_f(b1[gn]);
-      if (b2) v += to_f(b2[gn]);
-      if (aux) v += to_f(aux[gm * g.ldaux + gn]);
-      break;
-    case kEpiSigmoidMul: {
-      float x = rt<T>(v);
-      if (b1) x = rt<T>(x + to_f(b1[gn]));
-      const float gate = rt<T>(sigmoidf_(x));
-      v = rt<T>(gate * to_f(aux[gm * g.ldaux + gn]));
-      break;
-    }
-    case kEpiMul:
-      v = rt<T>(rt<T>(v) * to_f(aux[gm * g.ldaux + gn]));
-      break;
-    case kEpiAddMul:
-      v = rt<T>(rt<T>(v) + to_f(aux[gm * g.ldaux + gn]));
-      v2 = v * aux2v;
-      break;
-    case kEpiGate:
-      v = sigmoidf_(v + (b1 ? to_f(b1[gn]) : 0.0f));
-      v2 = rt<T>(v) * to_f(aux[gm * g.ldaux + gn]);
-      break;
-    case kEpiRawMul:
-      v2 = v * aux2v;
-      break;
-    case kEpiFacBwd:
-      g.acc[gm * g.ldacc + col] += v * aux2v;
-      v = v * to_f(aux[gm * g.ldaux + gn]);
-      break;
-    case kEpiGateBwd: {
-      const float d_gate = v * to_f(aux[gm * g.ldaux + gn]);
-      v2 = v * aux2v;
-      v = d_gate * aux2v * (1.0f - aux2v);
-      break;
-    }
-    case kEpiF32Mul:
-      v = v * to_f(aux[gm * g.ldaux + gn]);
-      break;
-  }
-  const long long ci = gm * g.ldc + col;
+  float v2;
+  v = epi_value<T>(g, z, gm, gn, v, gemm_load<T>(g, g.epi, z, gm, gn), v2);
+  const long long ci = gm * g.ldc + z * g.zc + gn;
   if (g.c_f32)
     ((float*)g.c)[ci] = v;
   else
     ((T*)g.c)[ci] = from_f<T>(v);
-  if (g.c2 != nullptr) ((T*)g.c2)[gm * g.ldc2 + col] = from_f<T>(v2);
+  if (g.c2 != nullptr)
+    ((T*)g.c2)[gm * g.ldc2 + z * g.zc + gn] = from_f<T>(v2);
+}
+
+// The n <= 4 values v at p[0 .. n): one 16-byte store where p is aligned
+// for it and n = 4, else the widest stores its alignment allows.
+__device__ __forceinline__ void store4(float* p, const float* v, int n) {
+  if (n == 4 && (uintptr_t)p % 16 == 0) {
+    *(float4*)p = make_float4(v[0], v[1], v[2], v[3]);
+  } else if (n == 4 && (uintptr_t)p % 8 == 0) {
+    *(float2*)p = make_float2(v[0], v[1]);
+    *(float2*)(p + 2) = make_float2(v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < n) p[k] = v[k];
+  }
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v,
+                                       int n) {
+  if (n == 4 && (uintptr_t)p % 4 == 0) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    if ((uintptr_t)p % 8 == 0) {
+      *(uint2*)p = make_uint2(*(const uint32_t*)&a, *(const uint32_t*)&b);
+    } else {
+      *(__nv_bfloat162*)p = a;
+      *(__nv_bfloat162*)(p + 2) = b;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < n) p[k] = __float2bfloat16(v[k]);
+  }
+}
+
+// Epilogue E on the n <= 4 neighbouring outputs (gm, gn ..) from their
+// float32 sums v and what they read (in; gemm_load's values): epilogue<T>'s
+// values, stored as store4 stores them.
+template <typename T, int E>
+__device__ __forceinline__ void epilogue4(const GemmArgs& g, int z, int gm,
+                                          int gn, const float* v,
+                                          const GemmIn* in, int n) {
+  float o[4], o2[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    o[k] = epi_apply<T, E>(g, z, gm, gn + k, v[k], in[k], o2[k]);
+  const long long ci = gm * g.ldc + z * g.zc + gn;
+  if (g.c_f32)
+    store4((float*)g.c + ci, o, n);
+  else
+    store4((T*)g.c + ci, o, n);
+  if (g.c2 != nullptr)
+    store4((T*)g.c2 + gm * g.ldc2 + z * g.zc + gn, o2, n);
 }
 
 template <typename T, int BM, int BN, typename TA>

@@ -259,6 +259,14 @@ extern "C" int iic_tc_launches_take() {
   return n;
 }
 
+// Of those, the persistent kernel's (csrc/mma.cuh; ops/span_cuda.py adds
+// them to step_cuda.gemm.persistent_launches).
+extern "C" int iic_tc_persistent_launches_take() {
+  const int n = iic::tc_persistent_launches;
+  iic::tc_persistent_launches = 0;
+  return n;
+}
+
 // Kernel 7: r.steps beam steps, both cells.  Returns the first failing
 // launch's CUDA error code, 0 on success.
 extern "C" int iic_span(int dtype, const void* args, void* stream) {

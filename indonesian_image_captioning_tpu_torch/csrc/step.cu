@@ -161,6 +161,38 @@ extern "C" int iic_gemm_ffma(IIC_GEMM_PARAMS) {
   return gemm_entry(0, IIC_GEMM_ARGS);
 }
 
+extern "C" int iic_gemm_args_bytes() { return (int)sizeof(iic::GemmArgs); }
+
+// One product on a whole GemmArgs (ops/step_cuda.py _GemmArgs, field for
+// field: three sources, every epilogue, c2 and aux2), nz z-slices, by
+// path: 0 gemm.cuh's FFMA GEMM, 1 launch_gemm_tc's rule, 2 its 64 x 64
+// kernel whatever the shape (the yardstick of the persistent kernel).
+// Returns the launches' CUDA error code.
+extern "C" int iic_gemm_args(int path, int dtype, const void* args, int nz,
+                             void* stream) {
+  const iic::GemmArgs& g = *(const iic::GemmArgs*)args;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == iic::kF32) {
+    if (path == 0) return iic::launch_gemm<float>(g, nz, s);
+    if (path == 1 || path == 2)
+      return iic::launch_gemm_tc<float>(g, nz, s, path == 2);
+  } else if (dtype == iic::kBF16) {
+    using B = __nv_bfloat16;
+    if (path == 0) return iic::launch_gemm<B>(g, nz, s);
+    if (path == 1 || path == 2)
+      return iic::launch_gemm_tc<B>(g, nz, s, path == 2);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The persistent kernel's launches by this library since the last call
+// (ops/step_cuda.py adds them to gemm.persistent_launches).
+extern "C" int iic_tc_persistent_launches_take() {
+  const int n = iic::tc_persistent_launches;
+  iic::tc_persistent_launches = 0;
+  return n;
+}
+
 namespace iic {
 
 // Everything one step needs (unused pointers null).  Every field is 8

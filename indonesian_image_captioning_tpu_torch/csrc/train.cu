@@ -768,6 +768,15 @@ extern "C" int iic_train_launches(int which) {
   return which >= 0 && which < 3 ? (int)iic::g_launches[which] : -1;
 }
 
+// The persistent kernel's launches (csrc/mma.cuh: pass A's products) by
+// this library since the last call (ops/train_cuda.py adds them to
+// step_cuda.gemm.persistent_launches).
+extern "C" int iic_tc_persistent_launches_take() {
+  const int n = iic::tc_persistent_launches;
+  iic::tc_persistent_launches = 0;
+  return n;
+}
+
 // The per-step GEMM alone, for the card tests: out (B, N) float32 = x (B,
 // K) @ w (N, K)^T, w K-major.
 extern "C" int iic_small_gemm(int dtype, const void* x, long long ldx,

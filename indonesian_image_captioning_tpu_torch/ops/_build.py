@@ -62,6 +62,9 @@ SIGNATURES = {
         "iic_wide_gemm": [_I, _P, _L, _P, _L, _I, _I, _I, _P, _P],
         "iic_gemm": _GEMM,
         "iic_gemm_ffma": _GEMM,
+        "iic_gemm_args_bytes": [],
+        "iic_gemm_args": [_I, _I, _P, _I, _P],
+        "iic_tc_persistent_launches_take": [],
     },
     "train": {
         "iic_train_args_bytes": [],
@@ -69,11 +72,13 @@ SIGNATURES = {
         "iic_train_bwd": [_I, _P, _P],
         "iic_train_launches": [_I],
         "iic_small_gemm": [_I, _P, _L, _P, _L, _I, _I, _I, _P, _P],
+        "iic_tc_persistent_launches_take": [],
     },
     "span": {
         "iic_span_args_bytes": [],
         "iic_span": [_I, _P, _P],
         "iic_tc_launches_take": [],
+        "iic_tc_persistent_launches_take": [],
     },
     "topk": {
         "iic_row_topk": [_I, _P, _I, _I, _I, _P, _P, _P, _P],

@@ -190,6 +190,7 @@ def launch_chain(weights, emb_tab, enc, ea, semx, semh, state, out, records,
             setattr(args, name, t.data_ptr())
     rc = lib.iic_span(_DTYPES[dt], ctypes.byref(args), stream)
     gemm.launches += lib.iic_tc_launches_take()   # the chain's products
+    gemm.persistent_launches += lib.iic_tc_persistent_launches_take()
     _build.check(rc, "iic_span")
 
 

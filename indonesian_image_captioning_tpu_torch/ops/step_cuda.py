@@ -264,9 +264,75 @@ def gemm(lib, code: int, stream: int, *, epi: int, M: int, N: int, a1, w1,
     _build.check(rc, entry)
     if entry == "iic_gemm":
         gemm.launches += 1
+        gemm.persistent_launches += lib.iic_tc_persistent_launches_take()
 
 
 gemm.launches = 0
+gemm.persistent_launches = 0   # of those, csrc/mma.cuh's persistent kernel
+
+GEMM_PATHS = {"ffma": 0, "auto": 1, "tiles": 2}
+
+
+class _GemmArgs(ctypes.Structure):
+    """csrc/gemm.cuh GemmArgs, field for field."""
+
+    _fields_ = [("a", ctypes.c_void_p * 3), ("w", ctypes.c_void_p * 3),
+                ("w_lo", ctypes.c_void_p * 3), ("k", ctypes.c_int * 3),
+                ("wt", ctypes.c_int * 3), ("lda", ctypes.c_longlong * 3),
+                ("ldw", ctypes.c_longlong * 3),
+                ("bias1", ctypes.c_void_p), ("bias2", ctypes.c_void_p),
+                ("aux", ctypes.c_void_p), ("ldaux", ctypes.c_longlong),
+                ("aux2", ctypes.c_void_p), ("ldaux2", ctypes.c_longlong),
+                ("aux2_div", ctypes.c_int), ("aux2_f32", ctypes.c_int),
+                ("c", ctypes.c_void_p), ("ldc", ctypes.c_longlong),
+                ("c_f32", ctypes.c_int), ("c2", ctypes.c_void_p),
+                ("ldc2", ctypes.c_longlong), ("acc", ctypes.c_void_p),
+                ("ldacc", ctypes.c_longlong), ("M", ctypes.c_int),
+                ("N", ctypes.c_int), ("epi", ctypes.c_int),
+                ("za", ctypes.c_longlong), ("zw", ctypes.c_longlong),
+                ("zc", ctypes.c_longlong), ("zb", ctypes.c_longlong),
+                ("nz", ctypes.c_int), ("ksplit", ctypes.c_int),
+                ("kchunk", ctypes.c_int), ("part", ctypes.c_void_p),
+                ("part_cap", ctypes.c_longlong)]
+
+
+def gemm_args(lib, stream: int, *, path: str, epi: int, M: int,
+              N: int, srcs, c, nz: int = 1, bias1=None, bias2=None,
+              aux=None, aux2=None, aux2_div: int = 1, c2=None, za: int = 0,
+              zw: int = 0, zc: int = 0, zb: int = 0, part=None) -> None:
+    """One product of ``csrc/step.cu`` ``iic_gemm_args`` on a whole
+    GemmArgs: up to three sources ``srcs``, each ``(a, w, w_lo, k)`` (w
+    packed by :func:`pack_tc` or, for the FFMA GEMM, stored (K, N); k its
+    inner width), in the sources' type, every epilogue, the second output
+    c2 and aux2 (row gm / aux2_div; float32 or the working type).  path:
+    "auto" (launch_gemm_tc's rule), "tiles" (its 64 x 64 kernel whatever
+    the shape) or "ffma" (gemm.cuh).  Leading dimensions are the tensors'
+    row strides.  Counts as :func:`gemm`."""
+    if lib.iic_gemm_args_bytes() != ctypes.sizeof(_GemmArgs):
+        raise RuntimeError("csrc/gemm.cuh GemmArgs does not match _GemmArgs")
+    g = _GemmArgs(M=M, N=N, epi=epi, za=za, zw=zw, zc=zc, zb=zb,
+                  aux2_div=aux2_div, c_f32=int(c.dtype == torch.float32))
+    for s, (a, w, w_lo, k) in enumerate(srcs):
+        g.a[s], g.w[s], g.w_lo[s] = _ptr(a), _ptr(w), _ptr(w_lo)
+        g.k[s], g.lda[s], g.ldw[s] = k, a.stride(0), w.stride(0)
+        g.wt[s] = int(path != "ffma")
+    g.bias1, g.bias2 = _ptr(bias1), _ptr(bias2)
+    if aux is not None:
+        g.aux, g.ldaux = _ptr(aux), aux.stride(0)
+    if aux2 is not None:
+        g.aux2, g.ldaux2 = _ptr(aux2), aux2.stride(0)
+        g.aux2_f32 = int(aux2.dtype == torch.float32)
+    g.c, g.ldc = _ptr(c), c.stride(0)
+    if c2 is not None:
+        g.c2, g.ldc2 = _ptr(c2), c2.stride(0)
+    if part is not None:
+        g.part, g.part_cap = _ptr(part), part.numel()
+    rc = lib.iic_gemm_args(GEMM_PATHS[path], _DTYPES[srcs[0][0].dtype],
+                           ctypes.byref(g), nz, stream)
+    _build.check(rc, "iic_gemm_args")
+    if path != "ffma":
+        gemm.launches += 1
+        gemm.persistent_launches += lib.iic_tc_persistent_launches_take()
 
 
 def pack_gates_cat(ws, H: int, dt):

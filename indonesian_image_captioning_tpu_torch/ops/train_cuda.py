@@ -612,8 +612,11 @@ def launch_bwd(kw, enc, ea, emb_fac, semx, semh, h0, c0, h_all, c_all,
                   "h_all": h_all, "c_all": c_all, "alphas": alphas,
                   "awe_raw": awe_raw, "h_prev": h_prev, "d_hall": d_hall,
                   "d_alphas": d_alphas, **out, **streams, **scratch}, dims)
-    _build.check(lib.iic_train_bwd(_DTYPES[dt], ctypes.byref(args), stream),
-                 "train_bwd")
+    rc = lib.iic_train_bwd(_DTYPES[dt], ctypes.byref(args), stream)
+    from . import step_cuda   # here, as step_cuda imports this module
+    step_cuda.gemm.persistent_launches += \
+        lib.iic_tc_persistent_launches_take()   # pass A's products
+    _build.check(rc, "train_bwd")
     res = {**streams, "d_ea": out["d_ea"], "dh0": out["dh"],
            "dc0": out["dc"], "d_wf": out["d_wf"]}
     if cell == "scn":

@@ -15,7 +15,9 @@ are not multiples of the kernels' tiles, beam widths 1 to 64 (no kernel
 caps K) -- and on exact ties in the head, where the
 lowest vocabulary id must win.  The tensor-core GEMM of the decode chain
 (csrc/mma.cuh) is held against a float64 product and gemm.cuh's FFMA GEMM
-at ragged M, N and K, and the train scan's per-step GEMM
+at ragged M, N and K, its persistent kernel against its 64 x 64 kernel
+bit for bit at the benchmark's decode batch, and the train scan's per-step
+GEMM
 (csrc/mma_small.cuh) against a float64 product at ragged batches, rows,
 K and row strides, and at its wide batch tile (the fused decode step's,
 160 rows) at 5 to 300 rows.  Tolerances:
@@ -276,7 +278,13 @@ GEMM_CASES = [  # M, N, K1, K2, nz, split
     (65, 129, 100, 31, 1, True), (160, 512, 512, 0, 1, True),
     (160, 300, 512, 2048, 1, True), (192, 72, 40, 40, 4, False),
     (192, 72, 40, 40, 4, True), (70, 67, 45, 13, 1, True),
-    (37, 70, 36, 12, 1, False), (160, 6763, 512, 0, 1, False)]
+    (37, 70, 36, 12, 1, False), (160, 6763, 512, 0, 1, False),
+    # the chain's products at the benchmark's decode batch (R = B K =
+    # 10,240, launch_gemm_tc's persistent kernel at bf16): dec, the gate
+    # and hfac, xfac, the four gates, the head; and a ragged M
+    (10240, 512, 512, 0, 1, True), (10240, 2048, 512, 0, 1, True),
+    (10240, 2048, 512, 2048, 1, True), (10240, 512, 512, 512, 4, True),
+    (10240, 6763, 512, 0, 1, True), (10241, 2048, 512, 0, 1, True)]
 
 
 def _gemm_inputs(dev, dtype, M, N, K1, K2, nz, gen):
@@ -392,6 +400,97 @@ def test_tc_gemm_matches_ffma_and_float64(dev, dtype, M, N, K1, K2, nz,
                 (pre + 1) * (1 + aux.double().abs())
                 + torch.maximum(a.abs(), b.abs()))
         assert bool(((a - b).abs() <= lim).all()), epi
+
+
+# launch_gemm_tc's persistent kernel against its 64 x 64 kernel, bf16, on
+# chip_smoke.chain_products' seven at R = 10,240 rows (the SCN step's six;
+# the LSTM's [emb | gawe | h], three sources, two of them column blocks of
+# one weight) and on these: a ragged M, and pass A's products of the train
+# scan with their second output c2 and aux2 per image (aux2_div = T) at M
+# = B T = 256 x 20 rows.  name -> (M, N, widths, nz, gemm_problem
+# keywords).
+PERSISTENT_CASES = {
+    "ragged": (10241, 2048, (512,), 1, dict(epi=2, biases=1, aux=True)),
+    "train_addmul_c2": (5120, 2048, (2048,), 1,
+                        dict(epi=4, aux=True, aux2_div=20, c2=True)),
+    "train_gate_c2": (5120, 2048, (512,), 1,
+                      dict(epi=5, biases=1, aux=True, c_f32=True, c2=True)),
+    "train_rawmul_c2": (5120, 2048, (512,), 1,
+                        dict(epi=6, aux2_div=20, c_f32=True, c2=True))}
+
+
+def _persistent_cases():
+    cfg = ModelConfig(model_type="attention_scn", vocab_size=6763)
+    cases = {name: (10240, N, widths, nz, extra) for name, (
+        N, widths, nz, extra) in _smoke().chain_products(cfg).items()}
+    return {**cases, **PERSISTENT_CASES}
+
+
+@pytest.mark.parametrize("name", ["dec", "gate", "xfac", "hfac", "gates",
+                                  "head", "lstm", *PERSISTENT_CASES])
+def test_tc_gemm_persistent_matches_tiles_and_float64(dev, name):
+    """csrc/mma.cuh's persistent kernel, which launch_gemm_tc's rule picks
+    for these bf16 products (aligned sources, at least 132 output tiles
+    of 128 x 128): one launch a product; its float32 sums (EPI_PRE, no
+    bias) within 1e-5 of sum |a||w| of the float64 product, as the 64 x 64
+    kernel's are held; and bit for bit equal to the 64 x 64 kernel's, sums
+    and every output of the epilogue (c, and c2 where it has one): both
+    add the same 64-value K tiles, in the same order, each tile's
+    tensor-core sums in fresh registers added into the float32
+    accumulator, and run the same epilogue."""
+    smoke = _smoke()
+    lib = step_cuda._build.load("step")
+    M, N, widths, nz, extra = _persistent_cases()[name]
+    kw, sums, scale = smoke.gemm_problem(dev, BF16, M, N, widths, nz,
+                                         seed=M + N, **extra)
+    raw = {k: v for k, v in kw.items()
+           if not k.startswith(("bias", "aux", "c2"))}
+    raw.update(epi=step_cuda.EPI_PRE, c_dtype=F32)
+    n0 = step_cuda.gemm.persistent_launches
+    got = {p: smoke.run_problem(lib, raw, p) for p in ("auto", "tiles")}
+    assert step_cuda.gemm.persistent_launches == n0 + 1
+    outs, c2s = {}, {}
+    for p in ("auto", "tiles"):
+        outs[p] = smoke.run_problem(lib, kw, p)
+        if "c2" in kw:
+            c2s[p] = kw["c2"].clone()
+    torch.cuda.synchronize()
+    assert step_cuda.gemm.persistent_launches == n0 + 2
+    assert bool(((got["auto"].double() - sums).abs()
+                 <= 1e-5 * scale + 1e-6).all())
+    assert torch.equal(got["auto"], got["tiles"])
+    assert torch.equal(outs["auto"], outs["tiles"])
+    if c2s:
+        assert torch.equal(c2s["auto"], c2s["tiles"])
+
+
+def test_tc_gemm_path_follows_the_shape(dev):
+    """launch_gemm_tc's rule reads the shape, the type and the alignment
+    alone: R = 10,240 rows at bf16 take the persistent kernel (counted in
+    gemm.persistent_launches); R = 160, float32 (3xTF32) and a source whose
+    rows are not 16-byte aligned keep the 64 x 64 kernel."""
+    smoke = _smoke()
+    lib = step_cuda._build.load("step")
+
+    def launches(M, dtype, lda_pad=0):
+        kw, _, _ = smoke.gemm_problem(dev, dtype, M, 2048, (512,),
+                                      epi=step_cuda.EPI_PRE, seed=M,
+                                      c_f32=True)
+        if lda_pad:
+            a, w, lo, k = kw["srcs"][0]
+            wide = torch.zeros(M, k + lda_pad, device=dev, dtype=dtype)
+            wide[:, :k] = a
+            kw["srcs"] = [(wide[:, :k], w, lo, k)]
+        n0, p0 = step_cuda.gemm.launches, step_cuda.gemm.persistent_launches
+        smoke.run_problem(lib, kw, "auto")
+        torch.cuda.synchronize()
+        assert step_cuda.gemm.launches == n0 + 1
+        return step_cuda.gemm.persistent_launches - p0
+
+    assert launches(10240, BF16) == 1
+    assert launches(160, BF16) == 0
+    assert launches(10240, F32) == 0
+    assert launches(10240, BF16, lda_pad=1) == 0
 
 
 SMALL_CASES = [  # B, N, K, ldw padding; K split 1, 3, 2, 8, 1, 16, 1
