@@ -1,6 +1,7 @@
 // The tensor-core GEMM of the decode step chain (span.cu: kernel 7;
-// step.cu: the card tests' and chip_smoke.py's iic_gemm) and of the train
-// scan's pass A (train.cu), with gemm.cuh's contract:
+// step.cu: the card tests' and chip_smoke.py's iic_gemm), of the train
+// scan's pass A (train.cu) and of the latent-attention decoder's dense
+// products (lm.cu), with gemm.cuh's contract:
 //
 //   C[z] = epilogue(A1[z] @ W1[z] + A2[z] @ W2[z] + A3[z] @ W3[z])
 //
@@ -52,6 +53,11 @@
 // the tensor cores: with the wgmma removed it runs about as long
 // (PERF.md), since every block reads its A tile again and W once per row
 // tile.
+//
+// A third kernel, the persistent kernel's grouped mode
+// (gemm_tc_grouped_kernel, at the end of this file), runs its tiles, ring
+// and products over the per-expert row blocks of lm.cu's mixture of
+// experts; it leaves the two kernels here as they were.
 //
 // The persistent kernel (gemm_tc_persistent_kernel), built for many rows
 // at bf16: the chain at R = 10,240 (B = 2,048, beam 5), whose six SCN
@@ -980,6 +986,156 @@ static int launch_gemm_tc(GemmArgs g, int nz, cudaStream_t stream,
   const long long n = (long long)nz * g.M * g.N;
   const int blocks = (int)std::min((n + 255) / 256, 8LL * kSms);
   gemm_reduce_kernel<T><<<blocks, 256, 0, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ the grouped mode ----
+//
+// The persistent kernel's products for a mixture of experts (lm.cu): the
+// rows of every expert group lie in one tensor A (rows, K), each group's
+// block padded to 128 rows (the dispatch's counting sort), and group g's
+// weights are W[g] (N, K), stacked (G, N, K).  Row tile mt (128 rows) is
+// group tile_group[mt]'s, its live rows below tile_end[mt]; ntiles (on the
+// device) says how many row tiles the dispatch filled, so the launch needs
+// no copy home.  The tiles, the ring, the producer's TMA loads (W's map
+// (k, n, group)), the consumers' wgmma.m64n128k16 and the promotion of
+// each K tile are the persistent kernel's own (ps_issue, ps_retire);
+// only the tile walk and the epilogue differ, and the persistent kernel
+// above is left as it was.  Epilogues, from the accumulators in registers:
+//
+//   kGroupedSwiGlu  W's rows interleave gate and up (row 2j the gate's j,
+//                   2j + 1 the up's j), so each thread holds both halves
+//                   of its outputs: C[row, j] = bf16(silu(gate) * up),
+//                   from the float32 sums, C (rows, N / 2);
+//   kGroupedScale   C[row, n] = sum * scale[row], float32 (the routing
+//                   weight of the row's (token, expert) pair).
+//
+// K a multiple of 64 and N of 128 (the launcher refuses others).
+constexpr int kGroupedSwiGlu = 0, kGroupedScale = 1;
+
+struct GroupedArgs {
+  const void* a;          // bf16 (rows, lda)
+  const void* w;          // bf16 (G, N, K)
+  void* c;                // see the epilogues
+  long long ldc;
+  const float* scale;     // (rows,) kGroupedScale's
+  const int* tile_group;  // (max_tiles,) the group of a row tile
+  const int* tile_end;    // (max_tiles,) the end of its live rows
+  const int* ntiles;      // (1,) row tiles filled
+  int K, N;
+};
+
+constexpr size_t kGsSmem =
+    (size_t)kPsStages * kPsStageBytes + 16 * kPsStages + 1024;
+
+template <int kEpi>
+__global__ void __launch_bounds__(kPsThreads, 1)
+    gemm_tc_grouped_kernel(const __grid_constant__ GroupedArgs g,
+                           const __grid_constant__ PsMaps maps) {
+  using T = __nv_bfloat16;
+  constexpr int S = kPsStages;
+  extern __shared__ __align__(1024) unsigned char ps_smem[];
+  T* ring = (T*)(((uintptr_t)ps_smem + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = (uint64_t*)(ring + (size_t)S * (kPsA + kPsW));
+  uint64_t* empty = full + S;
+  const int tn = g.N / kPsBN;
+  const int tiles = __ldg(g.ntiles) * tn;   // n fastest, then row tiles
+  const int kt = g.K / kPsBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / kTcThreads;
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int nt = tile % tn, mt = tile / tn;
+      const int grp = __ldg(g.tile_group + mt);
+      for (int u = 0; u < kt; ++u, ++it) {
+        const int st = it % S;
+        T* sa = ring + (size_t)st * (kPsA + kPsW);
+        ps_wait(&empty[st], ((it / S) & 1) ^ 1);
+        mbar_expect_tx(&full[st], kPsStageBytes);
+        tma_load_3d(sa, &maps.a[0], u * kPsBK, 0, mt * kPsBM, &full[st]);
+        tma_load_3d(sa + kPsA, &maps.w[0], u * kPsBK, nt * kPsBN, grp,
+                    &full[st]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int cw = wg - 1, lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x % kTcThreads) >> 5;
+  float d[64], t[64];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int nt = tile % tn, mt = tile / tn;
+    const int end = __ldg(g.tile_end + mt);
+#pragma unroll
+    for (int j = 0; j < 64; ++j) d[j] = 0.0f;
+    for (int j = 0; j < kt; ++j, ++it) {
+      ps_issue(t, ring, full, cw, it);
+      wgmma_wait_all<64>(t);
+      ps_retire(d, t, empty, lane, it);
+    }
+    // accumulator 4 j + i: row 16 warp + lane / 4 (+ 8 for i >= 2),
+    // column 8 j + 2 (lane % 4) + i % 2 of the warpgroup's 64 x 128
+    const int r0 = mt * kPsBM + 64 * cw + 16 * warp + lane / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      if (row >= end) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = nt * kPsBN + 8 * j + 2 * (lane % 4);
+        const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+        if constexpr (kEpi == kGroupedSwiGlu) {
+          ((T*)g.c)[row * g.ldc + col / 2] =
+              __float2bfloat16(v0 / (1.0f + expf(-v0)) * v1);
+        } else {
+          const float s = __ldg(g.scale + row);
+          *(float2*)((float*)g.c + row * g.ldc + col) =
+              make_float2(v0 * s, v1 * s);
+        }
+      }
+    }
+  }
+}
+
+// The grouped mode on rows a (rows, lda) of the dispatch's blocks, W (G,
+// N, K), max_tiles the row tiles a may hold.  Returns the launch's CUDA
+// error code.
+static int launch_grouped(const GroupedArgs& g, long long lda, int rows,
+                          int G, int max_tiles, int epi,
+                          cudaStream_t stream) {
+  if (g.K % kPsBK || g.N % kPsBN || lda % 8 || rows < kPsBM ||
+      max_tiles < 1 || (epi != kGroupedSwiGlu && epi != kGroupedScale) ||
+      (uintptr_t)g.a % 16 || (uintptr_t)g.w % 16)
+    return (int)cudaErrorInvalidValue;
+  constexpr cuuint64_t e = sizeof(__nv_bfloat16);
+  PsMaps maps = {};
+  int err = ps_map(&maps.a[0], g.a, g.K, 1, rows, lda * e, lda * e, 1,
+                   kPsBM);
+  if (err != 0) return err;
+  err = ps_map(&maps.w[0], g.w, g.K, g.N, G, g.K * e,
+               (cuuint64_t)g.N * g.K * e, kPsBN, 1);
+  if (err != 0) return err;
+  const auto kernel = epi == kGroupedSwiGlu
+                          ? gemm_tc_grouped_kernel<kGroupedSwiGlu>
+                          : gemm_tc_grouped_kernel<kGroupedScale>;
+  err = allow_smem(kernel, kGsSmem);
+  if (err != 0) return err;
+  const long long tiles = (long long)max_tiles * (g.N / kPsBN);
+  const int grid = (int)std::min(tiles, (long long)kSms);
+  kernel<<<grid, kPsThreads, kGsSmem, stream>>>(g, maps);
   return (int)cudaGetLastError();
 }
 

@@ -36,6 +36,12 @@ beam selection of kernels 7 and 13 by rounds that look past the last
 winner, kernel 10 in passes of 32 slots.
 So no beam width moves a rung.
 
+A configuration of ``models/kimi_lm.py`` (``KimiLMConfig``, the latent-
+attention and mixture-of-experts language model) has a rung of its own,
+"lm_cache": the prefix prefilled once an image, then one cached step a
+beam step through ``decode/beam.beam_search`` (its bookkeeping and tie
+order), the decoder's state the lanes' slot table; ``tags`` are ignored.
+
 Under a profiler a decode is the region ``iic.decode``
 (``core/profiling.annotate``); on "fused_span" it holds
 ``iic.decode.prepare``, an ``iic.decode.span`` a kernel call and an
@@ -51,7 +57,7 @@ import torch
 
 from ..core.config import BeamConfig, ModelConfig
 from ..core.profiling import annotate
-from ..models import decoders
+from ..models import decoders, kimi_lm
 from .beam import beam_search
 
 DECODE_IMPLS = ("auto", "steps", "fused_step", "fused_span", "fused")
@@ -100,6 +106,9 @@ def caption_beam_search(params, cfg: ModelConfig, enc, tags, *,
     (B, L, P).  Parameters are cast to the encoding's type when they
     differ.
     """
+    if kimi_lm.is_lm(cfg):
+        return _caption_lm(params, cfg, enc, start_id=start_id,
+                           end_id=end_id, beam_cfg=beam_cfg)
     with annotate("iic.decode"):
         enc_flat = decoders.flatten_encoding(enc, cfg.encoder_dim)
         impl = resolve_decode_impl(cfg, record_alphas=record_alphas,
@@ -149,6 +158,26 @@ def caption_beam_search(params, cfg: ModelConfig, enc, tags, *,
             device=enc_flat.device,
         )
         out.update(decode_impl=impl, decode_calls=out["steps"])
+        return out
+
+
+def _caption_lm(params, cfg, enc, *, start_id: int, end_id: int,
+                beam_cfg: BeamConfig):
+    """caption_beam_search's "lm_cache" rung (``models/kimi_lm.py``)."""
+    with annotate("iic.decode"):
+        enc_flat = decoders.flatten_encoding(enc, cfg.encoder_dim)
+        if params["embed"].dtype != enc_flat.dtype:
+            params = kimi_lm.cast_params(params, enc_flat.dtype)
+        K, T = beam_cfg.beam_size, beam_cfg.max_steps
+        init_state_fn, step_fn = kimi_lm.make_beam_step(
+            params, cfg, enc_flat, start_id=start_id, beam_size=K,
+            max_steps=T)
+        out = beam_search(
+            step_fn, init_state_fn(K), batch_size=enc_flat.shape[0],
+            beam_size=K, vocab_size=cfg.vocab_size, start_id=start_id,
+            end_id=end_id, max_steps=T, seq_len=T + 1,
+            length_penalty=beam_cfg.length_penalty, device=enc_flat.device)
+        out.update(decode_impl="lm_cache", decode_calls=out["steps"])
         return out
 
 

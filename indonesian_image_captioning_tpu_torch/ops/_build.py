@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 _GEMM = [_I, _I, _I, _I, _I,         # csrc/step.cu iic_gemm's arguments
          _P, _L, _P, _L, _I,
          _P, _L, _P, _L, _I,
@@ -91,6 +92,25 @@ SIGNATURES = {
     "fc_topk": {
         "iic_fc_topk": [_P, _L, _P, _L, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P, _P],
+    },
+    "lm": {
+        "iic_lm_gemm": [_I, _I, _I, _I, _P, _L, _I, _P, _L, _P, _P, _L, _P,
+                        _L, _I, _L, _L, _L, _P],
+        "iic_lm_rmsnorm": [_P, _P, _P, _I, _I, _F, _P],
+        "iic_lm_latent_rope": [_P, _L, _P, _P, _P, _P, _L, _P, _I, _I, _I,
+                               _I, _I, _F, _P],
+        "iic_lm_mla_decode": [_P, _P, _L, _P, _I, _I, _P, _P, _L, _P, _I,
+                              _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        "iic_lm_router": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+        "iic_lm_moe_dispatch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                _P, _P, _P, _P, _P],
+        "iic_lm_moe_gather": [_P, _P, _P, _I, _I, _P, _P],
+        "iic_lm_grouped_gemm": [_I, _P, _L, _I, _P, _I, _I, _P, _P, _P, _I,
+                                _P, _P, _L, _P],
+        "iic_lm_moe_combine": [_P, _P, _I, _I, _I, _P, _P, _P],
+        "iic_lm_swiglu": [_P, _P, _L, _P],
+        "iic_lm_head_topk": [_P, _I, _I, _I, _P, _P, _P, _P],
+        "iic_lm_counter": [_I, _I],
     },
     "embed_grad": {
         "iic_embed_grad": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],

@@ -2025,3 +2025,225 @@ def _tree_paths(tree, prefix=""):
         else:
             out.append((prefix + k, v))
     return out
+
+
+# ------------------------------------- the latent-attention / MoE decoder ----
+# csrc/lm.cu (ops/lm_cuda.py) against the plain versions on the card, at
+# bf16: the plain versions compute in float32 from the same bf16 inputs, so
+# the limits are the kernels' roundings (SiLU x up and P rounded to bf16
+# once): 2e-2 of the output's largest magnitude.
+
+LM_TOL = 2e-2
+
+
+def _lm_cfg(**kw):
+    from indonesian_image_captioning_tpu_torch.models.kimi_lm import \
+        KimiLMConfig
+    return KimiLMConfig(**{**dict(
+        vocab_size=300, hidden_size=256, intermediate_size=512,
+        moe_intermediate_size=128, num_hidden_layers=2, n_routed_experts=8,
+        num_experts_per_tok=2, n_shared_experts=1, encoder_dim=64,
+        enc_image_size=3), **kw})
+
+
+def _lm_params(cfg, dev, seed=0):
+    from indonesian_image_captioning_tpu_torch.models import kimi_lm
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from kimi_lm_weights import init_params
+    params = init_params(torch.Generator().manual_seed(seed), cfg)
+    return _to(kimi_lm.cast_params(params, BF16), dev)
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("case", ["two_experts", "every_row_one_expert",
+                                  "one_row"])
+def test_lm_grouped_gemm_at_ragged_expert_loads(dev, case):
+    """The mixture's dispatch, gather, the grouped mode of csrc/mma.cuh's
+    persistent kernel (gate/up with SiLU x up, down with the routing
+    weight) and the combine, against the plain per-expert loop: experts
+    with no rows, one expert holding every row, one row."""
+    from indonesian_image_captioning_tpu_torch.ops import lm_cuda
+    cfg = _lm_cfg()
+    lp = _lm_params(cfg, dev)["layers"]["1"]
+    gen = torch.Generator().manual_seed(3)
+    N = {"two_experts": 300, "every_row_one_expert": 257, "one_row": 1}[case]
+    h = randn(gen, N, cfg.hidden_size).to(dev, BF16)
+    res = randn(gen, N, cfg.hidden_size).to(dev, BF16)
+    if case == "two_experts":
+        ids = torch.tensor([[0, 2], [2, 0]]).repeat(N // 2, 1)
+    elif case == "every_row_one_expert":
+        other = torch.randint(0, 7, (N,), generator=gen)
+        ids = torch.stack([torch.full((N,), 5), other + (other >= 5)], 1)
+    else:
+        ids = torch.tensor([[6, 1]])
+    ids = ids.to(dev, torch.int32)
+    w = torch.rand((N, 2), generator=gen).to(dev)
+    n0 = lm_cuda.counts()["grouped_gemm"]
+    lm_cuda.keep_rows = True
+    try:
+        got = lm_cuda.experts(h, lp, cfg, ids, w, residual=res)
+    finally:
+        lm_cuda.keep_rows = False
+    torch.cuda.synchronize()
+    assert lm_cuda.counts()["grouped_gemm"] == n0 + 2
+    want = lm_cuda.moe_plain(h, lp, cfg, res, ids, w)
+    counts = lm_cuda.last_rows[-1].cpu()
+    assert int(counts[:8].sum()) == 2 * N and int(counts[8]) == N
+    assert _rel(got, want) <= LM_TOL, _rel(got, want)
+
+
+@pytest.mark.parametrize("B, K", [(3, 5), (1, 1), (2, 8)])
+def test_lm_mla_decode_at_ragged_suffixes_over_a_shared_prefix(dev, B, K):
+    """The MLA kernel (16 heads, latent 512, rope 64) against the plain
+    absorbed attention: each image's prefix shared by its lanes, suffix
+    lengths 0 to 50 per lane, slots shared between lanes as a beam's
+    ancestors are."""
+    from indonesian_image_captioning_tpu_torch.ops import lm_cuda
+    cfg = _lm_cfg(hidden_size=2048)
+    gen = torch.Generator().manual_seed(B * 10 + K)
+    R, P, T, D = B * K, 197, 50, cfg.latent_dim
+    Pc = lm_cuda.prefix_rows(P)
+    prefix = torch.zeros(B, Pc, D)
+    prefix[:, :P] = randn(gen, B, P, D)
+    S = R * T
+    slots = randn(gen, S, D)
+    table = torch.randint(0, S, (R, T), generator=gen, dtype=torch.int32)
+    table[1::2, :10] = table[0, :10]                 # shared ancestors
+    lens = torch.randint(0, T + 1, (R,), generator=gen, dtype=torch.int32)
+    lens[0] = T
+    qlat = randn(gen, R, 16, 512, scale=0.05)
+    q = randn(gen, R, 16 * cfg.q_head_dim, scale=0.05)
+    args = [t.to(dev, BF16) for t in (qlat, q, prefix)]
+    n0 = lm_cuda.counts()["mla"]
+    got = lm_cuda.mla_decode(args[0], args[1], args[2], P,
+                             slots.to(dev, BF16), table.to(dev), lens.to(dev),
+                             cfg)
+    torch.cuda.synchronize()
+    assert lm_cuda.counts()["mla"] == n0 + 1
+    want = lm_cuda.mla_plain(args[0].float(), args[1].float(),
+                             args[2].float(), P, slots.to(dev, BF16).float(),
+                             table.to(dev), lens.to(dev), cfg)
+    assert _rel(got, want) <= LM_TOL, _rel(got, want)
+
+
+def test_lm_router_takes_the_lowest_expert_among_equal_scores(dev):
+    """The router kernel: float32 logits, sigmoid, top 6 of score + bias;
+    experts 3 and 5 (and 10 and 12) share a router row and a bias, so
+    their scores are equal, and the lower id goes first; the ids equal the
+    plain router's but where its choice is within 1e-5 of the next one,
+    the weights within 1e-5."""
+    from indonesian_image_captioning_tpu_torch.ops import lm_cuda
+    cfg = _lm_cfg(hidden_size=256, n_routed_experts=64,
+                  num_experts_per_tok=6, n_shared_experts=2)
+    gen = torch.Generator().manual_seed(21)
+    w = randn(gen, 64, 256, scale=256 ** -0.5)
+    w[5], w[12] = w[3], w[10]
+    bias = randn(gen, 64, scale=0.05)
+    bias[5], bias[12] = bias[3], bias[10]
+    bias[3] = bias[5] = 0.3            # often chosen
+    h = randn(gen, 333, 256).to(dev, BF16)
+    lp = {"router_w": w.to(dev), "router_bias": bias.to(dev)}
+    ids, wts = lm_cuda.route(h, lp, cfg)
+    want_ids, want_w = lm_cuda.route_plain(h.cpu().float(), w, bias, cfg)
+    ids, wts = ids.cpu(), wts.cpu()
+    choice = torch.sigmoid(h.cpu().float() @ w.t()) + bias
+    ranked = choice.sort(-1, descending=True).values
+    clear = (ranked[:, :6] - ranked[:, 1:7]).min(-1).values > 1e-5
+    ties = 0
+    for t in range(ids.shape[0]):
+        row = ids[t].tolist()
+        for lo, hi in ((3, 5), (10, 12)):
+            if hi in row:
+                assert lo in row and row.index(lo) < row.index(hi)
+                ties += 1
+        if clear[t] or {3, 5} <= set(row):
+            assert row == want_ids[t].tolist(), t
+            torch.testing.assert_close(wts[t], want_w[t], atol=1e-5,
+                                       rtol=1e-5)
+    assert ties > 0
+
+
+def test_lm_ops_refuse_other_types_on_the_card(dev):
+    """The card's kernels take bf16 only: a float32 CUDA tensor, or a
+    float32 decode on the card, is refused, never served by the plain
+    version."""
+    from indonesian_image_captioning_tpu_torch.ops import lm_cuda
+    cfg = _lm_cfg()
+    H = cfg.hidden_size
+    x = torch.zeros(4, H, device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        lm_cuda.rmsnorm(x, torch.ones(H, device=dev), 1e-5)
+    with pytest.raises(TypeError, match="bfloat16"):
+        lm_cuda.linear(x, torch.zeros(8, H, device=dev))
+    from indonesian_image_captioning_tpu_torch.models import kimi_lm
+    params = kimi_lm.cast_params(_lm_params(cfg, dev), F32)
+    enc = torch.zeros(2, 9, cfg.encoder_dim, device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        caption_beam_search(params, cfg, enc, torch.zeros(2, 0),
+                            start_id=298, end_id=299,
+                            beam_cfg=BeamConfig(beam_size=2, max_steps=3))
+
+
+def test_tc_gemm_persistent_still_takes_every_decode_product(dev):
+    """The grouped mode beside it leaves csrc/mma.cuh's persistent kernel
+    as it was: a bf16 attention_scn decode at B = 2,048 (R = 10,240 lanes)
+    on "auto" runs 312 of 312 of kernel 7's products on it."""
+    smoke = _smoke()
+    cfg = ModelConfig(model_type="attention_scn", vocab_size=6763,
+                      dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    params = decoders.cast_params(decoders.init_decoder(gen, cfg), BF16)
+    params = _to(params, dev)
+    enc = randn(gen, 2048, 196, 2048, scale=0.1).to(dev, BF16)
+    tags = torch.rand(2048, 1000, generator=gen).to(dev, BF16)
+    kw = dict(start_id=6761, end_id=6762, beam_cfg=BeamConfig(beam_size=5))
+    with torch.inference_mode():
+        caption_beam_search(params, cfg, enc, tags, **kw)
+        smoke.zero_counters()
+        out = caption_beam_search(params, cfg, enc, tags, **kw)
+        torch.cuda.synchronize()
+        ran = smoke.read_counters()
+    assert out["decode_impl"] == "fused_span"
+    persistent = smoke.counters()["gemm_tc"].persistent_launches
+    assert ran["gemm_tc"] == 312 and persistent == 312
+
+
+def test_lm_decode_on_the_card_matches_the_plain_reference(dev):
+    """caption_beam_search's "lm_cache" rung on the card (the dense
+    products, the MLA and mixture kernels, the head's top K) at the
+    published attention widths, two layers: every served token among the
+    plain reference's 3 best next tokens of its prefix to within 0.05
+    nats, and the decode's launches counted."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from plain_kimi_lm import KimiLM
+    from indonesian_image_captioning_tpu_torch.ops import lm_cuda
+    cfg = _lm_cfg(hidden_size=512, dtype="bfloat16")
+    params = _lm_params(cfg, dev, seed=4)
+    gen = torch.Generator().manual_seed(5)
+    B, K, T = 4, 3, 9
+    enc = randn(gen, B, 9, cfg.encoder_dim).to(dev, BF16)
+    lm_cuda.reset_counts()
+    with torch.inference_mode():
+        out = caption_beam_search(params, cfg, enc, torch.zeros(B, 0),
+                                  start_id=298, end_id=299,
+                                  beam_cfg=BeamConfig(beam_size=K,
+                                                      max_steps=T))
+    torch.cuda.synchronize()
+    ran = lm_cuda.counts()
+    steps = out["steps"] - 1
+    assert ran["mla"] == 2 * steps and ran["grouped_gemm"] >= 2 * steps
+    ref = KimiLM(params, dataclasses.asdict(cfg))
+    seqs, lens = out["sequences"].long(), out["lengths"].long()
+    n = int(lens.max()) - 1
+    with torch.no_grad():
+        logits, _ = ref.teacher_forced(enc.float(), None, seqs, n)
+    lp = torch.log_softmax(logits, -1)
+    tok = lp.gather(2, seqs[:, 1:n + 1, None])[..., 0]
+    kth = lp.topk(K, -1).values[..., -1]
+    on = torch.arange(n, device=dev)[None] < (lens[:, None] - 1)
+    gap = (torch.relu(kth - tok) * on).max()
+    assert float(gap) < 0.05, float(gap)
