@@ -47,7 +47,13 @@ Phases, each of which exits non-zero on failure:
    every element within EMBED_TOL of its column's sum of |g| against the
    plain version, two calls bitwise equal, and the medians of the kernel,
    the plain version, one index_add_ call (the library yardstick) and the
-   one-hot product that embed_grad_impl="onehot" runs.  Beams past eight:
+   one-hot product that embed_grad_impl="onehot" runs.  The encoders'
+   BatchNorm + shortcut + ReLU pass (csrc/bn_act.cu, bfloat16 only) at
+   one scn.images batch's shapes, the 302 passes of two ResNet-152s at
+   256 px and B = 256 (bn_act_phase): each distinct shape and variant
+   against its plain version, then the medians of the kernel, the plain
+   version and the eager composition it replaced (the library
+   yardstick), and both device times.  Beams past eight:
    kernels 1, 5 and 7 at K = 9, 32 and 64 (WIDE_K), held and timed the
    same way,
    and kernel 10 at k = 69 (three passes).  The
@@ -1311,6 +1317,162 @@ def embed_grad_phase(dev, cfg):
                                    label="ids 0 or 7")}
 
 
+def resnet_bn_passes(arch="resnet152", size=IMAGE_SIZE):
+    """(C, H, mode) of each bn_act pass of one ResNet's inference path at
+    size px, in order (models/resnet.py _infer): the stem's, then each
+    block's conv1, conv2 and conv3 (mode "down" in a stage's first block,
+    which carries the downsample convolution's BatchNorm, else
+    "residual")."""
+    from indonesian_image_captioning_tpu_torch.models import resnet
+
+    passes, H = [(64, size // 2, "relu")], size // 4
+    for stage, (n, width) in enumerate(zip(resnet.BLOCKS[arch],
+                                           resnet.WIDTHS), start=1):
+        for b in range(n):
+            passes.append((width, H, "relu"))
+            H //= 2 if stage > 1 and b == 0 else 1
+            passes += [(width, H, "relu"),
+                       (width * resnet.EXPANSION, H,
+                        "down" if b == 0 else "residual")]
+    return passes
+
+
+def bn_act_work(passes, B, isz=2):
+    """Bytes and operations of a sequence of bn_act passes at batch B: each
+    output element read once and written once, the shortcut (the block's
+    input, or the downsample convolution's output) read once, the
+    BatchNorm vectors once; four operations an element a BatchNorm, one
+    for the shortcut's add and one for the ReLU."""
+    nbytes = flops = 0
+    for C, H, mode in passes:
+        n = B * C * H * H
+        nbytes += n * isz * (2 + (mode != "relu")) + \
+            C * isz * (8 if mode == "down" else 4)
+        flops += n * (5 + 5 * (mode == "down") + (mode != "relu"))
+    return nbytes, flops
+
+
+def bn_act_phase(dev, B=256, nets=2):
+    """The encoders' BatchNorm + shortcut + ReLU pass (csrc/bn_act.cu) at
+    one scn.images batch's shapes: the 151 passes of a ResNet-152 at 256
+    px for each of nets networks, B images, bfloat16, channels_last.
+    Each distinct (C, H, mode) against bn_act_plain on fresh inputs (the
+    largest error; the share of elements that differ), then the median
+    ms of the whole sequence (CUDA events) on the kernel, on the plain
+    version and on the eager composition the inference path replaced
+    (models/resnet.py _bn, relu and the add on NCHW tensors; the library
+    yardstick), and the device ms of the kernel's and the composition's
+    (torch.profiler)."""
+    import torch
+
+    from indonesian_image_captioning_tpu_torch.models import resnet
+    from indonesian_image_captioning_tpu_torch.ops import bn_act
+
+    bf16, eps = torch.bfloat16, resnet.BN_EPS
+    passes = resnet_bn_passes() * nets
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+
+    def act(C, H, relu=False):
+        x = torch.randn((B, C, H, H), generator=gen, device=dev)
+        x = torch.relu(x) if relu else x
+        return x.to(bf16).contiguous(memory_format=torch.channels_last)
+
+    def vectors(C, tame):
+        """The BatchNorm's vectors: rsqrt(var + eps) * scale near 1 for
+        the timed passes (they run in place again and again), away from
+        it for the checks."""
+        u = lambda: torch.rand(C, generator=gen, device=dev)  # noqa: E731
+        if tame:
+            return ({"scale": torch.ones(C, device=dev, dtype=bf16),
+                     "bias": torch.zeros(C, device=dev, dtype=bf16)},
+                    {"mean": (0.5 * u()).to(bf16),
+                     "var": torch.ones(C, device=dev, dtype=bf16)})
+        return ({"scale": (0.5 + u()).to(bf16),
+                 "bias": (0.2 * u() - 0.1).to(bf16)},
+                {"mean": (0.2 * u() - 0.1).to(bf16),
+                 "var": (0.5 + u()).to(bf16)})
+
+    err, differ, n_el = 0.0, 0, 0
+    for C, H, mode in sorted(set(passes)):
+        x, (p, s) = act(C, H), vectors(C, False)
+        kw = ({"residual": act(C, H, relu=True)} if mode == "residual" else
+              {"down": (act(C, H), *vectors(C, False))} if mode == "down"
+              else {})
+        ref = bn_act.bn_act_plain(x, p, s, eps=eps, **kw)
+        out = bn_act.bn_act(x, p, s, eps=eps, **kw)
+        torch.cuda.synchronize()
+        # each shape on its own: the largest error within one bf16 ulp of
+        # the shape's largest |ref|, and at most 1e-3 of its elements apart
+        e, n = max_err(out, ref), int((out != ref).sum())
+        top = float(ref.float().abs().max())
+        check(e <= 2.0 ** -7 * top and n <= 1e-3 * out.numel(),
+              f"bn_act {mode} at C = {C}, H = {H}: max abs err {e:.3g} "
+              f"(largest |ref| {top:.3g}), {n} of {out.numel()} elements "
+              "differ from the plain version")
+        err, differ, n_el = max(err, e), differ + n, n_el + out.numel()
+        del x, kw, ref, out
+
+    x, r, d, vec = {}, {}, {}, {}
+    for C, H, mode in passes:
+        if (C, H) not in x:
+            x[C, H] = act(C, H)
+        if mode != "relu" and (C, H) not in r:
+            r[C, H], d[C, H] = act(C, H, relu=True), act(C, H)
+        if C not in vec:
+            vec[C] = vectors(C, True)
+    xn, rn, dn = ({k: v.contiguous() for k, v in t.items()}
+                  for t in (x, r, d))
+    args = []
+    for C, H, mode in passes:
+        p, s = vec[C]
+        kw = ({"residual": r[C, H]} if mode == "residual" else
+              {"down": (d[C, H], p, s)} if mode == "down" else {})
+        args.append((C, H, mode, p, s, kw))
+
+    def kernel():
+        for C, H, _, p, s, kw in args:
+            bn_act.bn_act(x[C, H], p, s, eps=eps, **kw)
+
+    def plain():
+        for C, H, _, p, s, kw in args:
+            bn_act.bn_act_plain(x[C, H], p, s, eps=eps, **kw)
+
+    def composition():
+        for C, H, mode, p, s, _ in args:
+            y, _ = resnet._bn(xn[C, H], p, s, False)
+            if mode == "residual":
+                y = y + rn[C, H]
+            elif mode == "down":
+                y = y + resnet._bn(dn[C, H], p, s, False)[0]
+            torch.relu(y)
+
+    n0 = bn_act.bn_act.launches
+    kernel()
+    torch.cuda.synchronize()
+    check(bn_act.bn_act.launches - n0 == len(passes),
+          f"bn_act: {bn_act.bn_act.launches - n0} launches for "
+          f"{len(passes)} passes")
+    plain_ms, ms, lib_ms = median_ms([plain, kernel, composition], runs=10)
+    parts = {}
+    dev_ms = device_ms(kernel, runs=5, by_kernel=parts)
+    check(all("bn_act" in k for k in parts),
+          f"bn_act: the sequence launched {sorted(parts)}")
+    lib_dev = device_ms(composition, runs=3)
+    bound_ms, bound_by = bound(*bn_act_work(passes, B), "bfloat16")
+    nbytes = bn_act_work(passes, B)[0]
+    print(f"kernel bn_act[{len(passes)} passes, B={B}, bfloat16]: max abs "
+          f"err {err:.3g}, {differ} of {n_el} elements differ from the "
+          f"plain version; ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+          f"(eager _bn + relu + add, NCHW) {lib_ms:.4f} bound_ms "
+          f"{bound_ms:.4f} ({bound_by}, {nbytes / 1e9:.2f} GB); device time "
+          f"(profiler) kernel {dev_ms:.4f} ({nbytes / dev_ms / 1e6:.0f} GB/s"
+          f") composition {lib_dev:.4f}")
+    return dict(max_abs_err=err, differ=differ, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, device_ms=dev_ms,
+                library_device_ms=lib_dev, bound_ms=bound_ms,
+                bound_by=bound_by, passes=len(passes))
+
+
 def near_tie_rows(got, ref, logits, label):
     """Ids (R, k) against the reference's: each difference must pick two
     logits within NEAR_TIE; returns the number of rows with one."""
@@ -1868,6 +2030,7 @@ def counters():
     """The launch counter of each kernel's wrapper, by name."""
     from indonesian_image_captioning_tpu_torch.ops import (attention_cuda,
                                                            attention_q_cuda,
+                                                           bn_act,
                                                            decode_cuda,
                                                            embed_grad_cuda,
                                                            fc_topk, scn_cuda,
@@ -1888,7 +2051,7 @@ def counters():
             "train_fwd": train_cuda.train_fwd,
             "train_bwd": train_cuda.train_bwd,
             "embed_grad_scatter": embed_grad_cuda.embed_grad_scatter,
-            "gemm_tc": step_cuda.gemm}
+            "gemm_tc": step_cuda.gemm, "bn_act": bn_act.bn_act}
 
 
 def zero_counters():
@@ -1951,6 +2114,9 @@ def serve_and_inference(dev, cfg, B, image_size):
     launches = read_counters()
     # ---------------------------------------------------------------------
     calls = engine.stats.decode_calls
+    check(launches["bn_act"] > 0 and launches["bn_act"] % 302 == 0,
+          f"bn_act: {launches['bn_act']} launches, not 302 a batch (151 a "
+          "ResNet-152)")
     n_span = -(-engine.beam_cfg.max_steps // cfg.decode_span)
     check(len(caps) == B and all(isinstance(s, str) for s in caps),
           f"caption_batch did not return {B} strings")
@@ -1979,7 +2145,7 @@ def serve_and_inference(dev, cfg, B, image_size):
           f"batch {calls}; kernel launches {launches}")
     print(f"serve: caption[0] = {caps[0][:80]!r}")
     found = {"fused_decode_span": launches["fused_decode_span"],
-             "gemm_tc": launches["gemm_tc"]}
+             "gemm_tc": launches["gemm_tc"], "bn_act": launches["bn_act"]}
 
     # ---- the int8 encoder state: a second engine on the same weights and
     # BatchNorm statistics; counters zeroed just before, read just after --
@@ -5737,8 +5903,10 @@ def main() -> int:
         fc_res = fc_topk_case(dev, cfg, B)
         embed_res = embed_grad_phase(dev, cfg)
         gemm_res = gemm_phase(dev, cfg)
+        bn_res = bn_act_phase(dev)
     t0 = time.perf_counter()
     launches = serve_and_inference(dev, cfg, B, IMAGE_SIZE)
+    bn_launches = launches["bn_act"]   # the serving window's count
     print(f"phases: kernels {t0 - t_start:.1f} s, serve and inference "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -5833,6 +6001,15 @@ def main() -> int:
             "benchmark_widths": widths.get(name)})
         if name == "gemm_tc":   # the persistent kernel at R = 10,240, bf16
             kernels[-1]["many_rows"] = gemm_res["many_rows"]
+    kernels.append({   # timed in bfloat16 at one scn.images batch's 302
+        # passes; launches counted in the serving window, at cfg.dtype
+        "name": "bn_act", "route": "cuda", "source": csrc + "bn_act.cu",
+        "replaces": None, "launches": bn_launches,
+        "launches_dtype": cfg.dtype, "dtype": "bfloat16",
+        "passes": bn_res["passes"],
+        **{k: bn_res[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "device_ms", "library_device_ms")}})
     print(f"phases: all {time.perf_counter() - t_start:.1f} s after the "
           f"build; profiles taken again (they missed kernels): "
           f"{PROFILE_RETRIES[0]}")

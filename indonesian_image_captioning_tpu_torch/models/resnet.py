@@ -2,9 +2,10 @@
 
 Counterpart of the JAX package's ``models/resnet.py``.  The public
 :func:`apply_resnet` keeps the JAX layouts at its edges (NHWC images in,
-NHWC features out); inside, the convolutions run NCHW through cuDNN on the
-card.  The differences in the parameter tree, which ``models/jax_bridge.py``
-converts:
+NHWC features out); inside, the tensors are (B, C, H, W) for torch's
+operators, stored NCHW, or NHWC (channels_last) on the inference path
+below.  The differences in the parameter tree, which
+``models/jax_bridge.py`` converts:
 
 * convolution kernels are OIHW (torch's layout), not HWIO;
 * each stage is {"first": block with downsample, "rest": [blocks]}: a list
@@ -32,6 +33,20 @@ rematerialisation; the new statistics are the forward's.
 global batch of a data-parallel group (synchronised BatchNorm, the
 steps of ``train/steps.py`` under a mesh), as JAX's partitioned step
 reduces them over the whole batch; None keeps them to the local rows.
+
+An eval pass without autograd (``train=False`` under ``torch.no_grad()``
+or ``torch.inference_mode()``, as the serving engine runs it) takes the
+inference path instead, :func:`_infer`: every activation channels_last
+(NHWC storage), so cuDNN runs its NHWC kernels with no layout transposes
+around them (the serving engine stores the convolution kernels
+channels_last once, as its state goes to the device; an NCHW kernel is
+converted inside each convolution), and one pass after each convolution, ``ops/bn_act.py`` (a CUDA kernel on the card), for its
+BatchNorm, the shortcut and the ReLU, written over the convolution's
+output and rounded where the composition rounds, so the features are the
+composition's.  The downsample convolution's BatchNorm rides in conv3's
+pass.  Training, calibration, synchronised BatchNorm, remat and an eval
+pass with autograd on run the composition of :func:`_bn`, ``relu`` and
+the add.
 """
 
 from __future__ import annotations
@@ -42,6 +57,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
+
+from ..ops.bn_act import bn_act
 
 BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),
           "resnet152": (3, 8, 36, 3)}
@@ -250,6 +267,38 @@ def _block_fn(remat):
     return block
 
 
+def _infer_block(x, bp, bs, stride: int):
+    """The bottleneck of the inference path on a channels_last x: each
+    convolution's output normalised in place by one ``bn_act`` pass, conv3's
+    with the shortcut (x, or the downsample convolution's raw output and its
+    BatchNorm) and the ReLU."""
+    out = bn_act(_conv(x, bp["conv1"], 1, 0), bp["bn1"], bs["bn1"],
+                 eps=BN_EPS)
+    out = bn_act(_conv(out, bp["conv2"], stride, 1), bp["bn2"],
+                 bs["bn2"], eps=BN_EPS)
+    out = _conv(out, bp["conv3"], 1, 0)
+    if "downsample_conv" in bp:
+        down = (_conv(x, bp["downsample_conv"], stride, 0),
+                bp["downsample_bn"], bs["downsample_bn"])
+        return bn_act(out, bp["bn3"], bs["bn3"], eps=BN_EPS, down=down)
+    return bn_act(out, bp["bn3"], bs["bn3"], eps=BN_EPS, residual=x)
+
+
+def _infer(params, stats, x, arch: str):
+    """The eval pass without autograd (module docstring): NHWC x -> NHWC
+    features, channels_last throughout."""
+    y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    y = bn_act(_conv(y, params["conv1"], 2, 3), params["bn1"],
+               stats["bn1"], eps=BN_EPS)
+    y = F.max_pool2d(y, 3, stride=2, padding=1)
+    for stage in range(1, len(BLOCKS[arch]) + 1):
+        sp, ss = params[f"layer{stage}"], stats[f"layer{stage}"]
+        y = _infer_block(y, sp["first"], ss["first"], 1 if stage == 1 else 2)
+        for bp, bs in zip(sp["rest"], ss["rest"]):
+            y = _infer_block(y, bp, bs, 1)
+    return y.permute(0, 2, 3, 1)
+
+
 def apply_resnet(params, stats, x, *, train=False, arch: str = "resnet152",
                  remat=False, bn_group=None):
     """x: (B, H, W, 3) NHWC float -> features (B, H/32, W/32, 2048) NHWC.
@@ -257,9 +306,12 @@ def apply_resnet(params, stats, x, *, train=False, arch: str = "resnet152",
     Returns (features, new_batch_stats).  The classifier head is omitted,
     as the reference strips it.  remat: False, True / "blocks" or "convs";
     bn_group: the data-parallel group of synchronised BatchNorm, or None
-    (see the module docstring)."""
+    (see the module docstring).  An eval pass without autograd takes the
+    inference path and returns ``stats`` as they came."""
     if len(params["layer3"]["rest"]) != BLOCKS[arch][2] - 1:
         raise ValueError(f"parameter tree does not match {arch}")
+    if train is False and not torch.is_grad_enabled():
+        return _infer(params, stats, x, arch), stats
     block = _block_fn(remat)
     new_stats: Dict[str, Any] = {}
     y = _conv(x.permute(0, 3, 1, 2), params["conv1"], 2, 3)

@@ -115,6 +115,10 @@ SIGNATURES = {
     "embed_grad": {
         "iic_embed_grad": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     },
+    "bn_act": {
+        "iic_bn_act": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _L, _I, _F, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -84,11 +84,17 @@ class ServeStats:
 
 
 def _to_device(tree, device):
+    """The state on the device, the convolution kernels (the 4-D leaves)
+    channels_last, as the encoders' inference path runs them
+    (``models/resnet.py``), so no convolution copies its kernel."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_device(v, device) for v in tree]
-    return None if tree is None else tree.to(device)
+    if tree is None:
+        return None
+    return tree.to(device, memory_format=torch.channels_last
+                   if tree.dim() == 4 else torch.preserve_format)
 
 
 class CaptionEngine:

@@ -2247,3 +2247,125 @@ def test_lm_decode_on_the_card_matches_the_plain_reference(dev):
     on = torch.arange(n, device=dev)[None] < (lens[:, None] - 1)
     gap = (torch.relu(kth - tok) * on).max()
     assert float(gap) < 0.05, float(gap)
+
+
+# ---- the encoders' BatchNorm + shortcut + ReLU pass (csrc/bn_act.cu) ----
+
+# (C, H) of the convolution outputs of a ResNet-152 at 256 px: the stem's,
+# then each stage's conv1 / conv2 width at its input and output grids and
+# its conv3 output
+BN_SHAPES = [(64, 128), (64, 64), (256, 64), (128, 64), (128, 32),
+             (512, 32), (256, 32), (256, 16), (1024, 16), (512, 16),
+             (512, 8), (2048, 8)]
+BN_MODES = ("relu", "residual", "downsample")
+
+
+def _bn_case(dev, dtype, B, C, H, gen):
+    """A channels_last activation and a BatchNorm's vectors (parameters
+    and statistics away from (1, 0) and (0, 1)) on the card."""
+    x = randn(gen, B, C, H, H).to(dev, dtype).contiguous(
+        memory_format=torch.channels_last)
+    p = {"scale": (0.5 + torch.rand(C, generator=gen)).to(dev, dtype),
+         "bias": randn(gen, C, scale=0.1).to(dev, dtype)}
+    s = {"mean": randn(gen, C, scale=0.1).to(dev, dtype),
+         "var": (0.5 + torch.rand(C, generator=gen)).to(dev, dtype)}
+    return x, p, s
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("mode", BN_MODES)
+@pytest.mark.parametrize("C, H", BN_SHAPES)
+def test_bn_act_kernel_matches_plain(dev, dtype, mode, C, H):
+    """bn_act's kernel against bn_act_plain at each stage's shapes, B = 8,
+    in each variant: written over x, which is returned, each element the
+    plain version's (they round at the same points; 1e-3 of the elements
+    may differ by an ulp where rsqrt rounds the other way) and launched
+    once."""
+    from indonesian_image_captioning_tpu_torch.ops import bn_act
+    gen = torch.Generator().manual_seed(C + H)
+    x, p, s = _bn_case(dev, dtype, 8, C, H, gen)
+    kw = {}
+    if mode == "residual":
+        kw["residual"] = torch.relu(_bn_case(dev, dtype, 8, C, H, gen)[0])
+    elif mode == "downsample":
+        kw["down"] = _bn_case(dev, dtype, 8, C, H, gen)
+    ref = bn_act.bn_act_plain(x, p, s, eps=1e-5, **kw)
+    n0 = bn_act.bn_act.launches
+    out = bn_act.bn_act(x.clone(memory_format=torch.channels_last), p, s,
+                        eps=1e-5, **kw)
+    torch.cuda.synchronize()
+    assert bn_act.bn_act.launches == n0 + 1
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert float((out != ref).float().mean()) <= 1e-3
+    ulp = 2.0 ** (-7 if dtype == BF16 else -22)
+    assert rel(out, ref) <= ulp, rel(out, ref)
+    assert float(out.min()) >= 0.0
+
+
+def test_bn_act_refuses_what_the_kernel_does_not_take(dev):
+    from indonesian_image_captioning_tpu_torch.ops import bn_act
+    gen = torch.Generator().manual_seed(0)
+    x, p, s = _bn_case(dev, BF16, 2, 64, 4, gen)
+    n0 = bn_act.bn_act.launches
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_act.bn_act(x.contiguous(), p, s, eps=1e-5)
+    with pytest.raises(ValueError, match="multiple of 8|8 channels"):
+        y, q, t = _bn_case(dev, BF16, 2, 12, 4, gen)
+        bn_act.bn_act(y, q, t, eps=1e-5)
+    with pytest.raises(TypeError):
+        y, q, t = _bn_case(dev, torch.float16, 2, 64, 4, gen)
+        bn_act.bn_act(y, q, t, eps=1e-5)
+    with pytest.raises(ValueError, match="not both"):
+        bn_act.bn_act(x, p, s, eps=1e-5, residual=x, down=(x, p, s))
+    assert bn_act.bn_act.launches == n0
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def test_resnet152_inference_path_against_float32(dev):
+    """A bf16 ResNet-152 eval at 256 px (B = 8, seeded weights with every
+    residual branch damped, bn3's scale x 0.05, and BatchNorm statistics
+    calibrated on the batch in float32): the inference path
+    (channels_last, one bn_act pass a convolution but the downsample
+    ones: 151 launches) lies no farther from a float32 run of the same
+    bf16 weights and statistics (the composition, TF32 off) than the bf16
+    composition with autograd on does.  Undamped, a random ResNet-152's
+    bf16 features are as far from float32 as unrelated ones (0.99 of
+    their norm), so neither path could be told from a wrong one.  The two
+    may run other cuDNN kernels, whose sums round in other orders: 5 % of
+    the gap is allowed for that."""
+    from indonesian_image_captioning_tpu_torch.models import resnet
+    from indonesian_image_captioning_tpu_torch.ops import bn_act
+    gen = torch.Generator().manual_seed(11)
+    p, s = resnet.init_resnet(gen, "resnet152", device=dev)
+    for stage in ("layer1", "layer2", "layer3", "layer4"):
+        for bp in [p[stage]["first"], *p[stage]["rest"]]:
+            bp["bn3"]["scale"].mul_(0.05)
+    x = randn(gen, 8, 256, 256, 3).to(dev, BF16)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            _, s = resnet.apply_resnet(p, s, x.float(), train="calibrate")
+        p16, s16 = (_tree(t, lambda v: v.to(BF16)) for t in (p, s))
+        ref, _ = resnet.apply_resnet(*(_tree(t, lambda v: v.float())
+                                       for t in (p16, s16)), x.float())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    old, _ = resnet.apply_resnet(p16, s16, x)
+    n0 = bn_act.bn_act.launches
+    with torch.inference_mode():
+        new, _ = resnet.apply_resnet(p16, s16, x)
+    torch.cuda.synchronize()
+    assert bn_act.bn_act.launches == n0 + 151
+    assert new.is_contiguous() and new.shape == (8, 8, 8, 2048)
+    gap_old, gap_new = rel_norm(old, ref), rel_norm(new, ref)
+    print(f"bf16 against float32: composition {gap_old:.6g}, inference "
+          f"path {gap_new:.6g}, apart {rel_norm(new, old):.6g}")
+    assert gap_old < 0.2 and gap_new <= 1.05 * gap_old, (gap_new, gap_old)

@@ -24,6 +24,7 @@ from indonesian_image_captioning_tpu.train.steps import \
 from indonesian_image_captioning_tpu_torch.models import encoders, resnet
 from indonesian_image_captioning_tpu_torch.models.jax_bridge import (
     params_from_jax, params_to_jax)
+from indonesian_image_captioning_tpu_torch.ops.bn_act import bn_act
 from indonesian_image_captioning_tpu_torch.ops.adaptive_pool import \
     adaptive_avg_pool2d
 
@@ -87,6 +88,106 @@ def test_tagger_matches_jax(images, train):
         params_from_jax(p), params_from_jax(s), torch.from_numpy(x),
         train=train, arch=ARCH)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL[train])
+
+
+def _count_passes(monkeypatch):
+    """Counts the inference path's bn_act passes (resnet.bn_act calls)."""
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return bn_act(*args, **kwargs)
+
+    monkeypatch.setattr(resnet, "bn_act", counted)
+    return calls
+
+
+@pytest.mark.parametrize("encoder", ["caption", "tagger"])
+def test_inference_path_matches_jax_eval(images, encoder, monkeypatch):
+    """Under inference_mode the eval pass takes the inference path
+    (channels_last, one bn_act pass a convolution but the downsample one:
+    1 + 3 x 16 for a ResNet-50) and still gives JAX's eval outputs."""
+    _, x = images
+    calls = _count_passes(monkeypatch)
+    if encoder == "caption":
+        p, s = jax_encoders.init_encoder_caption(jax.random.key(1),
+                                                 arch=ARCH)
+        ref, _ = jax_encoders.apply_encoder_caption(
+            p, s, x, train=False, enc_image_size=2, arch=ARCH)
+        with torch.inference_mode():
+            out, out_s = encoders.apply_encoder_caption(
+                params_from_jax(p), params_from_jax(s), torch.from_numpy(x),
+                train=False, enc_image_size=2, arch=ARCH)
+        rel_close(out, ref, TOL[False])
+        tree_close(params_to_jax(out_s), jax.device_get(s))
+    else:
+        tcfg = TaggerConfig(semantic_size=8)
+        p, s = jax_encoders.init_encoder_tagger(jax.random.key(2), tcfg,
+                                                arch=ARCH)
+        ref, _ = jax_encoders.apply_encoder_tagger(p, s, x, train=False,
+                                                   arch=ARCH)
+        with torch.inference_mode():
+            out, _ = encoders.apply_encoder_tagger(
+                params_from_jax(p), params_from_jax(s), torch.from_numpy(x),
+                train=False, arch=ARCH)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                   atol=TOL[False])
+    assert len(calls) == 1 + 3 * sum(resnet.BLOCKS[ARCH])
+
+
+def _served_block(gen, first: bool):
+    """layer2's first (downsampling) or second block of a ResNet-50, with
+    BatchNorm parameters and statistics away from (1, 0) and (0, 1)."""
+    p, s = resnet.init_resnet(gen, ARCH)
+    bp, bs = ((p["layer2"]["first"], s["layer2"]["first"]) if first else
+              (p["layer2"]["rest"][0], s["layer2"]["rest"][0]))
+    for name in bs:
+        C = bs[name]["mean"].shape[0]
+        bp[name] = {"scale": 0.5 + torch.rand(C, generator=gen),
+                    "bias": 0.1 * torch.randn(C, generator=gen)}
+        bs[name] = {"mean": 0.1 * torch.randn(C, generator=gen),
+                    "var": 0.5 + torch.rand(C, generator=gen)}
+    return bp, bs
+
+
+@pytest.mark.parametrize("first", [True, False],
+                         ids=["downsample", "plain"])
+def test_inference_block_equals_the_composition(first):
+    """_infer_block (bn_act after each convolution, the shortcut in conv3's
+    pass) against _bottleneck's _bn + relu + add with autograd on, float32:
+    the same block within 1e-5 of the largest output."""
+    gen = torch.Generator().manual_seed(7)
+    bp, bs = _served_block(gen, first)
+    cin = 256 if first else 512
+    x = torch.randn((2, cin, 8, 8), generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    stride = 2 if first else 1
+    ref, _ = resnet._bottleneck(x, bp, bs, stride, False, None)
+    with torch.no_grad():
+        out = resnet._infer_block(x, bp, bs, stride)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    rel_close(out, ref, 1e-5)
+
+
+def test_eval_with_autograd_keeps_the_composition(images, monkeypatch):
+    """An eval pass with autograd on does not take the inference path: the
+    BatchNorm scales and biases get gradients, and bn_act never runs."""
+    _, x = images
+    calls = _count_passes(monkeypatch)
+    gen = torch.Generator().manual_seed(8)
+    p, s = resnet.init_resnet(gen, ARCH)
+    leaves = [p["bn1"]["scale"], p["bn1"]["bias"],
+              p["layer4"]["rest"][-1]["bn3"]["scale"],
+              p["layer4"]["rest"][-1]["bn3"]["bias"],
+              p["layer3"]["first"]["downsample_bn"]["bias"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    feat, _ = resnet.apply_resnet(p, s, torch.from_numpy(x[:2]),
+                                  train=False, arch=ARCH)
+    feat.square().mean().backward()
+    assert not calls
+    for t in leaves:
+        assert t.grad is not None and float(t.grad.abs().sum()) > 0
 
 
 def test_calibrated_stats_make_eval_reproduce_calibrate_pass(images):
